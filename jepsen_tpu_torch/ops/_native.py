@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
-_WGL32 = None
+_LIBS: dict = {}
 
 
 def _nvcc() -> str:
@@ -85,35 +85,37 @@ def build_all() -> dict:
     return out
 
 
-def _wgl32_lib():
-    """The ctypes library of `csrc/wgl32_chunk.cu`, built on first use
-    and bound once."""
-    global _WGL32
+def _lib(name: str):
+    """The ctypes library of `csrc/<name>.cu`, built on first use and
+    bound once. Every chunk kernel has the same C interface (14 device
+    pointers, 13 int32 scalars, the stream; `csrc/wgl_common.cuh`)."""
     import ctypes
 
     with _LOCK:
-        if _WGL32 is None:
-            path = _lib_path(CSRC / "wgl32_chunk.cu")
+        if name not in _LIBS:
+            path = _lib_path(CSRC / f"{name}.cu")
             if not path.exists():
                 build_all()
             lib = ctypes.CDLL(str(path))
-            lib.wgl32_chunk.argtypes = ([ctypes.c_void_p] * 14
-                                        + [ctypes.c_int] * 12
-                                        + [ctypes.c_void_p])
-            lib.wgl32_chunk.restype = ctypes.c_int
-            lib.wgl32_error_string.argtypes = [ctypes.c_int]
-            lib.wgl32_error_string.restype = ctypes.c_char_p
-            _WGL32 = lib
-        return _WGL32
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 13
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = (fn, err)
+        return _LIBS[name]
 
 
-def launch_wgl32_chunk(ptrs, ints, stream) -> None:
-    """Launch `wgl32_chunk` (14 device pointers, 12 int32 scalars, the
-    stream) and raise on a launch error."""
-    lib = _wgl32_lib()
-    if len(ptrs) != 14 or len(ints) != 12:
-        raise ValueError("wgl32_chunk takes 14 pointers and 12 ints")
-    rc = lib.wgl32_chunk(*ptrs, *[int(x) for x in ints], stream)
+def launch(name: str, ptrs, ints, stream) -> None:
+    """Launch the chunk kernel `name` (`wgl32_chunk` or `wgln_chunk`:
+    14 device pointers, 13 int32 scalars, the stream) and raise on a
+    launch error."""
+    fn, err = _lib(name)
+    if len(ptrs) != 14 or len(ints) != 13:
+        raise ValueError(f"{name} takes 14 pointers and 13 ints")
+    rc = fn(*ptrs, *[int(x) for x in ints], stream)
     if rc != 0:
-        msg = lib.wgl32_error_string(rc).decode()
-        raise RuntimeError(f"wgl32_chunk launch failed: {msg} (cuda {rc})")
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{err(rc).decode()} (cuda {rc})")

@@ -21,12 +21,15 @@ with no overflow; anything cut short (deadline, config budget, backlog
 overflow) is "unknown". Hash signatures are ~95 bits, so a false
 "seen" (the only unsound event) is astronomically unlikely.
 
-This slice runs the narrow-window kernel (window <= 32); a history
-whose window needs the wide kernel is answered "unknown".
+A window of at most 32 ok ops runs the narrow kernel (`wgl32`, one
+uint32 window word); a wider one, up to 1024, the wide kernel (`wgln`,
+the window as L uint32 lanes). `derive_plan` picks the kernel and its
+capacities.
 """
 
 from __future__ import annotations
 
+import os
 import time as _time
 from typing import Callable, Optional
 
@@ -36,7 +39,7 @@ from ..history import History
 from ..models.core import Model
 from ..util import device_name, resolve_device
 from . import adapt as _adapt
-from . import wgl32, wgl_ref
+from . import wgl32, wgl_ref, wgln
 from .encode import Encoded, EncodingUnsupported, encode
 
 INF = np.int32(2**31 - 1)
@@ -46,13 +49,15 @@ def _pad_to_mult(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
-def _pick_capacities(n: int) -> int:
-    """Memo-table size H scaled to the problem: the narrow-window part
-    of the JAX package's `_pick_capacities` (`derive_plan` sets the
-    narrow kernel's K and B itself). The memo table must stay well
-    under ~60% load or probe-based dedup degrades into re-exploration
-    (each slot is 16 bytes, so even 2^23 slots is only 128 MB)."""
-    if n > 5000:
+def _pick_capacities(n: int, window_raw: int) -> int:
+    """Memo-table size H scaled to the problem: the H of the JAX
+    package's `_pick_capacities` (`derive_plan` sets K and B itself).
+    The memo table must stay well under ~60% load or probe-based dedup
+    degrades into re-exploration (each slot is 16 bytes, so even 2^23
+    slots is only 128 MB). A wide window's reachable-config count
+    scales with its branching power (2^concurrency), not its op count,
+    so it takes the largest table."""
+    if window_raw > 32 or n > 5000:
         return 1 << 23
     if n > 2000:
         return 1 << 22
@@ -72,23 +77,49 @@ def derive_plan(*, window_raw: int, ic_pad: int, n: int,
                 adaptive: Optional[bool] = None) -> dict:
     """The static kernel plan: variant, capacities, ladder, effective
     widths. Pure scalar math, copied from the JAX package's
-    `derive_plan` for the narrow window with one change: `depth` stays
-    1 on the card (the JAX package's depth-fused round is a TPU
-    layout), so the card runs 4096-round chunks and the CPU 1024.
-    Returns {kern, K, H, B, W_eff, ic_eff, chunk, probes, ladder}; a
-    window wider than 32 returns only {kern: "wgln"}, the wide-window
-    kernel of a later slice."""
-    if window_raw > 32:
-        return {"kern": "wgln"}
-    H = _pick_capacities(n)
+    `derive_plan` with one change: `depth` stays 1 on the card (the
+    JAX package's depth-fused narrow round is a TPU layout), so the
+    narrow kernel runs 4096-round chunks on the card and 1024 on the
+    CPU. Returns {kern, K, H, B, W_eff, ic_eff, L, chunk, probes,
+    ladder}; L is 0 for the narrow kernel."""
+    H = _pick_capacities(n, window_raw)
     use_adapt = (_adapt.enabled(True if adaptive is None else adaptive)
                  and not frontier and adaptive is not False)
-    ladder: Optional[tuple] = _adapt.LADDER32 if use_adapt else None
-    K = frontier or (ladder[0] if ladder else 16)
-    return {"kern": "wgl32", "K": K, "H": H, "B": 1 << 18,
-            "W_eff": max(8, _pad_to_mult(window_raw, 8)),
-            "ic_eff": min(max(8, _pad_to_mult(n_info, 8)), ic_pad),
-            "chunk": 4096 if accel else 1024, "probes": 4, "ladder": ladder}
+    ladder: Optional[tuple] = None
+    ic_eff = min(max(8, _pad_to_mult(n_info, 8)), ic_pad)
+    L = 0
+    if window_raw <= 32:
+        kern = "wgl32"
+        ladder = _adapt.LADDER32 if use_adapt else None
+        K = ladder[0] if ladder else 16
+        W_eff = max(8, _pad_to_mult(window_raw, 8))
+        B = 1 << 18
+        chunk = 4096 if accel else 1024
+    else:
+        # the window as L uint32 lanes; K from a byte budget over the
+        # (K, W, L) successor windows: 1 GiB on the card, 128 MiB on
+        # the CPU
+        kern = "wgln"
+        W_eff = _pad_to_mult(window_raw, 32)
+        L = W_eff // 32
+        budget_bytes = (1024 if accel else 128) * 1024 * 1024
+        K = max(64, min(4096 if accel else 1024,
+                        budget_bytes // (W_eff * L * 4 * 3)))
+        cap = int(os.environ.get("JEPSEN_TPU_MAX_FRONTIER", "0"))
+        if cap:
+            K = min(K, cap)
+        K = 1 << (K.bit_length() - 1)
+        B = min(1 << 20, max(1 << 18, (32 << 20) // (L * 4)))
+        B = 1 << (B.bit_length() - 1)
+        chunk = 512 if accel else 128
+        if use_adapt:
+            ladder = _adapt.ladder_for(K, k_min=max(32, K // 16), step=8)
+            K = ladder[0]
+    if frontier:
+        K = frontier
+    return {"kern": kern, "K": K, "H": H, "B": B, "W_eff": W_eff,
+            "ic_eff": ic_eff, "L": L, "chunk": chunk, "probes": 4,
+            "ladder": ladder}
 
 
 def _widen_frontier(carry, k_new: int):
@@ -153,11 +184,6 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
     plan = derive_plan(window_raw=enc.window_raw, ic_pad=len(enc.inv_info),
                        n=n, n_info=enc.n_info,
                        accel=accel, frontier=frontier, adaptive=adaptive)
-    if plan["kern"] != "wgl32":
-        return {"valid?": "unknown",
-                "cause": f"window {enc.window_raw} > 32 needs the wide-"
-                         "window kernel (wgln), not ported yet",
-                "op_count": n + enc.n_info, "W": enc.window_raw}
     res = _search_loop(enc, plan, n, max_configs, frontier, dev, t_enter,
                        time_limit, stop)
     res["platform"] = dev.type
@@ -171,12 +197,24 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
     W_eff, ic_eff = plan["W_eff"], plan["ic_eff"]
     chunk, probes = plan["chunk"], plan["probes"]
     ladder = plan["ladder"]
+    L = plan["L"]
     row_cols = W_eff + ic_eff
     consts = wgl32.consts_from_numpy(
         enc.inv, enc.ret, enc.opcode, enc.sufminret,
         enc.inv_info[:ic_eff], enc.opcode_info[:ic_eff], enc.table,
         n, enc.n_info, min(max_configs, 2**31 - 1), dev)
-    carry = wgl32.init_carry(K, wgl32.row_words(ic_eff), H, B, 0, dev)
+    if plan["kern"] == "wgl32":
+        carry = wgl32.init_carry(K, wgl32.row_words(ic_eff), H, B, 0, dev)
+
+        def next_chunk(carry, K):
+            return wgl32.chunk(consts, carry, K=K, W=W_eff, ic=ic_eff, H=H,
+                               B=B, chunk=chunk, probes=probes)
+    else:
+        carry = wgln.init_carry(K, L, ic_eff, H, B, 0, dev)
+
+        def next_chunk(carry, K):
+            return wgln.chunk(consts, carry, K=K, L=L, ic=ic_eff, H=H, B=B,
+                              chunk=chunk, probes=probes)
     deadline = t_enter + time_limit if time_limit else None
     policy = None
     if ladder:
@@ -191,9 +229,7 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
     prev_explored_total = 0
     max_lin = 0
     while True:
-        carry, summary = wgl32.chunk(consts, carry, K=K, W=W_eff,
-                                     ic=ic_eff, H=H, B=B, chunk=chunk,
-                                     probes=probes)
+        carry, summary = next_chunk(carry, K)
         # the one device->host copy per chunk: the packed summary
         s = summary.cpu().numpy()
         fr_cnt, flags, stats = int(s[0]), s[1:4], s[4:10]
@@ -220,7 +256,8 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
         prev_rounds_total = rounds_now
         prev_explored_total = total_explored
         if (policy is None and not found and fr_cnt > 0
-                and not frontier and K < _K_BIG
+                and not frontier
+                and enc.window_raw <= 32 and K < _K_BIG
                 and total_explored >= _ESCALATE_AT):
             # exhaustion regime (non-adaptive path): widen the beam; the
             # memo table rides along, so nothing is re-explored

@@ -128,14 +128,15 @@ def row_words(ic: int) -> int:
 
 
 def init_carry(K: int, C: int, H: int, B: int, mstate0: int,
-               device) -> tuple:
+               device, mst_col: int = 2) -> tuple:
     """The search's start: one frontier row (base 0, empty window,
-    model state `mstate0`), an empty memo table and backlog."""
+    model state `mstate0` in column `mst_col`), an empty memo table
+    and backlog."""
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=device)
 
     fr = z(K, C)
-    fr[0, 2] = mstate0
+    fr[0, mst_col] = mstate0
     fr_cnt = torch.ones((), dtype=torch.int32, device=device)
     return (fr, fr_cnt, z(B, C), z(), z(H, 4), z(3), z(6),
             z(RING_ROWS, RING_COLS))
@@ -199,25 +200,18 @@ def _fnv(words, seed: int) -> torch.Tensor:
     return h
 
 
-def _round_ref(c: Consts, fr, sc: dict, bk, table, ring, *, K, W, ic, H,
-               B, probes):
-    """One WGL round (JAX `round_body` with `_expand` and
-    `probe_insert`). `sc` holds the scalar state as Python ints and is
-    updated in place; returns the next frontier."""
-    dev = fr.device
+def candidates(c: Consts, base, mst, info, linearized, fr_cnt: int, *,
+               K, W, ic):
+    """Candidate discovery, shared by both window layouts: which of the
+    K parents' W window slots and ic info slots may be linearized next,
+    and the model state each would reach. `base`/`mst` are (K,) int64,
+    `info` (K, Il) uint32 words in int64, `linearized` (K, W) bools.
+    Returns (legal_ok (K, W), legal_info (K, ic), nst_ok, nst_info)."""
+    dev = base.device
     i64 = torch.int64
-    Il = row_words(ic) - 3
-    fr_cnt, bk_cnt = sc["fr_cnt"], sc["bk_cnt"]
     meta = c.meta.to(i64)
-
-    f = fr.to(i64)
-    base, win, mst = f[:, 0], f[:, 1] & _M32, f[:, 2]
-    info = f[:, 3:] & _M32                                    # (K, Il)
     alive = torch.arange(K, device=dev) < fr_cnt
     j = torch.arange(W, device=dev, dtype=i64)
-    linearized = ((win[:, None] >> j) & 1) == 1               # (K, W)
-
-    # --- candidate discovery -----------------------------------------
     pos = base[:, None] + j
     posc = pos.clamp(max=c.n_pad - 1)
     tailp = (base + W).clamp(max=c.n_pad)
@@ -238,8 +232,35 @@ def _round_ref(c: Consts, fr, sc: dict, bk, table, ring, *, K, W, ic, H,
     cand_info = (~info_set & (m < c.n_info)[None, :]
                  & (c.iinv.to(i64)[None, :] < minret[:, None])
                  & alive[:, None])
-    legal_ok = cand_ok & (nst_ok >= 0)
-    legal_info = cand_info & (nst_info >= 0)
+    return (cand_ok & (nst_ok >= 0), cand_info & (nst_info >= 0), nst_ok,
+            nst_info)
+
+
+def info_successors(info, *, K, W, ic):
+    """The info words of the R successor rows: unchanged on the K*W
+    ok-rows, info bit m set on the K*ic info-rows. (R, Il) int64."""
+    dev = info.device
+    Il = info.shape[1]
+    m = torch.arange(ic, device=dev, dtype=torch.int64)
+    set_mask = torch.zeros((ic, Il), dtype=torch.int64, device=dev)
+    set_mask[m, m // 32] = torch.ones_like(m) << (m % 32)
+    return torch.cat([info[:, None, :].expand(K, W, Il).reshape(-1, Il),
+                      (info[:, None, :] | set_mask[None]).reshape(-1, Il)])
+
+
+def _round_ref(c: Consts, fr, sc: dict, bk, table, ring, *, K, W, ic, H,
+               B, probes):
+    """One WGL round (JAX `round_body` with `_expand` and
+    `probe_insert`). `sc` holds the scalar state as Python ints and is
+    updated in place; returns the next frontier."""
+    i64 = torch.int64
+    f = fr.to(i64)
+    base, win, mst = f[:, 0], f[:, 1] & _M32, f[:, 2]
+    info = f[:, 3:] & _M32                                    # (K, Il)
+    j = torch.arange(W, device=fr.device, dtype=i64)
+    linearized = ((win[:, None] >> j) & 1) == 1               # (K, W)
+    legal_ok, legal_info, nst_ok, nst_info = candidates(
+        c, base, mst, info, linearized, sc["fr_cnt"], K=K, W=W, ic=ic)
 
     # --- successor construction (bit math) -----------------------------
     win_ok = win[:, None] | (torch.ones_like(j) << j)         # (K, W)
@@ -248,27 +269,43 @@ def _round_ref(c: Consts, fr, sc: dict, bk, table, ring, *, K, W, ic, H,
                           win_ok >> t.clamp(max=31))
     base_ok = base[:, None] + t
 
-    set_mask = torch.zeros((ic, Il), dtype=i64, device=dev)
-    set_mask[m, m // 32] = torch.ones_like(m) << (m % 32)
     base_s = torch.cat([base_ok.reshape(-1), base.repeat_interleave(ic)])
     win_s = torch.cat([shifted.reshape(-1), win.repeat_interleave(ic)])
     mst_s = torch.cat([nst_ok.reshape(-1), nst_info.reshape(-1)])
-    info_s = torch.cat([info[:, None, :].expand(K, W, Il).reshape(-1, Il),
-                        (info[:, None, :] | set_mask[None]).reshape(-1, Il)])
+    info_s = info_successors(info, K=K, W=W, ic=ic)
     legal = torch.cat([legal_ok.reshape(-1), legal_info.reshape(-1)])
-    R = legal.shape[0]
 
     success = legal & (base_s >= c.n_ok) & (win_s == 0)
+    words = [base_s & _M32, win_s, mst_s & _M32] + [
+        info_s[:, i] for i in range(info_s.shape[1])]
+    succ = torch.stack([_to_i32(w) for w in words], dim=1)
+    return finish_round(sc, bk, table, ring, words=words, succ=succ,
+                        legal=legal, success=success, base_s=base_s, K=K,
+                        H=H, B=B, probes=probes)
+
+
+def finish_round(sc: dict, bk, table, ring, *, words, succ, legal, success,
+                 base_s, K, H, B, probes):
+    """The row-layout-free tail of a round (JAX `probe_insert` and the
+    compaction after it), shared with the wide-window search: hash each
+    successor row, dedup against the memo table, compact the survivors
+    into the next frontier, spill and refill, and write the flags,
+    stats and ring row.
+
+    `words` are the R rows' uint32 words in hash order (int64 tensors
+    masked to 32 bits; the row layout), `succ` the same rows as (R, C)
+    int32, `legal`/`success` (R,) bools and `base_s` (R,) the
+    successor bases. `sc` holds the scalar state as Python ints and is
+    updated in place; returns the next frontier (K, C)."""
+    dev = succ.device
+    i64 = torch.int64
+    fr_cnt, bk_cnt = sc["fr_cnt"], sc["bk_cnt"]
+    R = legal.shape[0]
     found = bool(success.any())
     explore = legal & ~success
-
-    words = [base_s & _M32, win_s, mst_s & _M32] + [info_s[:, i]
-                                                   for i in range(Il)]
     s0 = _fnv(words, _FNV_SEEDS[0]) | 1                       # never 0
     s1 = _fnv(words, _FNV_SEEDS[1])
     s2 = _fnv(words, _FNV_SEEDS[2])
-    succ = torch.stack([_to_i32(base_s), _to_i32(win_s), _to_i32(mst_s)]
-                       + [_to_i32(info_s[:, i]) for i in range(Il)], dim=1)
     base_max = int(torch.where(legal, base_s, 0).max())
 
     # --- memo probe ------------------------------------------------------
@@ -307,7 +344,7 @@ def _round_ref(c: Consts, fr, sc: dict, bk, table, ring, *, K, W, ic, H,
     # --- compact survivors into frontier + backlog -----------------------
     posn = new.to(i64).cumsum(0) - 1
     total = int(new.sum())
-    nfr = torch.zeros_like(fr)
+    nfr = torch.zeros((K, succ.shape[1]), dtype=torch.int32, device=dev)
     front = new & (posn < K)
     nfr[posn[front]] = succ[front]
     nfr_cnt = min(total, K)
@@ -348,14 +385,13 @@ def _summary(carry) -> torch.Tensor:
                       carry[BK_CNT].reshape(1), carry[RING_BUF].reshape(-1)])
 
 
-def chunk_ref(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
-              B: int, chunk: int, probes: int, tally: dict | None = None):
-    """Plain PyTorch chunk: up to `chunk` rounds, stopping when a
+def run_chunk(consts: Consts, carry, round_fn, *, chunk: int,
+              tally: dict | None = None):
+    """The plain chunk loop of both window layouts: up to `chunk` calls
+    of `round_fn(consts, fr, sc, bk, table, ring)`, stopping when a
     linearization is found, the frontier is empty, or `max_cfg`
-    configs were explored. Updates `carry` in place; returns
-    (carry, summary). A `tally` dict gets "probed": the successor rows
-    that went to the memo table (legal, not a linearization), the
-    data-dependent count a bound on the chunk's memory traffic needs."""
+    configs were explored. Updates `carry` in place; returns (carry,
+    summary)."""
     fr, fr_cnt_t, bk, bk_cnt_t, table, flags_t, stats_t, ring = carry
     sc = {"probed": 0, "fr_cnt": int(fr_cnt_t), "bk_cnt": int(bk_cnt_t),
           "flags": [int(x) for x in flags_t.tolist()],
@@ -364,8 +400,7 @@ def chunk_ref(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
     cur = fr
     while (not sc["flags"][0] and sc["fr_cnt"] > 0
            and sc["stats"][1] < chunk and sc["stats"][0] < consts.max_cfg):
-        cur = _round_ref(consts, cur, sc, bk, table, ring, K=K, W=W, ic=ic,
-                         H=H, B=B, probes=probes)
+        cur = round_fn(consts, cur, sc, bk, table, ring)
     if cur is not fr:
         fr.copy_(cur)
     fr_cnt_t.fill_(sc["fr_cnt"])
@@ -377,6 +412,21 @@ def chunk_ref(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
     return carry, _summary(carry)
 
 
+def chunk_ref(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
+              B: int, chunk: int, probes: int, tally: dict | None = None):
+    """Plain PyTorch chunk: up to `chunk` rounds, stopping when a
+    linearization is found, the frontier is empty, or `max_cfg`
+    configs were explored. Updates `carry` in place; returns
+    (carry, summary). A `tally` dict gets "probed": the successor rows
+    that went to the memo table (legal, not a linearization), the
+    data-dependent count a bound on the chunk's memory traffic needs."""
+    def round_fn(c, fr, sc, bk, table, ring):
+        return _round_ref(c, fr, sc, bk, table, ring, K=K, W=W, ic=ic, H=H,
+                          B=B, probes=probes)
+
+    return run_chunk(consts, carry, round_fn, chunk=chunk, tally=tally)
+
+
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
@@ -385,14 +435,15 @@ MAX_PROBES = 8   # the kernel's unrolled probe loop
 MAX_INFO_WORDS = 8
 
 
-def _check_launch(consts: Consts, carry, *, K, W, ic, H, B, chunk, probes):
+def check_launch(consts: Consts, carry, *, K, W, C, ic, H, B, chunk,
+                 probes):
+    """The checks before a chunk kernel's launch, shared by both window
+    layouts (rows of C int32 words); raises ValueError on what the
+    kernels do not take."""
     dev = carry[FR].device
-    C = row_words(ic)
-    if not 1 <= W <= 32:
-        raise ValueError(f"wgl32 window width W={W} outside [1, 32]")
     if not 1 <= probes <= MAX_PROBES:
         raise ValueError(f"probes={probes} outside [1, {MAX_PROBES}]")
-    if ic < 1 or C - 3 > MAX_INFO_WORDS:
+    if ic < 1 or (ic + 31) // 32 > MAX_INFO_WORDS:
         raise ValueError(f"info slots ic={ic} outside [1, "
                          f"{32 * MAX_INFO_WORDS}]")
     if H < 1 or H & (H - 1):
@@ -426,12 +477,44 @@ def _check_launch(consts: Consts, carry, *, K, W, ic, H, B, chunk, probes):
         raise ValueError(f"max_cfg={consts.max_cfg} does not fit int32")
 
 
-def scratch_words(K: int, W: int, ic: int) -> int:
-    """int32 words of kernel scratch: successor rows, three signatures,
-    insert slots, row flags, per-parent min-ret, the second frontier."""
-    C = row_words(ic)
+def _check_launch(consts: Consts, carry, *, K, W, ic, H, B, chunk, probes):
+    if not 1 <= W <= 32:
+        raise ValueError(f"wgl32 window width W={W} outside [1, 32]")
+    check_launch(consts, carry, K=K, W=W, C=row_words(ic), ic=ic, H=H, B=B,
+                 chunk=chunk, probes=probes)
+
+
+def scratch_words(K: int, W: int, ic: int, C: int) -> int:
+    """int32 words of kernel scratch for rows of C words: successor
+    rows, three signatures, insert slots, row flags, per-parent
+    min-ret, the second frontier."""
     R = K * (W + ic)
     return R * (C + 5) + K + K * C
+
+
+def launch(name: str, consts: Consts, carry, *, K, W, L, ic, H, B, rounds,
+           probes) -> torch.Tensor:
+    """Launch the chunk kernel `name` (`wgl32_chunk` or `wgln_chunk`,
+    which share one C interface) on the carry's card, on the current
+    stream: scratch and the summary come from `torch.empty`. Returns
+    the summary; the carry is updated in place."""
+    from . import _native
+
+    dev = carry[FR].device
+    C = carry[FR].shape[1]
+    with torch.cuda.device(dev):
+        scratch = torch.empty(scratch_words(K, W, ic, C), dtype=torch.int32,
+                              device=dev)
+        summary = torch.empty(SUMMARY_HEAD + RING_ROWS * RING_COLS,
+                              dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [consts.meta, consts.tk, consts.iinv, consts.iopc,
+                *carry, summary, scratch]
+        _native.launch(name, [t.data_ptr() for t in ptrs],
+                       [K, W, L, ic, H, B, rounds, probes, consts.n_pad,
+                        consts.S, consts.n_ok, consts.n_info, consts.max_cfg],
+                       stream)
+    return summary
 
 
 def chunk(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
@@ -448,22 +531,8 @@ def chunk(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
         raise ValueError(f"wgl32 chunk: unsupported device {dev}")
     _check_launch(consts, carry, K=K, W=W, ic=ic, H=H, B=B, chunk=chunk,
                   probes=probes)
-    from . import _native
-
-    rounds = chunk
-    with torch.cuda.device(dev):
-        scratch = torch.empty(scratch_words(K, W, ic), dtype=torch.int32,
-                              device=dev)
-        summary = torch.empty(SUMMARY_HEAD + RING_ROWS * RING_COLS,
-                              dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [consts.meta, consts.tk, consts.iinv, consts.iopc,
-                *carry, summary, scratch]
-        _native.launch_wgl32_chunk(
-            [t.data_ptr() for t in ptrs],
-            [K, W, ic, H, B, rounds, probes, consts.n_pad, consts.S,
-             consts.n_ok, consts.n_info, consts.max_cfg],
-            stream)
+    summary = launch("wgl32_chunk", consts, carry, K=K, W=W, L=1, ic=ic,
+                     H=H, B=B, rounds=chunk, probes=probes)
     _count_launch()
     return carry, summary
 

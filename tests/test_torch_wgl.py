@@ -255,7 +255,7 @@ def test_checker_verdict_matches_jax(name, algorithm):
 def test_checker_gates_malformed_history():
     hist = th.History([th.invoke(0, "write", 1), th.invoke(0, "write", 2),
                        th.ok(0, "write", 2)]).index()
-    res = tchecker.linearizable(tmodels.register(),
+    res = tchecker.linearizable(tmodels.register(), algorithm="cuda-wgl",
                                 device="cpu").check({}, hist, {})
     assert res["valid?"] == "unknown"
     assert res["cause"] == "malformed-history"
@@ -267,11 +267,11 @@ def test_checker_strips_nemesis_and_rejects_unknown_algorithm():
     hist = th.History([th.invoke(0, "write", 1), th.ok(0, "write", 1),
                        th.info("nemesis", "start", None),
                        th.invoke(0, "read", None), th.ok(0, "read", 1)])
-    res = tchecker.linearizable(tmodels.register(),
+    res = tchecker.linearizable(tmodels.register(), algorithm="cuda-wgl",
                                 device="cpu").check({}, hist.index(), {})
     assert res["valid?"] is True
     with pytest.raises(ValueError):
-        tchecker.linearizable(tmodels.register(), algorithm="competition")
+        tchecker.linearizable(tmodels.register(), algorithm="tpu-wgl")
 
 
 def test_empty_history_is_valid():

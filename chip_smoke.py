@@ -7,9 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds every CUDA kernel from `jepsen_tpu_torch/csrc/`, holds each
 kernel bit for bit against its plain PyTorch version on the card at the
-shapes the main paths give it, times both, and drives the two main
-paths, each with every launch counter set to 0 just before and read
-just after:
+shapes the main paths give it, times both, and drives the main paths,
+each with every launch counter set to 0 just before and read just
+after:
 
   * narrow windows: the 10k-op cas-register headline through
     `checker.linearizable(..., algorithm="cuda-wgl")` (`wgl32_chunk`),
@@ -20,8 +20,19 @@ just after:
 
 Then the default checker (`algorithm="competition"`) decides a 900-op
 long tail (window 657) and a 100k-op FIFO-queue history (queue-poly),
-and the frontier migration of a ladder switch is timed. It prints as
-its last lines the card, one JSON line of per-kernel numbers and
+and the frontier migration of a ladder switch is timed. Then Elle:
+
+  * the dense closure (`elle_closure`): 3k-txn list-append and
+    rw-register histories through `elle.append.check` /
+    `elle.wr.check` with `cycle_backend="auto"` (bf16 at n_pad 4096),
+    against the host oracle, plus two invalid histories;
+  * the packed closure (`elle_packed_closure`): a 10k-txn list-append
+    history through the same call (n_pad 16384);
+  * the trim (`elle_trim`): the 3k list-append history with
+    `cycle_backend="trim"`.
+
+It prints as its last lines the card, one JSON line of per-kernel
+numbers and
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a card,
 or a directory without the package.
@@ -44,6 +55,14 @@ WAVE = dict(n_waves=16, width=14, span=5, seed=7)
 WAVE_CONFIGS = 2_084_641      # the JAX package's exhaustive count
 LONG_TAIL = dict(n_quick=900, seed=7)
 FIFO = dict(n_ops=100_000, n_procs=4, seed=7)
+ELLE_3K = dict(n_txns=3000, n_procs=5, seed=7)
+ELLE_10K = dict(n_txns=10000, n_procs=5, seed=7)
+ELLE_STALE = dict(n_txns=3000, seed=7, stale_p=0.01)
+ELLE_CORRUPT = dict(n_txns=3000, seed=7, corrupt_p=0.01)
+ELLE_SMALL = dict(n_txns=300, seed=5)
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+INT32_LANES = 64              # int32 operations per SM per clock
+RT = ("realtime",)
 REPO = Path(__file__).resolve().parent
 
 # the first check of a fresh process, timed from the checker call (the
@@ -77,6 +96,75 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for the int32 peak."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from jepsen_tpu_torch.elle import tpu as etpu
+    from jepsen_tpu_torch.ops import wgl32, wgln
+    return {"wgl32_chunk": wgl32.chunk, "wgln_chunk": wgln.chunk,
+            "elle_closure": etpu.closure,
+            "elle_packed_closure": etpu.packed_closure,
+            "elle_trim": etpu.trim}
+
+
+def zero_counts() -> None:
+    for w in counters().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: w.launches for k, w in counters().items()}
+
+
+class Timed:
+    """CUDA events around every kernel launch made inside the block,
+    by C entry point (a `_native.KERNELS` name)."""
+
+    def __enter__(self):
+        from jepsen_tpu_torch.ops import _native
+        self.native, self.launch, self.events = _native, _native.launch, []
+
+        def timed(name, *a):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            self.launch(name, *a)
+            e1.record()
+            self.events.append((name, e0, e1))
+
+        _native.launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.native.launch = self.launch
+
+    def ms(self, name) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for n, a, b in self.events if n == name]
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Median device time of `fn()` over `reps` calls, after one warm
+    call, with CUDA events around each."""
+    fn()
+    times = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
 def same_carry(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -84,6 +172,417 @@ def same_carry(a, b) -> bool:
 def max_abs_err(a, b) -> int:
     return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
                if x.numel() else 0 for x, y in zip(a, b))
+
+
+def outputs_err(got, ref) -> int:
+    """Max abs difference of two (labels, closed, counts, iters_run) or
+    (live, counts, bodies) results; the trailing int is compared too."""
+    err = abs(int(got[-1]) - int(ref[-1]))
+    for a, b in zip(got[:-1], ref[:-1]):
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes {a.shape} != {b.shape}")
+        if a.numel():
+            err = max(err, int((a.to(torch.int64)
+                                - b.to(torch.int64)).abs().max()))
+    return err
+
+
+def split_txns(h):
+    """A txn history's ok and info txns, as the Elle checkers split it."""
+    return ([op for op in h if op.is_ok and op.value],
+            [op for op in h if op.is_info and op.value])
+
+
+def elle_graphs() -> dict:
+    """The small Elle corpora: random DepGraphs (n 1..300), an empty and
+    a no-rw graph, a 300-node path (every squaring) and a 300-node
+    generic chain (past the trim's 64 counts rows), and the JAX tests'
+    300-txn synthetic histories, valid and with anomalies."""
+    from jepsen_tpu_torch import synth
+    from jepsen_tpu_torch.elle import build
+    from jepsen_tpu_torch.elle import graph as eg
+
+    rng = np.random.default_rng(3)
+    types = [eg.WW, eg.WR, eg.RW, eg.REALTIME, eg.PROCESS]
+    graphs = {}
+    for n in (1, 2, 7, 40, 120, 200, 300):
+        g = eg.DepGraph()
+        for i in range(n):
+            g.add_node(i)
+        e = int(rng.integers(0, 4 * n + 1))
+        for a, b, t in zip(rng.integers(0, n, e), rng.integers(0, n, e),
+                           rng.choice(types, e)):
+            g.add_edge(int(a), int(b), int(t))
+        graphs[f"random-{n}"] = g
+    graphs["empty"] = eg.DepGraph()
+    g = eg.DepGraph()
+    for i in range(60):
+        g.add_edge(i, (i + 1) % 60, eg.WR if i % 2 else eg.WW)
+    graphs["no-rw"] = g
+    for name, n, back in (("path-300", 300, eg.RW), ("chain-300", 300, None)):
+        g = eg.DepGraph()
+        for i in range(n - 1):
+            g.add_edge(i, i + 1, eg.WW)
+        if back is not None:
+            g.add_edge(n - 1, 0, back)
+        graphs[name] = g
+
+    for p in (0.0, 0.25):
+        h = synth.list_append_history(ELLE_SMALL["n_txns"],
+                                      seed=ELLE_SMALL["seed"], corrupt_p=p)
+        graphs[f"append-{p}"] = build.build_append(
+            h, *split_txns(h), additional_graphs=RT).tensors
+    for p in (0.0, 0.2):
+        h = synth.wr_register_history(ELLE_SMALL["n_txns"],
+                                      seed=ELLE_SMALL["seed"], stale_p=p)
+        graphs[f"wr-{p}"] = build.build_wr(
+            h, *split_txns(h), linearizable_keys=True,
+            additional_graphs=("realtime", "process")).tensors
+    return graphs
+
+
+def on_card(arrays, dev):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+def run_closures(g, dev, iters=None, snaps=None):
+    """The dense and packed kernels and their plain versions on `g`'s
+    inputs on the card: (dense kernel out, dense err, packed err,
+    packed-vs-dense err, plain dense seconds, inputs). With `snaps` the
+    kernel's reach after every squaring is kept and the plain run's
+    compared with it."""
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    a = etpu.closure_inputs(g)
+    kw = dict(n_pad=a["n_pad"], iters=iters or a["iters"])
+    ins = on_card(a["args"], dev)
+    keep, bad = [], []
+    got = etpu.closure(*ins, **kw,
+                       on_square=lambda i, r: keep.append(r.clone()))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ref = etpu.closure_ref(
+        *ins, **kw, on_square=lambda i, r: bad.append(i) if not
+        torch.equal(r > 0, keep[i] != 0) else None)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    err = outputs_err(got, ref) + len(bad)
+    p = on_card(etpu.closure_inputs(g, packed=True)["args"], dev)
+    pgot = etpu.packed_closure(*p, **kw)
+    pref = etpu.packed_closure_ref(*p, **kw)
+    return (got, err, outputs_err(pgot, pref), outputs_err(pgot, got),
+            plain_s, ins, a)
+
+
+def run_trim(g, dev):
+    """The trim kernel and trim_ref on `g`'s inputs on the card:
+    (kernel out, err, plain seconds, inputs dict)."""
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    t = etpu.trim_inputs(g)
+    ins = on_card(t["arrays"], dev)
+    kw = dict(p_pad=t["p_pad"], use_rt=t["use_rt"], use_proc=t["use_proc"])
+    got = etpu.trim(*ins, **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ref = etpu.trim_ref(*ins, **kw)
+    torch.cuda.synchronize()
+    return got, outputs_err(got, ref), time.monotonic() - t0, t
+
+
+def elle_drive(check, hist, **kw):
+    """One Elle check on the card, every count at 0 just before it and
+    read just after: (result, wall, counts, Timed). The Timed also holds
+    `build_s`, the host time of the graph build inside the check."""
+    from jepsen_tpu_torch.elle import build
+
+    originals = {n: getattr(build, n) for n in ("build_append", "build_wr")}
+
+    def timed_build(fn):
+        def run(*a, **k):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **k)
+            finally:
+                t.build_s += time.monotonic() - t0
+        return run
+
+    torch.cuda.synchronize()
+    with Timed() as t:
+        t.build_s = 0.0
+        for n, fn in originals.items():
+            setattr(build, n, timed_build(fn))
+        try:
+            zero_counts()
+            t0 = time.monotonic()
+            res = check(hist, additional_graphs=RT, **kw)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = read_counts()
+        finally:
+            for n, fn in originals.items():
+                setattr(build, n, fn)
+    return res, wall, counts, t
+
+
+def cycles(res) -> dict:
+    return {k: [c["cycle"] for c in v] for k, v in res["anomalies"].items()
+            if k in ("G0", "G1c", "G-single", "G2")}
+
+
+def same_verdict(what, got, want, cycles_too=False) -> None:
+    for k in ("valid?", "anomaly-types"):
+        if got[k] != want[k]:
+            raise AssertionError(f"{what}: {k} {got[k]} != {want[k]}")
+    if cycles_too and cycles(got) != cycles(want):
+        raise AssertionError(f"{what}: cycles {cycles(got)} != "
+                             f"{cycles(want)}")
+
+
+def elle_phases(dev) -> list:
+    """Elle on the card: the small corpora, the 3k cells (dense closure
+    and trim), the invalid histories, the 10k cell (packed closure).
+    Returns the three kernels' entries of the kernels line."""
+    from jepsen_tpu_torch import synth
+    from jepsen_tpu_torch.elle import append, build, wr
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    S = len(etpu.SUBSETS)
+    int_ops_per_s = (torch.cuda.get_device_properties(dev)
+                     .multi_processor_count * INT32_LANES * sm_clock_hz())
+
+    # ---- small corpora: every kernel == its plain version ---------------
+    errs = {"elle_closure": 0, "elle_packed_closure": 0, "elle_trim": 0}
+    for name, g in elle_graphs().items():
+        _, err, perr, pderr, _, _, _ = run_closures(g, dev)
+        _, terr, _, _ = run_trim(g, dev)
+        errs["elle_closure"] = max(errs["elle_closure"], err)
+        errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr,
+                                          pderr)
+        errs["elle_trim"] = max(errs["elle_trim"], terr)
+        if err or perr or pderr or terr:
+            raise AssertionError(f"elle corpus {name}: dense {err}, packed "
+                                 f"{perr}, packed vs dense {pderr}, trim "
+                                 f"{terr}")
+    print("elle small corpora: closure, packed closure and trim == their "
+          "plain versions on every output (max abs err 0); packed == dense")
+
+    builders = {
+        "append": (append.check, {}, lambda h: build.build_append(
+            h, *split_txns(h), additional_graphs=RT).tensors),
+        "wr": (wr.check, {"linearizable_keys": True},
+               lambda h: build.build_wr(
+                   h, *split_txns(h), linearizable_keys=True,
+                   additional_graphs=RT).tensors)}
+
+    # ---- the 3k cells: auto -> dense bf16; forced trim ----------------------
+    out = {}
+    for kind, hist in (("append", synth.list_append_history(**ELLE_3K)),
+                       ("wr", synth.wr_register_history(**ELLE_3K))):
+        check, kw, builder = builders[kind]
+        res, wall, counts, t = elle_drive(check, hist, cycle_backend="auto",
+                                          **kw)
+        u = res.get("cycle-util") or {}
+        sq, lab = t.ms("elle_closure_square"), t.ms("elle_closure_labels")
+        print(f"elle {kind} 3k, auto: valid? {res['valid?']} engine "
+              f"{res.get('cycle-engine')} kernel {u.get('kernel')} n_pad "
+              f"{u.get('n_pad')} iters_run {u.get('iters_run')} of "
+              f"{u.get('iters')}, launches {counts}, wall {wall:.4f} s "
+              f"(kernel_s {u.get('kernel_s')}), squarings (ms) "
+              f"{[round(x, 4) for x in sq]}, label pass {sum(lab):.4f} ms")
+        if (res.get("cycle-engine") != "device" or u.get("kernel") != "bf16"
+                or res["valid?"] is not True or counts["elle_closure"] < 1):
+            raise AssertionError(f"elle {kind} 3k auto: {res['valid?']} "
+                                 f"{res.get('cycle-engine')} {u}")
+        t0 = time.monotonic()
+        host = check(hist, additional_graphs=RT, cycle_backend="host", **kw)
+        host_s = time.monotonic() - t0
+        same_verdict(f"elle {kind} 3k auto vs host", res, host)
+        gt = builder(hist)
+        dev_s = (sum(sq) + sum(lab)) / 1e3
+        print(f"  wall split: build {t.build_s:.4f} s, kernels {dev_s:.4f} "
+              f"s, the rest (lint, direct anomalies, host prep, copies) "
+              f"{wall - t.build_s - dev_s:.4f} s; host oracle {host_s:.2f} "
+              f"s, same verdict")
+
+        got, err, perr, pderr, plain_s, ins, a = run_closures(gt, dev)
+        if err or perr or pderr:
+            raise AssertionError(f"elle {kind} 3k closures: dense {err}, "
+                                 f"packed {perr}, packed vs dense {pderr}")
+        errs["elle_closure"] = max(errs["elle_closure"], err)
+        errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr,
+                                          pderr)
+        n_pad = a["n_pad"]
+        seed = etpu.adjacency(*ins[:3], n_pad, torch.float32)
+        cnt = torch.zeros(S, dtype=torch.int32, device=dev)
+        plain_ms = event_ms(lambda: etpu.dense_square_ref(seed, cnt))
+        seed16 = seed.to(torch.bfloat16)
+        library_ms = event_ms(lambda: (torch.bmm(seed16, seed16) > 0).sum(
+            dim=(1, 2), dtype=torch.int32))
+        del seed, seed16
+        print(f"  dense kernel == closure_ref after every one of "
+              f"{got[3]} squarings and on every output; packed == dense at "
+              f"n_pad {n_pad}; closure_ref {plain_s:.3f} s in all, one plain "
+              f"f32 squaring {plain_ms:.4f} ms, one torch.bmm bf16 + (> 0) "
+              f"+ count {library_ms:.4f} ms")
+
+        rt_, wall_t, counts_t, tt = elle_drive(check, hist,
+                                               cycle_backend="trim", **kw)
+        same_verdict(f"elle {kind} 3k trim vs host", rt_, host)
+        ut = rt_["cycle-util"]
+        trim_ms = tt.ms("elle_trim")
+        tgot, terr, tplain_s, ti = run_trim(gt, dev)
+        if terr or rt_.get("cycle-engine") != "trim" or \
+                counts_t["elle_trim"] < 1:
+            raise AssertionError(f"elle {kind} 3k trim: err {terr}, "
+                                 f"{rt_.get('cycle-engine')}, {counts_t}")
+        errs["elle_trim"] = max(errs["elle_trim"], terr)
+        print(f"  trim on the card: valid? {rt_['valid?']} engine "
+              f"{rt_['cycle-engine']} iters_run {ut['iters_run']} "
+              f"({ut['iters_run'] // 2} bodies), launches {counts_t}, kernel "
+              f"{trim_ms[0]:.4f} ms, wall {wall_t:.4f} s; == trim_ref "
+              f"({tplain_s * 1e3:.1f} ms plain)")
+        out[kind] = dict(res=res, counts=counts, sq=sq, lab=lab,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         n_pad=n_pad, trim_ms=trim_ms, trim_counts=counts_t,
+                         trim_plain_ms=tplain_s * 1e3, trim_inputs=ti,
+                         bodies=ut["iters_run"] // 2)
+
+    # ---- invalid histories: device == host, G-single among them -------------
+    for kind, hist in (
+            ("wr", synth.wr_register_history(**ELLE_STALE)),
+            ("append", synth.list_append_history(**ELLE_CORRUPT))):
+        check, kw, _ = builders[kind]
+        res, wall, counts, t = elle_drive(check, hist, cycle_backend="auto",
+                                          **kw)
+        host = check(hist, additional_graphs=RT, cycle_backend="host", **kw)
+        print(f"elle invalid {kind}: device {res['valid?']} "
+              f"{res['anomaly-types']} cycles {cycles(res)} (engine "
+              f"{res.get('cycle-engine')}, kernel "
+              f"{(res.get('cycle-util') or {}).get('kernel')}, {wall:.3f} s "
+              f"(build {t.build_s:.3f} s), launches {counts}); host "
+              f"{host['valid?']} "
+              f"{host['anomaly-types']} cycles {cycles(host)}")
+        same_verdict(f"elle invalid {kind}", res, host, cycles_too=True)
+        if res["valid?"] is not False or "G-single" not in res[
+                "anomaly-types"] or res.get("cycle-engine") != "device":
+            raise AssertionError(f"elle invalid {kind}: {res['valid?']} "
+                                 f"{res['anomaly-types']}")
+
+    # ---- the 10k cell: auto -> packed; forced trim -------------------------
+    h10 = synth.list_append_history(**ELLE_10K)
+    res, wall, counts, t = elle_drive(append.check, h10, cycle_backend="auto")
+    u = res.get("cycle-util") or {}
+    psq, plab = t.ms("elle_packed_square"), t.ms("elle_packed_labels")
+    print(f"elle append 10k, auto: valid? {res['valid?']} engine "
+          f"{res.get('cycle-engine')} kernel {u.get('kernel')} n_pad "
+          f"{u.get('n_pad')} iters_run {u.get('iters_run')}, launches "
+          f"{counts}, wall {wall:.4f} s (build {t.build_s:.4f} s, kernel_s "
+          f"{u.get('kernel_s')}), squarings (ms) "
+          f"{[round(x, 3) for x in psq]}, label pass {sum(plab):.4f} ms")
+    if (res.get("cycle-engine") != "device" or u.get("kernel") != "packed"
+            or u.get("n_pad") != 16384 or res["valid?"] is not True
+            or counts["elle_packed_closure"] < 1):
+        raise AssertionError(f"elle append 10k auto: {res['valid?']} {u}")
+    res_t, wall_t, counts_t, tt = elle_drive(append.check, h10,
+                                             cycle_backend="trim")
+    print(f"  forced trim on the card: valid? {res_t['valid?']} engine "
+          f"{res_t.get('cycle-engine')} iters_run "
+          f"{res_t['cycle-util']['iters_run']}, kernel "
+          f"{tt.ms('elle_trim')[0]:.4f} ms, wall {wall_t:.4f} s")
+    same_verdict("elle append 10k packed vs trim", res, res_t)
+    gt = builders["append"][2](h10)
+    a = etpu.closure_inputs(gt, packed=True)
+    p = on_card(a["args"], dev)
+    kw = dict(n_pad=a["n_pad"], iters=1)
+    keep, bad = [], []
+    got = etpu.packed_closure(*p, **kw,
+                              on_square=lambda i, r: keep.append(r.clone()))
+    torch.cuda.synchronize()
+    ref = etpu.packed_closure_ref(
+        *p, **kw, on_square=lambda i, r: bad.append(i) if not
+        torch.equal(r, keep[i]) else None)
+    perr = outputs_err(got, ref) + len(bad)
+    if perr:
+        raise AssertionError(f"elle append 10k packed first squaring and "
+                             f"label pass differ from the plain version "
+                             f"({perr})")
+    cnt = torch.zeros(S, dtype=torch.int32, device=dev)
+    pplain_ms = event_ms(lambda: etpu.packed_square_ref(p[0], cnt), reps=1)
+    print(f"  packed kernel == packed_closure_ref on the first squaring "
+          f"and the label pass; one plain squaring {pplain_ms:.1f} ms")
+    errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr)
+
+    # ---- bounds -------------------------------------------------------------
+    # dense, per squaring: 2 S n^3 flops on the tensor cores; reach read
+    # and written once (2 S n^2 bf16)
+    d = out["append"]
+    n = d["n_pad"]
+    d_ops = 2.0 * S * n ** 3 / BF16_FLOPS
+    d_bytes = 2.0 * S * n * n * 2 / HBM_BYTES_PER_S
+    d_bound = max(d_ops, d_bytes) * 1e3
+    d_ms = float(np.median(d["sq"]))
+    # packed, per squaring (mean over the run): the AND/OR of each set
+    # bit of the input reach against its W words, this run's bits; the
+    # bitset read and written once
+    n, W = a["n_pad"], a["n_pad"] // 32
+    ones = [int(etpu._popcount32(p[0].to(torch.int64) & 0xFFFFFFFF).sum())]
+    ones += [sum(row) for row in u["iter_reach"][:-1]]
+    p_bounds = [max(2.0 * o * W / int_ops_per_s,
+                    2.0 * S * n * W * 4 / HBM_BYTES_PER_S) for o in ones]
+    p_bound = float(np.mean(p_bounds)) * 1e3
+    p_by = ("operations" if 2.0 * float(np.mean(ones)) * W / int_ops_per_s
+            > 2.0 * S * n * W * 4 / HBM_BYTES_PER_S else "bytes")
+    p_ms = float(np.mean(psq))
+    # trim, one launch: each input read once and each output written
+    # once, against one check per neighbor slot per subset per peel
+    ti = d["trim_inputs"]
+    t_bytes = (sum(x.nbytes for x in ti["arrays"])
+               + ti["n_pad"] * S + 64 * S * 4 + 4) / HBM_BYTES_PER_S
+    t_ops = (d["bodies"] * 2 * S * ti["n_pad"] * (ti["d_in"] + ti["d_out"])
+             / int_ops_per_s)
+    t_bound = max(t_bytes, t_ops) * 1e3
+    # were every peel to re-read the neighbor tables, masks and node
+    # arrays from device memory: two peels per body
+    t_body_bytes = 2 * ti["n_pad"] * ((ti["d_in"] + ti["d_out"]) * (4 + S)
+                                      + 16)
+    print(f"elle bounds: dense {d_bound:.4f} ms per squaring (n_pad "
+          f"{d['n_pad']}: {2 * S * d['n_pad'] ** 3:.3e} flops at 989 "
+          f"TFLOP/s) against {d_ms:.4f} ms median; packed {p_bound:.4f} ms "
+          f"per squaring ({p_by}; set bits {ones}, int32 peak "
+          f"{int_ops_per_s:.3e}/s; the dense formulation's "
+          f"{2 * S * n * n * W:.3e} word ops = "
+          f"{2 * S * n * n * W / int_ops_per_s * 1e3:.3f} ms) against "
+          f"{p_ms:.3f} ms mean; trim {t_bound:.6f} ms (bytes "
+          f"{t_bytes * 1e3:.6f}, ops {t_ops * 1e3:.6f}; re-read per body "
+          f"{t_body_bytes} B x {d['bodies']} bodies = "
+          f"{t_body_bytes * d['bodies'] / HBM_BYTES_PER_S * 1e3:.6f} ms) "
+          f"against {d['trim_ms'][0]:.4f} ms")
+    return [{
+        "name": "elle_closure", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/elle_closure.cu",
+        "replaces": "jepsen_tpu/elle/tpu.py:115",
+        "launches": d["counts"]["elle_closure"],
+        "max_abs_err": errs["elle_closure"], "ms": d_ms,
+        "plain_ms": d["plain_ms"], "bound_ms": d_bound,
+        "bound_by": "operations" if d_ops > d_bytes else "bytes",
+        "library_ms": d["library_ms"]}, {
+        "name": "elle_packed_closure", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/elle_packed.cu",
+        "replaces": "jepsen_tpu/elle/tpu.py:399",
+        "launches": counts["elle_packed_closure"],
+        "max_abs_err": errs["elle_packed_closure"], "ms": p_ms,
+        "plain_ms": pplain_ms, "bound_ms": p_bound, "bound_by": p_by,
+        "library_ms": None}, {
+        "name": "elle_trim", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/elle_trim.cu",
+        "replaces": "jepsen_tpu/elle/tpu.py:899",
+        "launches": d["trim_counts"]["elle_trim"],
+        "max_abs_err": errs["elle_trim"], "ms": d["trim_ms"][0],
+        "plain_ms": d["trim_plain_ms"], "bound_ms": t_bound,
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": None}]
 
 
 def main() -> int:
@@ -406,14 +905,12 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         _native.launch = timed_launch
         try:
-            wgl32.chunk.launches = 0
-            wgln.chunk.launches = 0
+            zero_counts()
             t0 = time.monotonic()
             res = lin.check({}, hist, {})
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
-            counts = {"wgl32_chunk": wgl32.chunk.launches,
-                      "wgln_chunk": wgln.chunk.launches}
+            counts = read_counts()
         finally:
             _native.launch = launch
         dev_ms = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
@@ -505,6 +1002,8 @@ def main() -> int:
     if res["valid?"] is not True or res.get("engine") != "queue-poly":
         raise AssertionError(f"fifo queue: {res}")
 
+    elle = elle_phases(dev)
+
     print("card:", card_line())
     print(json.dumps({"kernels": [{
         "name": "wgl32_chunk", "route": "cuda",
@@ -518,7 +1017,7 @@ def main() -> int:
         "replaces": "jepsen_tpu/ops/wgln.py:322",
         "launches": wlaunches, "max_abs_err": wide_err,
         "ms": wkernel_ms, "plain_ms": wplain_ms, "bound_ms": wbound_ms,
-        "bound_by": "bytes", "library_ms": None}]}))
+        "bound_by": "bytes", "library_ms": None}] + elle}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

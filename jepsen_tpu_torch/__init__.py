@@ -9,4 +9,8 @@ card unless the caller passes `device="cpu"`.
     from jepsen_tpu_torch.models import cas_register
     h = synth.cas_register_history(10000, n_procs=5, seed=42, crash_p=0.002)
     checker.linearizable(cas_register()).check({}, h, {})
+
+    from jepsen_tpu_torch.elle import append
+    h = synth.list_append_history(3000, n_procs=5, seed=7)
+    append.check(h, additional_graphs=("realtime",))
 """

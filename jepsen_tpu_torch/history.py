@@ -171,6 +171,29 @@ class History:
     def filter(self, pred: Callable[[Op], bool]) -> "History":
         return History(op for op in self.ops if pred(op))
 
+    def pairs(self) -> list[tuple[Op, Optional[Op]]]:
+        """Pair each invocation with its completion (or None if it never
+        completed). Completion matching is per-process FIFO — each process
+        has at most one outstanding op, matching the interpreter's
+        invariant (reference: jepsen/src/jepsen/checker/timeline.clj:38-57).
+        Non-invoke ops without a pending invocation (e.g. nemesis :info
+        markers) are returned as (op, None) pairs too.
+        """
+        out: list[tuple[Op, Optional[Op]]] = []
+        pending: dict[Any, int] = {}  # process -> slot in out
+        for op in self.ops:
+            if op.is_invoke:
+                pending[op.process] = len(out)
+                out.append((op, None))
+            else:
+                slot = pending.pop(op.process, None)
+                if slot is None:
+                    out.append((op, None))
+                else:
+                    inv, _ = out[slot]
+                    out[slot] = (inv, op)
+        return out
+
     # -- struct-of-arrays columns --
     def columns(self):
         """Return (type_codes, f_objs, process_objs, times, indexes) as numpy

@@ -85,23 +85,41 @@ def build_all() -> dict:
     return out
 
 
+# The C entry points, by function name: (source stem under csrc/,
+# device pointers, int32 scalars). Every entry point takes its pointers,
+# then its ints, then the stream, and returns cudaGetLastError(); each
+# library exports `<stem>_error_string` beside them.
+KERNELS = {
+    # the WGL chunk loop (csrc/wgl_common.cuh)
+    "wgl32_chunk": ("wgl32_chunk", 14, 13),
+    "wgln_chunk": ("wgln_chunk", 14, 13),
+    # Elle's closures and trim
+    "elle_closure_square": ("elle_closure", 3, 2),
+    "elle_closure_labels": ("elle_closure", 5, 3),
+    "elle_packed_square": ("elle_packed", 3, 2),
+    "elle_packed_labels": ("elle_packed", 5, 3),
+    "elle_trim": ("elle_trim", 13, 8),
+}
+
+
 def _lib(name: str):
-    """The ctypes library of `csrc/<name>.cu`, built on first use and
-    bound once. Every chunk kernel has the same C interface (14 device
-    pointers, 13 int32 scalars, the stream; `csrc/wgl_common.cuh`)."""
+    """The ctypes binding of entry point `name` (a KERNELS key), its
+    library built on first use and bound once, with its error-string
+    function."""
     import ctypes
 
+    stem, n_ptrs, n_ints = KERNELS[name]
     with _LOCK:
         if name not in _LIBS:
-            path = _lib_path(CSRC / f"{name}.cu")
+            path = _lib_path(CSRC / f"{stem}.cu")
             if not path.exists():
                 build_all()
             lib = ctypes.CDLL(str(path))
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 13
-                           + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
+            err = getattr(lib, f"{stem}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _LIBS[name] = (fn, err)
@@ -109,12 +127,14 @@ def _lib(name: str):
 
 
 def launch(name: str, ptrs, ints, stream) -> None:
-    """Launch the chunk kernel `name` (`wgl32_chunk` or `wgln_chunk`:
-    14 device pointers, 13 int32 scalars, the stream) and raise on a
-    launch error."""
+    """Launch entry point `name` (a KERNELS key) with its device
+    pointers and int32 scalars on `stream`, and raise on a launch
+    error."""
+    _, n_ptrs, n_ints = KERNELS[name]
+    if len(ptrs) != n_ptrs or len(ints) != n_ints:
+        raise ValueError(f"{name} takes {n_ptrs} pointers and {n_ints} "
+                         "ints")
     fn, err = _lib(name)
-    if len(ptrs) != 14 or len(ints) != 13:
-        raise ValueError(f"{name} takes 14 pointers and 13 ints")
     rc = fn(*ptrs, *[int(x) for x in ints], stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "

@@ -1,7 +1,8 @@
 """Synthetic concurrent histories for tests and the chip smoke.
 
 Simulates N logical processes running against a *real* in-memory object
-(cas-register / mutex / fifo-queue) under a random interleaving, emitting
+(cas-register / mutex / fifo-queue, list-append and
+write/read-register txns) under a random interleaving, emitting
 invoke/ok/fail/info events exactly as the interpreter journals them.
 Because ops execute against real state, the histories are linearizable
 by construction; `lie_p` injects occasional wrong read values to produce
@@ -293,3 +294,129 @@ def adversarial_wave_history(n_waves: int, width: int = 14,
     hist.append(h.ok(0, "read",
                      -1 if invalid else last_wave_val, time=t))
     return hist.index()
+
+
+def _txn_scheduler(n_txns: int, n_procs: int, crash_p: float,
+                   rng, next_txn, apply_ok, apply_crash) -> h.History:
+    """Shared concurrent-txn simulation loop: random interleaving of
+    invocations and completions, txns applied atomically at completion
+    (serialization point inside the op window -> serializable AND
+    realtime-consistent by construction), crashes left :info with a
+    coin-flip apply, crashed processes retired for fresh pids
+    (interpreter.clj:233-236).
+
+    next_txn() -> mops; apply_ok(txn) -> completed mops;
+    apply_crash(txn) -> None (the 'may have applied' branch)."""
+    hist = h.History()
+    pending: dict = {}
+    free = list(range(n_procs))
+    next_pid = n_procs
+    issued = 0
+    t = 0
+    while issued < n_txns or pending:
+        can_invoke = free and issued < n_txns
+        if not can_invoke and not pending:
+            break
+        if can_invoke and (not pending or rng.random() < 0.6):
+            p = free.pop(rng.randrange(len(free)))
+            txn = next_txn()
+            hist.append(h.invoke(p, "txn", txn, time=t))
+            pending[p] = txn
+            issued += 1
+        else:
+            p = rng.choice(list(pending))
+            txn = pending.pop(p)
+            if rng.random() < crash_p:
+                hist.append(h.info(p, "txn", txn, time=t))
+                if rng.random() < 0.5:  # may or may not have applied
+                    apply_crash(txn)
+                free.append(next_pid)
+                next_pid += 1
+            else:
+                hist.append(h.ok(p, "txn", apply_ok(txn), time=t))
+                free.append(p)
+        t += 1
+    return hist.index()
+
+
+def list_append_history(n_txns: int, n_procs: int = 5, key_count: int = 4,
+                        max_txn_length: int = 4, crash_p: float = 0.01,
+                        corrupt_p: float = 0.0,
+                        seed: int = 0) -> h.History:
+    """A concurrent list-append run for the elle checkers (shared
+    scheduler: _txn_scheduler). `corrupt_p` drops a random element from
+    a random read's result to produce known-invalid histories.
+
+    Shapes follow the reference generator (elle.list-append/gen via
+    tests/cycle/append.clj:28-31): rotating key pool, unique
+    monotonically increasing values per key."""
+    from .elle.append import AppendGen
+
+    rng = random.Random(seed)
+    gen = AppendGen(key_count=key_count, max_txn_length=max_txn_length,
+                    seed=seed)
+    lists: dict = {}
+
+    def apply_write(txn):
+        for f, k, v in txn:
+            if f == "append":
+                lists.setdefault(k, []).append(v)
+
+    def apply_ok(txn):
+        done = []
+        for f, k, v in txn:
+            if f == "append":
+                lists.setdefault(k, []).append(v)
+                done.append([f, k, v])
+            else:
+                out = list(lists.get(k, []))
+                if corrupt_p and out and rng.random() < corrupt_p:
+                    out.pop(rng.randrange(len(out)))
+                done.append([f, k, out])
+        return done
+
+    return _txn_scheduler(n_txns, n_procs, crash_p, rng, gen.txn,
+                          apply_ok, apply_write)
+
+
+def wr_register_history(n_txns: int, n_procs: int = 5, key_count: int = 4,
+                        max_txn_length: int = 4, crash_p: float = 0.01,
+                        stale_p: float = 0.0,
+                        seed: int = 0) -> h.History:
+    """A concurrent write/read-register run for the elle wr checker
+    (shared scheduler: _txn_scheduler): unique writes per key (the
+    rw-register workload's invariant). `stale_p` makes a read return
+    the PREVIOUS value of its key, producing known anomalies.
+
+    Shapes follow the reference generator (tests/cycle/wr.clj:14-53
+    semantics via the shared WrGen key pool)."""
+    from .elle.wr import WrGen
+
+    rng = random.Random(seed)
+    gen = WrGen(key_count=key_count, max_txn_length=max_txn_length,
+                seed=seed)
+    regs: dict = {}
+    prev: dict = {}
+
+    def apply_write(txn):
+        for f, k, v in txn:
+            if f == "w":
+                prev[k] = regs.get(k)
+                regs[k] = v
+
+    def apply_ok(txn):
+        done = []
+        for f, k, v in txn:
+            if f == "w":
+                prev[k] = regs.get(k)
+                regs[k] = v
+                done.append([f, k, v])
+            else:
+                out = regs.get(k)
+                if stale_p and k in prev and rng.random() < stale_p:
+                    out = prev[k]
+                done.append([f, k, out])
+        return done
+
+    return _txn_scheduler(n_txns, n_procs, crash_p, rng, gen.txn,
+                          apply_ok, apply_write)

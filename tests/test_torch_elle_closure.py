@@ -1,0 +1,241 @@
+"""Kernel-level parity of the port's Elle closures.
+
+The same padded edge columns go through the JAX package's
+`make_closure_kernel` (f32 on the CPU, jitted as `tests/test_elle_tpu.py`
+runs it) and `make_packed_closure_kernel`, and through the port's
+`closure_ref` and `packed_closure_ref`: labels, rw-query answers, the
+per-squaring reach counts and the number of squarings run must be
+bit-identical (tolerance zero: everything is 0/1 or an integer count).
+The packed closure must also equal the dense one, as the reference's
+kernels equal each other. Graphs are made with numpy from a seed and
+padded into a few shared shapes so XLA:CPU compiles each kernel once
+per shape. The `gpu` cases hold the CUDA kernels against their plain
+versions on the card.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jepsen_tpu.elle import tpu as jtpu
+from jepsen_tpu_torch.elle import graph as tgraph
+from jepsen_tpu_torch.elle import tpu as ttpu
+
+torch.set_num_threads(1)
+
+S = len(ttpu.SUBSETS)
+# (n_pad, e_pad, q_pad) buckets shared by every case
+SHAPES = {128: (128, 512, 256), 256: (256, 1024, 256)}
+TYPES = (tgraph.WW, tgraph.WR, tgraph.RW, tgraph.REALTIME, tgraph.PROCESS)
+
+
+def random_graph(seed, n, e):
+    rng = np.random.default_rng(seed)
+    g = tgraph.DepGraph()
+    for i in range(n):
+        g.add_node(i)
+    for s, d, t in zip(rng.integers(0, n, e), rng.integers(0, n, e),
+                       rng.choice(TYPES, e)):
+        g.add_edge(int(s), int(d), int(t))
+    return g
+
+
+def path_graph(n, typ=tgraph.WW):
+    """0 -> 1 -> ... -> n-1 plus one rw edge back: the closure needs
+    every squaring to reach the far end."""
+    g = tgraph.DepGraph()
+    for i in range(n - 1):
+        g.add_edge(i, i + 1, typ)
+    g.add_edge(n - 1, 0, tgraph.RW)
+    return g
+
+
+def inputs(g, n_pad):
+    """Padded numpy inputs of both kernels, as `cycle_queries` builds
+    them, at the shared bucket of n_pad."""
+    _, n, src, dst, w, q_src, q_dst, _ = ttpu._graph_arrays(
+        g, ttpu.SUBSETS, tgraph.RW)
+    _, e_pad, q_pad = SHAPES[n_pad]
+    assert n + 2 <= n_pad and len(src) <= e_pad and len(q_src) <= q_pad
+    w_p = np.zeros((S, e_pad), np.float32)
+    w_p[:, :w.shape[1]] = w
+    return dict(src=ttpu._pad(src, e_pad, 0), dst=ttpu._pad(dst, e_pad, 0),
+                w=w_p, q_src=ttpu._pad(q_src, q_pad, n_pad - 1),
+                q_dst=ttpu._pad(q_dst, q_pad, n_pad - 2),
+                r0=ttpu.packed_r0(src, dst, w, n_pad))
+
+
+def iters_for(n_pad):
+    return max(1, math.ceil(math.log2(n_pad)))
+
+
+_JIT: dict = {}
+
+
+def jax_dense(n_pad, a):
+    if ("dense", n_pad) not in _JIT:
+        _JIT["dense", n_pad] = jax.jit(jtpu.make_closure_kernel(
+            n_pad, S, iters_for(n_pad), jnp.float32))
+    out = _JIT["dense", n_pad](a["src"], a["dst"], a["w"], a["q_src"],
+                               a["q_dst"])
+    return tuple(np.asarray(x) for x in out)
+
+
+def jax_packed(n_pad, a):
+    if ("packed", n_pad) not in _JIT:
+        _JIT["packed", n_pad] = jax.jit(jtpu.make_packed_closure_kernel(
+            n_pad, S, iters_for(n_pad)))
+    out = _JIT["packed", n_pad](a["r0"], a["q_src"], a["q_dst"])
+    return tuple(np.asarray(x) for x in out)
+
+
+def port_dense(n_pad, a, fn=ttpu.closure_ref, device="cpu"):
+    t = {k: torch.from_numpy(a[k]).to(device)
+         for k in ("src", "dst", "w", "q_src", "q_dst")}
+    return fn(t["src"], t["dst"], t["w"], t["q_src"], t["q_dst"],
+              n_pad=n_pad, iters=iters_for(n_pad))
+
+
+def port_packed(n_pad, a, fn=ttpu.packed_closure_ref, device="cpu"):
+    return fn(torch.from_numpy(a["r0"].view(np.int32)).to(device),
+              torch.from_numpy(a["q_src"]).to(device),
+              torch.from_numpy(a["q_dst"]).to(device),
+              n_pad=n_pad, iters=iters_for(n_pad))
+
+
+def assert_same(port, ref):
+    labels, closed, counts, iters_run = port
+    j_labels, j_closed, j_counts, j_iters = ref
+    assert int(iters_run) == int(j_iters)
+    np.testing.assert_array_equal(labels.cpu().numpy(), j_labels)
+    np.testing.assert_array_equal(closed.cpu().numpy(), j_closed)
+    # rows past iters_run are zero in both
+    np.testing.assert_array_equal(counts.cpu().numpy(), j_counts)
+
+
+CASES = [("random", 128, lambda: random_graph(0, 60, 150)),
+         ("random", 128, lambda: random_graph(1, 120, 90)),
+         ("random", 256, lambda: random_graph(2, 250, 700)),
+         ("random", 256, lambda: random_graph(3, 200, 250)),
+         ("random", 256, lambda: random_graph(4, 5, 12)),
+         ("empty", 128, lambda: random_graph(5, 1, 0)),
+         ("no-rw", 256, lambda: path_graph(120, tgraph.WR)),
+         ("path", 256, lambda: path_graph(250))]
+IDS = [f"{name}-{i}" for i, (name, _, _) in enumerate(CASES)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_closure_ref_matches_jax(case):
+    _, n_pad, make = case
+    a = inputs(make(), n_pad)
+    assert_same(port_dense(n_pad, a), jax_dense(n_pad, a))
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_packed_closure_ref_matches_jax(case):
+    _, n_pad, make = case
+    a = inputs(make(), n_pad)
+    ref = jax_packed(n_pad, a)
+    assert_same(port_packed(n_pad, a), ref)
+    # and the two closures are one function
+    assert_same(port_dense(n_pad, a), ref)
+
+
+def test_path_runs_every_squaring():
+    a = inputs(path_graph(250), 256)
+    _, _, counts, iters_run = port_dense(256, a)
+    assert iters_run == iters_for(256) == 8
+    # the widest subset's reach grows at every squaring
+    widest = counts[:, -1].tolist()
+    assert widest == sorted(set(widest))
+
+
+def test_bits_round_trip():
+    rng = np.random.default_rng(7)
+    words = rng.integers(0, 2**32, size=(3, 64, 2), dtype=np.uint64)
+    r = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    bits = ttpu.unpack_bits(r)
+    assert bits.shape == (3, 64, 64)
+    assert bool(bits[0, 0, 5]) == bool((int(words[0, 0, 0]) >> 5) & 1)
+    assert torch.equal(ttpu.pack_bits(bits), r)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    a = inputs(random_graph(0, 60, 150), 128)
+    before = (ttpu.closure.launches, ttpu.packed_closure.launches)
+    assert_same(port_dense(128, a, fn=ttpu.closure), jax_dense(128, a))
+    assert_same(port_packed(128, a, fn=ttpu.packed_closure),
+                jax_packed(128, a))
+    assert (ttpu.closure.launches, ttpu.packed_closure.launches) == before
+
+
+def test_wrappers_refuse_other_devices():
+    z = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ttpu.closure(z, z, z, z, z, n_pad=128, iters=7)
+    with pytest.raises(ValueError):
+        ttpu.packed_closure(z, z, z, n_pad=128, iters=7)
+    # indices a kernel dereferences are checked before any launch
+    idx = torch.tensor([0, 5, 127], dtype=torch.int32)
+    ttpu._check_range("t", idx, 128)
+    for bad in (128, -1):
+        with pytest.raises(ValueError):
+            ttpu._check_range("t", torch.cat([idx, idx.new_tensor([bad])]),
+                              128)
+
+
+def test_native_table_binds_every_entry_point():
+    """Every `extern "C" int` entry point under csrc/ is in
+    `_native.KERNELS` with its source and its pointer and int counts."""
+    import re
+    from pathlib import Path
+
+    from jepsen_tpu_torch.ops import _native
+
+    found = {}
+    for src in sorted(Path(_native.CSRC).glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            found[name] = src.stem
+            stem, n_ptrs, n_ints = _native.KERNELS[name]
+            assert stem == src.stem
+            if params.strip() == "WGL_CHUNK_ARGS":
+                continue
+            args = [a.strip() for a in params.split(",")]
+            assert args[-1] == "void* stream"
+            assert sum("*" in a for a in args[:-1]) == n_ptrs, name
+            assert sum("*" not in a for a in args[:-1]) == n_ints, name
+    assert found.keys() == _native.KERNELS.keys()
+
+
+# --- on the card ------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kernels_match_plain_on_card(cuda_device, case):
+    _, n_pad, make = case
+    a = inputs(make(), n_pad)
+    ref = tuple(x if isinstance(x, int) else x.cpu().numpy()
+                for x in port_dense(n_pad, a))
+    launches = ttpu.closure.launches
+    got = port_dense(n_pad, a, fn=ttpu.closure, device=cuda_device)
+    torch.cuda.synchronize()
+    assert ttpu.closure.launches == launches + got[3] + 1
+    assert_same(got, ref)
+    launches = ttpu.packed_closure.launches
+    got = port_packed(n_pad, a, fn=ttpu.packed_closure, device=cuda_device)
+    torch.cuda.synchronize()
+    assert ttpu.packed_closure.launches == launches + got[3] + 1
+    assert_same(got, ref)
+

@@ -16,7 +16,10 @@
 // operations per squaring (an AND and an OR per (i, j, w)): 8.2e11 at
 // n_pad 16384, about 50 ms at the card's int32 rate (132 SMs x 64 lanes
 // x 1.98 GHz). Its bytes are 2 S n_pad W 4 (read and write the
-// bitset): 200 MB, 0.06 ms at 3.35 TB/s. So it is bound by operations.
+// bitset): 200 MB, 0.06 ms at 3.35 TB/s. The work the data needs is
+// less: a set bit j of row i selects row j, so one OR per (set bit,
+// word), ones x W per squaring; chip_smoke.py takes the larger of that
+// and the byte bound for each squaring.
 //
 // What this design does about it. Only the set bits cost work: a warp
 // holds 32 word columns of one row i, and for each 32-row block jb

@@ -872,10 +872,13 @@ def _squaring_select(n: int, device) -> tuple:
     packed is the only dense option; below it, packed wins when the
     bf16 closure's live working set (S planes of n_pad^2 bf16, the
     second buffer and the product's staging: 3 S n_pad^2 2 B) passes a
-    quarter of the card's memory. Past PACKED_MAX_N one card holds no
-    closure (the sharded layout is not ported): packed is returned so
-    the caller's capacity check, and the host fallback behind it,
-    fires."""
+    quarter of the card's memory. On an 80 GB card that check never
+    picks packed below DEFAULT_MAX_N (the largest bf16 bucket, n_pad
+    8320, holds 1.25 GB against a 20 GB budget), so n decides alone
+    there. Past PACKED_MAX_N one card holds no closure (the sharded
+    layout is not ported): packed is returned so the caller's capacity
+    check, and the host fallback behind it, fires. `device` is a CUDA
+    device: the CPU always runs the trim."""
     if n > PACKED_MAX_N:
         return "packed", {"why": f"n {n} over packed cap {PACKED_MAX_N}; "
                                  "no sharded layout on one card"}
@@ -883,10 +886,7 @@ def _squaring_select(n: int, device) -> tuple:
         return "packed", {"why": f"n {n} > bf16 cap {DEFAULT_MAX_N}"}
     n_pad = _n_pad_for(n)
     live = 3 * len(SUBSETS) * float(n_pad) ** 2 * 2
-    if device.type == "cuda":
-        budget = 0.25 * torch.cuda.get_device_properties(device).total_memory
-    else:
-        budget = float("inf")
+    budget = 0.25 * torch.cuda.get_device_properties(device).total_memory
     sel = {"bytes_bf16": int(live), "budget_bytes": budget}
     if live > budget:
         sel["why"] = f"bf16 live bytes {live:.2e} over {budget:.2e} budget"

@@ -20,7 +20,23 @@ after:
 
 Then the default checker (`algorithm="competition"`) decides a 900-op
 long tail (window 657) and a 100k-op FIFO-queue history (queue-poly),
-and the frontier migration of a ladder switch is timed. Then Elle:
+and the frontier migration of a ladder switch is timed. Then the
+per-key fan-out:
+
+  * narrow lanes (`wgl32_chunk_batched`): one tuple-valued history of
+    100 keys x 2000-op cas-register through
+    `independent.cuda_checker(cas_register())` (every key True), and a
+    variant with four keys made invalid (failing keys == the host
+    oracle's, the oracle run per key in a process pool);
+  * wide lanes (`wgln_chunk_batched`): 8 adversarial-wave keys (window
+    37) through `parallel.check_batched(strategy="vmap")`, every key
+    False after the JAX package's config count;
+  * stream: 3 keys through `check_batched`'s "auto" (fewer than 4 keys
+    stream on the card, through `wgl32_chunk`, each racing the host
+    oracle; each engine's end is timed per key), the same keys without
+    the race, and in the shared shape bucket against their own plans.
+
+Then Elle:
 
   * the dense closure (`elle_closure`): 3k-txn list-append and
     rw-register histories through `elle.append.check` /
@@ -60,6 +76,17 @@ ELLE_10K = dict(n_txns=10000, n_procs=5, seed=7)
 ELLE_STALE = dict(n_txns=3000, seed=7, stale_p=0.01)
 ELLE_CORRUPT = dict(n_txns=3000, seed=7, corrupt_p=0.01)
 ELLE_SMALL = dict(n_txns=300, seed=5)
+FANOUT = dict(n_keys=100, n_ops=2000, n_procs=5, crash_p=0.002)
+FANOUT_BAD = dict(keys=(7, 31, 58, 90), lie_p=0.01)
+FANOUT_SHORT = 32           # rounds of the all-lanes kernel/plain check
+FANOUT_FULL_LANES = 2       # lanes of the full-chunk kernel/plain check
+FANOUT_WAVE = dict(n_keys=8, n_waves=6, width=12, span=3, chunk=64)
+# the JAX package's per-key exhaustive counts for the 8 wave keys
+# (`check_batched(strategy="vmap", chunk=64)` on a one-device CPU mesh,
+# K 1024, W 64)
+FANOUT_WAVE_CONFIGS = [176023, 176019, 175945, 175939, 176025, 175943,
+                       176012, 176061]
+FANOUT_STREAM_KEYS = 3
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 INT32_LANES = 64              # int32 operations per SM per clock
 RT = ("realtime",)
@@ -110,6 +137,8 @@ def counters() -> dict:
     from jepsen_tpu_torch.elle import tpu as etpu
     from jepsen_tpu_torch.ops import wgl32, wgln
     return {"wgl32_chunk": wgl32.chunk, "wgln_chunk": wgln.chunk,
+            "wgl32_chunk_batched": wgl32.chunk_batched,
+            "wgln_chunk_batched": wgln.chunk_batched,
             "elle_closure": etpu.closure,
             "elle_packed_closure": etpu.packed_closure,
             "elle_trim": etpu.trim}
@@ -618,6 +647,416 @@ def elle_phases(dev) -> list:
         "library_ms": None}]
 
 
+def multikey_history(n_keys, n_ops, n_procs, crash_p, lie_keys=(),
+                     lie_p=0.0):
+    """One tuple-valued history of `n_keys` cas-register keys (key k's
+    ops from seed k), interleaved at random, with a nemesis marker at
+    each end that every subhistory keeps; processes are (p, k)."""
+    import random
+
+    from jepsen_tpu_torch import history as hist
+    from jepsen_tpu_torch import independent, synth
+
+    rng = random.Random(7)
+    out = hist.History()
+    out.append(hist.info("nemesis", "start-partition", None))
+    live = [[k, list(synth.cas_register_history(
+        n_ops, n_procs=n_procs, seed=k, crash_p=crash_p,
+        lie_p=lie_p if k in lie_keys else 0.0)), 0] for k in range(n_keys)]
+    while live:
+        i = rng.randrange(len(live))
+        k, ops, j = live[i]
+        op = ops[j]
+        out.append(op.with_(process=(op.process, k),
+                            value=independent.tuple_(k, op.value)))
+        live[i][2] += 1
+        if j + 1 == len(ops):
+            live.pop(i)
+    out.append(hist.info("nemesis", "stop-partition", None))
+    return out.index()
+
+
+def oracle_verdict(ops: list):
+    """The host oracle's verdict on one subhistory (op dicts), in a
+    worker process."""
+    from jepsen_tpu_torch import history as hist
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import wgl_ref
+    h = hist.History(hist.Op.from_dict(d) for d in ops)
+    return wgl_ref.check(cas_register(), h)["valid?"]
+
+
+def lanes_of(consts, carry, idx):
+    """The batch's lanes `idx` as a batch of their own (copies)."""
+    from jepsen_tpu_torch.ops import wgl32
+    i = torch.as_tensor(idx, device=consts.meta.device)
+    sub = wgl32.BatchConsts(**{
+        f: (v[i].contiguous() if torch.is_tensor(v) else v)
+        for f, v in consts.__dict__.items()})
+    return sub, tuple(t[i].contiguous() for t in carry)
+
+
+def batched_bound_bytes(consts, summary, C, tally) -> int:
+    """Least bytes a lane-batched chunk must move for this run's data,
+    summed over the lanes: each lane's three scalars and the const
+    entries its live parents reached (counted by the plain version) read
+    once; per expanded config its row read; per successor that goes to
+    the memo table (counted by the plain version) one 16-byte slot read;
+    per new config its row and its memo entry written; the summary
+    written."""
+    head = summary[:, :11].to(torch.int64)
+    explored, new = int(head[:, 4].sum()), int(head[:, 8].sum())
+    scalars = sum(t.numel() * 4 for t in (consts.n_ok, consts.n_info,
+                                          consts.max_cfg))
+    return (scalars + tally["const_bytes"] + explored * C * 4
+            + tally["probed"] * 16 + new * (C * 4 + 16)
+            + summary.numel() * 4)
+
+
+def fanout_phases(dev) -> list:
+    """The per-key fan-out on the card: both lane-batched kernels against
+    their plain versions at the main paths' shapes, then the main paths
+    (narrow 100 x 2k through `independent.cuda_checker`, its invalid
+    variant against the host oracle, wide waves through
+    `check_batched`, and a 3-key stream), each with every count at 0
+    just before it. Returns the two kernels' entries of the kernels
+    line."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from jepsen_tpu_torch import independent, synth
+    from jepsen_tpu_torch.history import strip_nemesis
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import encode, wgl, wgl32, wgl_ref, wgln
+    from jepsen_tpu_torch.parallel import batched
+
+    def kernel_vs_plain(mod, consts, carry, tally=None, **kw):
+        """The batched kernel of `mod` and its plain version from the
+        same start; both timed with CUDA events; (summary, kernel ms,
+        plain ms, err)."""
+        ref_in = tuple(t.clone() for t in carry)
+        torch.cuda.synchronize()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        e[0].record()
+        out, summary = mod.chunk_batched(consts, carry, **kw)
+        e[1].record()
+        torch.cuda.synchronize()
+        e[2].record()
+        ref, ref_summary = mod.chunk_batched_ref(consts, ref_in, tally=tally,
+                                                 **kw)
+        e[3].record()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(out, ref), max_abs_err([summary],
+                                                    [ref_summary]))
+        if err or not (same_carry(out, ref)
+                       and torch.equal(summary, ref_summary)):
+            raise AssertionError(f"{mod.__name__} batched kernel differs "
+                                 f"from chunk_batched_ref (max abs err "
+                                 f"{err}) at {kw}")
+        return summary, e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3]), err
+
+    def kernel_ms(mod, consts, start, reps=3, **kw):
+        """Median kernel time from `start` over `reps` launches (the
+        clone sits outside the timed window)."""
+        times = []
+        for _ in range(reps):
+            c = tuple(t.clone() for t in start)
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            mod.chunk_batched(consts, c, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return float(np.median(times)), times
+
+    def plan_of(hists, chunk):
+        encs = [encode.encode(cas_register(), x) for x in hists]
+        batch = batched.encode_batch(encs)
+        plan = batched.vmap_plan(batch, max(e.window_raw for e in encs),
+                                 chunk)
+        return encs, batch, plan
+
+    # the host phases of a fan-out check, each timed by wrapping the
+    # function the check calls by module attribute
+    phases = {"lint": (independent, "_gate"),
+              "split": (independent, "subhistories"),
+              "encode": (batched, "encode"),
+              "batch": (batched, "encode_batch"),
+              "consts": (batched, "batch_consts"),
+              "carry": (wgl32, "init_carry_batch")}
+
+    def drive(fn):
+        """One main-path call with every count at 0 just before it and
+        read just after: (result, wall, counts, Timed, host seconds by
+        phase, peak bytes)."""
+        host = dict.fromkeys(phases, 0.0)
+        originals = {k: getattr(m, a) for k, (m, a) in phases.items()}
+
+        def timed(k):
+            def run(*a, **kw):
+                t0 = time.monotonic()
+                try:
+                    return originals[k](*a, **kw)
+                finally:
+                    host[k] += time.monotonic() - t0
+            return run
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with Timed() as t:
+            for k, (m, a) in phases.items():
+                setattr(m, a, timed(k))
+            try:
+                zero_counts()
+                t0 = time.monotonic()
+                res = fn()
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                counts = read_counts()
+            finally:
+                for k, (m, a) in phases.items():
+                    setattr(m, a, originals[k])
+        return (res, wall, counts, t, host,
+                torch.cuda.max_memory_allocated(dev))
+
+    def split_line(wall, host, kernel_ms):
+        rest = wall - sum(host.values()) - sum(kernel_ms) / 1e3
+        return (", ".join(f"{k} {v:.4f} s" for k, v in host.items())
+                + f", kernels {sum(kernel_ms) / 1e3:.4f} s, the rest "
+                f"(strip, poll loop, results, copies) {rest:.4f} s")
+
+    # ---- narrow lanes: the main path's own batch and capacities ----------
+    t0 = time.monotonic()
+    h = multikey_history(**FANOUT)
+    gen_s = time.monotonic() - t0
+    subs = independent.subhistories(h, independent.history_keys(h))
+    encs, batch, plan = plan_of([strip_nemesis(sub) for sub in subs], 1024)
+    print(f"fan-out {FANOUT}: {len(h)} ops generated in {gen_s:.2f} s; "
+          f"vmap plan {json.dumps(plan)}, n_pad {batch.n_pad}, window "
+          f"{max(e.window_raw for e in encs)}, n_info max "
+          f"{int(batch.n_info.max())}, S x O {batch.table_s} x "
+          f"{batch.table_o}", flush=True)
+    if plan["L"] or plan["K"] != 64 or batch.inv.shape[0] != FANOUT["n_keys"]:
+        raise AssertionError(f"fan-out plan {plan}")
+    kw = dict(K=plan["K"], W=plan["W"], ic=plan["ic"], H=plan["H"],
+              B=plan["B"], probes=plan["probes"])
+    C = wgl32.row_words(plan["ic"])
+    consts = batched.batch_consts(batch, plan, 50_000_000, dev)
+    start = wgl32.init_carry_batch(batch.inv.shape[0], plan["K"], C,
+                                   plan["H"], plan["B"], 0, dev)
+    tally: dict = {}
+    short, _, n_plain_ms, n_err = kernel_vs_plain(
+        wgl32, consts, tuple(t.clone() for t in start), tally=tally,
+        chunk=FANOUT_SHORT, **kw)
+    n_ms, n_times = kernel_ms(wgl32, consts, start, chunk=FANOUT_SHORT, **kw)
+    n_bytes = batched_bound_bytes(consts, short, C, tally)
+    n_bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  wgl32_chunk_batched == chunk_batched_ref over {FANOUT_SHORT} "
+          f"rounds of all {batch.inv.shape[0]} lanes: kernel "
+          f"{[round(x, 4) for x in n_times]} ms, median {n_ms:.4f} ms, "
+          f"plain {n_plain_ms:.1f} ms; bound {n_bytes} bytes "
+          f"({tally['const_bytes']} of consts reached, "
+          f"{int(short[:, 4].sum())} configs expanded, {tally['probed']} "
+          f"successors probed, {int(short[:, 8].sum())} new) over 3.35 TB/s "
+          f"= {n_bound_ms:.6f} ms", flush=True)
+    idx = list(range(FANOUT_FULL_LANES))
+    sub_c, sub_start = lanes_of(consts, start, idx)
+    full, f_ms, f_plain_ms, err = kernel_vs_plain(wgl32, sub_c, sub_start,
+                                                  chunk=1024, **kw)
+    n_err = max(n_err, err)
+    print(f"  == over a full 1024-round chunk of lanes {idx}: "
+          f"{full[:, 9].tolist()} rounds, kernel {f_ms:.3f} ms, plain "
+          f"{f_plain_ms:.1f} ms", flush=True)
+    poll_ms, poll_times = kernel_ms(wgl32, consts, start, chunk=1024, **kw)
+    print(f"  first poll of the main path (1024 rounds, all lanes): "
+          f"{[round(x, 3) for x in poll_times]} ms, median {poll_ms:.3f} ms",
+          flush=True)
+    del start, sub_start
+
+    # ---- wide lanes -------------------------------------------------------
+    w = FANOUT_WAVE
+    waves = [synth.adversarial_wave_history(w["n_waves"], width=w["width"],
+                                            span=w["span"], seed=s)
+             for s in range(w["n_keys"])]
+    _, wbatch, wplan = plan_of(waves, w["chunk"])
+    print(f"fan-out waves {w}: vmap plan {json.dumps(wplan)}", flush=True)
+    if not wplan["L"]:
+        raise AssertionError(f"waves plan {wplan}")
+    wkw = dict(K=wplan["K"], L=wplan["L"], ic=wplan["ic"], H=wplan["H"],
+               B=wplan["B"], probes=wplan["probes"], chunk=wplan["chunk"])
+    wC = wgln.row_words(wplan["L"], wplan["ic"])
+    wconsts = batched.batch_consts(wbatch, wplan, 50_000_000, dev)
+    wstart = wgln.init_carry_batch(w["n_keys"], wplan["K"], wplan["L"],
+                                   wplan["ic"], wplan["H"], wplan["B"], 0,
+                                   dev)
+    wtally: dict = {}
+    carry = tuple(t.clone() for t in wstart)
+    wsum, _, w_plain_ms, w_err = kernel_vs_plain(wgln, wconsts, carry,
+                                                 tally=wtally, **wkw)
+    wsum2, _, _, err = kernel_vs_plain(wgln, wconsts, carry, **wkw)
+    w_err = max(w_err, err)
+    w_ms, w_times = kernel_ms(wgln, wconsts, wstart, **wkw)
+    w_bytes = batched_bound_bytes(wconsts, wsum, wC, wtally)
+    w_bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  wgln_chunk_batched == chunk_batched_ref over two polls of all "
+          f"{w['n_keys']} lanes ({wsum[:, 9].tolist()} then "
+          f"{wsum2[:, 9].tolist()} rounds); first poll kernel "
+          f"{[round(x, 3) for x in w_times]} ms, median {w_ms:.3f} ms, plain "
+          f"{w_plain_ms:.1f} ms; bound {w_bytes} bytes "
+          f"({wtally['const_bytes']} of consts reached, "
+          f"{int(wsum[:, 4].sum())} configs expanded, {wtally['probed']} "
+          f"successors probed, {int(wsum[:, 8].sum())} new) = "
+          f"{w_bound_ms:.6f} ms", flush=True)
+    del wstart, carry
+
+    # ---- main path, narrow: 100 keys through independent.cuda_checker ----
+    res, wall, counts, t, host, peak = drive(
+        lambda: independent.cuda_checker(cas_register()).check({}, h, {}))
+    k_ms = t.ms("wgl32_chunk_batched")
+    per_key = res["results"].values()
+    rounds = [r["util"]["rounds"] for r in per_key]
+    n_launches = counts["wgl32_chunk_batched"]
+    print(f"main path, fan-out {FANOUT['n_keys']} keys x {FANOUT['n_ops']} "
+          f"ops: valid? {res['valid?']} "
+          f"({sum(r['valid?'] is True for r in per_key)} keys True) wall "
+          f"{wall:.4f} s: {split_line(wall, host, k_ms)}; {n_launches} polls, "
+          f"each one launch: {[round(x, 2) for x in k_ms]} ms; launches "
+          f"{counts}; rounds per lane max {max(rounds)} min {min(rounds)}; "
+          f"configs {sum(r['configs_explored'] for r in per_key)}; peak "
+          f"memory {peak} B", flush=True)
+    if (res["valid?"] is not True or n_launches < 1
+            or len(res["results"]) != FANOUT["n_keys"]
+            or any(r.get("engine") for r in res["results"].values())):
+        raise AssertionError(f"fan-out: {res['valid?']}, {counts}")
+    main_launches = n_launches
+
+    bad = FANOUT_BAD
+    hb = multikey_history(**FANOUT, lie_keys=bad["keys"], lie_p=bad["lie_p"])
+    res, wall, counts, t, host, _ = drive(
+        lambda: independent.cuda_checker(cas_register()).check({}, hb, {}))
+    bsubs = independent.subhistories(hb, independent.history_keys(hb))
+    t0 = time.monotonic()
+    workers = min(8, os.cpu_count() or 1)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
+            "spawn")) as ex:
+        oracle = list(ex.map(oracle_verdict,
+                             [[o.to_dict() for o in sub] for sub in bsubs]))
+    oracle_s = time.monotonic() - t0
+    want = [k for k, v in zip(independent.history_keys(hb), oracle)
+            if v is False]
+    print(f"main path, fan-out with keys {bad['keys']} at lie_p "
+          f"{bad['lie_p']}: valid? {res['valid?']} failures "
+          f"{res['failures']} wall {wall:.4f} s "
+          f"({split_line(wall, host, t.ms('wgl32_chunk_batched'))}; "
+          f"{counts}); host oracle "
+          f"failures {want} ({oracle_s:.1f} s on {workers} processes)",
+          flush=True)
+    if res["valid?"] is not False or sorted(res["failures"]) != want \
+            or not want:
+        raise AssertionError(f"fan-out invalid: {res['failures']} != {want}")
+
+    # ---- main path, wide --------------------------------------------------
+    res, wall, counts, t, host, peak = drive(lambda: batched.check_batched(
+        cas_register(), waves, strategy="vmap", oracle_fallback=False,
+        chunk=w["chunk"]))
+    wk_ms = t.ms("wgln_chunk_batched")
+    got = [r["configs_explored"] for r in res]
+    w_launches = counts["wgln_chunk_batched"]
+    print(f"main path, wide fan-out: verdicts {[r['valid?'] for r in res]} "
+          f"wall {wall:.4f} s ({split_line(wall, host, wk_ms)}; "
+          f"{w_launches} polls: {[round(x, 2) for x in wk_ms]} ms), rounds "
+          f"{[r['util']['rounds'] for r in res]}, configs {got} (JAX "
+          f"package: {FANOUT_WAVE_CONFIGS}), launches {counts}, peak memory "
+          f"{peak} B", flush=True)
+    if (any(r["valid?"] is not False for r in res) or w_launches < 1
+            or got != FANOUT_WAVE_CONFIGS):
+        raise AssertionError(f"wide fan-out: {got}")
+
+    # ---- stream: fewer than 4 keys stream on the card -----------------------
+    # each engine of the per-key race is timed to its end by wrapping the
+    # function the race calls: a key's race ends when the loser, stopped
+    # at its next poll, has been joined
+    few = [strip_nemesis(sub) for sub in subs[:FANOUT_STREAM_KEYS]]
+    ends: list = []
+    engines = {"device": (wgl, "check"), "oracle": (wgl_ref, "check")}
+    originals = {k: getattr(m, a) for k, (m, a) in engines.items()}
+
+    def ended(name):
+        def run(*a, **kw):
+            r = originals[name](*a, **kw)
+            ends.append((name, time.monotonic(), r.get("valid?"),
+                         r.get("cause"), r.get("configs_explored")))
+            return r
+        return run
+
+    for k, (m, a) in engines.items():
+        setattr(m, a, ended(k))
+    try:
+        t_race = time.monotonic()
+        res, wall, counts, _, _, _ = drive(lambda: batched.check_batched(
+            cas_register(), few))
+    finally:
+        for k, (m, a) in engines.items():
+            setattr(m, a, originals[k])
+    print(f"stream, {FANOUT_STREAM_KEYS} keys through check_batched auto: "
+          f"verdicts {[r['valid?'] for r in res]} engines "
+          f"{[r['shard']['engine'] for r in res]} wall {wall:.4f} s, "
+          f"per key {[r['shard']['wall_s'] for r in res]} s, launches "
+          f"{counts}", flush=True)
+    print("  engine ends (name, s since the call, verdict, cause, configs): "
+          + json.dumps([(n, round(t - t_race, 4), v, c, x)
+                        for n, t, v, c, x in ends]), flush=True)
+    joins = [round(t1 - t0, 4) for (n0, t0, *_), (n1, t1, *_)
+             in zip(ends[::2], ends[1::2])]
+    print(f"  per key, loser's end after the winner's verdict: {joins} s",
+          flush=True)
+    if (any(r["valid?"] is not True for r in res)
+            or counts["wgl32_chunk"] < 1 or counts["wgl32_chunk_batched"]):
+        raise AssertionError(f"stream: {counts}")
+    # the same keys without the race against the host oracle
+    res, wall, counts, t, _, _ = drive(lambda: batched.check_batched(
+        cas_register(), few, strategy="stream", oracle_fallback=False))
+    print(f"  the same without the race (oracle_fallback=False): verdicts "
+          f"{[r['valid?'] for r in res]} wall {wall:.4f} s, kernels "
+          f"{sum(t.ms('wgl32_chunk')) / 1e3:.4f} s, per key "
+          f"{[r['shard']['wall_s'] for r in res]} s, launches {counts}",
+          flush=True)
+    if any(r["valid?"] is not True for r in res):
+        raise AssertionError("stream without the race")
+    # what the shared shape bucket costs on the card: the keys padded
+    # into it (as the stream without the race runs them) against each on
+    # its own plan
+    fencs = [encode.encode(cas_register(), x) for x in few]
+    bucket = batched.shared_shape_bucket(fencs)
+    for name, sb in (("shared bucket", bucket), ("own plans", None)):
+        res, wall, counts, t, _, _ = drive(lambda: [wgl.check(
+            cas_register(), x, enc=e, shape_bucket=sb, device=dev)
+            for x, e in zip(few, fencs)])
+        if any(r["valid?"] is not True for r in res):
+            raise AssertionError(f"stream keys on {name}")
+        print(f"  {name}: W_pad {[r['W_pad'] for r in res]}, rounds "
+              f"{[r['util']['rounds'] for r in res]}, configs "
+              f"{[r['configs_explored'] for r in res]}, kernels "
+              f"{sum(t.ms('wgl32_chunk')):.4f} ms in {counts['wgl32_chunk']} "
+              f"launches, wall {wall:.4f} s", flush=True)
+
+    return [{
+        "name": "wgl32_chunk_batched", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/wgl32_chunk.cu",
+        "replaces": "jepsen_tpu/parallel/batched.py:234",
+        "launches": main_launches, "max_abs_err": n_err, "ms": n_ms,
+        "plain_ms": n_plain_ms, "bound_ms": n_bound_ms, "bound_by": "bytes",
+        "library_ms": None}, {
+        "name": "wgln_chunk_batched", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/wgln_chunk.cu",
+        "replaces": "jepsen_tpu/parallel/batched.py:234",
+        "launches": w_launches, "max_abs_err": w_err, "ms": w_ms,
+        "plain_ms": w_plain_ms, "bound_ms": w_bound_ms, "bound_by": "bytes",
+        "library_ms": None}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -667,18 +1106,18 @@ def main() -> int:
                                  f"chunk_ref (max abs err {err}) at {kw}")
         return out, summary, e0.elapsed_time(e1), plain_ms, err
 
-    def bound_bytes(consts, summary, C, tally):
-        """Least bytes a chunk must move for this run's data: the
-        consts once; per expanded config its row read; per
-        successor that goes to the memo table (legal, not a
-        linearization: counted by chunk_ref) one 16-byte slot read; per
-        new config its row and its memo entry written; the summary."""
+    def bound_bytes(summary, C, tally):
+        """Least bytes a chunk must move for this run's data: the const
+        entries the live parents reached (counted by chunk_ref) once;
+        per expanded config its row read; per successor that goes to
+        the memo table (legal, not a linearization: counted by
+        chunk_ref) one 16-byte slot read; per new config its row and
+        its memo entry written; the summary."""
         sh = summary[:wgl32.SUMMARY_HEAD].tolist()
         explored, new = sh[4], sh[4 + 4]
-        consts_bytes = sum(t.numel() * 4 for t in (
-            consts.meta, consts.tk, consts.iinv, consts.iopc))
-        return (consts_bytes + explored * C * 4 + tally["probed"] * 16
-                + new * (C * 4 + 16) + summary.numel() * 4)
+        return (tally["const_bytes"] + explored * C * 4
+                + tally["probed"] * 16 + new * (C * 4 + 16)
+                + summary.numel() * 4)
 
     # ---- 2. kernel against its plain version ------------------------------
     corpora = {
@@ -769,14 +1208,11 @@ def main() -> int:
     print(f"headline chunk 1 kernel times (ms): "
           f"{[round(t, 4) for t in times]}; median {kernel_ms:.4f} ms = "
           f"{kernel_ms * 1e3 / rounds_k2:.2f} us/round")
-    # least bytes the chunk must move for this run's data: the consts
-    # read once; per expanded config its row read; per successor that
-    # goes to the memo table (legal, not a linearization: counted by
-    # chunk_ref) one 16-byte slot read; per new config its row and its
-    # memo entry written; the summary written
-    bytes_moved = bound_bytes(consts, summary, C, tally)
+    # least bytes the chunk must move for this run's data (bound_bytes)
+    bytes_moved = bound_bytes(summary, C, tally)
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    print(f"bound: {bytes_moved} bytes ({explored_k2} configs expanded, "
+    print(f"bound: {bytes_moved} bytes ({tally['const_bytes']} of consts "
+          f"reached, {explored_k2} configs expanded, "
           f"{tally['probed']} successors probed, {new_k2} new) over "
           f"3.35 TB/s = {bound_ms:.6f} ms for {rounds_k2} rounds")
 
@@ -882,13 +1318,14 @@ def main() -> int:
     wkernel_ms = float(np.median(wtimes))
     r0 = per_bucket[wplan["K"]][0]
     per_bucket[wplan["K"]] = (r0, wkernel_ms)
-    wbytes = bound_bytes(wconsts, wsummary, wC, wtally)
+    wbytes = bound_bytes(wsummary, wC, wtally)
     wbound_ms = wbytes / HBM_BYTES_PER_S * 1e3
     sh = wsummary[:wgl32.SUMMARY_HEAD].tolist()
     print(f"16-wave chunk 1 (K={wplan['K']}): {r0} rounds, kernel times (ms) "
           f"{[round(t, 4) for t in wtimes]}; median {wkernel_ms:.4f} ms = "
           f"{wkernel_ms * 1e3 / max(r0, 1):.2f} us/round; chunk_ref "
-          f"{wplain_ms:.1f} ms; bound {wbytes} bytes ({sh[4]} configs "
+          f"{wplain_ms:.1f} ms; bound {wbytes} bytes ({wtally['const_bytes']} "
+          f"of consts reached, {sh[4]} configs "
           f"expanded, {wtally['probed']} successors probed, {sh[8]} new) "
           f"over 3.35 TB/s = {wbound_ms:.6f} ms")
     print("16-wave us/round by bucket:", json.dumps({
@@ -1035,6 +1472,7 @@ def main() -> int:
     if res["valid?"] is not True or res.get("engine") != "queue-poly":
         raise AssertionError(f"fifo queue: {res}")
 
+    fanout = fanout_phases(dev)
     elle = elle_phases(dev)
 
     print("card:", card_line())
@@ -1050,7 +1488,7 @@ def main() -> int:
         "replaces": "jepsen_tpu/ops/wgln.py:322",
         "launches": wlaunches, "max_abs_err": wide_err,
         "ms": wkernel_ms, "plain_ms": wplain_ms, "bound_ms": wbound_ms,
-        "bound_by": "bytes", "library_ms": None}] + elle}))
+        "bound_by": "bytes", "library_ms": None}] + fanout + elle}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,6 +54,12 @@ GATE_RULES = ("H001", "H002", "H003", "H004", "H005", "H007")
 # pairing rules and keeps the clock/index ones.
 ELLE_GATE_RULES = ("H001", "H003", "H004", "H005")
 
+# The independent fan-out gate sees the WHOLE multi-key history;
+# merged per-key streams may legitimately carry per-key clocks, so
+# global time monotonicity is not required here: each per-key
+# subhistory still passes through the full checker gate downstream.
+INDEPENDENT_GATE_RULES = ("H001", "H002", "H004", "H005", "H007")
+
 # Cap diagnostics per rule; one summary entry reports the overflow.
 MAX_PER_RULE = 16
 

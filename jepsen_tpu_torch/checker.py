@@ -24,9 +24,10 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Optional
+import traceback
+from typing import Any, Iterable, Optional
 
-from . import models
+from . import fleet, models
 from .analysis import history_lint
 from .history import History, strip_nemesis
 from .ops import jitlin, queuecheck, wgl, wgl_ref
@@ -34,6 +35,38 @@ from .util import resolve_device
 
 ALGORITHMS = ("competition", "cuda-wgl", "wgl", "linear", "queue-poly")
 UNKNOWN = "unknown"
+
+
+def valid_priority(v) -> int:
+    """false > unknown > true (checker.clj:29-35)."""
+    if v is False:
+        return 0
+    if v == UNKNOWN or v is None:
+        return 1
+    return 2
+
+
+def merge_valid(valids: Iterable) -> Any:
+    """Merge a collection of :valid? values, preferring the worst
+    (checker.clj:36-50). Empty collection -> True."""
+    out = True
+    for v in valids:
+        if valid_priority(v) < valid_priority(out):
+            out = v
+    return out
+
+
+def check_safe(checker, test: dict, history: History,
+               opts: Optional[dict] = None) -> dict:
+    """Like `checker.check`, but an exception becomes {"valid?":
+    "unknown"} with its traceback and a structured fault event
+    (checker.clj:74-85)."""
+    try:
+        return checker.check(test, history, opts or {})
+    except Exception as e:  # noqa: BLE001
+        ev = fleet.fault_event(e, stage=f"checker/{type(checker).__name__}")
+        return {"valid?": UNKNOWN, "error": traceback.format_exc(),
+                "fault": {k: ev[k] for k in ("type", "error", "stage")}}
 
 
 class Linearizable:
@@ -110,7 +143,8 @@ class Linearizable:
 
 
 def _race_competition(model, h: History, time_limit: Optional[float],
-                      device=None) -> dict:
+                      device=None, max_configs: int = 200_000_000,
+                      enc=None) -> dict:
     """knossos.competition semantics (the reference's
     `_race_competition`): run the device search and the host oracle
     concurrently; the first definitive verdict wins and cancels the
@@ -121,11 +155,13 @@ def _race_competition(model, h: History, time_limit: Optional[float],
 
     The device is resolved here, in the caller's thread, so a missing
     card raises before any lane starts; a lane's exception stops the
-    other lane and is raised once both have ended."""
+    other lane and is raised once both have ended. `max_configs` and
+    `enc` pass through to the device search."""
     dev = resolve_device(device)
 
     def run_device(budget, stop=None):
-        return wgl.check(model, h, time_limit=budget, stop=stop, device=dev)
+        return wgl.check(model, h, time_limit=budget, stop=stop, device=dev,
+                         max_configs=max_configs, enc=enc)
 
     def enrich_spare(r, t_start):
         """Counterexample enrichment on the budget that is left."""
@@ -169,7 +205,7 @@ def _race_competition(model, h: History, time_limit: Optional[float],
             if r.get("valid?") != UNKNOWN:
                 done.set()
         # non-daemon: the loser stops at its next stop poll (one device
-        # chunk or 4096 oracle configs) and is joined below
+        # chunk or `wgl_ref.STOP_POLL` oracle configs) and is joined below
         return threading.Thread(target=run, name=f"wgl-{name}")
 
     t_race0 = time.monotonic()

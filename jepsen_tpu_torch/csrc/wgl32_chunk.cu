@@ -60,12 +60,33 @@ wgl32_chunk_kernel(wgl::Params p) {
   wgl::chunk_body<Narrow>(p);
 }
 
+// The lane-batched form: one CTA per lane (key), each running the chunk
+// loop above on its own slice to its own stop. Replaces
+// jepsen_tpu/ops/wgl32.py::chunk_fn_batched (:757) and the narrow branch of
+// jepsen_tpu/parallel/batched.py::_compiled_batched (:234). A lane's CTA
+// is the solo kernel's, so a batch of lanes takes one wave of the 132
+// SMs up to 132 lanes and more waves past that; each lane's round is
+// bound as the solo kernel's is, by its chain of dependent global
+// accesses, and the lanes' random memo probes (one table per lane, far
+// past the L2 together) queue on the same device memory.
+__global__ void __launch_bounds__(wgl::kThreads, 1)
+wgl32_chunk_batched_kernel(wgl::BatchParams b) {
+  wgl::lane_chunk_body<Narrow>(b);
+}
+
 }  // namespace
 
 extern "C" int wgl32_chunk(WGL_CHUNK_ARGS) {
   const wgl::Params p = WGL_CHUNK_PARAMS;
   wgl32_chunk_kernel<<<1, wgl::kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgl32_chunk_batched(WGL_BATCHED_ARGS) {
+  const wgl::BatchParams b = WGL_BATCHED_PARAMS;
+  wgl32_chunk_batched_kernel<<<lanes, wgl::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 

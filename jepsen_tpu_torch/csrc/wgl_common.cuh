@@ -30,6 +30,13 @@
 // The plain PyTorch versions (ops/wgl32.py::chunk_ref and
 // ops/wgln.py::chunk_ref) agree with these kernels bit for bit on
 // every carry leaf and on the summary.
+//
+// The lane-batched kernels (wgl32_chunk_batched, wgln_chunk_batched)
+// run the same chunk_body once per lane: a grid of `lanes` CTAs, CTA l
+// on lane l's slice of every array (make_lane_params), each to its own
+// stop. chunk_body is block-local (its state is __shared__, nothing
+// crosses blocks), so a lane that stops early is frozen exactly as the
+// JAX package's vmapped while_loop freezes it by select.
 
 #pragma once
 
@@ -419,7 +426,7 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
 
 // The kernels' shared C interface (ops/_native.py binds it): 14 device
 // pointers, 13 int32 scalars and the stream.
-inline Params make_params(const int32_t* meta, const int32_t* tk,
+__host__ __device__ inline Params make_params(const int32_t* meta, const int32_t* tk,
                           const int32_t* iinv, const int32_t* iopc,
                           int32_t* fr, int32_t* fr_cnt, int32_t* bk,
                           int32_t* bk_cnt, int32_t* table, int32_t* flags,
@@ -461,6 +468,61 @@ inline Params make_params(const int32_t* meta, const int32_t* tk,
   return p;
 }
 
+// The lane-batched interface: every array carries a leading lane axis
+// (lane l's slice starts at l times the per-lane size) and n_ok, n_info
+// and max_cfg are per-lane device int32 arrays. 17 device pointers, 12
+// int32 scalars and the stream.
+struct BatchParams {
+  const int32_t* meta;     // (lanes, n_pad + 1, 4)
+  const int32_t* tk;       // (lanes, O * S)
+  const int32_t* iinv;     // (lanes, ic)
+  const int32_t* iopc;     // (lanes, ic)
+  int32_t* fr;             // (lanes, K, C)
+  int32_t* fr_cnt;         // (lanes,)
+  int32_t* bk;             // (lanes, B, C)
+  int32_t* bk_cnt;         // (lanes,)
+  int32_t* table;          // (lanes, H, 4)
+  int32_t* flags;          // (lanes, 3)
+  int32_t* stats;          // (lanes, 6)
+  int32_t* ring;           // (lanes, kRingRows, kRingCols)
+  int32_t* summary;        // (lanes, kSummaryHead + kRingRows * kRingCols)
+  int32_t* scratch;        // (lanes, scratch words)
+  const int32_t* n_ok;     // (lanes,)
+  const int32_t* n_info;   // (lanes,)
+  const int32_t* max_cfg;  // (lanes,)
+  int K, W, L, ic, H, B, chunk, probes, n_pad, S, O, lanes;
+};
+
+// Lane l's Params: the per-lane strides of every array and lane l's
+// scalars (read from device memory, so call it on the device). The
+// scratch size per lane is ops/wgl32.py::scratch_words.
+__device__ inline Params make_lane_params(const BatchParams& b, int l) {
+  const size_t lz = static_cast<size_t>(l);
+  const int Il = b.ic > 32 ? (b.ic + 31) / 32 : 1;
+  const size_t C = static_cast<size_t>(2 + b.L + Il);
+  const size_t R = static_cast<size_t>(b.K) * (b.W + b.ic);
+  const size_t scratch = R * (C + 5) + b.K + static_cast<size_t>(b.K) * C;
+  const size_t summary = kSummaryHead + kRingRows * kRingCols;
+  return make_params(
+      b.meta + lz * (b.n_pad + 1) * 4, b.tk + lz * b.S * b.O,
+      b.iinv + lz * b.ic, b.iopc + lz * b.ic, b.fr + lz * b.K * C,
+      b.fr_cnt + lz, b.bk + lz * b.B * C, b.bk_cnt + lz,
+      b.table + lz * b.H * 4, b.flags + lz * 3, b.stats + lz * 6,
+      b.ring + lz * kRingRows * kRingCols, b.summary + lz * summary,
+      b.scratch + lz * scratch, b.K, b.W, b.L, b.ic, b.H, b.B, b.chunk,
+      b.probes, b.n_pad, b.S, b.n_ok[l], b.n_info[l], b.max_cfg[l]);
+}
+
+// One lane per CTA: thread 0 builds the lane's Params in shared memory
+// (one read of the per-lane scalars), then the block runs chunk_body.
+template <class Layout>
+__device__ __forceinline__ void lane_chunk_body(const BatchParams& b) {
+  __shared__ Params sp;
+  if (threadIdx.x == 0) sp = make_lane_params(b, blockIdx.x);
+  __syncthreads();
+  chunk_body<Layout>(sp);
+}
+
 }  // namespace wgl
 
 #define WGL_CHUNK_ARGS                                                      \
@@ -475,3 +537,19 @@ inline Params make_params(const int32_t* meta, const int32_t* tk,
   wgl::make_params(meta, tk, iinv, iopc, fr, fr_cnt, bk, bk_cnt, table,     \
                    flags, stats, ring, summary, scratch, K, W, L, ic, H, B, \
                    chunk, probes, n_pad, S, n_ok, n_info, max_cfg)
+
+#define WGL_BATCHED_ARGS                                                    \
+  const int32_t *meta, const int32_t *tk, const int32_t *iinv,              \
+      const int32_t *iopc, int32_t *fr, int32_t *fr_cnt, int32_t *bk,       \
+      int32_t *bk_cnt, int32_t *table, int32_t *flags, int32_t *stats,      \
+      int32_t *ring, int32_t *summary, int32_t *scratch,                    \
+      const int32_t *n_ok, const int32_t *n_info, const int32_t *max_cfg,   \
+      int K, int W, int L, int ic, int H, int B, int chunk, int probes,     \
+      int n_pad, int S, int O, int lanes, void *stream
+
+#define WGL_BATCHED_PARAMS                                                  \
+  wgl::BatchParams {                                                        \
+    meta, tk, iinv, iopc, fr, fr_cnt, bk, bk_cnt, table, flags, stats,      \
+        ring, summary, scratch, n_ok, n_info, max_cfg, K, W, L, ic, H, B,   \
+        chunk, probes, n_pad, S, O, lanes                                   \
+  }

@@ -80,12 +80,31 @@ wgln_chunk_kernel(wgl::Params p) {
   wgl::chunk_body<Wide>(p);
 }
 
+// The lane-batched form: one CTA per lane (key), each running the chunk
+// loop above on its own slice to its own stop. Replaces
+// the wide branch of jepsen_tpu/parallel/batched.py::
+// _compiled_batched (:234), jit(vmap(wgln chunk_fn)). A lane's CTA
+// is the solo kernel's, so a batch of lanes takes one wave of the 132
+// SMs up to 132 lanes and more waves past that; what bounds each lane's
+// round is what bounds the solo kernel's.
+__global__ void __launch_bounds__(wgl::kThreads, 1)
+wgln_chunk_batched_kernel(wgl::BatchParams b) {
+  wgl::lane_chunk_body<Wide>(b);
+}
+
 }  // namespace
 
 extern "C" int wgln_chunk(WGL_CHUNK_ARGS) {
   const wgl::Params p = WGL_CHUNK_PARAMS;
   wgln_chunk_kernel<<<1, wgl::kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgln_chunk_batched(WGL_BATCHED_ARGS) {
+  const wgl::BatchParams b = WGL_BATCHED_PARAMS;
+  wgln_chunk_batched_kernel<<<lanes, wgl::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,7 @@ between the two as dicts (`Op.to_dict` / `Op.from_dict`).
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Iterable, Iterator, Optional
 
@@ -160,6 +161,12 @@ class History:
 
     def __repr__(self) -> str:
         return f"History({len(self.ops)} ops)"
+
+    def to_jsonl(self, path: str) -> None:
+        """One JSON op map per line (the JAX package's format)."""
+        with open(path, "w") as fh:
+            for op in self.ops:
+                fh.write(json.dumps(op.to_dict(), default=str) + "\n")
 
     # -- transforms --
     def index(self) -> "History":

@@ -93,6 +93,9 @@ KERNELS = {
     # the WGL chunk loop (csrc/wgl_common.cuh)
     "wgl32_chunk": ("wgl32_chunk", 14, 13),
     "wgln_chunk": ("wgln_chunk", 14, 13),
+    # the same loop with a lane axis, one CTA per lane
+    "wgl32_chunk_batched": ("wgl32_chunk", 17, 12),
+    "wgln_chunk_batched": ("wgln_chunk", 17, 12),
     # Elle's closures and trim
     "elle_closure_square": ("elle_closure", 3, 2),
     "elle_closure_labels": ("elle_closure", 5, 3),

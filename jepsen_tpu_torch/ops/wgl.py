@@ -29,6 +29,7 @@ capacities.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time as _time
 from typing import Callable, Optional
@@ -74,25 +75,34 @@ _K_BIG = 512
 def derive_plan(*, window_raw: int, ic_pad: int, n: int,
                 n_info: int, accel: bool,
                 frontier: Optional[int] = None,
-                adaptive: Optional[bool] = None) -> dict:
+                adaptive: Optional[bool] = None,
+                shape_bucket: Optional[dict] = None) -> dict:
     """The static kernel plan: variant, capacities, ladder, effective
     widths. Pure scalar math, copied from the JAX package's
     `derive_plan` with one change: `depth` stays 1 on the card (the
     JAX package's depth-fused narrow round is a TPU layout), so the
     narrow kernel runs 4096-round chunks on the card and 1024 on the
-    CPU. Returns {kern, K, H, B, W_eff, ic_eff, L, chunk, probes,
-    ladder}; L is 0 for the narrow kernel."""
-    H = _pick_capacities(n, window_raw)
+    CPU. A `shape_bucket` (`parallel.shared_shape_bucket`) widens
+    W_eff and ic_eff to the bucket's and sizes H by its largest key.
+    Returns {kern, K, H, B, W_eff, ic_eff, L, chunk, probes, ladder}; L
+    is 0 for the narrow kernel."""
+    n_caps = (max(n, int(shape_bucket.get("n_cap", 0))) if shape_bucket
+              else n)
+    H = _pick_capacities(max(n_caps, 1), window_raw)
     use_adapt = (_adapt.enabled(True if adaptive is None else adaptive)
                  and not frontier and adaptive is not False)
     ladder: Optional[tuple] = None
     ic_eff = min(max(8, _pad_to_mult(n_info, 8)), ic_pad)
+    if shape_bucket:
+        ic_eff = min(ic_pad, max(ic_eff, int(shape_bucket.get("ic_eff", 0))))
     L = 0
     if window_raw <= 32:
         kern = "wgl32"
         ladder = _adapt.LADDER32 if use_adapt else None
         K = ladder[0] if ladder else 16
         W_eff = max(8, _pad_to_mult(window_raw, 8))
+        if shape_bucket:
+            W_eff = max(W_eff, int(shape_bucket.get("w_eff", 0)))
         B = 1 << 18
         chunk = 4096 if accel else 1024
     else:
@@ -101,6 +111,8 @@ def derive_plan(*, window_raw: int, ic_pad: int, n: int,
         # the CPU
         kern = "wgln"
         W_eff = _pad_to_mult(window_raw, 32)
+        if shape_bucket:
+            W_eff = max(W_eff, int(shape_bucket.get("w_eff", 0)))
         L = W_eff // 32
         budget_bytes = (1024 if accel else 128) * 1024 * 1024
         K = max(64, min(4096 if accel else 1024,
@@ -142,6 +154,38 @@ def _packable(enc: Encoded) -> bool:
     return m < wgl32.PACK_MAX and enc.table.shape[0] <= 32000
 
 
+def _apply_bucket(enc: Encoded, bucket: dict) -> Encoded:
+    """Pad an encoding into a shared shape bucket (the JAX package's
+    `_apply_bucket`): inv/ret/sufminret/inv_info pad with INF, opcodes
+    with 0, the transition table with -1. Padding ok-slots sit past
+    n_ok and padding info-slots past n_info, so the search never takes
+    them as candidates and verdicts are unchanged; every key of a
+    streamed fan-out then runs the plan the reference runs."""
+    n_pad = max(int(bucket.get("n_pad", len(enc.inv))), len(enc.inv))
+    ic_pad = max(int(bucket.get("ic_pad", len(enc.inv_info))),
+                 len(enc.inv_info))
+    S = max(int(bucket.get("S", enc.table.shape[0])), enc.table.shape[0])
+    O = max(int(bucket.get("O", enc.table.shape[1])), enc.table.shape[1])
+
+    def pad1(a, size, fill):
+        if len(a) == size:
+            return a
+        out = np.full(size, fill, dtype=a.dtype)
+        out[:len(a)] = a
+        return out
+
+    table = enc.table
+    if table.shape != (S, O):
+        table = np.full((S, O), -1, dtype=np.int32)
+        table[:enc.table.shape[0], :enc.table.shape[1]] = enc.table
+    return dataclasses.replace(
+        enc, inv=pad1(enc.inv, n_pad, INF), ret=pad1(enc.ret, n_pad, INF),
+        opcode=pad1(enc.opcode, n_pad, 0),
+        sufminret=pad1(enc.sufminret, n_pad + 1, INF),
+        inv_info=pad1(enc.inv_info, ic_pad, INF),
+        opcode_info=pad1(enc.opcode_info, ic_pad, 0), table=table)
+
+
 def memo_hit_rate(hits, inserts) -> float:
     """hits / (hits + inserts), guarded (the JAX package's
     `occupancy.memo_hit_rate`)."""
@@ -153,7 +197,8 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
           max_configs: int = 200_000_000, frontier: Optional[int] = None,
           enc: Optional[Encoded] = None,
           stop: Optional[Callable[[], bool]] = None,
-          adaptive: Optional[bool] = None, device=None) -> dict:
+          adaptive: Optional[bool] = None, device=None,
+          shape_bucket: Optional[dict] = None) -> dict:
     """Decide linearizability with the device search.
 
     Returns {"valid?": True/False/"unknown", ...}. "unknown" (deadline,
@@ -161,7 +206,9 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
     caller to fall back to the host oracle. `enc` skips re-encoding;
     `stop` is polled between device chunks (True cancels with cause
     "cancelled"); `frontier` pins the beam width; `adaptive=False`
-    turns the bucket ladder off. `device=None` is the CUDA card (it
+    turns the bucket ladder off. `shape_bucket` pads the encoding into
+    a fan-out's shared shape bucket (`_apply_bucket`; built by
+    `parallel.shared_shape_bucket`). `device=None` is the CUDA card (it
     raises when there is none); `device="cpu"` runs the plain PyTorch
     chunk with the host plan (1024-round chunks)."""
     dev = resolve_device(device)
@@ -181,9 +228,12 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
         # valid linearization
         return {"valid?": True, "op_count": enc.n_info}
     accel = dev.type == "cuda"
+    if shape_bucket:
+        enc = _apply_bucket(enc, shape_bucket)
     plan = derive_plan(window_raw=enc.window_raw, ic_pad=len(enc.inv_info),
                        n=n, n_info=enc.n_info,
-                       accel=accel, frontier=frontier, adaptive=adaptive)
+                       accel=accel, frontier=frontier, adaptive=adaptive,
+                       shape_bucket=shape_bucket)
     res = _search_loop(enc, plan, n, max_configs, frontier, dev, t_enter,
                        time_limit, stop)
     res["platform"] = dev.type

@@ -28,6 +28,13 @@ Two implementations of the same function live here:
     kernel `csrc/wgl32_chunk.cu` (built and bound by `_native`); a CPU
     tensor goes to `chunk_ref`. There is no fallback between the two.
 
+The lane-batched pair runs one chunk on every lane of a batch of keys
+padded into one shape bucket (`parallel.batched`): `chunk_batched_ref`
+is `chunk_ref` on each lane in turn, and `chunk_batched` launches
+`wgl32_chunk_batched`, one CTA per lane. Their consts (`BatchConsts`)
+and carry take a leading lane axis, as the JAX package's
+`jit(vmap(chunk_fn))` and `chunk_fn_batched` do.
+
 Both update the carry's tensors IN PLACE (the memo table is 128 MB at
 the headline's size, so a functional copy per chunk would double the
 device memory) and return `(carry, summary)`.
@@ -95,31 +102,91 @@ class Consts:
     max_cfg: int
 
 
+@dataclass
+class BatchConsts:
+    """`Consts` of a batch of lanes padded into one shape bucket, each
+    tensor with a leading lane axis: `meta` (lanes, n_pad + 1, 4), `tk`
+    (lanes, O * S), `iinv`/`iopc` (lanes, ic) and the per-lane scalars
+    `n_ok`, `n_info`, `max_cfg` as (lanes,) int32 tensors."""
+
+    meta: torch.Tensor
+    tk: torch.Tensor
+    iinv: torch.Tensor
+    iopc: torch.Tensor
+    n_ok: torch.Tensor
+    n_info: torch.Tensor
+    max_cfg: torch.Tensor
+    n_pad: int
+    S: int
+    O: int
+
+    @property
+    def lanes(self) -> int:
+        return self.meta.shape[0]
+
+    def lane(self, i: int) -> Consts:
+        """Lane i's `Consts`, as views of the batch's tensors."""
+        return Consts(meta=self.meta[i], tk=self.tk[i], iinv=self.iinv[i],
+                      iopc=self.iopc[i], n_pad=self.n_pad, S=self.S,
+                      n_ok=int(self.n_ok[i]), n_info=int(self.n_info[i]),
+                      max_cfg=int(self.max_cfg[i]))
+
+
+def _meta_rows(inv, ret, opcode, sufminret) -> np.ndarray:
+    """[inv, ret, opcode, sufminret] rows with an INF sentinel row at
+    n_pad, over any leading axes: (..., n_pad + 1, 4)."""
+    inv = np.asarray(inv, np.int32)
+    n_pad = inv.shape[-1]
+    meta = np.empty(inv.shape[:-1] + (n_pad + 1, 4), np.int32)
+    meta[..., :n_pad, 0] = inv
+    meta[..., :n_pad, 1] = np.asarray(ret, np.int32)
+    meta[..., :n_pad, 2] = np.asarray(opcode, np.int32)
+    meta[..., n_pad, :2] = INF
+    meta[..., n_pad, 2] = 0
+    meta[..., 3] = np.asarray(sufminret, np.int32)[..., :n_pad + 1]
+    return meta
+
+
+def _on(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
 def consts_from_numpy(inv, ret, opcode, sufminret, inv_info, opcode_info,
                       table, n_ok: int, n_info: int, max_cfg: int,
                       device) -> Consts:
     """An encoding's numpy arrays (this package's `encode` or the JAX
     package's) -> `Consts` on `device`. `inv_info`/`opcode_info` are
     already cut to the plan's ic_eff."""
-    inv = np.asarray(inv, np.int32)
-    n_pad = len(inv)
-    meta = np.empty((n_pad + 1, 4), np.int32)
-    meta[:n_pad, 0] = inv
-    meta[:n_pad, 1] = np.asarray(ret, np.int32)
-    meta[:n_pad, 2] = np.asarray(opcode, np.int32)
-    meta[n_pad, :2] = INF
-    meta[n_pad, 2] = 0
-    meta[:, 3] = np.asarray(sufminret, np.int32)[:n_pad + 1]
+    meta = _meta_rows(inv, ret, opcode, sufminret)
     table = np.asarray(table, np.int32)
-    S = table.shape[0]
-    tk = np.ascontiguousarray(table.T).reshape(-1)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-    return Consts(meta=dev(meta), tk=dev(tk), iinv=dev(inv_info),
-                  iopc=dev(opcode_info), n_pad=n_pad, S=S, n_ok=int(n_ok),
+    tk = table.T.reshape(-1)
+    return Consts(meta=_on(meta, device), tk=_on(tk, device),
+                  iinv=_on(inv_info, device), iopc=_on(opcode_info, device),
+                  n_pad=meta.shape[0] - 1, S=table.shape[0], n_ok=int(n_ok),
                   n_info=int(n_info), max_cfg=int(max_cfg))
+
+
+def batch_consts_from_numpy(inv, ret, opcode, sufminret, inv_info,
+                            opcode_info, table, n_ok, n_info, max_cfg,
+                            device) -> BatchConsts:
+    """A padded batch's numpy arrays (`parallel.encode_batch`'s, or the
+    JAX package's `BatchEncoded`), each with a leading lane axis ->
+    `BatchConsts` on `device`. `inv_info`/`opcode_info` are already cut
+    to the batch's ic; `max_cfg` is one budget or one per lane."""
+    meta = _meta_rows(inv, ret, opcode, sufminret)
+    table = np.asarray(table, np.int32)
+    lanes, S, O = table.shape
+    tk = np.swapaxes(table, 1, 2).reshape(lanes, -1)
+
+    def per_lane(x):
+        return _on(np.broadcast_to(np.asarray(x, np.int64), (lanes,))
+                   .astype(np.int32), device)
+
+    return BatchConsts(meta=_on(meta, device), tk=_on(tk, device),
+                       iinv=_on(inv_info, device),
+                       iopc=_on(opcode_info, device), n_ok=per_lane(n_ok),
+                       n_info=per_lane(n_info), max_cfg=per_lane(max_cfg),
+                       n_pad=meta.shape[1] - 1, S=S, O=O)
 
 
 def row_words(ic: int) -> int:
@@ -132,12 +199,24 @@ def init_carry(K: int, C: int, H: int, B: int, mstate0: int,
     """The search's start: one frontier row (base 0, empty window,
     model state `mstate0` in column `mst_col`), an empty memo table
     and backlog."""
+    return _start((), K, C, H, B, mstate0, device, mst_col)
+
+
+def init_carry_batch(lanes: int, K: int, C: int, H: int, B: int,
+                     mstate0, device, mst_col: int = 2) -> tuple:
+    """`init_carry` of every lane, each leaf with a leading lane axis
+    (the JAX package's `vmap(init_fn)`). The memo tables are one
+    (lanes, H, 4) allocation, zeroed once."""
+    return _start((lanes,), K, C, H, B, mstate0, device, mst_col)
+
+
+def _start(lead: tuple, K, C, H, B, mstate0, device, mst_col) -> tuple:
     def z(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=device)
+        return torch.zeros(lead + shape, dtype=torch.int32, device=device)
 
     fr = z(K, C)
-    fr[0, mst_col] = mstate0
-    fr_cnt = torch.ones((), dtype=torch.int32, device=device)
+    fr[..., 0, mst_col] = mstate0
+    fr_cnt = torch.ones(lead, dtype=torch.int32, device=device)
     return (fr, fr_cnt, z(B, C), z(), z(H, 4), z(3), z(6),
             z(RING_ROWS, RING_COLS))
 
@@ -166,6 +245,10 @@ def carry_to_numpy(carry) -> tuple:
             a = a != 0
         out.append(a)
     return tuple(out)
+
+
+# a batched carry's leaves convert leaf by leaf, lane axis and all
+carry_batch_to_numpy = carry_to_numpy
 
 
 # ---------------------------------------------------------------------------
@@ -201,12 +284,17 @@ def _fnv(words, seed: int) -> torch.Tensor:
 
 
 def candidates(c: Consts, base, mst, info, linearized, fr_cnt: int, *,
-               K, W, ic):
+               K, W, ic, reach: dict | None = None):
     """Candidate discovery, shared by both window layouts: which of the
     K parents' W window slots and ic info slots may be linearized next,
     and the model state each would reach. `base`/`mst` are (K,) int64,
     `info` (K, Il) uint32 words in int64, `linearized` (K, W) bools.
-    Returns (legal_ok (K, W), legal_info (K, ic), nst_ok, nst_info)."""
+    Returns (legal_ok (K, W), legal_info (K, ic), nst_ok, nst_info).
+
+    `reach` (from `run_chunk` under a tally) holds one bool mask per
+    const table; the entries the live parents must read are set in it:
+    the meta rows of their open window slots and their tail row, the
+    transitions of their candidates, the info slots they consider."""
     dev = base.device
     i64 = torch.int64
     meta = c.meta.to(i64)
@@ -229,9 +317,17 @@ def candidates(c: Consts, base, mst, info, linearized, fr_cnt: int, *,
                & (invw < minret[:, None]) & alive[:, None])
     m = torch.arange(ic, device=dev, dtype=i64)
     info_set = ((info[:, m // 32] >> (m % 32)) & 1) == 1      # (K, ic)
-    cand_info = (~info_set & (m < c.n_info)[None, :]
-                 & (c.iinv.to(i64)[None, :] < minret[:, None])
-                 & alive[:, None])
+    open_info = ~info_set & (m < c.n_info)[None, :] & alive[:, None]
+    cand_info = open_info & (c.iinv.to(i64)[None, :] < minret[:, None])
+    if reach is not None:
+        live = alive.nonzero().squeeze(1)
+        reach["meta"][posc[~linearized & (pos < c.n_ok) & alive[:, None]]] = 1
+        reach["meta"][tailp[live]] = 1
+        reach["tk"][(opw * c.S + mst[:, None])[cand_ok]] = 1
+        reach["tk"][(c.iopc.to(i64)[None, :] * c.S + mst[:, None])[
+            cand_info]] = 1
+        reach["iinv"] |= open_info.any(dim=0)
+        reach["iopc"] |= cand_info.any(dim=0)
     return (cand_ok & (nst_ok >= 0), cand_info & (nst_info >= 0), nst_ok,
             nst_info)
 
@@ -260,7 +356,8 @@ def _round_ref(c: Consts, fr, sc: dict, bk, table, ring, *, K, W, ic, H,
     j = torch.arange(W, device=fr.device, dtype=i64)
     linearized = ((win[:, None] >> j) & 1) == 1               # (K, W)
     legal_ok, legal_info, nst_ok, nst_info = candidates(
-        c, base, mst, info, linearized, sc["fr_cnt"], K=K, W=W, ic=ic)
+        c, base, mst, info, linearized, sc["fr_cnt"], K=K, W=W, ic=ic,
+        reach=sc.get("reach"))
 
     # --- successor construction (bit math) -----------------------------
     win_ok = win[:, None] | (torch.ones_like(j) << j)         # (K, W)
@@ -391,11 +488,23 @@ def run_chunk(consts: Consts, carry, round_fn, *, chunk: int,
     of `round_fn(consts, fr, sc, bk, table, ring)`, stopping when a
     linearization is found, the frontier is empty, or `max_cfg`
     configs were explored. Updates `carry` in place; returns (carry,
-    summary)."""
+    summary).
+
+    A `tally` dict gets two sums, the data-dependent counts a bound on
+    the chunk's memory traffic needs: "probed", the successor rows that
+    went to the memo table (legal, not a linearization), and
+    "const_bytes", the bytes of the const entries the live parents had
+    to read (see `candidates`), each entry once."""
     fr, fr_cnt_t, bk, bk_cnt_t, table, flags_t, stats_t, ring = carry
     sc = {"probed": 0, "fr_cnt": int(fr_cnt_t), "bk_cnt": int(bk_cnt_t),
           "flags": [int(x) for x in flags_t.tolist()],
           "stats": [int(x) for x in stats_t.tolist()]}
+    if tally is not None:
+        sc["reach"] = {k: torch.zeros(t.shape[0], dtype=torch.bool,
+                                      device=fr.device)
+                       for k, t in (("meta", consts.meta), ("tk", consts.tk),
+                                    ("iinv", consts.iinv),
+                                    ("iopc", consts.iopc))}
     sc["stats"][1] = 0
     cur = fr
     while (not sc["flags"][0] and sc["fr_cnt"] > 0
@@ -408,7 +517,11 @@ def run_chunk(consts: Consts, carry, round_fn, *, chunk: int,
     flags_t.copy_(torch.tensor(sc["flags"], dtype=torch.int32))
     stats_t.copy_(torch.tensor(sc["stats"], dtype=torch.int32))
     if tally is not None:
+        r = sc["reach"]
         tally["probed"] = tally.get("probed", 0) + sc["probed"]
+        tally["const_bytes"] = tally.get("const_bytes", 0) + 4 * (
+            4 * int(r["meta"].sum()) + sum(int(r[k].sum())
+                                           for k in ("tk", "iinv", "iopc")))
     return carry, _summary(carry)
 
 
@@ -417,14 +530,37 @@ def chunk_ref(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
     """Plain PyTorch chunk: up to `chunk` rounds, stopping when a
     linearization is found, the frontier is empty, or `max_cfg`
     configs were explored. Updates `carry` in place; returns
-    (carry, summary). A `tally` dict gets "probed": the successor rows
-    that went to the memo table (legal, not a linearization), the
-    data-dependent count a bound on the chunk's memory traffic needs."""
+    (carry, summary). A `tally` dict gets `run_chunk`'s sums."""
     def round_fn(c, fr, sc, bk, table, ring):
         return _round_ref(c, fr, sc, bk, table, ring, K=K, W=W, ic=ic, H=H,
                           B=B, probes=probes)
 
     return run_chunk(consts, carry, round_fn, chunk=chunk, tally=tally)
+
+
+def run_lanes(consts: BatchConsts, carry, chunk_one):
+    """The plain lane-batched chunk: `chunk_one(lane consts, lane
+    carry)` on each lane in turn, on views of the batched carry (so
+    the lanes update it in place). A lane that has stopped runs no
+    round, as the JAX package's vmapped loop freezes it. Returns
+    (carry, summary (lanes, SUMMARY_HEAD + ring))."""
+    summaries = []
+    for i in range(consts.lanes):
+        _, s = chunk_one(consts.lane(i), tuple(t[i] for t in carry))
+        summaries.append(s)
+    return carry, torch.stack(summaries)
+
+
+def chunk_batched_ref(consts: BatchConsts, carry, *, K: int, W: int,
+                      ic: int, H: int, B: int, chunk: int, probes: int,
+                      tally: dict | None = None):
+    """Plain PyTorch lane-batched chunk: `chunk_ref` on every lane
+    (the JAX package's `jit(vmap(chunk_fn))` and `chunk_fn_batched`).
+    Updates `carry` in place; returns (carry, summary (lanes, ...)).
+    `tally` sums `run_chunk`'s counts over the lanes."""
+    return run_lanes(consts, carry, lambda c, lc: chunk_ref(
+        c, lc, K=K, W=W, ic=ic, H=H, B=B, chunk=chunk, probes=probes,
+        tally=tally))
 
 
 # ---------------------------------------------------------------------------
@@ -435,12 +571,15 @@ MAX_PROBES = 8   # the kernel's unrolled probe loop
 MAX_INFO_WORDS = 8
 
 
-def check_launch(consts: Consts, carry, *, K, W, C, ic, H, B, chunk,
-                 probes):
+def check_launch(consts, carry, *, K, W, C, ic, H, B, chunk, probes,
+                 lanes: int | None = None):
     """The checks before a chunk kernel's launch, shared by both window
-    layouts (rows of C int32 words); raises ValueError on what the
-    kernels do not take."""
+    layouts (rows of C int32 words) and by the lane-batched kernels
+    (`lanes` set: `consts` is a `BatchConsts` and every leaf has a
+    leading lane axis); raises ValueError on what the kernels do not
+    take."""
     dev = carry[FR].device
+    lead = () if lanes is None else (lanes,)
     if not 1 <= probes <= MAX_PROBES:
         raise ValueError(f"probes={probes} outside [1, {MAX_PROBES}]")
     if ic < 1 or (ic + 31) // 32 > MAX_INFO_WORDS:
@@ -455,11 +594,20 @@ def check_launch(consts: Consts, carry, *, K, W, C, ic, H, B, chunk,
     want = {FR: (K, C), FR_CNT: (), BK: (B, C), BK_CNT: (), TABLE: (H, 4),
             FLAGS: (3,), STATS: (6,), RING_BUF: (RING_ROWS, RING_COLS)}
     for i, t in enumerate(carry):
-        if tuple(t.shape) != want[i]:
+        if tuple(t.shape) != lead + want[i]:
             raise ValueError(f"carry leaf {i} has shape {tuple(t.shape)}, "
-                             f"want {want[i]}")
+                             f"want {lead + want[i]}")
     tensors = list(carry) + [consts.meta, consts.tk, consts.iinv,
                              consts.iopc]
+    if lanes is not None:
+        if lanes < 1:
+            raise ValueError(f"lanes={lanes}: a batch needs a lane")
+        per_lane = [consts.n_ok, consts.n_info, consts.max_cfg]
+        if any(tuple(t.shape) != lead for t in per_lane):
+            raise ValueError(f"n_ok, n_info and max_cfg must be ({lanes},)")
+        if tuple(consts.tk.shape) != (lanes, consts.S * consts.O):
+            raise ValueError("tk must be (lanes, O * S)")
+        tensors += per_lane
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensor on {t.device}, carry on {dev}")
@@ -467,21 +615,26 @@ def check_launch(consts: Consts, carry, *, K, W, C, ic, H, B, chunk,
             raise ValueError(f"tensor dtype {t.dtype}, want int32")
         if not t.is_contiguous():
             raise ValueError("kernel tensors must be contiguous")
+    # a lane's table starts H * 16 bytes after the one before it, so an
+    # aligned base aligns every lane's
     if carry[TABLE].data_ptr() % 16:
         raise ValueError("memo table must be 16-byte aligned (uint4 slots)")
-    if tuple(consts.meta.shape) != (consts.n_pad + 1, 4):
-        raise ValueError("meta must be (n_pad + 1, 4)")
-    if consts.iinv.numel() != ic or consts.iopc.numel() != ic:
-        raise ValueError(f"info tables must hold ic={ic} slots")
-    if not 0 <= consts.max_cfg < 2**31:
+    if tuple(consts.meta.shape) != lead + (consts.n_pad + 1, 4):
+        raise ValueError("meta must be (n_pad + 1, 4) per lane")
+    if (tuple(consts.iinv.shape) != lead + (ic,)
+            or tuple(consts.iopc.shape) != lead + (ic,)):
+        raise ValueError(f"info tables must hold ic={ic} slots per lane")
+    # a batch's budgets are int32 tensors already
+    if lanes is None and not 0 <= consts.max_cfg < 2**31:
         raise ValueError(f"max_cfg={consts.max_cfg} does not fit int32")
 
 
-def _check_launch(consts: Consts, carry, *, K, W, ic, H, B, chunk, probes):
+def _check_launch(consts, carry, *, K, W, ic, H, B, chunk, probes,
+                  lanes=None):
     if not 1 <= W <= 32:
         raise ValueError(f"wgl32 window width W={W} outside [1, 32]")
     check_launch(consts, carry, K=K, W=W, C=row_words(ic), ic=ic, H=H, B=B,
-                 chunk=chunk, probes=probes)
+                 chunk=chunk, probes=probes, lanes=lanes)
 
 
 def scratch_words(K: int, W: int, ic: int, C: int) -> int:
@@ -517,6 +670,31 @@ def launch(name: str, consts: Consts, carry, *, K, W, L, ic, H, B, rounds,
     return summary
 
 
+def launch_batched(name: str, consts: BatchConsts, carry, *, K, W, L, ic,
+                   H, B, rounds, probes) -> torch.Tensor:
+    """Launch the lane-batched chunk kernel `name`
+    (`wgl32_chunk_batched` or `wgln_chunk_batched`, one CTA per lane)
+    on the carry's card, on the current stream. Returns the (lanes,
+    SUMMARY_HEAD + ring) summary; the carry is updated in place."""
+    from . import _native
+
+    dev = carry[FR].device
+    lanes = consts.lanes
+    C = carry[FR].shape[2]
+    with torch.cuda.device(dev):
+        scratch = torch.empty(lanes * scratch_words(K, W, ic, C),
+                              dtype=torch.int32, device=dev)
+        summary = torch.empty((lanes, SUMMARY_HEAD + RING_ROWS * RING_COLS),
+                              dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [consts.meta, consts.tk, consts.iinv, consts.iopc, *carry,
+                summary, scratch, consts.n_ok, consts.n_info, consts.max_cfg]
+        _native.launch(name, [t.data_ptr() for t in ptrs],
+                       [K, W, L, ic, H, B, rounds, probes, consts.n_pad,
+                        consts.S, consts.O, lanes], stream)
+    return summary
+
+
 def chunk(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
           B: int, chunk: int, probes: int):
     """One chunk of the search (see `chunk_ref`). CUDA tensors run the
@@ -543,3 +721,27 @@ chunk.launches = 0
 def _count_launch():
     # inside `chunk` the name is its round-count parameter
     chunk.launches += 1
+
+
+def chunk_batched(consts: BatchConsts, carry, *, K: int, W: int, ic: int,
+                  H: int, B: int, chunk: int, probes: int):
+    """One chunk on every lane (see `chunk_batched_ref`). CUDA tensors
+    run the `wgl32_chunk_batched` kernel (one launch per call, counted
+    in `chunk_batched.launches`); CPU tensors run `chunk_batched_ref`.
+    Updates `carry` in place; returns (carry, summary (lanes, ...))."""
+    dev = carry[FR].device
+    if dev.type == "cpu":
+        return chunk_batched_ref(consts, carry, K=K, W=W, ic=ic, H=H, B=B,
+                                 chunk=chunk, probes=probes)
+    if dev.type != "cuda":
+        raise ValueError(f"wgl32 chunk_batched: unsupported device {dev}")
+    _check_launch(consts, carry, K=K, W=W, ic=ic, H=H, B=B, chunk=chunk,
+                  probes=probes, lanes=consts.lanes)
+    summary = launch_batched("wgl32_chunk_batched", consts, carry, K=K, W=W,
+                             L=1, ic=ic, H=H, B=B, rounds=chunk,
+                             probes=probes)
+    chunk_batched.launches += 1
+    return carry, summary
+
+
+chunk_batched.launches = 0

@@ -27,6 +27,14 @@ from ..models.core import Model, is_inconsistent
 from .linprep import LinOp, prepare, precedence_masks
 
 
+# configs between two polls of the deadline and the `stop` callable. A
+# config of a long history can cost this search a large part of a
+# millisecond, and a whole search only a few thousand configs, so a
+# sparser poll lets a search the device has already decided run on to
+# its own end while the race waits to join it.
+STOP_POLL = 16
+
+
 def _bits(mask: int):
     i = 0
     while mask:
@@ -45,8 +53,8 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
     includes "final_paths" (sample linearization prefixes that got
     furthest) and "configs" (the stuck configurations). On "unknown",
     includes "cause" ("timeout", "config-limit", or "cancelled" when
-    the `stop` callable — polled every 4096 configs — returns True;
-    competition racing uses it to cancel the losing engine).
+    the `stop` callable — polled every `STOP_POLL` configs — returns
+    True; competition racing uses it to cancel the losing engine).
     """
     ops = prepare(history)
     n = len(ops)
@@ -72,7 +80,7 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
     explored = 0
 
     while stack:
-        if explored % 4096 == 0:
+        if explored % STOP_POLL == 0:
             if deadline is not None and _time.monotonic() > deadline:
                 return {"valid?": "unknown", "cause": "timeout",
                         "op_count": n, "configs_explored": explored}

@@ -30,6 +30,11 @@ Two implementations of the same function live here:
     kernel `csrc/wgln_chunk.cu`; a CPU tensor goes to `chunk_ref`.
     There is no fallback between the two. Both update the carry in
     place.
+
+The lane-batched pair (`chunk_batched_ref`, `chunk_batched` on the
+`wgln_chunk_batched` kernel, one CTA per lane) runs one chunk on every
+lane of a padded batch of keys, as the JAX package's wide
+`jit(vmap(chunk_fn))` does; consts are `wgl32.BatchConsts`.
 """
 
 from __future__ import annotations
@@ -57,6 +62,14 @@ def init_carry(K: int, L: int, ic: int, H: int, B: int, mstate0: int,
                             mst_col=1 + L)
 
 
+def init_carry_batch(lanes: int, K: int, L: int, ic: int, H: int, B: int,
+                     mstate0, device) -> tuple:
+    """`init_carry` of every lane, each leaf with a leading lane axis
+    (the JAX package's `vmap(init_fn)`)."""
+    return wgl32.init_carry_batch(lanes, K, row_words(L, ic), H, B, mstate0,
+                                  device, mst_col=1 + L)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -77,7 +90,8 @@ def _round_ref(c: Consts, fr, sc: dict, bk, table, ring, *, K, L, ic, H,
     lane_of_j, bit_of_j = j // 32, j % 32
     linearized = ((win[:, lane_of_j] >> bit_of_j) & 1) == 1  # (K, W)
     legal_ok, legal_info, nst_ok, nst_info = wgl32.candidates(
-        c, base, mst, info, linearized, sc["fr_cnt"], K=K, W=W, ic=ic)
+        c, base, mst, info, linearized, sc["fr_cnt"], K=K, W=W, ic=ic,
+        reach=sc.get("reach"))
 
     # --- ok successors: set bit j, then funnel-shift right -------------
     set_mask = torch.zeros((W, L), dtype=i64, device=dev)
@@ -123,8 +137,7 @@ def chunk_ref(consts: Consts, carry, *, K: int, L: int, ic: int, H: int,
               B: int, chunk: int, probes: int, tally: dict | None = None):
     """Plain PyTorch chunk of the wide search (see `wgl32.chunk_ref`):
     up to `chunk` rounds; updates `carry` in place; returns (carry,
-    summary). `tally` gets "probed", the successor rows that went to
-    the memo table."""
+    summary). `tally` gets `wgl32.run_chunk`'s sums."""
     def round_fn(c, fr, sc, bk, table, ring):
         return _round_ref(c, fr, sc, bk, table, ring, K=K, L=L, ic=ic, H=H,
                           B=B, probes=probes)
@@ -132,16 +145,29 @@ def chunk_ref(consts: Consts, carry, *, K: int, L: int, ic: int, H: int,
     return wgl32.run_chunk(consts, carry, round_fn, chunk=chunk, tally=tally)
 
 
+def chunk_batched_ref(consts: wgl32.BatchConsts, carry, *, K: int, L: int,
+                      ic: int, H: int, B: int, chunk: int, probes: int,
+                      tally: dict | None = None):
+    """Plain PyTorch lane-batched chunk of the wide search: `chunk_ref`
+    on every lane (the JAX package's wide `jit(vmap(chunk_fn))`).
+    Updates `carry` in place; returns (carry, summary (lanes, ...))."""
+    return wgl32.run_lanes(consts, carry, lambda c, lc: chunk_ref(
+        c, lc, K=K, L=L, ic=ic, H=H, B=B, chunk=chunk, probes=probes,
+        tally=tally))
+
+
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
-def _check_launch(consts: Consts, carry, *, K, L, ic, H, B, chunk, probes):
+def _check_launch(consts, carry, *, K, L, ic, H, B, chunk, probes,
+                  lanes=None):
     if not MIN_LANES <= L <= MAX_LANES:
         raise ValueError(f"wgln lane count L={L} outside "
                          f"[{MIN_LANES}, {MAX_LANES}]")
     wgl32.check_launch(consts, carry, K=K, W=32 * L, C=row_words(L, ic),
-                       ic=ic, H=H, B=B, chunk=chunk, probes=probes)
+                       ic=ic, H=H, B=B, chunk=chunk, probes=probes,
+                       lanes=lanes)
 
 
 def chunk(consts: Consts, carry, *, K: int, L: int, ic: int, H: int,
@@ -170,3 +196,28 @@ chunk.launches = 0
 def _count_launch():
     # inside `chunk` the name is its round-count parameter
     chunk.launches += 1
+
+
+def chunk_batched(consts: wgl32.BatchConsts, carry, *, K: int, L: int,
+                  ic: int, H: int, B: int, chunk: int, probes: int):
+    """One wide chunk on every lane (see `chunk_batched_ref`). CUDA
+    tensors run the `wgln_chunk_batched` kernel (one launch per call,
+    counted in `chunk_batched.launches`); CPU tensors run
+    `chunk_batched_ref`. Updates `carry` in place; returns (carry,
+    summary (lanes, ...))."""
+    dev = carry[FR].device
+    if dev.type == "cpu":
+        return chunk_batched_ref(consts, carry, K=K, L=L, ic=ic, H=H, B=B,
+                                 chunk=chunk, probes=probes)
+    if dev.type != "cuda":
+        raise ValueError(f"wgln chunk_batched: unsupported device {dev}")
+    _check_launch(consts, carry, K=K, L=L, ic=ic, H=H, B=B, chunk=chunk,
+                  probes=probes, lanes=consts.lanes)
+    summary = wgl32.launch_batched("wgln_chunk_batched", consts, carry, K=K,
+                                   W=32 * L, L=L, ic=ic, H=H, B=B,
+                                   rounds=chunk, probes=probes)
+    chunk_batched.launches += 1
+    return carry, summary
+
+
+chunk_batched.launches = 0

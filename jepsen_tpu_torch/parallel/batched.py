@@ -1,0 +1,491 @@
+"""Batched WGL search over many independent histories, on one card.
+
+The port of `jepsen_tpu/parallel/batched.py` for one device. Every
+key's history is encoded into one shared shape bucket; then either
+
+  * **vmap**: the whole batch runs as lanes of one search, one lane per
+    key. Each poll is ONE launch of the lane-batched chunk kernel
+    (`wgl32.chunk_batched` for windows of at most 32 ops,
+    `wgln.chunk_batched` past that: one CUDA block per lane, each to
+    its own stop) and ONE device-to-host copy of the (lanes, 11 + ring)
+    summary. This is the reference's `jit(vmap(chunk_fn))`
+    (`_compiled_batched`), its single-device default for 4 or more
+    keys;
+  * **stream**: one `ops.wgl.check` per key in turn, each padded into
+    the shared bucket of its kernel branch (the reference's
+    `check_streamed` on one device), racing the host oracle on the card
+    (`checker._race_competition`).
+
+Keys whose history cannot be encoded, or that have no ok op, are
+decided on the host; keys the device leaves "unknown" go to the host
+oracle (competition semantics).
+
+Departures from the reference, each so that the device is never hidden:
+the device is resolved up front and `device=None` (the card) raises
+without one (no host fallback for a backend that does not come up); a
+kernel's build or launch failure raises instead of becoming a per-key
+fault that the oracle then decides. Not ported yet: the
+multi-device branches (the mesh scheduler `check_mesh`, which returns
+None with fewer than 2 devices, so `strategy="mesh"` degrades to "auto"
+here exactly as it does there; `check_streamed`'s worker pool; key
+padding to a mesh size), the preflight admission gate, and the
+telemetry planes (fleet status, metrics series, watchdog, HBM block).
+"""
+
+from __future__ import annotations
+
+import os
+import time as _time
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .. import fleet as _fleet
+from ..history import History
+from ..models.core import Model
+from ..ops import adapt as _adapt
+from ..ops import wgl, wgl32, wgl_ref, wgln
+from ..ops.encode import INF, Encoded, EncodingUnsupported, _pad_to, encode
+from ..util import resolve_device
+
+STRATEGIES = ("auto", "vmap", "stream", "mesh")
+
+
+def shared_shape_bucket(encs: Sequence[Encoded]) -> Optional[dict]:
+    """One (n_pad, ic, S, O, w_eff) shape bucket covering every key of
+    a streamed fan-out: `wgl.check(shape_bucket=...)` pads each
+    encoding into it, so every key runs the plan the reference runs
+    for it (the reference shares one compiled kernel per bucket this
+    way). Only meaningful when every key takes the same kernel branch:
+    callers split keys at window_raw 32 and bucket each group apart.
+    Returns None for empty input."""
+    if not encs:
+        return None
+    wide = max(e.window_raw for e in encs) > 32
+    w_eff = 0
+    ic_eff = 8
+    for e in encs:
+        if wide:
+            w_eff = max(w_eff, _pad_to(e.window_raw, 32))
+        else:
+            w_eff = max(w_eff, max(8, _pad_to(e.window_raw, 8)))
+        ic_eff = max(ic_eff, _pad_to(max(e.n_info, 1), 8))
+    return {
+        "n_pad": max(len(e.inv) for e in encs),
+        "ic_pad": max(len(e.inv_info) for e in encs),
+        "S": max(e.table.shape[0] for e in encs),
+        "O": max(e.table.shape[1] for e in encs),
+        "w_eff": w_eff,
+        "ic_eff": min(ic_eff, max(len(e.inv_info) for e in encs)),
+        "n_cap": max(e.n_ok for e in encs),
+        "pack": all(wgl._packable(e) for e in encs),
+    }
+
+
+@dataclass
+class BatchEncoded:
+    """A batch of per-key encodings padded into one shape bucket."""
+
+    n_keys: int            # keys (= lanes)
+    n_pad: int
+    ic_pad: int
+    window: int
+    table_s: int
+    table_o: int
+    inv: np.ndarray        # (Bk, n_pad) i32
+    ret: np.ndarray        # (Bk, n_pad) i32
+    opcode: np.ndarray     # (Bk, n_pad) i32
+    sufminret: np.ndarray  # (Bk, n_pad+1) i32
+    inv_info: np.ndarray   # (Bk, ic_pad) i32
+    opcode_info: np.ndarray  # (Bk, ic_pad) i32
+    table: np.ndarray      # (Bk, S, O) i32
+    n_ok: np.ndarray       # (Bk,) i32
+    n_info: np.ndarray     # (Bk,) i32
+
+
+def encode_batch(encs: Sequence[Encoded]) -> BatchEncoded:
+    """Pad per-key encodings into a common bucket and stack them, one
+    lane per key (the reference's `encode_batch` with `batch_pad=1`:
+    one card needs no dummy lanes)."""
+    nk = bk = len(encs)
+    n_pad = max(len(e.inv) for e in encs)
+    ic_pad = max(len(e.inv_info) for e in encs)
+    W = max(e.window for e in encs)
+    S = max(e.table.shape[0] for e in encs)
+    O = max(e.table.shape[1] for e in encs)
+
+    inv = np.full((bk, n_pad), INF, dtype=np.int32)
+    ret = np.full((bk, n_pad), INF, dtype=np.int32)
+    opc = np.zeros((bk, n_pad), dtype=np.int32)
+    suf = np.full((bk, n_pad + 1), INF, dtype=np.int32)
+    iinv = np.full((bk, ic_pad), INF, dtype=np.int32)
+    iopc = np.zeros((bk, ic_pad), dtype=np.int32)
+    table = np.full((bk, S, O), -1, dtype=np.int32)
+    n_ok = np.zeros(bk, dtype=np.int32)
+    n_info = np.zeros(bk, dtype=np.int32)
+    for i, e in enumerate(encs):
+        inv[i, :len(e.inv)] = e.inv
+        ret[i, :len(e.ret)] = e.ret
+        opc[i, :len(e.opcode)] = e.opcode
+        suf[i, :len(e.sufminret)] = e.sufminret
+        iinv[i, :len(e.inv_info)] = e.inv_info
+        iopc[i, :len(e.opcode_info)] = e.opcode_info
+        s, o = e.table.shape
+        table[i, :s, :o] = e.table
+        n_ok[i] = e.n_ok
+        n_info[i] = e.n_info
+    return BatchEncoded(n_keys=nk, n_pad=n_pad, ic_pad=ic_pad, window=W,
+                        table_s=S, table_o=O, inv=inv, ret=ret, opcode=opc,
+                        sufminret=suf, inv_info=iinv, opcode_info=iopc,
+                        table=table, n_ok=n_ok, n_info=n_info)
+
+
+def _batch_capacities(bk: int, W: int, n_pad: int, L: int = 0):
+    """Frontier K / memo H / backlog B *per key* (the reference's
+    `_batch_capacities`, copied exactly so that every lane runs the
+    reference's search). Narrow frontiers explore far fewer redundant
+    configs on valid histories (K = 64, as lanes cannot escalate); the
+    memo table stays under ~60% load; whole-batch caps keep the narrow
+    (Bk, K, W, 2W) intermediate under 128M elements, the wide (Bk, K,
+    W, L) uint32 successor tensor under 128 MB and the memo tables
+    (16 B/slot) under ~2 GB across the batch."""
+    if L:  # wide kernel: byte budget over the (Bk, K, W, L) successors,
+        #    floored at the kernel minimum (16)
+        budget_bytes = 128 * 1024 * 1024
+        K = max(16, min(1024, budget_bytes // max(1, bk * W * L * 4 * 3)))
+        cap = int(os.environ.get("JEPSEN_TPU_MAX_FRONTIER", "0"))
+        if cap:
+            K = max(16, min(K, cap))
+    else:
+        budget = 128 * 1024 * 1024  # bool elements across the batch
+        cap = max(16, budget // max(1, bk * 2 * W * W))
+        K = min(64, cap)
+    K = 1 << (K.bit_length() - 1)
+    H = 1 << 21 if n_pad > 2048 else 1 << 19
+    cap = max(1 << 16, 2**31 // (16 * max(1, bk)))
+    # the kernels mask probe indices with `& (H - 1)`: H stays a power
+    # of two
+    H = min(H, 1 << (cap.bit_length() - 1))
+    # wide rows are (L + Il + 2) words and wide wavefronts spill hard
+    B = 1 << 16 if L else 1 << 14
+    return K, H, B
+
+
+def _oracle_fallback(model: Model, history: History,
+                     deadline: Optional[float], device_res: dict) -> dict:
+    """Re-check a device-"unknown" history with the host oracle inside
+    whatever time remains, annotating why the device declined
+    (competition semantics). Always annotates `device_cause`, even when
+    the deadline has passed and the device result is returned as it
+    was."""
+    remaining = (deadline - _time.monotonic()
+                 if deadline is not None else None)
+    cause = device_res.get("cause") or "undecided"
+    if remaining is not None and remaining <= 0:
+        out = dict(device_res)
+        out.setdefault("device_cause", cause)
+        out.setdefault("fallback", "skipped: deadline expired")
+        return out
+    ref = wgl_ref.check(model, history, time_limit=remaining)
+    ref["device_cause"] = ref.get("device_cause", cause)
+    ref.setdefault("engine", "oracle-fallback")
+    return ref
+
+
+def _annotate_shard(res: dict, *, key_index: int, device: str,
+                    engine: str, t0: float, wall_s: float,
+                    device_index: Optional[int] = None,
+                    extra: Optional[dict] = None) -> dict:
+    """Stamp a per-key `shard` block (the reference's keys) onto a
+    result. Returns the result for chaining."""
+    shard = {"key_index": key_index, "device": device,
+             "engine": engine, "t0": round(t0, 4),
+             "wall_s": round(wall_s, 4),
+             "valid?": res.get("valid?"),
+             "op_count": res.get("op_count")}
+    if device_index is not None:
+        shard["device_index"] = device_index
+    if res.get("cause") is not None:
+        shard["cause"] = res.get("cause")
+    if res.get("device_cause") is not None:
+        shard["device_cause"] = res.get("device_cause")
+    if extra:
+        shard.update(extra)
+    res["shard"] = shard
+    return res
+
+
+def check_streamed(model: Model, histories: Sequence[History],
+                   time_limit: Optional[float] = None,
+                   max_configs: int = 50_000_000,
+                   oracle_fallback: bool = True,
+                   encs: Optional[Sequence[Encoded]] = None,
+                   key_indices: Optional[Sequence[int]] = None,
+                   device=None) -> list[dict]:
+    """Per-key single-kernel checks, one key after another on one
+    device (the reference's one-device branch). On the card with
+    `oracle_fallback`, each key's device search races the host oracle
+    (the host is otherwise idle); otherwise a device "unknown" goes to
+    the oracle afterwards. With `encs`, each kernel branch's keys share
+    one shape bucket (`shared_shape_bucket`)."""
+    dev = resolve_device(device)
+    race = oracle_fallback and dev.type == "cuda"
+    deadline = _time.monotonic() + time_limit if time_limit else None
+    bucket_n = bucket_w = None
+    if encs is not None and len(histories) > 1:
+        bucket_n = shared_shape_bucket(
+            [e for e in encs if e.window_raw <= 32])
+        bucket_w = shared_shape_bucket(
+            [e for e in encs if e.window_raw > 32])
+    label = _fleet.device_label(dev)
+    di = dev.index or 0
+
+    def one(i: int) -> dict:
+        ki = key_indices[i] if key_indices is not None else i
+        h = histories[i]
+        enc = encs[i] if encs else None
+        t0 = _time.monotonic()
+        remaining = None
+        if deadline is not None:
+            remaining = deadline - t0
+            if remaining <= 0:
+                return _annotate_shard(
+                    {"valid?": "unknown", "cause": "timeout",
+                     "op_count": len(h)}, key_index=ki, device=label,
+                    device_index=di, engine="none", t0=t0, wall_s=0.0)
+        retries = 0
+        if race:
+            from ..checker import _race_competition
+            res = _race_competition(model, h, remaining, device=dev,
+                                    max_configs=max_configs, enc=enc)
+            engine = str(res.get("engine") or "device")
+        else:
+            sb = None
+            if enc is not None:
+                sb = bucket_n if enc.window_raw <= 32 else bucket_w
+            res = wgl.check(model, h, time_limit=remaining,
+                            max_configs=max_configs, enc=enc,
+                            shape_bucket=sb, device=dev)
+            engine = "device"
+            if res.get("valid?") == "unknown" and oracle_fallback:
+                retries = 1
+                res = _oracle_fallback(model, h, deadline, res)
+                # a past-deadline skip sets no engine: the shard stays
+                # "device" (the oracle never ran)
+                engine = str(res.get("engine") or engine)
+        return _annotate_shard(res, key_index=ki, device=label,
+                               device_index=di, engine=engine, t0=t0,
+                               wall_s=_time.monotonic() - t0,
+                               extra={"retries": retries})
+
+    return [one(i) for i in range(len(histories))]
+
+
+def check_batched(model: Model, histories: Sequence[History],
+                  time_limit: Optional[float] = None,
+                  max_configs: int = 50_000_000,
+                  oracle_fallback: bool = True,
+                  chunk: int = 1024, strategy: str = "auto",
+                  device=None) -> list[dict]:
+    """Check many independent histories against `model` on one device.
+    Returns one result dict per history, in order.
+
+    strategy: "vmap" — every key a lane of one lane-batched search (one
+    kernel launch and one summary copy per poll; lanes run to their own
+    stops); "stream" — one single-key search per key (`check_streamed`);
+    "mesh" — the reference's multi-device scheduler, which needs two or
+    more devices and so degrades to "auto" here, as it does there;
+    "auto" — on the card, vmap for 4 or more encodable keys, else
+    stream; on the CPU, stream when the biggest history has more than
+    512 ok ops, else vmap.
+
+    `max_configs` is a per-key exploration budget. With
+    `oracle_fallback`, keys the device leaves "unknown" are re-checked by
+    the host oracle; pass False to see raw device verdicts.
+    `device=None` is the card (it raises without one); `device="cpu"`
+    runs the kernels' plain versions."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    dev = resolve_device(device)
+    # device stats are int32: cap the budget so the explored counter
+    # can reach it without wrapping (it grows by at most K per round)
+    max_configs = min(max_configs, 2**30)
+    results: list[Optional[dict]] = [None] * len(histories)
+    encs: list[Encoded] = []
+    keys: list[int] = []  # lane -> history index
+    for i, h in enumerate(histories):
+        t_enc = _time.monotonic()
+        try:
+            e = encode(model, h)
+        except EncodingUnsupported as exc:
+            if oracle_fallback:
+                res = wgl_ref.check(model, h, time_limit=time_limit)
+                res.setdefault("device_cause", f"encoding: {exc}")
+            else:
+                res = {"valid?": "unknown", "cause": f"encoding: {exc}",
+                       "op_count": len(h)}
+            results[i] = _annotate_shard(
+                res, key_index=i, device="host", engine="host", t0=t_enc,
+                wall_s=_time.monotonic() - t_enc)
+            continue
+        if e.n_ok == 0:
+            results[i] = _annotate_shard(
+                {"valid?": True, "op_count": e.n_info}, key_index=i,
+                device="host", engine="host", t0=t_enc,
+                wall_s=_time.monotonic() - t_enc)
+            continue
+        encs.append(e)
+        keys.append(i)
+    if not encs:
+        return results  # type: ignore[return-value]
+
+    if strategy == "mesh":
+        strategy = "auto"
+    if strategy == "auto":
+        on_card = dev.type == "cuda"
+        stream_wins = ((not on_card and max(e.n_ok for e in encs) > 512)
+                       or (on_card and len(encs) < 4))
+        strategy = "stream" if stream_wins else "vmap"
+    if strategy == "stream":
+        out = check_streamed(
+            model, [histories[i] for i in keys], time_limit=time_limit,
+            max_configs=max_configs, oracle_fallback=oracle_fallback,
+            encs=encs, key_indices=keys, device=dev)
+    else:
+        out = _check_vmap(model, [histories[i] for i in keys], encs, keys,
+                          time_limit=time_limit, max_configs=max_configs,
+                          oracle_fallback=oracle_fallback, chunk=chunk,
+                          dev=dev)
+    for i, res in zip(keys, out):
+        results[i] = res
+    return results  # type: ignore[return-value]
+
+
+def vmap_plan(batch: BatchEncoded, w_raw: int, chunk: int = 1024) -> dict:
+    """The lane-batched search's plan for a padded batch whose widest
+    key needs a window of `w_raw` ok ops (the reference's vmap branch):
+    {W, L, ic, K, H, B, chunk, probes}; L is 0 for the narrow kernel.
+    Trimmed to what the batch needs, since the successor-row count
+    R = K * (W + ic) drives the probe traffic."""
+    ic = batch.ic_pad
+    ic = min(ic, max(8, _pad_to(int(batch.n_info.max()), 8)))
+    if w_raw <= 32:
+        W, L = max(8, _pad_to(w_raw, 8)), 0
+    else:
+        # the window as L uint32 lanes; rounds are light, so poll often
+        W = _pad_to(w_raw, 32)
+        L = W // 32
+        chunk = min(chunk, 128)
+    K, H, B = _batch_capacities(batch.inv.shape[0], W, batch.n_pad, L)
+    return {"W": W, "L": L, "ic": ic, "K": K, "H": H, "B": B,
+            "chunk": chunk, "probes": 4}
+
+
+def batch_consts(batch: BatchEncoded, plan: dict, max_configs: int,
+                 dev) -> wgl32.BatchConsts:
+    """The batch's consts on `dev`, info tables cut to the plan's ic."""
+    ic = plan["ic"]
+    return wgl32.batch_consts_from_numpy(
+        batch.inv, batch.ret, batch.opcode, batch.sufminret,
+        batch.inv_info[:, :ic], batch.opcode_info[:, :ic], batch.table,
+        batch.n_ok, batch.n_info, max_configs, dev)
+
+
+def _check_vmap(model: Model, histories: Sequence[History],
+                encs: Sequence[Encoded], keys: Sequence[int], *,
+                time_limit, max_configs: int, oracle_fallback: bool,
+                chunk: int, dev) -> list[dict]:
+    """The lockstep batch: every encodable key a lane, one lane-batched
+    chunk launch and one summary copy per poll, until no lane is live
+    or the deadline passes."""
+    batch = encode_batch(encs)
+    bk = batch.inv.shape[0]
+    plan = vmap_plan(batch, max(e.window_raw for e in encs), chunk)
+    W, L, ic, K, H, B = (plan[k] for k in ("W", "L", "ic", "K", "H", "B"))
+    chunk, probes = plan["chunk"], plan["probes"]
+    consts = batch_consts(batch, plan, max_configs, dev)
+    if L:
+        carry = wgln.init_carry_batch(bk, K, L, ic, H, B, 0, dev)
+
+        def step(carry):
+            return wgln.chunk_batched(consts, carry, K=K, L=L, ic=ic, H=H,
+                                      B=B, chunk=chunk, probes=probes)
+        hint_ladder = _adapt.ladder_for(K, k_min=max(32, K // 16), step=8)
+    else:
+        carry = wgl32.init_carry_batch(bk, K, wgl32.row_words(ic), H, B, 0,
+                                       dev)
+
+        def step(carry):
+            return wgl32.chunk_batched(consts, carry, K=K, W=W, ic=ic, H=H,
+                                       B=B, chunk=chunk, probes=probes)
+        hint_ladder = _adapt.LADDER32
+
+    t0 = _time.monotonic()
+    deadline = t0 + time_limit if time_limit else None
+    timed_out = False
+    while True:
+        carry, summary = step(carry)
+        # the one device->host copy per poll: [fr_cnt, flags x3,
+        # stats x6, bk_cnt, ring] per lane
+        s = summary.cpu().numpy()
+        fr_cnt, flags, stats = s[:, 0], s[:, 1:4], s[:, 4:10]
+        found = flags[:, 0] != 0
+        empty = fr_cnt == 0
+        budget = stats[:, 0] >= max_configs
+        live = ~(found | empty | budget)
+        live[batch.n_keys:] = False
+        if not live.any():
+            break
+        if deadline is not None and _time.monotonic() > deadline:
+            timed_out = True
+            break
+    wall = _time.monotonic() - t0
+
+    overflow = flags[:, 1]
+    label = _fleet.device_label(dev)
+    out = []
+    for lane, (hist, e) in enumerate(zip(histories, encs)):
+        n_total = int(e.n_ok + e.n_info)
+        explored = int(stats[lane, 0])
+        hits, ins = int(stats[lane, 3]), int(stats[lane, 4])
+        rounds = int(stats[lane, 5])
+        # "W" is the lane's own window; "W_pad" the batch's kernel width
+        detail = {"W": e.window_raw, "W_pad": W, "K": K,
+                  "configs_explored": explored,
+                  "batch_keys": batch.n_keys, "batch_wall_s": round(wall, 4),
+                  "util": {
+                      "rounds": rounds,
+                      "frontier_fill": round(explored / max(rounds * K, 1),
+                                             4),
+                      "memo_hit_rate": wgl.memo_hit_rate(hits, ins)},
+                  "occupancy": {
+                      "lane": lane, "K": K,
+                      "fill_last": round(int(fr_cnt[lane]) / max(K, 1), 4),
+                      "rounds": rounds,
+                      # the ladder bucket a solo search of this key would
+                      # have settled at
+                      "hint": _adapt.recommend(hint_ladder,
+                                               explored / max(rounds, 1))}}
+        engine = "device-vmap"
+        if found[lane]:
+            res = {"valid?": True, "op_count": n_total, **detail}
+        elif empty[lane] and not overflow[lane]:
+            res = {"valid?": False, "op_count": n_total,
+                   "max_linearized": int(stats[lane, 2]), **detail}
+        else:
+            cause = ("backlog-overflow" if overflow[lane]
+                     else "config-limit" if budget[lane] else "timeout")
+            res = {"valid?": "unknown", "cause": cause,
+                   "op_count": n_total, **detail}
+            if oracle_fallback and not timed_out:
+                res = _oracle_fallback(model, hist, deadline, res)
+                engine = str(res.get("engine") or engine)
+        out.append(_annotate_shard(
+            res, key_index=keys[lane], device=label,
+            device_index=dev.index or 0, engine=engine, t0=t0,
+            # lockstep lanes all pay the batch wall; per-lane rounds and
+            # configs are the imbalance signal
+            wall_s=wall, extra={"rounds": rounds,
+                                "configs_explored": explored}))
+    return out

@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and `bounded_pmap`.
 
 Every entry point takes `device=None`, which means the CUDA card. There
 is no silent fallback: asking for CUDA where there is none raises, and
@@ -8,7 +8,8 @@ kernel wrapper takes its plain PyTorch version.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -36,3 +37,14 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def bounded_pmap(f: Callable, coll: Sequence, max_workers: int = 16) -> list:
+    """pmap with a bounded worker pool (jepsen.util/bounded-pmap
+    parity): `f` over `coll` on at most `max_workers` threads, results
+    in order."""
+    coll = list(coll)
+    if not coll:
+        return []
+    with ThreadPoolExecutor(max_workers=min(max_workers, len(coll))) as ex:
+        return list(ex.map(f, coll))

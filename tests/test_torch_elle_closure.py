@@ -196,6 +196,11 @@ def test_native_table_binds_every_entry_point():
 
     from jepsen_tpu_torch.ops import _native
 
+    # the WGL kernels take their parameters from an argument-list macro
+    macros = {m: body.replace("\\", " ") for m, body in re.findall(
+        r"#define (WGL_\w+_ARGS)((?:.*\\\n)*.*)",
+        (Path(_native.CSRC) / "wgl_common.cuh").read_text())}
+    assert set(macros) == {"WGL_CHUNK_ARGS", "WGL_BATCHED_ARGS"}
     found = {}
     for src in sorted(Path(_native.CSRC).glob("*.cu")):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
@@ -203,10 +208,9 @@ def test_native_table_binds_every_entry_point():
             found[name] = src.stem
             stem, n_ptrs, n_ints = _native.KERNELS[name]
             assert stem == src.stem
-            if params.strip() == "WGL_CHUNK_ARGS":
-                continue
+            params = macros.get(params.strip(), params)
             args = [a.strip() for a in params.split(",")]
-            assert args[-1] == "void* stream"
+            assert args[-1].replace(" ", "") == "void*stream"
             assert sum("*" in a for a in args[:-1]) == n_ptrs, name
             assert sum("*" not in a for a in args[:-1]) == n_ints, name
     assert found.keys() == _native.KERNELS.keys()

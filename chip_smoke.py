@@ -36,6 +36,24 @@ per-key fan-out:
     oracle; each engine's end is timed per key), the same keys without
     the race, and in the shared shape bucket against their own plans.
 
+Then the several-devices paths, every shard on this one card (the
+device list `[card] * n`; each shard launches on its own stream):
+
+  * the mesh lane scheduler's kernels against their plain versions:
+    `wgl_lane_reset` on a 100-lane narrow carry and an 8-lane wide one,
+    `wgl_frontier_migrate` up and down one ladder step;
+  * the 100 x 2k history, valid and invalid, through
+    `independent.cuda_checker(cas_register(), devices=[card] * 2)`: the
+    mesh scheduler, 2 shards x 4 lane slots refilled from the shards'
+    queues (`wgl32_chunk_batched` per shard per poll, `wgl_lane_reset`
+    for the refilled lanes, `wgl_frontier_migrate` at a ladder switch);
+    every key's verdict equals the vmap path's, the failures the host
+    oracle's;
+  * 8 wave keys (4 valid, 4 invalid) through `parallel.mesh.check_mesh`
+    with `assign="block"`, 2 shards x 2 slots, so that the idle pull
+    moves a key (`wgln_chunk_batched`);
+  * the 3 stream keys over `devices=[card] * 2` (one worker a shard).
+
 Then Elle:
 
   * the dense closure (`elle_closure`): 3k-txn list-append and
@@ -45,7 +63,12 @@ Then Elle:
   * the packed closure (`elle_packed_closure`): a 10k-txn list-append
     history through the same call (n_pad 16384);
   * the trim (`elle_trim`): the 3k list-append history with
-    `cycle_backend="trim"`.
+    `cycle_backend="trim"`;
+  * the sharded closure (`elle_sharded_square`): one squaring of the
+    10k reach with 1, 2 and 4 shards against `packed_square_ref`, then
+    the 10k history with `cycle_backend="sharded"` over 2 and 4 shards
+    of the card, bit-identical to the packed closure and equal to the
+    host oracle's verdict (run in a background process from the start).
 
 It prints as its last lines the card, one JSON line of per-kernel
 numbers and
@@ -55,9 +78,11 @@ or a directory without the package.
 """
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -79,7 +104,8 @@ ELLE_SMALL = dict(n_txns=300, seed=5)
 FANOUT = dict(n_keys=100, n_ops=2000, n_procs=5, crash_p=0.002)
 FANOUT_BAD = dict(keys=(7, 31, 58, 90), lie_p=0.01)
 FANOUT_SHORT = 32           # rounds of the all-lanes kernel/plain check
-FANOUT_FULL_LANES = 2       # lanes of the full-chunk kernel/plain check
+FANOUT_FULL_LANES = 1       # lanes of the full-chunk kernel/plain check
+HEADLINE_K512_ROUNDS = 1024   # rounds of the K=512 kernel/plain check
 FANOUT_WAVE = dict(n_keys=8, n_waves=6, width=12, span=3, chunk=64)
 # the JAX package's per-key exhaustive counts for the 8 wave keys
 # (`check_batched(strategy="vmap", chunk=64)` on a one-device CPU mesh,
@@ -87,6 +113,11 @@ FANOUT_WAVE = dict(n_keys=8, n_waves=6, width=12, span=3, chunk=64)
 FANOUT_WAVE_CONFIGS = [176023, 176019, 175945, 175939, 176025, 175943,
                        176012, 176061]
 FANOUT_STREAM_KEYS = 3
+MESH_SHARDS = 2               # shards of the mesh fan-out, all on the card
+# wave keys through check_mesh: seeds < 4 valid, the rest invalid
+MESH_WAVE = dict(n_keys=8, n_valid=4, lanes_per_device=2)
+ELLE_SHARDS = (2, 4)          # shards of the sharded Elle main path
+SHARD_CHECK = (1, 2, 4)       # shard counts of the sharded-square check
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 INT32_LANES = 64              # int32 operations per SM per clock
 RT = ("realtime",)
@@ -136,12 +167,16 @@ def counters() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from jepsen_tpu_torch.elle import tpu as etpu
     from jepsen_tpu_torch.ops import wgl32, wgln
+    from jepsen_tpu_torch.parallel import mesh
     return {"wgl32_chunk": wgl32.chunk, "wgln_chunk": wgln.chunk,
             "wgl32_chunk_batched": wgl32.chunk_batched,
             "wgln_chunk_batched": wgln.chunk_batched,
             "elle_closure": etpu.closure,
             "elle_packed_closure": etpu.packed_closure,
-            "elle_trim": etpu.trim}
+            "elle_trim": etpu.trim,
+            "wgl_lane_reset": mesh.reset_lanes,
+            "wgl_frontier_migrate": mesh.migrate_lanes,
+            "elle_sharded_square": etpu.sharded_square}
 
 
 def zero_counts() -> None:
@@ -399,10 +434,24 @@ def same_verdict(what, got, want, cycles_too=False) -> None:
                              f"{cycles(want)}")
 
 
-def elle_phases(dev) -> list:
+def elle_host_verdict(params: dict) -> dict:
+    """The host oracle's verdict on a list-append history (in a worker
+    process): valid? and anomaly-types."""
+    from jepsen_tpu_torch import synth
+    from jepsen_tpu_torch.elle import append
+    t0 = time.monotonic()
+    res = append.check(synth.list_append_history(**params),
+                       additional_graphs=RT, cycle_backend="host")
+    return {"valid?": res["valid?"], "anomaly-types": res["anomaly-types"],
+            "seconds": time.monotonic() - t0}
+
+
+def elle_phases(dev, host10) -> list:
     """Elle on the card: the small corpora, the 3k cells (dense closure
-    and trim), the invalid histories, the 10k cell (packed closure).
-    Returns the three kernels' entries of the kernels line."""
+    and trim), the invalid histories, the 10k cell (packed closure), and
+    the sharded closure over shards of the card (its verdict against
+    `host10`, the future of `elle_host_verdict(ELLE_10K)`). Returns the
+    four kernels' entries of the kernels line."""
     from jepsen_tpu_torch import synth
     from jepsen_tpu_torch.elle import append, build, wr
     from jepsen_tpu_torch.elle import tpu as etpu
@@ -573,6 +622,111 @@ def elle_phases(dev) -> list:
           f"and the label pass; one plain squaring {pplain_ms:.1f} ms")
     errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr)
 
+    # ---- the sharded closure: shards of this card ------------------------------
+    # one squaring of the 10k reach, every shard's block against the
+    # matching column block of packed_square_ref
+    cnt = torch.zeros(S, dtype=torch.int32, device=dev)
+    full_ref = etpu.packed_square_ref(p[0], cnt)
+    n, W = a["n_pad"], a["n_pad"] // 32
+    s_err = 0
+    for ns in SHARD_CHECK:
+        w_loc = W // ns
+        blocks = etpu.shard_blocks(p[0], ns)
+        times = []
+        for k, b in enumerate(blocks):
+            c = torch.zeros(S, dtype=torch.int32, device=dev)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            o = etpu.sharded_square(p[0], b, c)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            want_blk = full_ref[..., k * w_loc:(k + 1) * w_loc]
+            want_cnt = etpu._popcount32(want_blk.to(torch.int64)
+                                        & 0xFFFFFFFF).sum(dim=(1, 2))
+            err = max(max_abs_err([o], [want_blk]),
+                      max_abs_err([c], [want_cnt]))
+            s_err = max(s_err, err)
+            if err:
+                raise AssertionError(f"elle_sharded_square, {ns} shards, "
+                                     f"block {k}: max abs err {err}")
+        print(f"elle_sharded_square == packed_square_ref's column blocks, "
+              f"{ns} shard(s) of {w_loc} words on the card: kernel ms per "
+              f"shard {[round(x, 3) for x in times]}", flush=True)
+    # the main path's shape: 2 shards, shard 0
+    blk0 = etpu.shard_blocks(p[0], ELLE_SHARDS[0])[0]
+    c0 = torch.zeros(S, dtype=torch.int32, device=dev)
+    sh_ms = event_ms(lambda: etpu.sharded_square(p[0], blk0, c0))
+    c1 = torch.zeros(S, dtype=torch.int32, device=dev)
+    ref_blk = etpu.sharded_square_ref(p[0], blk0, c1)
+    torch.cuda.synchronize()
+    s_err = max(s_err, max_abs_err([etpu.sharded_square(
+        p[0], blk0, torch.zeros(S, dtype=torch.int32, device=dev))],
+        [ref_blk]))
+    sh_plain_ms = event_ms(lambda: etpu.sharded_square_ref(p[0], blk0, c1),
+                           reps=1)
+    w_loc0 = blk0.shape[-1]
+    ones0 = int(etpu._popcount32(p[0].to(torch.int64) & 0xFFFFFFFF).sum())
+    sh_ops = ones0 * w_loc0 / int_ops_per_s
+    sh_bytes = (p[0].numel() + 2 * blk0.numel()) * 4 / HBM_BYTES_PER_S
+    sh_bound = max(sh_ops, sh_bytes) * 1e3
+    print(f"  2 shards, shard 0: kernel {sh_ms:.4f} ms median, "
+          f"sharded_square_ref {sh_plain_ms:.1f} ms (== the kernel); bound "
+          f"{sh_bound:.4f} ms (operations: {ones0} set bits x {w_loc0} "
+          f"local words at {int_ops_per_s:.3e}/s = {sh_ops * 1e3:.4f} ms; "
+          f"bytes: the gathered reach read, the block read and written = "
+          f"{sh_bytes * 1e3:.4f} ms)", flush=True)
+    del full_ref, ref_blk
+
+    host = host10.result()
+    print(f"elle append 10k, host oracle (background process): "
+          f"{host['valid?']} {host['anomaly-types']} in "
+          f"{host['seconds']:.1f} s", flush=True)
+    same_verdict("elle append 10k packed vs host", res, host)
+    qp = etpu.cycle_queries_packed(gt, device=dev)
+    sh_counts = None
+    for ns in ELLE_SHARDS:
+        cards = [dev] * ns
+        rs, wall_s, counts_s, ts = elle_drive(append.check, h10,
+                                              cycle_backend="sharded",
+                                              devices=cards)
+        us = rs.get("cycle-util") or {}
+        sq_ms = ts.ms("elle_sharded_square")
+        print(f"elle append 10k, sharded over {ns} shards of the card: "
+              f"valid? {rs['valid?']} engine {rs.get('cycle-engine')} "
+              f"n_shards {us.get('n_shards')} shard words "
+              f"{us.get('shard_words')} iters_run {us.get('iters_run')}, "
+              f"launches {counts_s}, wall {wall_s:.4f} s (build "
+              f"{ts.build_s:.4f} s, kernel_s {us.get('kernel_s')}), "
+              f"squarings per shard (ms) {[round(x, 3) for x in sq_ms]}, "
+              f"label pass {sum(ts.ms('elle_packed_labels')):.4f} ms",
+              flush=True)
+        same_verdict(f"elle append 10k sharded x{ns} vs host", rs, host)
+        if (rs.get("cycle-engine") != "sharded" or us.get("n_shards") != ns
+                or counts_s["elle_sharded_square"] < 1
+                or us.get("iter_reach") != u.get("iter_reach")
+                or us.get("iters_run") != u.get("iters_run")):
+            raise AssertionError(f"elle sharded x{ns}: {us}, {counts_s}")
+        if sh_counts is None:
+            sh_counts = counts_s
+        qs = etpu.cycle_queries_sharded(gt, devices=cards)
+        same = (qs["sccs"] == qp["sccs"] and qs["rw_edges"] == qp["rw_edges"]
+                and np.array_equal(qs["rw_closed"], qp["rw_closed"])
+                and qs["util"]["iter_reach"] == qp["util"]["iter_reach"]
+                and qs["util"]["iters_run"] == qp["util"]["iters_run"])
+        print(f"  cycle_queries_sharded x{ns} == cycle_queries_packed: "
+              f"sccs, rw_closed, iter_reach, iters_run {same}", flush=True)
+        if not same:
+            raise AssertionError(f"elle sharded x{ns} differs from packed")
+    sharded_entry = {
+        "name": "elle_sharded_square", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/elle_sharded.cu",
+        "replaces": "jepsen_tpu/elle/tpu.py:627",
+        "launches": sh_counts["elle_sharded_square"], "max_abs_err": s_err,
+        "ms": sh_ms, "plain_ms": sh_plain_ms, "bound_ms": sh_bound,
+        "bound_by": "operations" if sh_ops > sh_bytes else "bytes",
+        "library_ms": None}
+
     # ---- bounds -------------------------------------------------------------
     # dense, per squaring: 2 S n^3 flops on the tensor cores; reach read
     # and written once (2 S n^2 bf16)
@@ -644,25 +798,33 @@ def elle_phases(dev) -> list:
         "max_abs_err": errs["elle_trim"], "ms": d["trim_ms"][0],
         "plain_ms": d["trim_plain_ms"], "bound_ms": t_bound,
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
-        "library_ms": None}]
+        "library_ms": None}, sharded_entry]
 
 
 def multikey_history(n_keys, n_ops, n_procs, crash_p, lie_keys=(),
-                     lie_p=0.0):
+                     lie_p=0.0, cache=None):
     """One tuple-valued history of `n_keys` cas-register keys (key k's
     ops from seed k), interleaved at random, with a nemesis marker at
-    each end that every subhistory keeps; processes are (p, k)."""
+    each end that every subhistory keeps; processes are (p, k). A
+    `cache` dict keeps each key's generated ops for the next call."""
     import random
 
     from jepsen_tpu_torch import history as hist
     from jepsen_tpu_torch import independent, synth
 
+    cache = {} if cache is None else cache
+
+    def ops_of(k):
+        lie = lie_p if k in lie_keys else 0.0
+        if (k, lie) not in cache:
+            cache[k, lie] = list(synth.cas_register_history(
+                n_ops, n_procs=n_procs, seed=k, crash_p=crash_p, lie_p=lie))
+        return cache[k, lie]
+
     rng = random.Random(7)
     out = hist.History()
     out.append(hist.info("nemesis", "start-partition", None))
-    live = [[k, list(synth.cas_register_history(
-        n_ops, n_procs=n_procs, seed=k, crash_p=crash_p,
-        lie_p=lie_p if k in lie_keys else 0.0)), 0] for k in range(n_keys)]
+    live = [[k, ops_of(k), 0] for k in range(n_keys)]
     while live:
         i = rng.randrange(len(live))
         k, ops, j = live[i]
@@ -711,6 +873,119 @@ def batched_bound_bytes(consts, summary, C, tally) -> int:
     return (scalars + tally["const_bytes"] + explored * C * 4
             + tally["probed"] * 16 + new * (C * 4 + 16)
             + summary.numel() * 4)
+
+
+def random_carry(lanes, K, C, H, B, dev, seed):
+    """A lane-batched carry of the given shapes with random words in
+    every leaf (made on the card from a seed)."""
+    from jepsen_tpu_torch.ops import wgl32
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    carry = wgl32.init_carry_batch(lanes, K, C, H, B, 0, dev)
+    for t in carry:
+        t.copy_(torch.randint(-2**31, 2**31 - 1, t.shape, generator=gen,
+                              device=dev, dtype=torch.int32))
+    return carry
+
+
+def lane_kernel_checks(dev, plan, wplan) -> list:
+    """`wgl_lane_reset` and `wgl_frontier_migrate` against their plain
+    versions on the card: the reset on a 100-lane narrow carry at the
+    fan-out's capacities (H 2^19), on the mesh fan-out's own 4-lane shard
+    carry, and on an 8-lane wide carry at the waves' capacities, each
+    with a random lane mask; the migration up and down one ladder step
+    of each. Times from CUDA events; the library call is `torch.where`
+    over the carry leaves for the reset and `torch.nn.functional.pad` or
+    a slice for the migration. Returns the two kernels' entries of the
+    kernels line (launches filled in by the caller)."""
+    from jepsen_tpu_torch.ops import adapt, wgl32, wgln
+    from jepsen_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(11)
+    out = {}
+    # (name, lanes, K, C, H, B, model-state column, the ladder step
+    # the migration takes from K)
+    cases = [("narrow 100 lanes", 100, plan["K"], wgl32.row_words(plan["ic"]),
+              plan["H"], plan["B"], 2, 16),
+             ("narrow shard of the mesh fan-out", 4, 16,
+              wgl32.row_words(plan["ic"]), plan["H"], plan["B"], 2, 64),
+             ("wide 8 lanes", 8, wplan["K"],
+              wgln.row_words(wplan["L"], wplan["ic"]), wplan["H"],
+              wplan["B"], 1 + wplan["L"], wplan["K"] // 2)]
+    r_err = 0
+    for name, lanes, K, C, H, B, mst, k_step in cases:
+        carry = random_carry(lanes, K, C, H, B, dev, seed=lanes)
+        mask = rng.random(lanes) < 0.5
+        mask[0] = True
+        ref = tuple(t.clone() for t in carry)
+        mesh.reset_lanes(carry, mask, mst_col=mst)
+        mesh.reset_lanes_ref(ref, mask, mst_col=mst)
+        torch.cuda.synchronize()
+        err = max_abs_err(carry, ref)
+        r_err = max(r_err, err)
+        if err or not same_carry(carry, ref):
+            raise AssertionError(f"wgl_lane_reset differs from "
+                                 f"reset_lanes_ref on {name} ({err})")
+        k_ms = event_ms(lambda: mesh.reset_lanes(carry, mask, mst_col=mst))
+        p_ms = event_ms(lambda: mesh.reset_lanes_ref(ref, mask,
+                                                     mst_col=mst))
+        init = wgl32.init_carry_batch(lanes, K, C, H, B, 0, dev)
+        m_t = torch.as_tensor(mask, device=dev)
+        l_ms = event_ms(lambda: [torch.where(
+            m_t.view((-1,) + (1,) * (c.dim() - 1)), i, c)
+            for c, i in zip(carry, init)])
+        lane_bytes = sum(t[0].numel() * 4 for t in carry)
+        nbytes = int(mask.sum()) * lane_bytes + lanes * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  wgl_lane_reset == reset_lanes_ref on {name} (K {K}, C "
+              f"{C}, H {H}, B {B}; {int(mask.sum())} of {lanes} lanes "
+              f"masked): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"torch.where over the leaves {l_ms:.4f} ms; bound "
+              f"{nbytes} bytes written = {bound:.6f} ms", flush=True)
+        out.setdefault("reset", dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                     bound_ms=bound))
+        del init, ref
+        # the migration one ladder step up, then down
+        lo, hi = sorted((K, k_step))
+        m_err = 0
+        for k_from, k_to in ((lo, hi), (hi, lo)):
+            src = mesh.migrate_lanes(carry, k_from) if k_from != K else carry
+            got = mesh.migrate_lanes(src, k_to)
+            want = adapt.migrate_frontier_batch(src, k_to)
+            torch.cuda.synchronize()
+            m_err = max(m_err, max_abs_err(got[:1], want[:1]))
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"wgl_frontier_migrate {k_from} -> "
+                                     f"{k_to} differs on {name}")
+            fr = src[0]
+            grow = k_to - k_from
+            mk = event_ms(lambda: mesh.migrate_lanes(src, k_to))
+            mp = event_ms(lambda: adapt.migrate_frontier_batch(src, k_to))
+            ml = event_ms(
+                (lambda: torch.nn.functional.pad(fr, (0, 0, 0, grow)))
+                if grow > 0 else (lambda: fr[:, :k_to].contiguous()))
+            mbytes = lanes * (min(k_from, k_to) + k_to) * C * 4
+            mbound = mbytes / HBM_BYTES_PER_S * 1e3
+            print(f"  wgl_frontier_migrate == migrate_frontier_batch "
+                  f"{k_from} -> {k_to}: kernel {mk:.4f} ms, plain "
+                  f"{mp:.4f} ms, library {ml:.4f} ms; bound {mbytes} bytes "
+                  f"(rows kept read, new frontier written) = {mbound:.6f} ms",
+                  flush=True)
+            out.setdefault("migrate", dict(ms=mk, plain_ms=mp, library_ms=ml,
+                                           bound_ms=mbound))
+        out.setdefault("migrate_err", 0)
+        out["migrate_err"] = max(out["migrate_err"], m_err)
+        del carry
+    return [{
+        "name": "wgl_lane_reset", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/wgl_lanes.cu",
+        "replaces": "jepsen_tpu/parallel/mesh.py:192",
+        "launches": None, "max_abs_err": r_err, **out["reset"],
+        "bound_by": "bytes"}, {
+        "name": "wgl_frontier_migrate", "route": "cuda",
+        "source": "jepsen_tpu_torch/csrc/wgl_lanes.cu",
+        "replaces": "jepsen_tpu/parallel/mesh.py:209",
+        "launches": None, "max_abs_err": out["migrate_err"],
+        **out["migrate"], "bound_by": "bytes"}]
 
 
 def fanout_phases(dev) -> list:
@@ -829,7 +1104,8 @@ def fanout_phases(dev) -> list:
 
     # ---- narrow lanes: the main path's own batch and capacities ----------
     t0 = time.monotonic()
-    h = multikey_history(**FANOUT)
+    key_ops: dict = {}
+    h = multikey_history(**FANOUT, cache=key_ops)
     gen_s = time.monotonic() - t0
     subs = independent.subhistories(h, independent.history_keys(h))
     encs, batch, plan = plan_of([strip_nemesis(sub) for sub in subs], 1024)
@@ -931,9 +1207,11 @@ def fanout_phases(dev) -> list:
             or any(r.get("engine") for r in res["results"].values())):
         raise AssertionError(f"fan-out: {res['valid?']}, {counts}")
     main_launches = n_launches
+    vmap_verdicts = {k: r["valid?"] for k, r in res["results"].items()}
 
     bad = FANOUT_BAD
-    hb = multikey_history(**FANOUT, lie_keys=bad["keys"], lie_p=bad["lie_p"])
+    hb = multikey_history(**FANOUT, lie_keys=bad["keys"], lie_p=bad["lie_p"],
+                          cache=key_ops)
     res, wall, counts, t, host, _ = drive(
         lambda: independent.cuda_checker(cas_register()).check({}, hb, {}))
     bsubs = independent.subhistories(hb, independent.history_keys(hb))
@@ -1042,6 +1320,119 @@ def fanout_phases(dev) -> list:
               f"{sum(t.ms('wgl32_chunk')):.4f} ms in {counts['wgl32_chunk']} "
               f"launches, wall {wall:.4f} s", flush=True)
 
+    # ---- the several-devices paths: every shard on this card ---------------
+    from jepsen_tpu_torch.parallel import mesh
+    print(f"several-devices paths: {MESH_SHARDS} shards and more, all on "
+          f"the one card ({card_line()}), each shard on its own stream; no "
+          "cross-card copy runs here", flush=True)
+    lanes = lane_kernel_checks(dev, plan, wplan)
+    cards = [dev] * MESH_SHARDS
+    phases["shard consts"] = (mesh._GroupRun, "shard_consts")
+    res, wall, counts, t, host, peak = drive(
+        lambda: independent.cuda_checker(cas_register(),
+                                         devices=cards).check({}, h, {}))
+    summ = mesh.last_summary()
+    per_key = res["results"]
+    k_ms = {k: t.ms(k) for k in ("wgl32_chunk_batched", "wgl_lane_reset",
+                                 "wgl_frontier_migrate")}
+    kernel_s = [x for v in k_ms.values() for x in v]
+    print(f"main path, mesh fan-out {FANOUT['n_keys']} keys x "
+          f"{FANOUT['n_ops']} ops over {MESH_SHARDS} shards of the card: "
+          f"valid? {res['valid?']} wall {wall:.4f} s: "
+          f"{split_line(wall, host, kernel_s)} (kernel time summed over "
+          f"the shards' streams); polls {summ['polls']}, refills "
+          f"{summ['refills']}, resets {summ['resets']}, rebuckets "
+          f"{summ['rebuckets']}, steals {summ['steals']}, K_final "
+          f"{[g['K_final'] for g in summ['groups']]}, lanes per shard "
+          f"{summ['groups'][0]['lanes_per_device']}, per shard "
+          f"{json.dumps(summ['per_shard'])}, events "
+          f"{json.dumps(summ['groups'][0]['events'][:8])}; launches "
+          f"{counts}; chunk polls (ms) "
+          f"{[round(x, 2) for x in k_ms['wgl32_chunk_batched'][:12]]}..., "
+          f"resets (ms) {[round(x, 4) for x in k_ms['wgl_lane_reset'][:6]]}"
+          f"..., configs {sum(r['configs_explored'] for r in per_key.values())}"
+          f"; peak memory {peak} B", flush=True)
+    verdicts = {k: r["valid?"] for k, r in per_key.items()}
+    if (res["valid?"] is not True or verdicts != vmap_verdicts
+            or counts["wgl32_chunk_batched"] < 1
+            or counts["wgl_lane_reset"] < 1 or summ["refills"] < 1
+            or any(r["shard"]["engine"] != "device-mesh"
+                   for r in per_key.values())):
+        raise AssertionError(f"mesh fan-out: {res['valid?']}, {counts}, "
+                             f"{summ['refills']} refills")
+    mesh_counts = counts
+    res, wall, counts, t, host, _ = drive(
+        lambda: independent.cuda_checker(cas_register(),
+                                         devices=cards).check({}, hb, {}))
+    summ = mesh.last_summary()
+    print(f"main path, mesh fan-out with keys {bad['keys']} at lie_p "
+          f"{bad['lie_p']}: valid? {res['valid?']} failures "
+          f"{sorted(res['failures'])} (host oracle {want}) wall {wall:.4f} s "
+          f"({split_line(wall, host, t.ms('wgl32_chunk_batched'))}); polls "
+          f"{summ['polls']}, refills {summ['refills']}, rebuckets "
+          f"{summ['rebuckets']}, steals {summ['steals']}; launches {counts}",
+          flush=True)
+    if res["valid?"] is not False or sorted(res["failures"]) != want:
+        raise AssertionError(f"mesh fan-out invalid: {res['failures']} != "
+                             f"{want}")
+
+    # wave keys through check_mesh, block queues: shard 0 gets the valid
+    # keys (one poll each), shard 1 the invalid ones (exhausted in ~180
+    # rounds), so shard 0 idles while shard 1 still queues two
+    mw = MESH_WAVE
+    mwaves = [synth.adversarial_wave_history(
+        w["n_waves"], width=w["width"], span=w["span"], seed=s,
+        invalid=s >= mw["n_valid"]) for s in range(mw["n_keys"])]
+    mencs = [encode.encode(cas_register(), x) for x in mwaves]
+    res, wall, counts, t, _, peak = drive(lambda: mesh.check_mesh(
+        cas_register(), mwaves, encs=mencs, devices=cards, assign="block",
+        lanes_per_device=mw["lanes_per_device"], oracle_fallback=False))
+    summ = mesh.last_summary()
+    vm = batched.check_batched(cas_register(), mwaves, strategy="vmap",
+                               oracle_fallback=False, chunk=w["chunk"],
+                               devices=[dev])
+    idle = [e for g in summ["groups"] for e in g["events"]
+            if e.get("reason") == "idle"]
+    print(f"main path, mesh waves {mw}: verdicts {[r['valid?'] for r in res]}"
+          f" (vmap path {[r['valid?'] for r in vm]}), wall {wall:.4f} s, "
+          f"polls {summ['polls']}, refills {summ['refills']}, rebuckets "
+          f"{summ['rebuckets']}, steals {summ['steals']}, K_final "
+          f"{[g['K_final'] for g in summ['groups']]}, events "
+          f"{json.dumps(summ['groups'][0]['events'])}, rounds "
+          f"{[r['util']['rounds'] for r in res]}, configs "
+          f"{[r['configs_explored'] for r in res]}, shards "
+          f"{[r['mesh']['shard'] for r in res]}; launches {counts}; "
+          f"chunk polls (ms) "
+          f"{[round(x, 2) for x in t.ms('wgln_chunk_batched')]}; peak memory "
+          f"{peak} B", flush=True)
+    if ([r["valid?"] for r in res] != [r["valid?"] for r in vm]
+            or not idle or counts["wgln_chunk_batched"] < 1
+            or counts["wgl_lane_reset"] < 1):
+        raise AssertionError(f"mesh waves: {counts}, idle pulls {idle}")
+    wave_counts = counts
+
+    # the stream keys over two shards of the card: one worker a shard
+    res, wall, counts, _, _, _ = drive(lambda: batched.check_batched(
+        cas_register(), few, devices=cards))
+    print(f"stream over {MESH_SHARDS} shards of the card: verdicts "
+          f"{[r['valid?'] for r in res]} engines "
+          f"{[r['shard']['engine'] for r in res]} shards "
+          f"{[r['shard']['device'] for r in res]} wall {wall:.4f} s, per key "
+          f"{[r['shard']['wall_s'] for r in res]} s, launches {counts}",
+          flush=True)
+    if (any(r["valid?"] is not True for r in res)
+            or counts["wgl32_chunk"] < 1
+            or len({r["shard"]["device"] for r in res}) < 2):
+        raise AssertionError(f"stream over shards: {counts}")
+
+    lanes[0]["launches"] = mesh_counts["wgl_lane_reset"]
+    # the ladder switch's migration: the fan-out's run when it switched,
+    # else the waves'
+    lanes[1]["launches"] = (mesh_counts["wgl_frontier_migrate"]
+                            or wave_counts["wgl_frontier_migrate"])
+    if lanes[1]["launches"] < 1:
+        raise AssertionError("no ladder switch: wgl_frontier_migrate never "
+                             "ran on a main path")
     return [{
         "name": "wgl32_chunk_batched", "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/wgl32_chunk.cu",
@@ -1054,7 +1445,7 @@ def fanout_phases(dev) -> list:
         "replaces": "jepsen_tpu/parallel/batched.py:234",
         "launches": w_launches, "max_abs_err": w_err, "ms": w_ms,
         "plain_ms": w_plain_ms, "bound_ms": w_bound_ms, "bound_by": "bytes",
-        "library_ms": None}]
+        "library_ms": None}] + lanes
 
 
 def main() -> int:
@@ -1062,15 +1453,30 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print("card:", card_line(), flush=True)
+    # the host oracle's verdict on the Elle 10k history takes about a
+    # minute of one core: it runs in a process of its own from the start,
+    # done before the fan-out's oracle pool takes every core
+    background = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        host10 = background.submit(elle_host_verdict, ELLE_10K)
+        return run_phases(dev, host10)
+    finally:
+        background.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(dev, host10) -> int:
+    """Every phase after the card check, the host oracle of the Elle 10k
+    history running in the background (`host10`)."""
     from jepsen_tpu_torch import checker, synth
     from jepsen_tpu_torch.models import (cas_register, fifo_queue, mutex,
                                          register)
     from jepsen_tpu_torch.ops import _native, adapt, encode, wgl, wgl32
     from jepsen_tpu_torch.ops import wgl_ref, wgln
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    print("card:", card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -1185,7 +1591,8 @@ def main() -> int:
     print(f"headline chunk 1 (K={plan['K']}): {rounds_k2} rounds, kernel "
           f"{first_ms:.3f} ms, chunk_ref {plain_ms:.1f} ms, identical")
     wide = adapt.migrate_frontier(carry, 512)
-    _, summary512, ms512, plain512, err = run_both(consts, wide, K=512, **kw)
+    _, summary512, ms512, plain512, err = run_both(
+        consts, wide, K=512, **dict(kw, chunk=HEADLINE_K512_ROUNDS))
     worst_err = max(worst_err, err)
     r512 = int(summary512[9]) - rounds_k2
     print(f"headline chunk 2 after migrate to K=512: {r512} rounds, kernel "
@@ -1473,7 +1880,7 @@ def main() -> int:
         raise AssertionError(f"fifo queue: {res}")
 
     fanout = fanout_phases(dev)
-    elle = elle_phases(dev)
+    elle = elle_phases(dev, host10)
 
     print("card:", card_line())
     print(json.dumps({"kernels": [{

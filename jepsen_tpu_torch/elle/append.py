@@ -60,17 +60,18 @@ DEFAULT_ANOMALIES = ("G0", "G1a", "G1b", "G1c", "G-single", "G2",
 
 def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
           additional_graphs: Iterable[str] = (),
-          cycle_backend: str = "auto", device=None) -> dict:
+          cycle_backend: str = "auto", device=None, devices=None) -> dict:
     """Analyze a list-append history. Returns
     {"valid?": bool, "anomaly-types": [...], "anomalies": {...},
     "not": [violated models]}.
 
     cycle_backend: "host" (Tarjan oracle), "cuda" / "packed" / "trim"
-    / "device" (the elle/tpu.py kernel family), or "auto"
+    / "sharded" / "device" (the elle/tpu.py kernel family), or "auto"
     (shape-routed via ops/route.elle_cycle_route). `device` is where
-    the kernels run: None is the CUDA card (raises without one),
-    "cpu" runs their plain PyTorch versions; the host backend needs
-    none."""
+    the kernels run: None is the first of `devices`, else the CUDA
+    card (raises without one), "cpu" runs their plain PyTorch versions;
+    `devices` is the sharded closure's device list (None: every card;
+    it may repeat a device). The host backend needs neither."""
     from ..analysis import history_lint
     bad = history_lint.gate(history, where="elle.append",
                             rules=history_lint.ELLE_GATE_RULES)
@@ -134,7 +135,7 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     # -- 3+4. cycles over the edge columns -------------------------------
     from .tpu import standard_cycle_search
     cycles = standard_cycle_search(gt, backend=cycle_backend,
-                                   device=device)
+                                   device=device, devices=devices)
     g = None  # the labeled DepGraph materializes only to EXPLAIN
     if any(cycles[q] for q in ("G0", "G1c", "G-single", "G2")):
         g = gt.to_depgraph() if hasattr(gt, "to_depgraph") else gt

@@ -1,7 +1,7 @@
 """The Elle device plane, on CUDA: cycle detection as closure kernels.
 
 The port of the JAX package's `jepsen_tpu/elle/tpu.py` (the module
-keeps its counterpart's name; nothing here runs on a TPU). Three
+keeps its counterpart's name; nothing here runs on a TPU). Four
 hand-written CUDA kernels for the H100 share the query battery, each
 beside its plain PyTorch version, which is its spec and what runs on a
 CPU tensor:
@@ -21,6 +21,16 @@ CPU tensor:
           realtime/process interval bounds) until the counts repeat; a
           nonempty core <=> a cycle. The CPU route, and what
           `cycle_backend="trim"` forces.
+  sharded `sharded_closure` (`csrc/elle_sharded.cu`): the packed
+          closure with its W = N/32 word columns split over a device
+          list, one block of W/n_shards columns a shard. Before each
+          squaring every shard gathers the full reach (the reference's
+          `all_gather`: a copy of each block into each shard's gather
+          buffer, on the destination's stream); each shard squares its
+          own block; the host sums the shards' counts (the reference's
+          `psum`) and stops as the packed closure does; the packed
+          label pass runs over the final gathered reach. Bit-identical
+          outputs to packed; capacity SHARDED_MAX_N.
 
 The subsets ride a leading axis (S = 3: G0's ww graph, G1c's ww+wr,
 G2's ww+wr+rw; realtime/process edges join all three). Verdicts come
@@ -32,10 +42,10 @@ n_pad ones is exact in f32, so the bf16 kernel's outputs equal the
 reference's f32 run bit for bit; the plain dense version multiplies in
 f32.
 
-What is not ported: the mesh-sharded closure (ROADMAP Queue A 8), the
-telemetry/watchdog/device-monitor planes and the AOT warm path.
-`_squaring_select` decides bf16 vs packed from an analytic byte model
-against the card's memory instead of `Lowered.cost_analysis`.
+What is not ported: the telemetry/watchdog/device-monitor planes and
+the AOT warm path. `_squaring_select` decides bf16 vs packed vs sharded
+from an analytic byte model against the cards' memory instead of
+`Lowered.cost_analysis`.
 """
 
 from __future__ import annotations
@@ -47,8 +57,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..fleet import device_labels
 from ..ops.wgl32 import _M32, _popcount32, _to_i32
-from ..util import resolve_device
+from ..util import on_stream, resolve_device, resolve_devices, shard_streams
 from .graph import (PROCESS, REALTIME, RW, WR, WW, DepGraph,
                     _bfs_path)
 
@@ -103,15 +114,18 @@ def _count(wrapper) -> None:
     wrapper.launches += 1
 
 
-def _squarings(reach, iters: int, square: Callable, on_square=None):
-    """The convergence loop both closures share (the reference's
+def _squarings(reach, iters: int, square: Callable, on_square=None,
+               counts=None):
+    """The convergence loop every closure shares (the reference's
     `while_loop`): square until no subset's reach count changed, at
     most `iters` times, at least once. `square(r, counts_row)` returns
     the next reach and writes its per-subset counts into the (S,)
     row; the host reads the row after each squaring (one small copy).
-    Returns (reach, counts (iters, S) int32, iters_run)."""
-    counts = torch.zeros((iters, reach.shape[0]), dtype=torch.int32,
-                         device=reach.device)
+    `counts` (iters, S) int32 is allocated on the reach's device unless
+    given. Returns (reach, counts, iters_run)."""
+    if counts is None:
+        counts = torch.zeros((iters, reach.shape[0]), dtype=torch.int32,
+                             device=reach.device)
     prev = None
     i = 0
     while i < iters:
@@ -360,6 +374,198 @@ def packed_closure(r0, q_src, q_dst, *, n_pad: int, iters: int,
 
 
 packed_closure.launches = 0
+
+
+# -- sharded closure: word columns over a device list ------------------------
+
+def shard_blocks(r0: torch.Tensor, n_shards: int) -> list:
+    """The (S, n_pad, W) packed reach cut into `n_shards` contiguous
+    column blocks of W / n_shards words (copies), block k for shard k."""
+    w = r0.shape[-1] // n_shards
+    if w * n_shards != r0.shape[-1]:
+        raise ValueError(f"W {r0.shape[-1]} not divisible by {n_shards} "
+                         "shards")
+    return [r0[..., k * w:(k + 1) * w].contiguous() for k in range(n_shards)]
+
+
+def sharded_square_ref(full: torch.Tensor, loc: torch.Tensor,
+                       cnt: torch.Tensor) -> torch.Tensor:
+    """One plain squaring of a word-column shard (`packed_square_ref`
+    restricted to the shard's columns): out[s,i] = OR_{j : full[s,i]
+    bit j} loc[s,j], `full` the gathered (S, n_pad, W) reach and `loc`
+    the shard's (S, n_pad, w_loc) block; `cnt` gets each subset's
+    popcount of the new block."""
+    out = torch.empty_like(loc)
+    for s in range(loc.shape[0]):
+        bits = unpack_bits(full[s]).to(torch.float32)
+        out[s] = pack_bits(torch.mm(bits, unpack_bits(loc[s]).to(
+            torch.float32)) > 0)
+        del bits
+    cnt.copy_(_popcount32(out.to(torch.int64) & _M32).sum(
+        dim=(1, 2)).to(torch.int32))
+    return out
+
+
+def sharded_square(full: torch.Tensor, loc: torch.Tensor, cnt: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One squaring of a word-column shard (see `sharded_square_ref`),
+    into `out` (a new tensor when None). CUDA tensors run the
+    `elle_sharded_square` kernel on the current stream (one launch per
+    call, counted in `sharded_square.launches`; `cnt` must be zero, the
+    kernel adds to it); CPU tensors run `sharded_square_ref`."""
+    dev = loc.device
+    if dev.type == "cpu":
+        r = sharded_square_ref(full, loc, cnt)
+        if out is None:
+            return r
+        return out.copy_(r)
+    if dev.type != "cuda":
+        raise ValueError(f"elle sharded square: unsupported device {dev}")
+    S, n_pad, w_loc = loc.shape
+    out = torch.empty_like(loc) if out is None else out
+    if n_pad % 128 or tuple(full.shape) != (S, n_pad, n_pad // 32) \
+            or tuple(out.shape) != tuple(loc.shape) \
+            or tuple(cnt.shape) != (S,) or (n_pad // 32) % w_loc:
+        raise ValueError("elle sharded square: full (S, n, n / 32), loc and "
+                         "out (S, n, w_loc) with w_loc | n / 32, cnt (S,)")
+    for t in (full, loc, out, cnt):
+        if t.device != dev or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError("elle sharded square: contiguous int32 tensors "
+                             f"on {dev}")
+    _launch("elle_sharded_square", (full, loc, out, cnt), (S, n_pad, w_loc),
+            dev)
+    _count(sharded_square)
+    return out
+
+
+sharded_square.launches = 0
+
+
+def sharded_closure_ref(blocks, q_src, q_dst, *, n_pad: int, iters: int,
+                        on_square=None):
+    """Plain PyTorch sharded closure (the JAX
+    `make_sharded_closure_kernel`): `blocks` are the shards' (S, n_pad,
+    w_loc) int32 column blocks (`shard_blocks`). Each squaring gathers
+    the full reach, squares every block against it and sums the
+    shards' counts; labels and rw queries come from the final gathered
+    reach. `on_square(i, blocks)` sees the blocks after each squaring.
+    Returns `packed_closure_ref`'s (labels, closed, counts, iters_run),
+    bit for bit."""
+    S = blocks[0].shape[0]
+
+    def square(bl, cnt):
+        full = torch.cat(bl, dim=2)
+        parts = torch.zeros((len(bl), S), dtype=torch.int32)
+        out = [sharded_square_ref(full, b, parts[k])
+               for k, b in enumerate(bl)]
+        cnt.copy_(parts.sum(dim=0, dtype=torch.int32))
+        return out
+
+    blocks, counts, iters_run = _squarings(
+        list(blocks), iters, square, on_square,
+        counts=torch.zeros((iters, S), dtype=torch.int32))
+    labels, closed = packed_labels_ref(torch.cat(blocks, dim=2), q_src,
+                                       q_dst)
+    return labels, closed, counts, iters_run
+
+
+def sharded_closure(blocks, q_src, q_dst, *, n_pad: int, iters: int,
+                    on_square=None):
+    """The sharded closure (see `sharded_closure_ref`). `blocks[k]` lies
+    on shard k's device (a card may hold several shards); `q_src` and
+    `q_dst` on shard 0's. CUDA blocks run the `elle_sharded_square`
+    kernel (`sharded_square`), one launch per shard per squaring, each
+    shard on its own stream; before
+    each squaring every shard's block is copied into every shard's
+    gather buffer on the destination's stream, after the source's
+    squaring; the host then sums the shards' counts. The label pass is
+    `elle_packed_labels` over shard 0's final gather (counted in
+    `packed_closure.launches`, the packed kernels' wrapper). CPU blocks
+    run `sharded_closure_ref`. The blocks are not modified. Returns
+    (labels, closed, counts (iters, S) on the host, iters_run)."""
+    devs = [b.device for b in blocks]
+    if all(d.type == "cpu" for d in devs):
+        return sharded_closure_ref(blocks, q_src, q_dst, n_pad=n_pad,
+                                   iters=iters, on_square=on_square)
+    if any(d.type != "cuda" for d in devs):
+        raise ValueError(f"elle sharded closure: devices {devs}")
+    S, n_sh, W = blocks[0].shape[0], len(blocks), n_pad // 32
+    w_loc = W // n_sh
+    if w_loc * n_sh != W or n_pad % 128 or n_pad < 128:
+        raise ValueError(f"elle sharded closure: n_pad {n_pad} over "
+                         f"{n_sh} shards")
+    for b in blocks:
+        if tuple(b.shape) != (S, n_pad, w_loc) or b.dtype != torch.int32 \
+                or not b.is_contiguous():
+            raise ValueError("elle sharded closure: blocks must be (S, "
+                             "n_pad, W / n_shards) contiguous int32")
+    _check_closure_inputs("elle sharded closure", (q_src, q_dst), n_pad)
+    if q_src.device != devs[0] or q_dst.device != devs[0]:
+        raise ValueError("elle sharded closure: queries on shard 0's "
+                         "device")
+    for t in (q_src, q_dst):
+        _check_range("elle sharded closure", t, n_pad)
+    streams = shard_streams(devs)
+    # the blocks and queries were written on the callers' streams
+    for k, dev in enumerate(devs):
+        streams[k].wait_stream(torch.cuda.current_stream(dev))
+    ready = []                      # the event after each shard's write
+    full, spare, cnts = [], [], []
+    for k, dev in enumerate(devs):
+        with torch.cuda.device(dev), on_stream(streams[k]):
+            full.append(torch.empty((S, n_pad, W), dtype=torch.int32,
+                                    device=dev))
+            spare.append([torch.empty_like(blocks[k]),
+                          torch.empty_like(blocks[k])])
+            cnts.append(torch.empty(S, dtype=torch.int32, device=dev))
+            ev = torch.cuda.Event()
+            ev.record(streams[k])
+            ready.append(ev)
+
+    def gather(bl, dst: int) -> None:
+        with torch.cuda.device(devs[dst]), on_stream(streams[dst]):
+            for k, b in enumerate(bl):
+                streams[dst].wait_event(ready[k])
+                full[dst][..., k * w_loc:(k + 1) * w_loc].copy_(b)
+
+    def square(bl, cnt):
+        for d in range(n_sh):
+            gather(bl, d)
+        out = []
+        for d, dev in enumerate(devs):
+            with torch.cuda.device(dev), on_stream(streams[d]):
+                cnts[d].zero_()
+                o = sharded_square(full[d], bl[d], cnts[d],
+                                   out=spare[d].pop())
+                ready[d].record(streams[d])
+            if bl[d] is not blocks[d]:
+                spare[d].append(bl[d])
+            out.append(o)
+        total = [0] * S
+        for d in range(n_sh):
+            ready[d].synchronize()
+            total = [a + b for a, b in zip(total, cnts[d].tolist())]
+        cnt.copy_(torch.tensor(total, dtype=torch.int32))
+        return out
+
+    bl, counts, iters_run = _squarings(
+        list(blocks), iters, square, on_square,
+        counts=torch.zeros((iters, S), dtype=torch.int32))
+    dev0 = devs[0]
+    gather(bl, 0)
+    with torch.cuda.device(dev0), on_stream(streams[0]):
+        labels = torch.empty((S, n_pad), dtype=torch.int32, device=dev0)
+        closed = torch.empty((S, q_src.shape[0]), dtype=torch.bool,
+                             device=dev0)
+        _launch("elle_packed_labels", (full[0], q_src, q_dst, labels, closed),
+                (S, n_pad, q_src.shape[0]), dev0)
+        _count(packed_closure)
+    # nothing of this call may still run when its buffers are freed
+    streams[0].synchronize()
+    for t in (labels, closed):
+        t.record_stream(torch.cuda.current_stream(dev0))
+    return labels, closed, counts, iters_run
 
 
 # -- trim: peel-to-core cycle detection + interval jumps ---------------------
@@ -646,6 +852,61 @@ def cycle_queries_packed(g, subsets: Sequence[frozenset] = SUBSETS,
     return _run_closure(g, subsets, rw_type, max_n, device, packed=True)
 
 
+def cycle_queries_sharded(g, subsets: Sequence[frozenset] = SUBSETS,
+                          rw_type: int = RW, max_n: int = SHARDED_MAX_N,
+                          n_shards: Optional[int] = None, devices=None,
+                          device=None) -> Optional[dict]:
+    """cycle_queries_packed with the word columns split over a device
+    list (`sharded_closure`): same host-assembled packed seed, same
+    result envelope; each shard receives only its column block. The
+    devices are `devices` (a list that may repeat a device), else
+    `[device]`, else every card; `n_shards` defaults to
+    `parallel.mesh.word_shard_count` over them, and shard k runs on the
+    k-th. Returns None over capacity, or when fewer than 2 shards come
+    out and `n_shards` was not named (the caller falls back to packed
+    or the host); `n_shards=1` runs the path on one device."""
+    from ..parallel.mesh import word_shard_count
+
+    if int(np.asarray(g.nodes).shape[0]) > max_n:
+        return None
+    devs = resolve_devices(devices, device)
+    a = closure_inputs(g, subsets, rw_type, packed=True)
+    n, n_pad, iters, n_sub = a["n"], a["n_pad"], a["iters"], len(subsets)
+    Wn = n_pad // 32
+    forced = n_shards is not None
+    if n_shards is None:
+        n_shards = word_shard_count(Wn, len(devs))
+    if n_shards < 1 or Wn % n_shards or (n_shards < 2 and not forced):
+        return None
+    if n_shards > len(devs):
+        raise ValueError(f"{n_shards} shards over {len(devs)} devices")
+    r0, q_src, q_dst = a["args"]
+    blocks = [b.to(dev) for b, dev in
+              zip(shard_blocks(torch.from_numpy(r0), n_shards), devs)]
+    qs, qd = _tensor(q_src, devs[0]), _tensor(q_dst, devs[0])
+    for dev in set(devs[:n_shards]):
+        _sync(dev)
+    t0 = time.monotonic()
+    labels, closed, iter_counts, iters_run = sharded_closure(
+        blocks, qs, qd, n_pad=n_pad, iters=iters)
+    for dev in set(devs[:n_shards]):
+        _sync(dev)
+    kernel_s = time.monotonic() - t0
+    util = _reach_util(iter_counts.numpy(), iters, iters_run, n_pad)
+    gops = 2.0 * n_sub * iters_run * float(n_pad) ** 3 / 32 / 1e9
+    util = {"kernel": "sharded", **util, "kernel_s": round(kernel_s, 4),
+            "n_shards": int(n_shards), "shard_words": Wn // n_shards,
+            "devices": device_labels(devs[:n_shards]),
+            "gather_bytes": int(r0.nbytes),
+            "per_shard_bytes": int(r0.nbytes + 2 * r0.nbytes // n_shards),
+            "achieved_gops": round(gops / max(kernel_s, 1e-9), 2),
+            "closure_bytes": int(r0.nbytes)}
+    labels = labels.cpu().numpy()[:, :n]
+    closed = closed.cpu().numpy()[:, :len(a["rw_edges"])]
+    return {"sccs": _sccs_from_labels(labels, a["nodes"], n, n_sub),
+            "rw_edges": a["rw_edges"], "rw_closed": closed, "util": util}
+
+
 def _neighbor_pads(n_pad, e_from, e_to, w):
     """(neigh, mask) padded adjacency-list arrays: slot d of row j =
     d-th edge endpoint, mask carries the per-subset membership."""
@@ -866,22 +1127,46 @@ def trim_cycle_search(g, max_n: int = PACKED_MAX_N,
     return out
 
 
-def _squaring_select(n: int, device) -> tuple:
-    """bf16 vs packed for one shape bucket, from an analytic byte model
-    (the reference asks `Lowered.cost_analysis`). Past the bf16 cap,
-    packed is the only dense option; below it, packed wins when the
-    bf16 closure's live working set (S planes of n_pad^2 bf16, the
-    second buffer and the product's staging: 3 S n_pad^2 2 B) passes a
-    quarter of the card's memory. On an 80 GB card that check never
-    picks packed below DEFAULT_MAX_N (the largest bf16 bucket, n_pad
-    8320, holds 1.25 GB against a 20 GB budget), so n decides alone
-    there. Past PACKED_MAX_N one card holds no closure (the sharded
-    layout is not ported): packed is returned so the caller's capacity
-    check, and the host fallback behind it, fires. `device` is a CUDA
-    device: the CPU always runs the trim."""
+def _squaring_select(n: int, device, devices=None) -> tuple:
+    """bf16 vs packed vs sharded for one shape bucket, from an analytic
+    byte model (the reference asks `Lowered.cost_analysis`). Past the
+    bf16 cap, packed is the only one-card option; below it, packed wins
+    when the bf16 closure's live working set (S planes of n_pad^2 bf16,
+    the second buffer and the product's staging: 3 S n_pad^2 2 B)
+    passes a quarter of the card's memory. On an 80 GB card that check
+    never picks packed below DEFAULT_MAX_N (the largest bf16 bucket,
+    n_pad 8320, holds 1.25 GB against a 20 GB budget), so n decides
+    alone there. Past PACKED_MAX_N the word-column shards are the only
+    dense option: sharded is picked when the devices (`devices`, else
+    every card) yield >= 2 word shards and each card holds its shards'
+    working sets (the gather buffer and two column blocks a shard:
+    bitset x (1 + 2 / n_shards), summed over the shards a card holds);
+    otherwise packed is returned so the caller's capacity check, and
+    the host fallback behind it, fires. `device` is a CUDA device: the
+    CPU always runs the trim."""
     if n > PACKED_MAX_N:
-        return "packed", {"why": f"n {n} over packed cap {PACKED_MAX_N}; "
-                                 "no sharded layout on one card"}
+        from ..parallel.mesh import word_shard_count
+
+        devs = resolve_devices(devices, device)
+        n_pad_s = _n_pad_for(n)
+        ns = word_shard_count(n_pad_s // 32, len(devs))
+        bitset = len(SUBSETS) * float(n_pad_s) ** 2 / 8.0
+        per_shard = bitset * (1.0 + 2.0 / ns)
+        on_card = {}
+        for d in devs[:ns]:
+            on_card[d] = on_card.get(d, 0.0) + per_shard
+        fits = all(b <= torch.cuda.get_device_properties(d).total_memory
+                   for d, b in on_card.items())
+        sel = {"n_shards": ns, "per_shard_bytes": int(per_shard),
+               "gather_bytes_per_iter": int(bitset),
+               "bytes_per_card": {str(d): int(b) for d, b in on_card.items()}}
+        if n <= SHARDED_MAX_N and ns >= 2 and fits:
+            sel["why"] = (f"n {n} > packed cap {PACKED_MAX_N}; {ns}-shard "
+                          "columns fit the cards")
+            return "sharded", sel
+        sel["why"] = (f"n {n} over packed cap and the sharded layout does "
+                      f"not fit ({ns} shards, {per_shard:.2e} per shard)")
+        return "packed", sel
     if n > DEFAULT_MAX_N:
         return "packed", {"why": f"n {n} > bf16 cap {DEFAULT_MAX_N}"}
     n_pad = _n_pad_for(n)
@@ -897,18 +1182,23 @@ def _squaring_select(n: int, device) -> tuple:
 
 def device_cycle_search(g, max_n: int = PACKED_MAX_N,
                         kernel: Optional[str] = None,
-                        device=None) -> Optional[dict]:
+                        device=None, devices=None) -> Optional[dict]:
     """The query battery on the device kernel family. Kernel choice
     per shape: `trim` on a CPU device (a dense squaring there costs
     seconds per subset; the trim fixpoint milliseconds), while the card
-    keeps the dense closures on the tensor cores with bf16 vs packed
-    decided by `_squaring_select`. Returns None over capacity."""
+    keeps the dense closures with bf16 vs packed vs sharded decided by
+    `_squaring_select` (past PACKED_MAX_N the word-column shards over
+    `devices` are the only dense option; a sharded pick with fewer than
+    2 shards falls back to packed when n still fits one card). `device`
+    defaults to the first of `devices`. Returns None over capacity."""
+    if device is None and devices is not None:
+        device = devices[0]
     dev = resolve_device(device)
     n = int(np.asarray(g.nodes).shape[0])
     accel = dev.type == "cuda"
     if kernel is None:
         if accel:
-            kernel, sel = _squaring_select(n, dev)
+            kernel, sel = _squaring_select(n, dev, devices)
         else:
             kernel = "trim"
             sel = {"why": "cpu device: dense squaring is "
@@ -926,13 +1216,27 @@ def device_cycle_search(g, max_n: int = PACKED_MAX_N,
             # never fall through to a dense squaring on the CPU: at
             # trim-refusing sizes the host oracle is the right engine
             return None
-        kernel, sel = "packed", {"why": "over trim capacity"}
+        if n > PACKED_MAX_N:
+            kernel, sel = "sharded", {"why": "over trim capacity; "
+                                             "sharded columns"}
+        else:
+            kernel, sel = "packed", {"why": "over trim capacity"}
 
     s0, s1, s2 = SUBSETS
     # the dense kernels read only .nodes/.edges, which GraphTensors
     # provides directly — the labeled DepGraph materializes lazily
     # below, and only when something actually needs explaining
-    if kernel == "bf16":
+    if kernel == "sharded":
+        qres = cycle_queries_sharded(g, max_n=max(max_n, SHARDED_MAX_N),
+                                     devices=devices, device=dev)
+        if qres is None and n <= PACKED_MAX_N:
+            # fewer than 2 word shards: one card's packed kernel still
+            # covers this n
+            kernel = "packed"
+            sel = dict(sel, fallback="sharded unavailable; packed covers n")
+            qres = cycle_queries_packed(g, max_n=min(max_n, PACKED_MAX_N),
+                                        device=dev)
+    elif kernel == "bf16":
         qres = cycle_queries(g, max_n=min(max_n, DEFAULT_MAX_N), device=dev)
     else:
         qres = cycle_queries_packed(g, max_n=min(max_n, PACKED_MAX_N),
@@ -962,7 +1266,7 @@ def device_cycle_search(g, max_n: int = PACKED_MAX_N,
 
 def standard_cycle_search(g, backend: str = "host",
                           max_n: int = DEFAULT_MAX_N,
-                          device=None) -> dict:
+                          device=None, devices=None) -> dict:
     """The four-query battery both elle checkers run, on any engine.
     `g` is a DepGraph or an elle/build.py GraphTensors. Returns
     {"G0": cycle|None, "G1c": ..., "G-single": ..., "G2": ...} where
@@ -975,53 +1279,65 @@ def standard_cycle_search(g, backend: str = "host",
       "cuda"    the dense bf16 closure over the explicit DepGraph,
                 engine "cuda" (the reference's "tpu" backend).
       "packed"  the uint32 bitset closure (capacity PACKED_MAX_N).
+      "sharded" the bitset closure with its word columns split over
+                `devices` (capacity SHARDED_MAX_N; falls back to packed
+                when the devices yield < 2 shards and n fits one card).
       "trim"    the peel-to-core trim kernel.
       "device"  kernel picked per shape (device_cycle_search).
-      "auto"    ops/route.elle_cycle_route decides host vs device
-                from (n, e, rw) shape stats; the decision is
-                recorded as `route_reason`.
+      "auto"    ops/route.elle_cycle_route decides host vs device vs
+                sharded from (n, e, rw) shape stats and the word shards
+                the devices yield; the decision is recorded as
+                `route_reason`.
 
-    `device` is where the kernels run (None: the card, raising without
-    one; "cpu": their plain versions); "host" needs none. The "engine"
-    key records what actually ran ("cuda", "device", "trim", "packed",
-    "host", or "host-fallback" when a device request exceeded
-    capacity); device results carry util.kernel."""
-    if backend == "sharded":
-        raise ValueError("backend 'sharded' (the multi-card closure) is "
-                         "not ported yet: ROADMAP Queue A 8")
+    `device` is where the one-device kernels run (None: the first of
+    `devices`, else the card, raising without one; "cpu": their plain
+    versions); `devices` is the sharded closure's device list (None:
+    every card; a list may repeat a device). "host" needs neither. The
+    "engine" key records what actually ran ("cuda", "device", "trim",
+    "packed", "sharded", "host", or "host-fallback" when a device
+    request exceeded capacity); device results carry util.kernel."""
     s0, s1, s2 = SUBSETS
     engine = backend
     route_reason = None
+    if device is None and devices is not None:
+        device = devices[0]
     if backend == "auto":
         from ..ops.route import elle_cycle_route
+        from ..parallel.mesh import word_shard_count
         dev = resolve_device(device)
         edges = np.asarray(g.edges)
         rw = int(np.sum(edges[:, 2] == RW)) if len(edges) else 0
-        # one card: no word-column shards, so no sharded route
+        n_route = int(np.asarray(g.nodes).shape[0])
+        accel = dev.type == "cuda"
+        ns_route = (word_shard_count(
+            _n_pad_for(n_route) // 32,
+            len(devices) if devices is not None else None)
+            if accel else 0)
         backend, route_reason = elle_cycle_route(
-            n=int(np.asarray(g.nodes).shape[0]), e=int(len(edges)),
-            rw_edges=rw, accel=dev.type == "cuda", device_ok=True,
-            packed_cap=PACKED_MAX_N, sharded_cap=SHARDED_MAX_N,
-            n_shards=0)
+            n=n_route, e=int(len(edges)), rw_edges=rw, accel=accel,
+            device_ok=True, packed_cap=PACKED_MAX_N,
+            sharded_cap=SHARDED_MAX_N, n_shards=ns_route)
         engine = backend
     if backend == "device":
         res = device_cycle_search(g, max_n=max(max_n, SHARDED_MAX_N),
-                                  device=device)
+                                  device=device, devices=devices)
         if res is None:
             backend = engine = "host-fallback"  # over capacity
         else:
             if route_reason:
                 res["route_reason"] = route_reason
             return res
-    if backend in ("trim", "packed"):
+    if backend in ("trim", "packed", "sharded"):
         res = device_cycle_search(g, max_n=max(max_n, SHARDED_MAX_N),
-                                  kernel=backend, device=device)
+                                  kernel=backend, device=device,
+                                  devices=devices)
         if res is None:
             backend = engine = "host-fallback"
         else:
             # a forced trim request can still fall through to packed
-            # (degree past the gather bucket on the card) — only claim
-            # the forced engine when it actually ran
+            # (degree past the gather bucket on the card), and a sharded
+            # one to packed (fewer than 2 shards): only claim the forced
+            # engine when it actually ran
             if res["util"].get("kernel", backend) == backend:
                 res["engine"] = backend
             if route_reason:

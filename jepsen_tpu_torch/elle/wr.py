@@ -47,10 +47,10 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
           sequential_keys: bool = False,
           linearizable_keys: bool = False,
           wfr_keys: bool = False,
-          cycle_backend: str = "auto", device=None) -> dict:
-    """Analyze a write/read register history. cycle_backend and device
-    as in append.check: "host" | "cuda" | "packed" | "trim" | "device"
-    | "auto"."""
+          cycle_backend: str = "auto", device=None, devices=None) -> dict:
+    """Analyze a write/read register history. cycle_backend, device and
+    devices as in append.check: "host" | "cuda" | "packed" | "trim" |
+    "sharded" | "device" | "auto"."""
     from ..analysis import history_lint
     bad = history_lint.gate(history, where="elle.wr",
                             rules=history_lint.ELLE_GATE_RULES)
@@ -107,7 +107,7 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
 
     from .tpu import standard_cycle_search
     cycles = standard_cycle_search(gt, backend=cycle_backend,
-                                   device=device)
+                                   device=device, devices=devices)
     g = None  # the labeled DepGraph materializes only to EXPLAIN
     if any(cycles[q] for q in ("G0", "G1c", "G-single", "G2")):
         g = gt.to_depgraph() if hasattr(gt, "to_depgraph") else gt

@@ -2,20 +2,28 @@
 per-key results carry.
 
 A jax-free copy of `jepsen_tpu/fleet.py:83-418`: `device_label`,
-`fault_event`, `rebucket_hint`, `steal_plan`, `compact_hint` and
-`summarize`, which `parallel.batched` and `independent` stamp onto
-their results (`shard` blocks, `util.fleet`). The reference's live
-`RunStatus`, metrics series and lock watch are its telemetry plane and
-are not part of the port yet: nothing here records anything.
+`fault_event`, `rebucket_hint`, `steal_plan`, `compact_hint`,
+`record_sched_event` and `summarize`, which `parallel.batched`,
+`parallel.mesh` and `independent` stamp onto their results (`shard`
+blocks, `util.fleet`, the mesh summary) and call between polls (the
+steal plans). The reference's live `RunStatus`, metrics registry and
+lock watch are its telemetry plane and are not part of the port yet:
+`record_sched_event` keeps the scheduler's actions in a bounded list
+in memory instead of a metrics series.
 """
 
 from __future__ import annotations
 
+import threading
 import traceback
+from collections import deque
 from typing import Optional
 
 # Bound on a fault event's traceback text.
 FAULT_TB_LIMIT = 4000
+
+# Scheduler events kept in memory (`sched_events`), newest last.
+SCHED_EVENT_CAP = 1024
 
 
 def device_label(dev) -> str:
@@ -25,6 +33,41 @@ def device_label(dev) -> str:
         return str(dev)
     except Exception:  # noqa: BLE001 — a label must never raise
         return "device-?"
+
+
+def device_labels(devices) -> list:
+    """`device_label` of each entry of a device list, with a repeated
+    entry made distinct by its occurrence (`cuda:0`, `cuda:0#1`,
+    `cuda:0#2`, ...), so that shards sharing one device keep their
+    per-shard stats and steal plans apart."""
+    seen: dict = {}
+    out = []
+    for d in devices:
+        label = device_label(d)
+        k = seen.get(label, 0)
+        seen[label] = k + 1
+        out.append(label if k == 0 else f"{label}#{k}")
+    return out
+
+
+_SCHED_LOCK = threading.Lock()
+_SCHED: deque = deque(maxlen=SCHED_EVENT_CAP)
+
+
+def record_sched_event(series: str, point: dict) -> None:
+    """One scheduler action (a steal or rebucket of the mesh scheduler,
+    series "mesh_sched", or a rebalance of the streamed worker pool,
+    series "fleet_sched"), kept in memory with its series name."""
+    with _SCHED_LOCK:
+        _SCHED.append(dict(point, series=series))
+
+
+def sched_events(series: Optional[str] = None) -> list:
+    """The scheduler events recorded so far (at most SCHED_EVENT_CAP,
+    oldest dropped first), of one series or all."""
+    with _SCHED_LOCK:
+        return [dict(p) for p in _SCHED
+                if series is None or p["series"] == series]
 
 
 def fault_event(exc: BaseException, *, device: Optional[str] = None,

@@ -32,7 +32,7 @@ from .analysis import history_lint
 from .checker import check_safe, merge_valid
 from .history import History, strip_nemesis
 from .models.core import Model
-from .util import bounded_pmap, resolve_device
+from .util import bounded_pmap, resolve_devices
 
 DIR = "independent"
 
@@ -173,19 +173,21 @@ class CUDALinearizableIndependent:
     """Per-key linearizability on the card (the reference's
     `TPULinearizableIndependent`): the history is split into per-key
     subhistories as `IndependentChecker` does, and the whole key set is
-    checked by `parallel.check_batched`. `device=None` is the card; the
-    device is resolved before anything else, so without one `check`
-    raises."""
+    checked by `parallel.check_batched` over the devices
+    (`util.resolve_devices`: `devices`, a list that may repeat a
+    device, else `[device]`, else every card). The devices are resolved
+    before anything else, so without a card `check` raises."""
 
     def __init__(self, model: Model, time_limit: Optional[float] = None,
-                 device=None):
+                 device=None, devices=None):
         self.model = model
         self.time_limit = time_limit
         self.device = device
+        self.devices = devices
 
     def check(self, test, history, opts=None):
         from .parallel import check_batched
-        dev = resolve_device(self.device)
+        devs = resolve_devices(self.devices, self.device)
         opts = opts or {}
         bad = _gate(history, "independent.cuda")
         if bad is not None:
@@ -193,7 +195,7 @@ class CUDALinearizableIndependent:
         ks = history_keys(history)
         subs = subhistories(history, ks)
         res_list = check_batched(self.model, [strip_nemesis(s) for s in subs],
-                                 time_limit=self.time_limit, device=dev)
+                                 time_limit=self.time_limit, devices=devs)
         results = dict(zip(ks, res_list))
         for k, h, res in zip(ks, subs, res_list):
             if isinstance(res.get("shard"), dict):
@@ -204,5 +206,5 @@ class CUDALinearizableIndependent:
 
 
 def cuda_checker(model: Model, time_limit: Optional[float] = None,
-                 device=None) -> CUDALinearizableIndependent:
-    return CUDALinearizableIndependent(model, time_limit, device)
+                 device=None, devices=None) -> CUDALinearizableIndependent:
+    return CUDALinearizableIndependent(model, time_limit, device, devices)

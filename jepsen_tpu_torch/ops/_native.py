@@ -102,6 +102,11 @@ KERNELS = {
     "elle_packed_square": ("elle_packed", 3, 2),
     "elle_packed_labels": ("elle_packed", 5, 3),
     "elle_trim": ("elle_trim", 13, 8),
+    # the mesh scheduler's lane reset and batched frontier migration
+    "wgl_lane_reset": ("wgl_lanes", 9, 8),
+    "wgl_frontier_migrate": ("wgl_lanes", 2, 4),
+    # one squaring of a word-column shard of the packed closure
+    "elle_sharded_square": ("elle_sharded", 4, 3),
 }
 
 

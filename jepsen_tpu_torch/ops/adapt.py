@@ -254,3 +254,26 @@ def migrate_frontier(carry, k_new: int):
     else:
         fr = fr[:k_new].contiguous()
     return (fr, *carry[1:])
+
+
+def migrate_frontier_batch(carry, k_new: int):
+    """`migrate_frontier` for a lane-batched carry (the JAX package's
+    `migrate_frontier_batch`): the frontier is (lanes, K, C), so the
+    pad or slice runs on axis 1. The plain version of the mesh
+    scheduler's `wgl_frontier_migrate` kernel (`parallel.mesh.
+    migrate_lanes`). Only shrink when every live lane's polled fr_cnt
+    fits k_new (the scheduler's sparse rule guarantees it); the other
+    leaves ride along untouched, and the same carry comes back when K
+    does not change."""
+    import torch
+
+    fr = carry[0]
+    k_old = fr.shape[1]
+    if k_new == k_old:
+        return carry
+    if k_new > k_old:
+        fr = torch.cat([fr, fr.new_zeros((fr.shape[0], k_new - k_old,
+                                          fr.shape[2]))], dim=1)
+    else:
+        fr = fr[:, :k_new].contiguous()
+    return (fr, *carry[1:])

@@ -2,9 +2,10 @@
 
 A copy of `elle_cycle_route` from the JAX package's
 `jepsen_tpu/ops/route.py`; the WGL router of that module is not ported
-yet. The port runs on one card, so the sharded route never applies
-(`n_shards` is 0), and its device is always usable: a missing card
-raises when the device is resolved, before any route is taken.
+yet. `n_shards` is the word-column shard count the caller's devices
+yield (`parallel.mesh.word_shard_count`; 0 on the CPU), and `sharded_cap`
+the sharded closure's capacity. The device is always usable: a missing
+card raises when the device is resolved, before any route is taken.
 """
 
 from __future__ import annotations

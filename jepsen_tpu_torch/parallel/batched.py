@@ -1,41 +1,50 @@
-"""Batched WGL search over many independent histories, on one card.
+"""Batched WGL search over many independent histories.
 
-The port of `jepsen_tpu/parallel/batched.py` for one device. Every
-key's history is encoded into one shared shape bucket; then either
+The port of `jepsen_tpu/parallel/batched.py`. Every key's history is
+encoded into one shared shape bucket; then either
 
+  * **mesh**: the lane scheduler of `parallel.mesh.check_mesh` (a small
+    window of lane slots per device, refilled from per-shard queues),
+    the default for 4 or more keys when two or more devices are named;
   * **vmap**: the whole batch runs as lanes of one search, one lane per
-    key. Each poll is ONE launch of the lane-batched chunk kernel
+    key, split over the devices in contiguous blocks. Each poll is ONE
+    launch per device of the lane-batched chunk kernel
     (`wgl32.chunk_batched` for windows of at most 32 ops,
     `wgln.chunk_batched` past that: one CUDA block per lane, each to
-    its own stop) and ONE device-to-host copy of the (lanes, 11 + ring)
-    summary. This is the reference's `jit(vmap(chunk_fn))`
-    (`_compiled_batched`), its single-device default for 4 or more
-    keys;
-  * **stream**: one `ops.wgl.check` per key in turn, each padded into
-    the shared bucket of its kernel branch (the reference's
-    `check_streamed` on one device), racing the host oracle on the card
-    (`checker._race_competition`).
+    its own stop), each on its device's own stream, and ONE
+    device-to-host copy per device of its (lanes, 11 + ring) summary.
+    This is the reference's `jit(vmap(chunk_fn))` (`_compiled_batched`)
+    over a `NamedSharding`;
+  * **stream**: one `ops.wgl.check` per key, each padded into the
+    shared bucket of its kernel branch, racing the host oracle on the
+    card (`checker._race_competition`); with two or more devices one
+    worker thread per device drains its own queue and steals from the
+    heaviest (the reference's `check_streamed`).
 
+A device list plays the reference's mesh: `devices=None` is every
+visible card (`util.default_devices`), and a list may repeat a device, so
+that several shards share one card (the tests name `["cpu"] * n`).
 Keys whose history cannot be encoded, or that have no ok op, are
 decided on the host; keys the device leaves "unknown" go to the host
 oracle (competition semantics).
 
 Departures from the reference, each so that the device is never hidden:
-the device is resolved up front and `device=None` (the card) raises
-without one (no host fallback for a backend that does not come up); a
+the devices are resolved up front and `devices=None` raises without a
+card (no host fallback for a backend that does not come up); a
 kernel's build or launch failure raises instead of becoming a per-key
-fault that the oracle then decides. Not ported yet: the
-multi-device branches (the mesh scheduler `check_mesh`, which returns
-None with fewer than 2 devices, so `strategy="mesh"` degrades to "auto"
-here exactly as it does there; `check_streamed`'s worker pool; key
-padding to a mesh size), the preflight admission gate, and the
-telemetry planes (fleet status, metrics series, watchdog, HBM block).
+fault that the oracle then decides. A named device list does not pin
+the vmap path as the reference's explicit mesh does: the list is the
+mesh, and "auto" takes the mesh scheduler over it. Not ported yet: the
+preflight admission gate, and the telemetry planes (fleet status,
+metrics series, watchdog, HBM block).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time as _time
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -47,7 +56,7 @@ from ..models.core import Model
 from ..ops import adapt as _adapt
 from ..ops import wgl, wgl32, wgl_ref, wgln
 from ..ops.encode import INF, Encoded, EncodingUnsupported, _pad_to, encode
-from ..util import resolve_device
+from ..util import on_stream, resolve_devices, shard_streams
 
 STRATEGIES = ("auto", "vmap", "stream", "mesh")
 
@@ -87,7 +96,7 @@ def shared_shape_bucket(encs: Sequence[Encoded]) -> Optional[dict]:
 class BatchEncoded:
     """A batch of per-key encodings padded into one shape bucket."""
 
-    n_keys: int            # keys (= lanes)
+    n_keys: int            # real keys (the batch may be padded past them)
     n_pad: int
     ic_pad: int
     window: int
@@ -104,11 +113,13 @@ class BatchEncoded:
     n_info: np.ndarray     # (Bk,) i32
 
 
-def encode_batch(encs: Sequence[Encoded]) -> BatchEncoded:
+def encode_batch(encs: Sequence[Encoded], batch_pad: int = 1) -> BatchEncoded:
     """Pad per-key encodings into a common bucket and stack them, one
-    lane per key (the reference's `encode_batch` with `batch_pad=1`:
-    one card needs no dummy lanes)."""
-    nk = bk = len(encs)
+    lane per key. `batch_pad` rounds the key axis up to a multiple (the
+    device count) with dummy keys: n_ok 0, so their lanes stop after
+    their first round and their verdicts are ignored."""
+    nk = len(encs)
+    bk = _pad_to(nk, batch_pad)
     n_pad = max(len(e.inv) for e in encs)
     ic_pad = max(len(e.inv_info) for e in encs)
     W = max(e.window for e in encs)
@@ -222,15 +233,23 @@ def check_streamed(model: Model, histories: Sequence[History],
                    oracle_fallback: bool = True,
                    encs: Optional[Sequence[Encoded]] = None,
                    key_indices: Optional[Sequence[int]] = None,
-                   device=None) -> list[dict]:
-    """Per-key single-kernel checks, one key after another on one
-    device (the reference's one-device branch). On the card with
+                   device=None, devices=None) -> list[dict]:
+    """Per-key single-kernel checks over a device list
+    (`util.resolve_devices`: `devices`, else `[device]`, else every
+    card). On one device the keys
+    run one after another; on several, one worker thread per device
+    drains its own queue (keys assigned longest first by encoded op
+    count), steals the smallest pending key off the heaviest queue when
+    it runs dry, and between keys moves pending keys off the busiest
+    device when the completed walls show work skew (`fleet.steal_plan`,
+    recorded as a "fleet_sched" event). On the card with
     `oracle_fallback`, each key's device search races the host oracle
     (the host is otherwise idle); otherwise a device "unknown" goes to
     the oracle afterwards. With `encs`, each kernel branch's keys share
-    one shape bucket (`shared_shape_bucket`)."""
-    dev = resolve_device(device)
-    race = oracle_fallback and dev.type == "cuda"
+    one shape bucket (`shared_shape_bucket`). An exception of a worker
+    is raised once every worker has ended."""
+    devs = resolve_devices(devices, device)
+    race = oracle_fallback and devs[0].type == "cuda"
     deadline = _time.monotonic() + time_limit if time_limit else None
     bucket_n = bucket_w = None
     if encs is not None and len(histories) > 1:
@@ -238,11 +257,13 @@ def check_streamed(model: Model, histories: Sequence[History],
             [e for e in encs if e.window_raw <= 32])
         bucket_w = shared_shape_bucket(
             [e for e in encs if e.window_raw > 32])
-    label = _fleet.device_label(dev)
-    di = dev.index or 0
+    labels = _fleet.device_labels(devs)
 
-    def one(i: int) -> dict:
-        ki = key_indices[i] if key_indices is not None else i
+    def ki_of(i: int) -> int:
+        return key_indices[i] if key_indices is not None else i
+
+    def one(di: int, i: int) -> dict:
+        dev, label, ki = devs[di], labels[di], ki_of(i)
         h = histories[i]
         enc = encs[i] if encs else None
         t0 = _time.monotonic()
@@ -279,7 +300,85 @@ def check_streamed(model: Model, histories: Sequence[History],
                                wall_s=_time.monotonic() - t0,
                                extra={"retries": retries})
 
-    return [one(i) for i in range(len(histories))]
+    if len(devs) == 1 or len(histories) == 1:
+        return [one(0, i) for i in range(len(histories))]
+
+    # one worker per device, each draining its own queue (longest keys
+    # first, balanced by encoded op count)
+    est = [float(encs[i].n_ok) if encs else float(len(histories[i]))
+           for i in range(len(histories))]
+    queues = [deque() for _ in devs]
+    dev_wall = [0.0] * len(devs)
+    load = [0.0] * len(devs)
+    for i in sorted(range(len(histories)), key=lambda i: -est[i]):
+        d = load.index(min(load))
+        queues[d].append(i)
+        load[d] += est[i]
+    qlock = threading.Lock()
+    results: list[Optional[dict]] = [None] * len(histories)
+    errors: list = []
+
+    def claim(di: int) -> Optional[int]:
+        with qlock:
+            if queues[di]:
+                return queues[di].popleft()
+            donor = max(range(len(devs)),
+                        key=lambda d: sum(est[j] for j in queues[d]))
+            if donor == di or not queues[donor]:
+                return None
+            # smallest-first off the heaviest queue: moving a straggler
+            # key would just relocate the imbalance
+            j = min(queues[donor], key=lambda j: est[j])
+            queues[donor].remove(j)
+            return j
+
+    def rebalance() -> None:
+        with qlock:
+            walls = {labels[d]: dev_wall[d] for d in range(len(devs))}
+            pending = {labels[d]: [(est[j], j) for j in queues[d]]
+                       for d in range(len(devs))}
+        plan = _fleet.steal_plan(pending, walls)
+        if plan is None:
+            return
+        with qlock:
+            fdi = labels.index(plan["from"])
+            tdi = labels.index(plan["to"])
+            # keys may have been claimed since the snapshot: move only
+            # what is still pending
+            moved = [j for j in plan["keys"] if j in queues[fdi]]
+            for j in moved:
+                queues[fdi].remove(j)
+                queues[tdi].append(j)
+        if moved:
+            _fleet.record_sched_event("fleet_sched", {
+                "event": "rebucket", "from": plan["from"],
+                "to": plan["to"], "keys": [ki_of(j) for j in moved],
+                "skew_before": plan["skew_before"],
+                "est_moved": plan["est_moved"]})
+
+    def worker(di: int) -> None:
+        try:
+            while not errors:
+                i = claim(di)
+                if i is None:
+                    return
+                results[i] = one(di, i)
+                with qlock:
+                    dev_wall[di] += float(results[i]["shard"]["wall_s"])
+                rebalance()
+        except BaseException as e:  # raised once every worker has ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(di,),
+                                name=f"stream-{labels[di]}")
+               for di in range(len(devs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results  # type: ignore[return-value]
 
 
 def check_batched(model: Model, histories: Sequence[History],
@@ -287,27 +386,34 @@ def check_batched(model: Model, histories: Sequence[History],
                   max_configs: int = 50_000_000,
                   oracle_fallback: bool = True,
                   chunk: int = 1024, strategy: str = "auto",
-                  device=None) -> list[dict]:
-    """Check many independent histories against `model` on one device.
-    Returns one result dict per history, in order.
+                  device=None, devices=None) -> list[dict]:
+    """Check many independent histories against `model`. Returns one
+    result dict per history, in order.
 
-    strategy: "vmap" — every key a lane of one lane-batched search (one
-    kernel launch and one summary copy per poll; lanes run to their own
-    stops); "stream" — one single-key search per key (`check_streamed`);
-    "mesh" — the reference's multi-device scheduler, which needs two or
-    more devices and so degrades to "auto" here, as it does there;
-    "auto" — on the card, vmap for 4 or more encodable keys, else
-    stream; on the CPU, stream when the biggest history has more than
-    512 ok ops, else vmap.
+    The devices are `resolve_devices(devices, device)`: the named list (it may
+    repeat a device), else the one named device, else every card.
+
+    strategy: "mesh" — the lane scheduler (`parallel.mesh.check_mesh`:
+    per-device lane slots refilled from per-shard queues, the ladder
+    climbed by the live lanes' hints, work stealing), which needs two
+    or more devices and otherwise degrades to the "auto" decision
+    below, as in the reference; "vmap" — every key a lane of one
+    lane-batched search, the lanes split over the devices (one kernel
+    launch and one summary copy per device per poll; lanes run to their
+    own stops); "stream" — one single-key search per key
+    (`check_streamed`); "auto" — the mesh for 4 or more encodable keys
+    (`mesh.MIN_MESH_KEYS`; `JEPSEN_TPU_MESH=0` turns it off), else on
+    the card vmap for 4 or more keys and stream below; on the CPU,
+    stream when the biggest history has more than 512 ok ops, else vmap.
 
     `max_configs` is a per-key exploration budget. With
     `oracle_fallback`, keys the device leaves "unknown" are re-checked by
     the host oracle; pass False to see raw device verdicts.
-    `device=None` is the card (it raises without one); `device="cpu"`
-    runs the kernels' plain versions."""
+    `device="cpu"` or a list of CPU devices runs the kernels' plain
+    versions."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
     # device stats are int32: cap the budget so the explored counter
     # can reach it without wrapping (it grows by at most K per round)
     max_configs = min(max_configs, 2**30)
@@ -340,23 +446,36 @@ def check_batched(model: Model, histories: Sequence[History],
     if not encs:
         return results  # type: ignore[return-value]
 
+    kept = [histories[i] for i in keys]
+    from . import mesh as _mesh
+    if strategy == "auto" and _mesh.enabled() \
+            and len(encs) >= _mesh.MIN_MESH_KEYS:
+        strategy = "mesh"
     if strategy == "mesh":
-        strategy = "auto"
+        out = _mesh.check_mesh(
+            model, kept, encs=encs, time_limit=time_limit,
+            max_configs=max_configs, devices=devs,
+            oracle_fallback=oracle_fallback, key_indices=keys, chunk=chunk)
+        if out is None:
+            # fewer than 2 devices: the decision below
+            strategy = "auto"
+    else:
+        out = None
     if strategy == "auto":
-        on_card = dev.type == "cuda"
+        on_card = devs[0].type == "cuda"
         stream_wins = ((not on_card and max(e.n_ok for e in encs) > 512)
                        or (on_card and len(encs) < 4))
         strategy = "stream" if stream_wins else "vmap"
     if strategy == "stream":
         out = check_streamed(
-            model, [histories[i] for i in keys], time_limit=time_limit,
-            max_configs=max_configs, oracle_fallback=oracle_fallback,
-            encs=encs, key_indices=keys, device=dev)
-    else:
-        out = _check_vmap(model, [histories[i] for i in keys], encs, keys,
-                          time_limit=time_limit, max_configs=max_configs,
+            model, kept, time_limit=time_limit, max_configs=max_configs,
+            oracle_fallback=oracle_fallback, encs=encs, key_indices=keys,
+            devices=devs)
+    elif strategy == "vmap":
+        out = _check_vmap(model, kept, encs, keys, time_limit=time_limit,
+                          max_configs=max_configs,
                           oracle_fallback=oracle_fallback, chunk=chunk,
-                          dev=dev)
+                          devs=devs)
     for i, res in zip(keys, out):
         results[i] = res
     return results  # type: ignore[return-value]
@@ -383,40 +502,54 @@ def vmap_plan(batch: BatchEncoded, w_raw: int, chunk: int = 1024) -> dict:
 
 
 def batch_consts(batch: BatchEncoded, plan: dict, max_configs: int,
-                 dev) -> wgl32.BatchConsts:
-    """The batch's consts on `dev`, info tables cut to the plan's ic."""
-    ic = plan["ic"]
+                 dev, lanes: slice = slice(None)) -> wgl32.BatchConsts:
+    """The consts of the batch's `lanes` on `dev`, info tables cut to
+    the plan's ic."""
+    ic, sl = plan["ic"], lanes
     return wgl32.batch_consts_from_numpy(
-        batch.inv, batch.ret, batch.opcode, batch.sufminret,
-        batch.inv_info[:, :ic], batch.opcode_info[:, :ic], batch.table,
-        batch.n_ok, batch.n_info, max_configs, dev)
+        batch.inv[sl], batch.ret[sl], batch.opcode[sl], batch.sufminret[sl],
+        batch.inv_info[sl, :ic], batch.opcode_info[sl, :ic], batch.table[sl],
+        batch.n_ok[sl], batch.n_info[sl], max_configs, dev)
 
 
 def _check_vmap(model: Model, histories: Sequence[History],
                 encs: Sequence[Encoded], keys: Sequence[int], *,
                 time_limit, max_configs: int, oracle_fallback: bool,
-                chunk: int, dev) -> list[dict]:
-    """The lockstep batch: every encodable key a lane, one lane-batched
-    chunk launch and one summary copy per poll, until no lane is live
-    or the deadline passes."""
-    batch = encode_batch(encs)
+                chunk: int, devs: list) -> list[dict]:
+    """The lockstep batch: every encodable key a lane, the lanes padded
+    to a multiple of the device count and split into contiguous
+    per-device blocks (the reference's `NamedSharding` of the key axis).
+    Each poll launches one lane-batched chunk per device, each on its
+    device's own stream, then copies each device's summary to the host,
+    until no lane is live or the deadline passes."""
+    nd = len(devs)
+    batch = encode_batch(encs, batch_pad=nd)
     bk = batch.inv.shape[0]
+    per_dev = bk // nd
     plan = vmap_plan(batch, max(e.window_raw for e in encs), chunk)
     W, L, ic, K, H, B = (plan[k] for k in ("W", "L", "ic", "K", "H", "B"))
     chunk, probes = plan["chunk"], plan["probes"]
-    consts = batch_consts(batch, plan, max_configs, dev)
+    streams = shard_streams(devs)
+    blocks = []
+    for d, dev in enumerate(devs):
+        with on_stream(streams[d]):
+            consts = batch_consts(batch, plan, max_configs, dev,
+                                  slice(d * per_dev, (d + 1) * per_dev))
+            if L:
+                carry = wgln.init_carry_batch(per_dev, K, L, ic, H, B, 0,
+                                              dev)
+            else:
+                carry = wgl32.init_carry_batch(per_dev, K,
+                                               wgl32.row_words(ic), H, B, 0,
+                                               dev)
+        blocks.append([consts, carry])
     if L:
-        carry = wgln.init_carry_batch(bk, K, L, ic, H, B, 0, dev)
-
-        def step(carry):
+        def step(consts, carry):
             return wgln.chunk_batched(consts, carry, K=K, L=L, ic=ic, H=H,
                                       B=B, chunk=chunk, probes=probes)
         hint_ladder = _adapt.ladder_for(K, k_min=max(32, K // 16), step=8)
     else:
-        carry = wgl32.init_carry_batch(bk, K, wgl32.row_words(ic), H, B, 0,
-                                       dev)
-
-        def step(carry):
+        def step(consts, carry):
             return wgl32.chunk_batched(consts, carry, K=K, W=W, ic=ic, H=H,
                                        B=B, chunk=chunk, probes=probes)
         hint_ladder = _adapt.LADDER32
@@ -425,10 +558,19 @@ def _check_vmap(model: Model, histories: Sequence[History],
     deadline = t0 + time_limit if time_limit else None
     timed_out = False
     while True:
-        carry, summary = step(carry)
-        # the one device->host copy per poll: [fr_cnt, flags x3,
-        # stats x6, bk_cnt, ring] per lane
-        s = summary.cpu().numpy()
+        # every device's launch before any device's summary is read
+        summaries = []
+        for d, blk in enumerate(blocks):
+            with on_stream(streams[d]):
+                blk[1], summary = step(*blk)
+            summaries.append(summary)
+        # the one device->host copy per device per poll: [fr_cnt, flags
+        # x3, stats x6, bk_cnt, ring] per lane
+        parts = []
+        for d, summary in enumerate(summaries):
+            with on_stream(streams[d]):
+                parts.append(summary.cpu().numpy())
+        s = np.concatenate(parts)
         fr_cnt, flags, stats = s[:, 0], s[:, 1:4], s[:, 4:10]
         found = flags[:, 0] != 0
         empty = fr_cnt == 0
@@ -443,7 +585,7 @@ def _check_vmap(model: Model, histories: Sequence[History],
     wall = _time.monotonic() - t0
 
     overflow = flags[:, 1]
-    label = _fleet.device_label(dev)
+    labels = _fleet.device_labels(devs)
     out = []
     for lane, (hist, e) in enumerate(zip(histories, encs)):
         n_total = int(e.n_ok + e.n_info)
@@ -481,9 +623,10 @@ def _check_vmap(model: Model, histories: Sequence[History],
             if oracle_fallback and not timed_out:
                 res = _oracle_fallback(model, hist, deadline, res)
                 engine = str(res.get("engine") or engine)
+        di = lane // per_dev
         out.append(_annotate_shard(
-            res, key_index=keys[lane], device=label,
-            device_index=dev.index or 0, engine=engine, t0=t0,
+            res, key_index=keys[lane], device=labels[di],
+            device_index=di, engine=engine, t0=t0,
             # lockstep lanes all pay the batch wall; per-lane rounds and
             # configs are the imbalance signal
             wall_s=wall, extra={"rounds": rounds,

@@ -1,13 +1,18 @@
-"""Device resolution for the port's entry points, and `bounded_pmap`.
+"""Device resolution for the port's entry points, shard streams, and
+`bounded_pmap`.
 
 Every entry point takes `device=None`, which means the CUDA card. There
 is no silent fallback: asking for CUDA where there is none raises, and
 the CPU runs only when the caller names it (the tests do), where every
-kernel wrapper takes its plain PyTorch version.
+kernel wrapper takes its plain PyTorch version. The fan-out and Elle
+entry points also take `devices=`, a list of devices that plays the
+reference's device mesh (`default_devices`, every card, when none is
+named); an entry may repeat, and then several shards share one device.
 """
 
 from __future__ import annotations
 
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence, Union
 
@@ -30,6 +35,48 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def default_devices(n_devices: Optional[int] = None) -> list:
+    """Every visible card, each once (the reference's `default_mesh`),
+    or the first `n_devices` of them. Raises without a card, as
+    `resolve_device` does."""
+    resolve_device("cuda")   # raises the no-card error
+    devs = [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+    return devs[:int(n_devices)] if n_devices else devs
+
+
+def resolve_devices(devices: Optional[Sequence] = None,
+                    device=None) -> list:
+    """The device list of an entry point that takes `devices=`: each
+    entry of `devices` through `resolve_device` (repeats kept: they are
+    shards sharing a device), else `[resolve_device(device)]` when one
+    device is named, else every visible card (`default_devices`).
+    Raises ValueError on an empty list."""
+    if devices is None:
+        return [resolve_device(device)] if device is not None \
+            else default_devices()
+    out = [resolve_device(d) for d in devices]
+    if not out:
+        raise ValueError("an empty device list")
+    return out
+
+
+def shard_streams(devices: Sequence[torch.device]) -> list:
+    """One new `torch.cuda.Stream` per CUDA entry of a device list (None
+    for a CPU entry), so that shards sharing a card overlap on it as
+    shards on separate cards would."""
+    return [torch.cuda.Stream(device=d) if d.type == "cuda" else None
+            for d in devices]
+
+
+def on_stream(stream):
+    """`torch.cuda.stream(stream)` for a shard's stream; nothing for a
+    CPU shard (None)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
 
 
 def device_name(device: torch.device) -> str:

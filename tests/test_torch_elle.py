@@ -176,10 +176,14 @@ def test_device_none_without_a_card_raises(monkeypatch):
 
 
 def test_sharded_backend_is_not_ported():
+    """The sharded backend is ported now (tests/test_torch_elle_sharded.py):
+    on one device it yields fewer than 2 word shards and falls back to
+    the packed closure, as the reference's does; "tpu" stays unknown."""
     g = tgraph.DepGraph()
     g.add_edge(0, 1, tgraph.WW)
-    with pytest.raises(ValueError, match="Queue A 8"):
-        ttpu.standard_cycle_search(g, backend="sharded", device="cpu")
+    res = ttpu.standard_cycle_search(g, backend="sharded", device="cpu")
+    assert res["engine"] == "device" and res["util"]["kernel"] == "packed"
+    assert not any(res[q] for q in ("G0", "G1c", "G-single", "G2"))
     with pytest.raises(ValueError, match="unknown backend"):
         ttpu.standard_cycle_search(g, backend="tpu", device="cpu")
 

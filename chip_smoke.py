@@ -70,6 +70,23 @@ Then Elle:
     of the card, bit-identical to the packed closure and equal to the
     host oracle's verdict (run in a background process from the start).
 
+Then the bool-window WGL chunk (`wgl_chunk`, the reference's general
+search, reached through `ops/wgl._compiled_search` as in the
+reference): held bit for bit on every carry leaf against its plain
+version at the headline's consts (K 64), the 16-wave's (K 256, W 96)
+and with a full memo table and an overflowing backlog, then driven to
+a verdict on the headline (True) and the invalid narrow history (the
+host oracle's False) at `derive_plan`'s first bucket.
+
+Then the admission plane (`analysis/preflight.py`): for every main-path
+shape above, the plan's predicted bytes against the peak the check
+allocated on the card over what was allocated before it (each
+main-path run reads `max_memory_allocated` after resetting it); a
+rejection under a small `JEPSEN_TPU_PREFLIGHT_MEM_BUDGET` that launches
+no kernel and allocates nothing; a 100k-txn forced bf16 closure
+rejected (P002); and the parity block of `python -m jepsen_tpu_torch
+preflight --headline --execute`, run in this process.
+
 It prints as its last lines the card, one JSON line of per-kernel
 numbers and
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -88,7 +105,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device-memory rate (data sheet)
 HEADLINE = dict(n_ops=10000, n_procs=5, seed=42, crash_p=0.002)
 INVALID = dict(n_ops=2000, n_procs=5, seed=9, lie_p=0.004)
 SMALL = dict(W=24, ic=16, H=1 << 12, B=64, chunk=64, chunks=3)
@@ -118,8 +134,17 @@ MESH_SHARDS = 2               # shards of the mesh fan-out, all on the card
 MESH_WAVE = dict(n_keys=8, n_valid=4, lanes_per_device=2)
 ELLE_SHARDS = (2, 4)          # shards of the sharded Elle main path
 SHARD_CHECK = (1, 2, 4)       # shard counts of the sharded-square check
-BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
-INT32_LANES = 64              # int32 operations per SM per clock
+# wgl_chunk against its plain version: (consts, K, H, B, rounds); None
+# takes derive_plan's first bucket. The first two are the main path's
+# first launch on the headline and on the invalid history (K 2, its H, B
+# and chunk); the last one fills a 1024-slot table and overflows a
+# 256-row backlog.
+BOOL_CHECKS = (("headline", None, None, None, None),
+               ("invalid", None, None, None, None),
+               ("headline", 64, None, None, 32),
+               ("16-wave", 256, None, None, 16),
+               ("16-wave", 64, 1024, 256, 24))
+SMALL_BUDGET = 1_000_000      # bytes: a budget every main path blows
 RT = ("realtime",)
 REPO = Path(__file__).resolve().parent
 
@@ -154,21 +179,64 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def sm_clock_hz() -> float:
-    """The card's maximum SM clock (nvidia-smi), for the int32 peak."""
-    mhz = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0]
-    return float(mhz) * 1e6
+def card_peak(name: str) -> float:
+    """The card's peak `name` ("hbm_bytes_per_s", "bf16_flops",
+    "int32_ops") from `jepsen_tpu_torch.occupancy`, by its name."""
+    from jepsen_tpu_torch import occupancy
+    return occupancy.peaks(torch.cuda.get_device_name(0))[0][name]
+
+
+class GateLog:
+    """The admission reports the port's own gates made inside the block,
+    read from preflight's recent window (`preflight.snapshot`)."""
+
+    def __enter__(self):
+        from jepsen_tpu_torch.analysis import preflight
+        self.n0 = preflight.snapshot()["checked"]
+        self.reports: list = []
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.analysis import preflight
+        snap = preflight.snapshot()
+        self.new = snap["checked"] - self.n0
+        self.reports = snap["recent"][-self.new:] if self.new else []
+        return False
+
+
+class Peaks:
+    """Each main path's predicted bytes beside the peak it allocated on
+    the card over its baseline, by shape. The prediction is the bill of
+    the one admission report the path's own gate made while it ran
+    (`GateLog`), so a gate that under-bills fails the run; `also` is a
+    plan printed beside it (the Elle plan at the built graph's own edge
+    counts, where the gate estimated them)."""
+    rows: list = []
+
+    @classmethod
+    def add(cls, shape: str, gates: GateLog, measured: int,
+            also: dict = None) -> None:
+        if gates.new != 1 or len(gates.reports) != 1:
+            raise AssertionError(f"preflight {shape}: {gates.new} gate "
+                                 f"reports, want 1: {gates.reports}")
+        rep = gates.reports[0]
+        predicted = int(rep["hbm_peak_bytes"])
+        cls.rows.append((shape, rep["verdict"], predicted, int(measured)))
+        extra = (f"; at the built graph's edge counts "
+                 f"{also['hbm']['peak_bytes']} B" if also else "")
+        print(f"  preflight {shape} (gate {rep['where']}): verdict "
+              f"{rep['verdict']}, predicted {predicted} B, measured peak "
+              f"{measured} B (ratio {predicted / max(measured, 1):.4f})"
+              f"{extra}", flush=True)
 
 
 def counters() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from jepsen_tpu_torch.elle import tpu as etpu
-    from jepsen_tpu_torch.ops import wgl32, wgln
+    from jepsen_tpu_torch.ops import wgl32, wgl_bool, wgln
     from jepsen_tpu_torch.parallel import mesh
     return {"wgl32_chunk": wgl32.chunk, "wgln_chunk": wgln.chunk,
+            "wgl_chunk": wgl_bool.chunk,
             "wgl32_chunk_batched": wgl32.chunk_batched,
             "wgln_chunk_batched": wgln.chunk_batched,
             "elle_closure": etpu.closure,
@@ -355,40 +423,13 @@ def run_trim(g, dev):
     return got, outputs_err(got, ref), time.monotonic() - t0, t
 
 
-def trim_work(t, dev) -> int:
-    """The operations the trim's data needs, for its bound: per subset,
-    for every peel up to that subset's own fixpoint (the body whose count
-    repeats), one check per real neighbor slot (mask set) of each live
-    node, and one compare per live node on each side (has_in, has_out)
-    for each jump family that is on. Replays the peels of `trim_ref`."""
-    from jepsen_tpu_torch.elle import tpu as etpu
-
-    ins = on_card(t["arrays"], dev)
-    args, live = ins[:8], ins[8]
-    kw = dict(p_pad=t["p_pad"], use_rt=t["use_rt"], use_proc=t["use_proc"])
-    per_node = (ins[1].sum(dim=1, dtype=torch.int64)
-                + ins[3].sum(dim=1, dtype=torch.int64)
-                + 2 * (int(t["use_rt"]) + int(t["use_proc"])))
-    active = torch.ones(live.shape[1], dtype=torch.bool, device=dev)
-    prev = None
-    ops = 0
-    for _ in range(t["n_pad"]):
-        for _ in range(2):
-            ops += int((live * active * per_node).sum())
-            live = etpu._peel_ref(live, *args, **kw)
-        c = live.sum(dim=0)
-        if prev is not None:
-            active &= c != prev
-        if not bool(active.any()):
-            break
-        prev = c
-    return ops
-
-
 def elle_drive(check, hist, **kw):
     """One Elle check on the card, every count at 0 just before it and
     read just after: (result, wall, counts, Timed). The Timed also holds
-    `build_s`, the host time of the graph build inside the check."""
+    `build_s`, the host time of the graph build inside the check, and
+    `peak`, the bytes the check allocated on the card at its peak over
+    its baseline, and `gates`, the admission report of the check's own
+    gate (`GateLog`)."""
     from jepsen_tpu_torch.elle import build
 
     originals = {n: getattr(build, n) for n in ("build_append", "build_wr")}
@@ -403,6 +444,8 @@ def elle_drive(check, hist, **kw):
         return run
 
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with Timed() as t:
         t.build_s = 0.0
         for n, fn in originals.items():
@@ -410,14 +453,29 @@ def elle_drive(check, hist, **kw):
         try:
             zero_counts()
             t0 = time.monotonic()
-            res = check(hist, additional_graphs=RT, **kw)
+            with GateLog() as t.gates:
+                res = check(hist, additional_graphs=RT, **kw)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             counts = read_counts()
+            t.peak = torch.cuda.max_memory_allocated() - before
         finally:
             for n, fn in originals.items():
                 setattr(build, n, fn)
     return res, wall, counts, t
+
+
+def elle_plan(gt, backend, devices) -> dict:
+    """The preflight plan of a cycle search over the built graph `gt`,
+    with its own node, edge and rw-edge counts."""
+    from jepsen_tpu_torch.analysis import preflight
+    from jepsen_tpu_torch.elle.graph import RW
+
+    edges = np.asarray(gt.edges)
+    rw = int(np.sum(edges[:, 2] == RW)) if len(edges) else 0
+    return preflight.plan_elle(n_txns=int(np.asarray(gt.nodes).shape[0]),
+                               edges=int(len(edges)), rw_edges=rw,
+                               backend=backend, devices=devices)
 
 
 def cycles(res) -> dict:
@@ -452,13 +510,13 @@ def elle_phases(dev, host10) -> list:
     the sharded closure over shards of the card (its verdict against
     `host10`, the future of `elle_host_verdict(ELLE_10K)`). Returns the
     four kernels' entries of the kernels line."""
-    from jepsen_tpu_torch import synth
+    from jepsen_tpu_torch import occupancy, synth
     from jepsen_tpu_torch.elle import append, build, wr
     from jepsen_tpu_torch.elle import tpu as etpu
 
     S = len(etpu.SUBSETS)
-    int_ops_per_s = (torch.cuda.get_device_properties(dev)
-                     .multi_processor_count * INT32_LANES * sm_clock_hz())
+    int_ops_per_s = card_peak("int32_ops")
+    hbm = card_peak("hbm_bytes_per_s")
 
     # ---- small corpora: every kernel == its plain version ---------------
     errs = {"elle_closure": 0, "elle_packed_closure": 0, "elle_trim": 0}
@@ -508,6 +566,8 @@ def elle_phases(dev, host10) -> list:
         host_s = time.monotonic() - t0
         same_verdict(f"elle {kind} 3k auto vs host", res, host)
         gt = builder(hist)
+        Peaks.add(f"elle {kind} 3k bf16", t.gates, t.peak,
+                  elle_plan(gt, "auto", [dev]))
         dev_s = (sum(sq) + sum(lab)) / 1e3
         print(f"  wall split: build {t.build_s:.4f} s, kernels {dev_s:.4f} "
               f"s, the rest (lint, direct anomalies, host prep, copies) "
@@ -581,6 +641,7 @@ def elle_phases(dev, host10) -> list:
     # ---- the 10k cell: auto -> packed; forced trim -------------------------
     h10 = synth.list_append_history(**ELLE_10K)
     res, wall, counts, t = elle_drive(append.check, h10, cycle_backend="auto")
+    peak10, gates10 = t.peak, t.gates
     u = res.get("cycle-util") or {}
     psq, plab = t.ms("elle_packed_square"), t.ms("elle_packed_labels")
     print(f"elle append 10k, auto: valid? {res['valid?']} engine "
@@ -601,6 +662,8 @@ def elle_phases(dev, host10) -> list:
           f"{tt.ms('elle_trim')[0]:.4f} ms, wall {wall_t:.4f} s")
     same_verdict("elle append 10k packed vs trim", res, res_t)
     gt = builders["append"][2](h10)
+    Peaks.add("elle append 10k packed", gates10, peak10,
+              elle_plan(gt, "auto", [dev]))
     a = etpu.closure_inputs(gt, packed=True)
     p = on_card(a["args"], dev)
     kw = dict(n_pad=a["n_pad"], iters=1)
@@ -667,8 +730,10 @@ def elle_phases(dev, host10) -> list:
                            reps=1)
     w_loc0 = blk0.shape[-1]
     ones0 = int(etpu._popcount32(p[0].to(torch.int64) & 0xFFFFFFFF).sum())
-    sh_ops = ones0 * w_loc0 / int_ops_per_s
-    sh_bytes = (p[0].numel() + 2 * blk0.numel()) * 4 / HBM_BYTES_PER_S
+    sc = occupancy.sharded_square_cost(p[0].numel(), blk0.numel(), ones0,
+                                       w_loc0)
+    sh_ops = sc["ops"] / int_ops_per_s
+    sh_bytes = sc["bytes_accessed"] / hbm
     sh_bound = max(sh_ops, sh_bytes) * 1e3
     print(f"  2 shards, shard 0: kernel {sh_ms:.4f} ms median, "
           f"sharded_square_ref {sh_plain_ms:.1f} ms (== the kernel); bound "
@@ -702,6 +767,8 @@ def elle_phases(dev, host10) -> list:
               f"label pass {sum(ts.ms('elle_packed_labels')):.4f} ms",
               flush=True)
         same_verdict(f"elle append 10k sharded x{ns} vs host", rs, host)
+        Peaks.add(f"elle append 10k sharded x{ns}", ts.gates, ts.peak,
+                  elle_plan(gt, "sharded", cards))
         if (rs.get("cycle-engine") != "sharded" or us.get("n_shards") != ns
                 or counts_s["elle_sharded_square"] < 1
                 or us.get("iter_reach") != u.get("iter_reach")
@@ -732,8 +799,9 @@ def elle_phases(dev, host10) -> list:
     # and written once (2 S n^2 bf16)
     d = out["append"]
     n = d["n_pad"]
-    d_ops = 2.0 * S * n ** 3 / BF16_FLOPS
-    d_bytes = 2.0 * S * n * n * 2 / HBM_BYTES_PER_S
+    dc = occupancy.dense_square_cost(S, n)
+    d_ops = dc["flops"] / card_peak("bf16_flops")
+    d_bytes = dc["bytes_accessed"] / hbm
     d_bound = max(d_ops, d_bytes) * 1e3
     d_ms = float(np.median(d["sq"]))
     # packed, per squaring (mean over the run): a set bit j of row i
@@ -742,8 +810,9 @@ def elle_phases(dev, host10) -> list:
     n, W = a["n_pad"], a["n_pad"] // 32
     ones = [int(etpu._popcount32(p[0].to(torch.int64) & 0xFFFFFFFF).sum())]
     ones += [sum(row) for row in u["iter_reach"][:-1]]
-    p_ops = [o * W / int_ops_per_s for o in ones]
-    p_bytes = 2.0 * S * n * W * 4 / HBM_BYTES_PER_S
+    pcs = [occupancy.packed_square_cost(S, n, o) for o in ones]
+    p_ops = [c["ops"] / int_ops_per_s for c in pcs]
+    p_bytes = pcs[0]["bytes_accessed"] / hbm
     p_bound = float(np.mean([max(x, p_bytes) for x in p_ops])) * 1e3
     # named by the limit that holds the larger share of the summed bound
     p_by = ("operations" if sum(x for x in p_ops if x > p_bytes)
@@ -752,9 +821,8 @@ def elle_phases(dev, host10) -> list:
     # trim, one launch: each input read once and each output written
     # once, against the checks this run's live nodes need (trim_work)
     ti = d["trim_inputs"]
-    t_bytes = (sum(x.nbytes for x in ti["arrays"])
-               + ti["n_pad"] * S + 64 * S * 4 + 4) / HBM_BYTES_PER_S
-    t_work = trim_work(ti, dev)
+    t_bytes = occupancy.trim_bytes(ti["arrays"], ti["n_pad"], S) / hbm
+    t_work = occupancy.trim_work(ti, dev)
     t_ops = t_work / int_ops_per_s
     t_bound = max(t_bytes, t_ops) * 1e3
     # for scale, not the bound: were every peel to re-read the padded
@@ -773,7 +841,7 @@ def elle_phases(dev, host10) -> list:
           f"{t_bytes * 1e3:.6f}, ops {t_ops * 1e3:.6f}: {t_work} checks of "
           f"live nodes' real slots and thresholds; re-read per body "
           f"{t_body_bytes} B x {d['bodies']} bodies = "
-          f"{t_body_bytes * d['bodies'] / HBM_BYTES_PER_S * 1e3:.6f} ms) "
+          f"{t_body_bytes * d['bodies'] / hbm * 1e3:.6f} ms) "
           f"against {d['trim_ms'][0]:.4f} ms")
     return [{
         "name": "elle_closure", "route": "cuda",
@@ -858,23 +926,6 @@ def lanes_of(consts, carry, idx):
     return sub, tuple(t[i].contiguous() for t in carry)
 
 
-def batched_bound_bytes(consts, summary, C, tally) -> int:
-    """Least bytes a lane-batched chunk must move for this run's data,
-    summed over the lanes: each lane's three scalars and the const
-    entries its live parents reached (counted by the plain version) read
-    once; per expanded config its row read; per successor that goes to
-    the memo table (counted by the plain version) one 16-byte slot read;
-    per new config its row and its memo entry written; the summary
-    written."""
-    head = summary[:, :11].to(torch.int64)
-    explored, new = int(head[:, 4].sum()), int(head[:, 8].sum())
-    scalars = sum(t.numel() * 4 for t in (consts.n_ok, consts.n_info,
-                                          consts.max_cfg))
-    return (scalars + tally["const_bytes"] + explored * C * 4
-            + tally["probed"] * 16 + new * (C * 4 + 16)
-            + summary.numel() * 4)
-
-
 def random_carry(lanes, K, C, H, B, dev, seed):
     """A lane-batched carry of the given shapes with random words in
     every leaf (made on the card from a seed)."""
@@ -935,7 +986,7 @@ def lane_kernel_checks(dev, plan, wplan) -> list:
             for c, i in zip(carry, init)])
         lane_bytes = sum(t[0].numel() * 4 for t in carry)
         nbytes = int(mask.sum()) * lane_bytes + lanes * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = nbytes / card_peak("hbm_bytes_per_s") * 1e3
         print(f"  wgl_lane_reset == reset_lanes_ref on {name} (K {K}, C "
               f"{C}, H {H}, B {B}; {int(mask.sum())} of {lanes} lanes "
               f"masked): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
@@ -964,7 +1015,7 @@ def lane_kernel_checks(dev, plan, wplan) -> list:
                 (lambda: torch.nn.functional.pad(fr, (0, 0, 0, grow)))
                 if grow > 0 else (lambda: fr[:, :k_to].contiguous()))
             mbytes = lanes * (min(k_from, k_to) + k_to) * C * 4
-            mbound = mbytes / HBM_BYTES_PER_S * 1e3
+            mbound = mbytes / card_peak("hbm_bytes_per_s") * 1e3
             print(f"  wgl_frontier_migrate == migrate_frontier_batch "
                   f"{k_from} -> {k_to}: kernel {mk:.4f} ms, plain "
                   f"{mp:.4f} ms, library {ml:.4f} ms; bound {mbytes} bytes "
@@ -1000,7 +1051,7 @@ def fanout_phases(dev) -> list:
     import os
     from concurrent.futures import ProcessPoolExecutor
 
-    from jepsen_tpu_torch import independent, synth
+    from jepsen_tpu_torch import independent, occupancy, synth
     from jepsen_tpu_torch.history import strip_nemesis
     from jepsen_tpu_torch.models import cas_register
     from jepsen_tpu_torch.ops import encode, wgl, wgl32, wgl_ref, wgln
@@ -1065,7 +1116,8 @@ def fanout_phases(dev) -> list:
     def drive(fn):
         """One main-path call with every count at 0 just before it and
         read just after: (result, wall, counts, Timed, host seconds by
-        phase, peak bytes)."""
+        phase, the peak bytes the call allocated over its baseline). The
+        Timed's `gates` is the call's own admission report (`GateLog`)."""
         host = dict.fromkeys(phases, 0.0)
         originals = {k: getattr(m, a) for k, (m, a) in phases.items()}
 
@@ -1079,6 +1131,7 @@ def fanout_phases(dev) -> list:
             return run
 
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         with Timed() as t:
             for k, (m, a) in phases.items():
@@ -1086,7 +1139,8 @@ def fanout_phases(dev) -> list:
             try:
                 zero_counts()
                 t0 = time.monotonic()
-                res = fn()
+                with GateLog() as t.gates:
+                    res = fn()
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
                 counts = read_counts()
@@ -1094,7 +1148,7 @@ def fanout_phases(dev) -> list:
                 for k, (m, a) in phases.items():
                     setattr(m, a, originals[k])
         return (res, wall, counts, t, host,
-                torch.cuda.max_memory_allocated(dev))
+                torch.cuda.max_memory_allocated(dev) - before)
 
     def split_line(wall, host, kernel_ms):
         rest = wall - sum(host.values()) - sum(kernel_ms) / 1e3
@@ -1127,8 +1181,9 @@ def fanout_phases(dev) -> list:
         wgl32, consts, tuple(t.clone() for t in start), tally=tally,
         chunk=FANOUT_SHORT, **kw)
     n_ms, n_times = kernel_ms(wgl32, consts, start, chunk=FANOUT_SHORT, **kw)
-    n_bytes = batched_bound_bytes(consts, short, C, tally)
-    n_bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    n_bytes = occupancy.batched_chunk_bytes(short[:, :11].tolist(), C, tally,
+                                            short.shape[0], short.numel())
+    n_bound_ms = n_bytes / card_peak("hbm_bytes_per_s") * 1e3
     print(f"  wgl32_chunk_batched == chunk_batched_ref over {FANOUT_SHORT} "
           f"rounds of all {batch.inv.shape[0]} lanes: kernel "
           f"{[round(x, 4) for x in n_times]} ms, median {n_ms:.4f} ms, "
@@ -1174,8 +1229,10 @@ def fanout_phases(dev) -> list:
     wsum2, _, _, err = kernel_vs_plain(wgln, wconsts, carry, **wkw)
     w_err = max(w_err, err)
     w_ms, w_times = kernel_ms(wgln, wconsts, wstart, **wkw)
-    w_bytes = batched_bound_bytes(wconsts, wsum, wC, wtally)
-    w_bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    w_bytes = occupancy.batched_chunk_bytes(wsum[:, :11].tolist(), wC,
+                                            wtally, wsum.shape[0],
+                                            wsum.numel())
+    w_bound_ms = w_bytes / card_peak("hbm_bytes_per_s") * 1e3
     print(f"  wgln_chunk_batched == chunk_batched_ref over two polls of all "
           f"{w['n_keys']} lanes ({wsum[:, 9].tolist()} then "
           f"{wsum2[:, 9].tolist()} rounds); first poll kernel "
@@ -1202,6 +1259,7 @@ def fanout_phases(dev) -> list:
           f"{counts}; rounds per lane max {max(rounds)} min {min(rounds)}; "
           f"configs {sum(r['configs_explored'] for r in per_key)}; peak "
           f"memory {peak} B", flush=True)
+    Peaks.add("fan-out vmap 100 x 2k", t.gates, peak)
     if (res["valid?"] is not True or n_launches < 1
             or len(res["results"]) != FANOUT["n_keys"]
             or any(r.get("engine") for r in res["results"].values())):
@@ -1352,6 +1410,7 @@ def fanout_phases(dev) -> list:
           f"resets (ms) {[round(x, 4) for x in k_ms['wgl_lane_reset'][:6]]}"
           f"..., configs {sum(r['configs_explored'] for r in per_key.values())}"
           f"; peak memory {peak} B", flush=True)
+    Peaks.add(f"mesh fan-out {MESH_SHARDS} shards", t.gates, peak)
     verdicts = {k: r["valid?"] for k, r in per_key.items()}
     if (res["valid?"] is not True or verdicts != vmap_verdicts
             or counts["wgl32_chunk_batched"] < 1
@@ -1361,6 +1420,33 @@ def fanout_phases(dev) -> list:
         raise AssertionError(f"mesh fan-out: {res['valid?']}, {counts}, "
                              f"{summ['refills']} refills")
     mesh_counts = counts
+    # one poll of a shard, for its bound (PERF.md row 10a): 4 lanes (keys
+    # 0-3) for 1024 rounds at the mesh's first bucket, the kernel held
+    # against its plain version, whose tally counts the traffic
+    kp = mesh.kernel_params(batched.shared_shape_bucket(encs),
+                            MESH_SHARDS * mesh.lanes_for(len(encs),
+                                                         MESH_SHARDS))
+    mkw = dict(K=kp["ladder"][0], W=kp["W"], ic=kp["ic_pad"], H=kp["H"],
+               B=kp["B"], probes=kp["probes"])
+    mC = wgl32.row_words(mkw["ic"])
+    mconsts = batched.batch_consts(batch, mkw, 50_000_000, dev, slice(0, 4))
+    mtally: dict = {}
+    msum, m_ms, m_plain_ms, err = kernel_vs_plain(
+        wgl32, mconsts, wgl32.init_carry_batch(4, mkw["K"], mC, mkw["H"],
+                                               mkw["B"], 0, dev),
+        tally=mtally, chunk=kp["chunk"], **mkw)
+    n_err = max(n_err, err)
+    m_bytes = occupancy.batched_chunk_bytes(msum[:, :11].tolist(), mC, mtally,
+                                            4, msum.numel())
+    print(f"  one mesh poll (4 lanes, keys 0-3, {kp['chunk']} rounds at the "
+          f"first bucket {json.dumps(mkw)}): wgl32_chunk_batched == "
+          f"chunk_batched_ref, {msum[:, 9].tolist()} rounds, kernel "
+          f"{m_ms:.3f} ms, plain {m_plain_ms:.1f} ms; bound {m_bytes} bytes "
+          f"({mtally['const_bytes']} of consts reached, "
+          f"{int(msum[:, 4].sum())} configs expanded, {mtally['probed']} "
+          f"probed, {int(msum[:, 8].sum())} new) = "
+          f"{m_bytes / card_peak('hbm_bytes_per_s') * 1e3:.6f} ms",
+          flush=True)
     res, wall, counts, t, host, _ = drive(
         lambda: independent.cuda_checker(cas_register(),
                                          devices=cards).check({}, hb, {}))
@@ -1448,6 +1534,262 @@ def fanout_phases(dev) -> list:
         "library_ms": None}] + lanes
 
 
+def bool_chunk_phases(dev) -> dict:
+    """The bool-window chunk (`wgl_chunk`) on the card: held against its
+    plain version (`wgl_bool.chunk_ref`) bit for bit on every carry leaf
+    at BOOL_CHECKS, each from the search's start (the first two are the
+    main path's first launch, whose times make the kernels line's row);
+    then driven to a verdict through `ops/wgl._compiled_search` at
+    `derive_plan`'s first bucket on the headline (True, beside the wgl32
+    check's verdict) and the invalid narrow history (the host oracle's
+    False), every count at 0 just before each drive. Returns its entry of
+    the kernels line."""
+    from jepsen_tpu_torch import occupancy, synth
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import encode, wgl, wgl_bool, wgl_ref
+
+    def consts_of(hist):
+        enc = encode.encode(cas_register(), hist)
+        return enc, wgl_bool.consts_from_numpy(
+            enc.inv, enc.ret, enc.opcode, enc.sufminret, enc.inv_info,
+            enc.opcode_info, enc.table, enc.n_ok, enc.n_info, 200_000_000,
+            device=dev)
+
+    def first_bucket(enc):
+        """derive_plan's first bucket, at the bool kernel's widths (the
+        encoding's window and info slots, padded to 32)."""
+        p = wgl.derive_plan(window_raw=enc.window_raw,
+                            ic_pad=len(enc.inv_info), n=enc.n_ok,
+                            n_info=enc.n_info, accel=True)
+        return {"K": p["K"], "H": p["H"], "B": p["B"], "chunk": p["chunk"],
+                "probes": p["probes"], "W": enc.window,
+                "ic": len(enc.inv_info)}
+
+    def shape(enc, K, H, B, chunk, probes=4):
+        S, O = enc.table.shape
+        return (len(enc.inv), len(enc.inv_info), enc.window, S, O, K, H, B,
+                chunk, probes)
+
+    h = synth.cas_register_history(HEADLINE["n_ops"],
+                                   n_procs=HEADLINE["n_procs"],
+                                   seed=HEADLINE["seed"],
+                                   crash_p=HEADLINE["crash_p"])
+    bad = synth.cas_register_history(INVALID["n_ops"],
+                                     n_procs=INVALID["n_procs"],
+                                     seed=INVALID["seed"],
+                                     lie_p=INVALID["lie_p"])
+    encs = {"headline": consts_of(h), "invalid": consts_of(bad),
+            "16-wave": consts_of(synth.adversarial_wave_history(
+                WAVE["n_waves"], width=WAVE["width"], span=WAVE["span"],
+                seed=WAVE["seed"]))}
+    hbm = card_peak("hbm_bytes_per_s")
+    err = 0
+    row = None
+    for name, K, H, B, rounds in BOOL_CHECKS:
+        enc, consts = encs[name]
+        fb = first_bucket(enc)
+        K, H, B = K or fb["K"], H or fb["H"], B or fb["B"]
+        rounds = rounds or fb["chunk"]
+        W, ic = enc.window, len(enc.inv_info)
+        init_fn, chunk_k = wgl._compiled_search(*shape(enc, K, H, B, rounds,
+                                                        fb["probes"]))
+        start = init_fn(0, device=dev)
+        carry = tuple(t.clone() for t in start)
+        ref = tuple(t.clone() for t in start)
+        torch.cuda.synchronize()
+        chunk_k(consts, carry)
+        torch.cuda.synchronize()
+        tally: dict = {}
+        t0 = time.monotonic()
+        wgl_bool.chunk_ref(consts, ref, K=K, W=W, ic=ic, H=H, B=B,
+                           chunk=rounds, probes=fb["probes"], tally=tally)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        e = max_abs_err(carry, ref)
+        err = max(err, e)
+        if e or not same_carry(carry, ref):
+            raise AssertionError(f"wgl_chunk differs from chunk_ref on {name} "
+                                 f"K={K} H={H} B={B} (max abs err {e})")
+        times = []
+        for _ in range(3):
+            c = tuple(t.clone() for t in start)
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            chunk_k(consts, c)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            del c
+        k_ms = float(np.median(times))
+        stats, flags = carry[wgl_bool.STATS].tolist(), carry[
+            wgl_bool.FLAGS].tolist()
+        used = int((carry[wgl_bool.TABLE][:, 0] != 0).sum())
+        nbytes = occupancy.wgl_bool_chunk_bytes(
+            explored=stats[0], new=stats[4], W=W, ic=ic, tally=tally)
+        bound, by = occupancy.bound_ms(
+            nbytes=nbytes, device_kind=torch.cuda.get_device_name(0))
+        print(f"wgl_chunk == chunk_ref on every carry leaf, {name} consts "
+              f"(W {W}, ic {ic}), K {K}, H {H}, B {B}, chunk {rounds}: "
+              f"{stats[1]} rounds, "
+              f"{stats[0]} configs, flags {flags}, backlog "
+              f"{int(carry[wgl_bool.BK_CNT])}, table {used}/{H} slots; "
+              f"kernel {[round(x, 4) for x in times]} ms, median {k_ms:.4f} "
+              f"ms = {k_ms * 1e3 / max(stats[1], 1):.2f} us/round; plain "
+              f"{plain_ms:.1f} ms; bound {nbytes} bytes "
+              f"({tally['const_bytes']} of consts reached, {stats[0]} rows "
+              f"read, {tally['probed']} probed, {stats[4]} new) = "
+              f"{bound:.6f} ms", flush=True)
+        if H < 1 << 12 and not (flags[1] and used == H):
+            raise AssertionError(f"wgl_chunk full-table check: overflow "
+                                 f"{flags[1]}, table {used}/{H}")
+        if row is None:
+            row = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=by)
+        del start, carry, ref
+
+    # ---- driven to a verdict through _compiled_search ---------------------
+    def drive_bool(name, hist, enc, consts, max_chunks=64):
+        fb = first_bucket(enc)
+        init_fn, chunk_fn = wgl._compiled_search(*shape(
+            enc, fb["K"], fb["H"], fb["B"], fb["chunk"], fb["probes"]))
+        torch.cuda.synchronize()
+        with Timed() as t:
+            zero_counts()
+            t0 = time.monotonic()
+            carry = init_fn(0, device=dev)
+            for chunks in range(1, max_chunks + 1):
+                chunk_fn(consts, carry)
+                flags = carry[wgl_bool.FLAGS].tolist()
+                if flags[0] or int(carry[wgl_bool.FR_CNT]) == 0:
+                    break
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = read_counts()
+        stats = carry[wgl_bool.STATS].tolist()
+        verdict = (True if flags[0] else "unknown"
+                   if flags[1] or int(carry[wgl_bool.FR_CNT]) else False)
+        k_ms = sum(t.ms("wgl_chunk"))
+        print(f"main path, bool-window chunk, {name}: _compiled_search at "
+              f"derive_plan's first bucket {json.dumps(fb)}: verdict "
+              f"{verdict}, {stats[5]} rounds, {stats[0]} configs, {chunks} "
+              f"chunks, kernel {k_ms:.3f} ms = "
+              f"{k_ms * 1e3 / max(stats[5], 1):.2f} us/round, wall "
+              f"{wall:.4f} s, launches {counts}", flush=True)
+        if counts["wgl_chunk"] != chunks:
+            raise AssertionError(f"{name}: {counts} for {chunks} chunks")
+        return verdict, counts
+
+    enc, consts = encs["headline"]
+    verdict, counts = drive_bool("headline", h, enc, consts)
+    ref = wgl.check(cas_register(), h, device=dev)
+    print(f"  the wgl32 search of the same history: verdict "
+          f"{ref['valid?']}, {ref['util']['rounds']} rounds, "
+          f"{ref['configs_explored']} configs (the sorted order explores "
+          f"other configs)", flush=True)
+    if verdict is not True or ref["valid?"] is not True:
+        raise AssertionError(f"bool-window headline: {verdict}")
+    benc, bconsts = encs["invalid"]
+    bverdict, _ = drive_bool("invalid narrow history", bad, benc, bconsts)
+    want = wgl_ref.check(cas_register(), bad, time_limit=30)["valid?"]
+    print(f"  host oracle: {want}", flush=True)
+    if bverdict != want or want is not False:
+        raise AssertionError(f"bool-window invalid: {bverdict} != {want}")
+    return {"name": "wgl_chunk", "route": "cuda",
+            "source": "jepsen_tpu_torch/csrc/wgl_chunk.cu",
+            "replaces": "jepsen_tpu/ops/wgl.py:300",
+            "launches": counts["wgl_chunk"], "max_abs_err": err, **row,
+            "library_ms": None}
+
+
+def preflight_phases(dev) -> None:
+    """The admission plane on the card: every main path's predicted bytes
+    against its measured peak (`Peaks`), a rejection under a small
+    budget (no launch, no byte), a 100k forced bf16 closure rejected,
+    and the CLI's `--headline --execute` parity block."""
+    import contextlib
+    import io
+    import os
+
+    from jepsen_tpu_torch import __main__ as cli
+    from jepsen_tpu_torch import checker, synth
+    from jepsen_tpu_torch.analysis import preflight
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import check_batched
+
+    print("preflight, predicted bytes against the peak each main path "
+          "allocated on the card over its baseline:", flush=True)
+    for shape, verdict, predicted, measured in Peaks.rows:
+        print(f"  {shape}: {verdict}, predicted {predicted} B, measured "
+              f"{measured} B, ratio {predicted / max(measured, 1):.4f}",
+              flush=True)
+    short = [r for r in Peaks.rows if r[3] > r[2] or r[1] == "infeasible"]
+    if short or len(Peaks.rows) < 8:
+        raise AssertionError(f"preflight under-billed or rejected: {short} "
+                             f"({len(Peaks.rows)} shapes)")
+
+    h = synth.cas_register_history(HEADLINE["n_ops"],
+                                   n_procs=HEADLINE["n_procs"],
+                                   seed=HEADLINE["seed"],
+                                   crash_p=HEADLINE["crash_p"])
+    keys = [synth.cas_register_history(200, n_procs=4, seed=s)
+            for s in range(4)]
+    a3 = synth.list_append_history(**ELLE_3K)
+    os.environ["JEPSEN_TPU_PREFLIGHT_MEM_BUDGET"] = str(SMALL_BUDGET)
+    try:
+        for name, fn in (
+                ("checker cuda-wgl", lambda: checker.linearizable(
+                    cas_register(), algorithm="cuda-wgl").check({}, h, {})),
+                ("fan-out vmap", lambda: check_batched(
+                    cas_register(), keys, strategy="vmap",
+                    oracle_fallback=False)),
+                ("elle append packed", lambda: append.check(
+                    a3, additional_graphs=RT, cycle_backend="packed"))):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            zero_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated(dev)
+            counts = read_counts()
+            one = res[0] if isinstance(res, list) else res
+            cause = one.get("cause") or one.get("anomaly-types")
+            rules = (one.get("rules") or [r["rule"] for r in
+                                          one["preflight"]["rules"]])
+            print(f"preflight rejection under a {SMALL_BUDGET} B budget, "
+                  f"{name}: {cause}, rules {rules}, launches "
+                  f"{sum(counts.values())}, memory_allocated {before} -> "
+                  f"{after} B", flush=True)
+            if (cause not in ("preflight", ["preflight"]) or "P001" not in rules
+                    or sum(counts.values()) or after != before):
+                raise AssertionError(f"preflight rejection {name}: {one}")
+    finally:
+        del os.environ["JEPSEN_TPU_PREFLIGHT_MEM_BUDGET"]
+
+    rep = preflight.plan_elle(n_txns=100_000, backend="cuda", devices=[dev])
+    print(f"preflight plan_elle(100k, backend='cuda'): {rep['verdict']} "
+          f"{[r['rule'] for r in rep['rules']]} ({rep['rules'][0]['message']})",
+          flush=True)
+    if rep["verdict"] != "infeasible" or "P002" not in [
+            r["rule"] for r in rep["rules"]]:
+        raise AssertionError(f"100k bf16 closure: {rep['verdict']}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["preflight", "--headline", "--execute", "--json"])
+    out = json.loads(buf.getvalue())["headline"]
+    par = out["executed"]
+    print(f"python -m jepsen_tpu_torch preflight --headline --execute: rc "
+          f"{rc}, verdict {out['report']['verdict']}, kernel "
+          f"{out['report']['kernel']}, buckets {out['report']['buckets']}; "
+          f"executed {json.dumps(par)}", flush=True)
+    if (rc or par["verdict"] is not True or not par["kernel_match"]
+            or not par["buckets_subset"]
+            or par["peak_bytes_measured"] > par["peak_bytes_predicted"]):
+        raise AssertionError(f"preflight CLI parity: {par}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1471,7 +1813,7 @@ def main() -> int:
 def run_phases(dev, host10) -> int:
     """Every phase after the card check, the host oracle of the Elle 10k
     history running in the background (`host10`)."""
-    from jepsen_tpu_torch import checker, synth
+    from jepsen_tpu_torch import checker, occupancy, synth
     from jepsen_tpu_torch.models import (cas_register, fifo_queue, mutex,
                                          register)
     from jepsen_tpu_torch.ops import _native, adapt, encode, wgl, wgl32
@@ -1513,17 +1855,10 @@ def run_phases(dev, host10) -> int:
         return out, summary, e0.elapsed_time(e1), plain_ms, err
 
     def bound_bytes(summary, C, tally):
-        """Least bytes a chunk must move for this run's data: the const
-        entries the live parents reached (counted by chunk_ref) once;
-        per expanded config its row read; per successor that goes to
-        the memo table (legal, not a linearization: counted by
-        chunk_ref) one 16-byte slot read; per new config its row and
-        its memo entry written; the summary."""
-        sh = summary[:wgl32.SUMMARY_HEAD].tolist()
-        explored, new = sh[4], sh[4 + 4]
-        return (tally["const_bytes"] + explored * C * 4
-                + tally["probed"] * 16 + new * (C * 4 + 16)
-                + summary.numel() * 4)
+        """Least bytes a chunk must move for this run's data
+        (`occupancy.wgl_chunk_bytes`, from chunk_ref's tally)."""
+        return occupancy.wgl_chunk_bytes(summary[:wgl32.SUMMARY_HEAD].tolist(),
+                                         C, tally, summary.numel())
 
     # ---- 2. kernel against its plain version ------------------------------
     corpora = {
@@ -1617,7 +1952,7 @@ def run_phases(dev, host10) -> int:
           f"{kernel_ms * 1e3 / rounds_k2:.2f} us/round")
     # least bytes the chunk must move for this run's data (bound_bytes)
     bytes_moved = bound_bytes(summary, C, tally)
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = bytes_moved / card_peak("hbm_bytes_per_s") * 1e3
     print(f"bound: {bytes_moved} bytes ({tally['const_bytes']} of consts "
           f"reached, {explored_k2} configs expanded, "
           f"{tally['probed']} successors probed, {new_k2} new) over "
@@ -1694,7 +2029,7 @@ def run_phases(dev, host10) -> int:
         mig_times.append(e0.elapsed_time(e1))
     mig_ms = float(np.median(mig_times))
     mig_bytes = (wplan["K"] + 2048) * wC * 4
-    mig_bound_ms = mig_bytes / HBM_BYTES_PER_S * 1e3
+    mig_bound_ms = mig_bytes / card_peak("hbm_bytes_per_s") * 1e3
     print(f"migrate_frontier {wplan['K']} -> 2048 (C={wC}): "
           f"{[round(t, 4) for t in mig_times]} ms, median {mig_ms:.4f} ms; "
           f"bytes {mig_bytes} (read K*C*4 + write K'*C*4), bound "
@@ -1726,7 +2061,7 @@ def run_phases(dev, host10) -> int:
     r0 = per_bucket[wplan["K"]][0]
     per_bucket[wplan["K"]] = (r0, wkernel_ms)
     wbytes = bound_bytes(wsummary, wC, wtally)
-    wbound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    wbound_ms = wbytes / card_peak("hbm_bytes_per_s") * 1e3
     sh = wsummary[:wgl32.SUMMARY_HEAD].tolist()
     print(f"16-wave chunk 1 (K={wplan['K']}): {r0} rounds, kernel times (ms) "
           f"{[round(t, 4) for t in wtimes]}; median {wkernel_ms:.4f} ms = "
@@ -1776,15 +2111,19 @@ def run_phases(dev, host10) -> int:
 
     def drive(lin, hist):
         """One check with both counts at 0 before it; returns (result,
-        wall, launches by kernel, kernel ms by kernel, peak bytes)."""
+        wall, launches by kernel, kernel ms by kernel, the peak bytes the
+        check allocated over its baseline, its own admission report as a
+        `GateLog`)."""
         events.clear()
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         _native.launch = timed_launch
         try:
             zero_counts()
             t0 = time.monotonic()
-            res = lin.check({}, hist, {})
+            with GateLog() as gates:
+                res = lin.check({}, hist, {})
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             counts = read_counts()
@@ -1792,10 +2131,11 @@ def run_phases(dev, host10) -> int:
             _native.launch = launch
         dev_ms = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
                   for k in counts}
-        return res, wall, counts, dev_ms, torch.cuda.max_memory_allocated(dev)
+        return (res, wall, counts, dev_ms,
+                torch.cuda.max_memory_allocated(dev) - before, gates)
 
     lin = checker.linearizable(cas_register(), algorithm="cuda-wgl")
-    res, wall, counts, dev_ms, peak = drive(lin, h)
+    res, wall, counts, dev_ms, peak, gates = drive(lin, h)
     launches = counts["wgl32_chunk"]
     u = res["util"]
     print(f"main path, narrow (after the comparisons above): valid? "
@@ -1808,6 +2148,7 @@ def run_phases(dev, host10) -> int:
     if res["valid?"] is not True or launches < 1:
         raise AssertionError(f"headline: {res['valid?']}, {launches} "
                              "launches")
+    Peaks.add("headline", gates, peak)
 
     # the first check of a fresh process (the kernel library is built)
     cold = json.loads(subprocess.run(
@@ -1843,7 +2184,7 @@ def run_phases(dev, host10) -> int:
 
     # the wide main path: the 16-wave, which only exhausting ~2.08M
     # configs decides
-    res, wall, wcounts, wdev_ms, wpeak = drive(lin, wave)
+    res, wall, wcounts, wdev_ms, wpeak, _ = drive(lin, wave)
     wlaunches = wcounts["wgln_chunk"]
     u = res["util"]
     total = res.get("configs_explored") or 0
@@ -1863,8 +2204,8 @@ def run_phases(dev, host10) -> int:
                              f"launches, {total} configs")
 
     # ---- 5. the default checker (competition) -------------------------------
-    res, wall, counts, _, _ = drive(checker.linearizable(cas_register()),
-                                    tail)
+    res, wall, counts, _, _, _ = drive(
+        checker.linearizable(cas_register()), tail)
     print(f"default checker, long tail {LONG_TAIL} (window "
           f"{tenc.window_raw}): valid? {res['valid?']} engine "
           f"{res.get('engine')} wall {wall:.4f} s, launches {counts}")
@@ -1872,8 +2213,8 @@ def run_phases(dev, host10) -> int:
         raise AssertionError(f"long tail: {res}")
     fifo = synth.fifo_queue_history(FIFO["n_ops"], n_procs=FIFO["n_procs"],
                                     seed=FIFO["seed"])
-    res, wall, counts, _, _ = drive(checker.linearizable(fifo_queue()),
-                                    fifo)
+    res, wall, counts, _, _, _ = drive(
+        checker.linearizable(fifo_queue()), fifo)
     print(f"default checker, fifo queue {FIFO}: valid? {res['valid?']} "
           f"engine {res.get('engine')} wall {wall:.4f} s, launches {counts}")
     if res["valid?"] is not True or res.get("engine") != "queue-poly":
@@ -1881,6 +2222,8 @@ def run_phases(dev, host10) -> int:
 
     fanout = fanout_phases(dev)
     elle = elle_phases(dev, host10)
+    bool_entry = bool_chunk_phases(dev)
+    preflight_phases(dev)
 
     print("card:", card_line())
     print(json.dumps({"kernels": [{
@@ -1895,7 +2238,8 @@ def run_phases(dev, host10) -> int:
         "replaces": "jepsen_tpu/ops/wgln.py:322",
         "launches": wlaunches, "max_abs_err": wide_err,
         "ms": wkernel_ms, "plain_ms": wplain_ms, "bound_ms": wbound_ms,
-        "bound_by": "bytes", "library_ms": None}] + fanout + elle}))
+        "bound_by": "bytes", "library_ms": None}] + fanout + elle
+        + [bool_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,7 +28,7 @@ import traceback
 from typing import Any, Iterable, Optional
 
 from . import fleet, models
-from .analysis import history_lint
+from .analysis import history_lint, preflight
 from .history import History, strip_nemesis
 from .ops import jitlin, queuecheck, wgl, wgl_ref
 from .util import resolve_device
@@ -123,6 +123,20 @@ class Linearizable:
             return {"valid?": UNKNOWN, "algorithm": algo,
                     "cause": "queue-poly requires a FIFOQueue model, "
                              f"got {type(self.model).__name__}"}
+        pf_bad = None
+        if algo in ("cuda-wgl", "competition"):
+            # Admission preflight (analysis/preflight): plan the device
+            # search statically and reject a request it could only find
+            # infeasible by running out of memory, before any encode
+            # table, kernel build or device byte; after the queue fast
+            # path, so a FIFO history the polynomial checker decides
+            # never pays the probe. Only "cuda-wgl" (device-only)
+            # rejects: in "competition" an infeasible plan scratches the
+            # device racer and the host oracle decides alone.
+            pf_bad = _preflight(self.model, h, self.device)
+            if pf_bad is not None and algo != "competition":
+                pf_bad["algorithm"] = algo
+                return pf_bad
         if algo == "wgl":
             res = wgl_ref.check(self.model, h, time_limit=self.time_limit)
         elif algo == "linear":
@@ -131,6 +145,10 @@ class Linearizable:
             res = wgl.check_with_diagnostics(
                 self.model, h, time_limit=self.time_limit,
                 device=self.device)
+        elif pf_bad is not None:
+            res = wgl_ref.check(self.model, h, time_limit=self.time_limit)
+            res["device_cause"] = "preflight"
+            res["preflight"] = pf_bad.get("preflight")
         else:
             res = _race_competition(self.model, h, self.time_limit,
                                     device=self.device)
@@ -140,6 +158,18 @@ class Linearizable:
                 res[k] = res[k][:10]
         res["algorithm"] = algo
         return res
+
+
+def _preflight(model, h: History, device) -> Optional[dict]:
+    """`preflight.gate_wgl` on the device the check would run on. A
+    device that cannot be resolved (no card) is the engines' error to
+    raise, so the gate admits."""
+    try:
+        dev = resolve_device(device)
+    except RuntimeError:
+        return None
+    return preflight.gate_wgl(model, h, where="checker.linearizable",
+                              devices=[dev])
 
 
 def _race_competition(model, h: History, time_limit: Optional[float],

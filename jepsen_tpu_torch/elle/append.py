@@ -1,6 +1,6 @@
 """List-append anomaly detection (a copy of `jepsen_tpu/elle/append.py`
-whose cycle search runs on the port's kernels; the preflight gate and
-the telemetry records are not ported yet).
+whose cycle search runs on the port's kernels, behind the preflight
+gate; the telemetry records are not ported yet).
 
 Histories of transactions over named lists, where each mop either
 appends a unique value to a key's list or reads the key's whole list:
@@ -95,6 +95,16 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     infos = [op for op in completed if op.is_info]
     failed = [op for op in history if op.is_fail and op.value]
 
+    # Admission preflight (analysis/preflight): a device closure that can
+    # never fit (P001/P002, e.g. a forced cycle_backend="packed" past its
+    # capacity) is rejected here, before the graph build, any kernel
+    # build or any device byte.
+    if cycle_backend != "host":
+        bad_pf = preflight_gate(len(completed), cycle_backend,
+                                "elle.append", device, devices)
+        if bad_pf is not None:
+            return bad_pf
+
     # -- 1. tensorized construction (elle/build.py): writer index,
     #    version orders, and the ww/wr/rw(+rt/proc) edge columns come
     #    out of one vectorized pass; dirty histories fall back to the
@@ -167,6 +177,29 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     if silent:
         out["unchecked-anomaly-types"] = sorted(silent)
     return out
+
+
+def preflight_gate(n_txns: int, backend: str, where: str, device,
+                   devices) -> Optional[dict]:
+    """The Elle admission gate (`preflight.gate_elle`) over the devices
+    the check would run on (`devices`, else `device`, else every card),
+    as the checker's result: None when admitted, else the reference's
+    `anomaly-types == ["preflight"]` answer. Devices that cannot be
+    resolved (no card) are the engines' error to raise: it admits."""
+    from ..analysis import preflight
+    from ..util import resolve_devices
+
+    try:
+        devs = resolve_devices(devices, device)
+    except RuntimeError:
+        return None
+    bad = preflight.gate_elle(n_txns, backend=backend, where=where,
+                              devices=devs)
+    if bad is None:
+        return None
+    return {"valid?": "unknown", "anomaly-types": ["preflight"],
+            "anomalies": {"preflight": [bad["preflight"]]},
+            "not": [], "preflight": bad["preflight"]}
 
 
 def _legacy_graph(history, orders, writer, oks, additional_graphs):

@@ -1,6 +1,6 @@
 """Write/read register anomaly detection (a copy of
-`jepsen_tpu/elle/wr.py` whose cycle search runs on the port's kernels;
-the preflight gate and the telemetry records are not ported yet).
+`jepsen_tpu/elle/wr.py` whose cycle search runs on the port's kernels,
+behind the preflight gate; the telemetry records are not ported yet).
 
 Histories of transactions over registers where every write is unique:
 
@@ -34,7 +34,7 @@ from typing import Any, Iterable
 from ..history import History
 from ..txn import R, W
 from .graph import RW, WR, WW, DepGraph, process_graph, realtime_graph
-from .append import MODEL_VIOLATIONS, AppendGen
+from .append import MODEL_VIOLATIONS, AppendGen, preflight_gate
 
 DEFAULT_ANOMALIES = ("G0", "G1a", "G1b", "G1c", "G-single", "G2",
                      "internal", "cyclic-versions")
@@ -70,6 +70,15 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     infos = [op for op in history
              if op.is_info and op.f in ("txn", None) and op.value]
     failed = [op for op in history if op.is_fail and op.value]
+
+    # Admission preflight (analysis/preflight): reject a device closure
+    # over its capacity or the memory budget (P001/P002) before the
+    # graph build, as append.check does.
+    if cycle_backend != "host":
+        bad_pf = preflight_gate(len(oks) + len(infos), cycle_backend,
+                                "elle.wr", device, devices)
+        if bad_pf is not None:
+            return bad_pf
 
     # tensorized construction (elle/build.py): writer index, version
     # evidence, and the edge columns in one vectorized pass

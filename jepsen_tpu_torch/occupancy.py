@@ -1,0 +1,273 @@
+"""Analytic cost of the port's kernels: bytes and operations.
+
+The cost half of the JAX package's `jepsen_tpu/occupancy.py`. The
+reference reads XLA's `Lowered.cost_analysis`; the port has no compiler
+to ask, so every number here is an analytic count of the port's own
+kernels, computed from shapes and, where the work depends on the data,
+from what a run's plain version tallied:
+
+  * resident bytes: the carry, scratch, summary and consts a WGL search
+    keeps on the card (`wgl_state_bytes`) and an Elle closure's buffers
+    (`elle_closure_bytes`), which the admission plane
+    (`analysis/preflight.py`) bills a plan by, beside its per-round
+    cost cache (`cost_for`, `cost_cached`) and the fill target;
+  * least traffic and operations of one launch, which `chip_smoke.py`
+    reads for its `bound_ms` columns: a WGL chunk (`wgl_chunk_bytes`,
+    `batched_chunk_bytes`, `wgl_bool_chunk_bytes`), a dense, packed or
+    sharded closure squaring (`dense_square_cost`, `packed_square_cost`,
+    `sharded_square_cost`), the trim (`trim_bytes`, `trim_work`);
+  * the card's peaks (`PEAKS`, keyed by `torch.cuda.get_device_name`)
+    and `bound_ms`, which turns bytes and operations into a least time.
+
+The per-round occupancy drain and its roofline (`drain_chunk`,
+`build_block`, `roofline`, `per_shard_cost`, `safe_device_kind`)
+belong to the telemetry plane and come with their callers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+# The tracked frontier-fill target (the reference's ROADMAP item 5).
+TARGET_FILL = 0.8
+
+# Published peaks of the cards the port runs on, by
+# `torch.cuda.get_device_name`. NVIDIA H100 80GB HBM3 (SXM), at its 700 W
+# power limit: 3.35 TB/s of HBM, 989 TFLOP/s dense bf16 on the tensor
+# cores, and int32 at 64 lanes per SM per clock on 132 SMs at the
+# 1980 MHz maximum SM clock (1.673e13 op/s). A card set below 700 W runs
+# slower under load; its name and limit stand beside every number kept.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"hbm_bytes_per_s": 3.35e12,
+                              "bf16_flops": 989e12,
+                              "int32_ops": 132 * 64 * 1.98e9},
+}
+DEFAULT_KIND = "NVIDIA H100 80GB HBM3"
+
+# The chunk kernels' packed poll summary (ops/wgl32.py): 11 head words
+# and a 512 x 7 occupancy ring.
+_SUMMARY_WORDS = 11 + 512 * 7
+
+
+def peaks(device_kind: Optional[str] = None) -> tuple:
+    """(peak dict, the card it is for): the named card's row, else the
+    H100's, labeled as such."""
+    kind = device_kind if device_kind in PEAKS else DEFAULT_KIND
+    return PEAKS[kind], kind
+
+
+def bound_ms(*, nbytes: float = 0.0, ops: float = 0.0,
+             rate: str = "int32_ops",
+             device_kind: Optional[str] = None) -> tuple:
+    """(least milliseconds, "bytes" or "operations"): the larger of the
+    bytes over the card's memory rate and the operations over its
+    `rate` peak ("int32_ops" or "bf16_flops")."""
+    pk, _ = peaks(device_kind)
+    t_bytes = nbytes / pk["hbm_bytes_per_s"]
+    t_ops = ops / pk[rate]
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# the analytic cost cache (the reference's cost_for over cost_analysis)
+# ---------------------------------------------------------------------------
+
+_COST_CACHE: dict = {}
+
+
+def cost_for(key: tuple, cost_fn) -> Optional[dict]:
+    """The per-round cost {'flops', 'bytes_accessed', ...} of one kernel
+    shape bucket, `cost_fn()` computed at most once per process per
+    `key` (a failing count is cached as None and not retried)."""
+    if key not in _COST_CACHE:
+        try:
+            _COST_CACHE[key] = cost_fn()
+        except Exception:  # noqa: BLE001 — the count is best-effort
+            _COST_CACHE[key] = None
+    return _COST_CACHE[key]
+
+
+def cost_cached(key: tuple) -> Optional[dict]:
+    """The cached cost for `key`, or None when it was never counted."""
+    return _COST_CACHE.get(key)
+
+
+# ---------------------------------------------------------------------------
+# resident bytes of a WGL search (the admission plane's bill)
+# ---------------------------------------------------------------------------
+
+_MIB = 1 << 20
+
+
+def alloc_bytes(nbytes: int) -> int:
+    """What PyTorch's CUDA caching allocator may count for one buffer
+    of `nbytes`: its size rounded up to 512 B, and for a buffer past
+    1 MiB up to 1 MiB more (a block carved from a larger segment or a
+    cached block keeps a remainder of at most 1 MiB unsplit)."""
+    if nbytes <= 0:
+        return 0
+    size = -(-int(nbytes) // 512) * 512
+    return size + (_MIB if size > _MIB else 0)
+
+
+def _info_words(ic: int) -> int:
+    return max(1, (ic + 31) // 32)
+
+
+def wgl_state_bytes(kern: str, *, K: int, W_eff: int, ic_eff: int, L: int,
+                    H: int, B: int, n_pad: int, S: int = 0, O: int = 0,
+                    lanes: int = 1) -> int:
+    """Bytes a `wgl32` or `wgln` search keeps on the card at frontier
+    capacity K, buffer by buffer through `alloc_bytes`: the carry
+    (frontier and backlog rows of C words, the 16-byte memo slots,
+    flags, stats, the occupancy ring), one chunk's scratch
+    (`wgl32.scratch_words`) and summary, and the consts (meta rows, the
+    S x O transition table when known, the info tables). `lanes` > 1
+    bills a lane-batched carry: each buffer holds every lane, plus the
+    three per-lane scalars."""
+    C = (3 if kern == "wgl32" else 2 + L) + _info_words(ic_eff)
+    R = K * (W_eff + ic_eff)
+    words = [K * C, 1, B * C, 1, H * 4, 3, 6, 512 * 7,
+             R * (C + 5) + K + K * C, _SUMMARY_WORDS,
+             (n_pad + 1) * 4, S * O, ic_eff, ic_eff]
+    if lanes > 1:
+        words += [1, 1, 1]
+    return sum(alloc_bytes(4 * lanes * w) for w in words)
+
+
+def elle_closure_bytes(kernel: str, *, S: int, n_pad: int, e: int, q: int,
+                       n_shards: int = 1, shards_per_card: int = 1) -> int:
+    """Bytes an Elle closure keeps on one card, from the port's own
+    buffers (`elle/tpu.py`), each through `alloc_bytes`: the seed reach
+    and the two buffers the squarings alternate between (bf16 planes,
+    or packed uint32 words); for the sharded closure, per shard its
+    column block, the gathered full reach and two spare blocks, times
+    the shards the card holds; the rw queries and the label pass's
+    outputs; for bf16 the edge inputs and the seed scatter's index
+    temporaries. `e` and `q` are the edge and rw-query counts
+    (estimates before the graph is built), padded as `closure_inputs`
+    pads them."""
+    def bucket(x):
+        return 1 << max(0, (max(int(x), 1) - 1).bit_length())
+
+    e_pad, q_pad = bucket(e), bucket(q)
+    words = S * n_pad * (n_pad // 32) * 4           # one packed reach
+    if kernel == "bf16":
+        nnz = S * e_pad
+        buffers = [2 * S * n_pad * n_pad] * 3 + [
+            4 * e_pad, 4 * e_pad, 4 * S * e_pad, nnz, 8 * nnz, 8 * nnz,
+            8 * e_pad, 8 * e_pad, 8 * nnz, 8 * nnz, 8 * n_pad]
+    elif kernel == "sharded":
+        ns = max(1, int(n_shards))
+        buffers = shards_per_card * ([words] + [words // ns] * 3 + [4 * S])
+    else:
+        buffers = [words] * 3
+    buffers += [4 * q_pad, 4 * q_pad, 4 * S * n_pad, S * q_pad, 4 * S]
+    return sum(alloc_bytes(b) for b in buffers)
+
+
+# ---------------------------------------------------------------------------
+# least traffic and operations of one launch (chip_smoke's bound columns)
+# ---------------------------------------------------------------------------
+
+def wgl_chunk_bytes(head, C: int, tally: dict, summary_words: int) -> int:
+    """Least bytes a `wgl32`/`wgln` chunk must move for one run's data:
+    the const entries the live parents reached (tallied by the plain
+    version) read once; per expanded config its C-word row read; per
+    successor that went to the memo table (tallied) one 16-byte slot
+    read; per new config its row and its memo entry written; the
+    summary written. `head` is the summary's first 11 words."""
+    explored, new = int(head[4]), int(head[8])
+    return (tally["const_bytes"] + explored * C * 4 + tally["probed"] * 16
+            + new * (C * 4 + 16) + summary_words * 4)
+
+
+def batched_chunk_bytes(head_rows, C: int, tally: dict, lanes: int,
+                        summary_words: int) -> int:
+    """`wgl_chunk_bytes` summed over the lanes of a lane-batched chunk
+    (`head_rows` the (lanes, 11) summary heads), plus each lane's three
+    scalars read."""
+    explored = sum(int(r[4]) for r in head_rows)
+    new = sum(int(r[8]) for r in head_rows)
+    return (3 * lanes * 4 + tally["const_bytes"] + explored * C * 4
+            + tally["probed"] * 16 + new * (C * 4 + 16)
+            + summary_words * 4)
+
+
+def wgl_bool_chunk_bytes(*, explored: int, new: int, W: int, ic: int,
+                         tally: dict) -> int:
+    """Least bytes a bool-window chunk must move: the consts its live
+    parents reached (tallied by `wgl_bool.chunk_ref`) read once; per
+    expanded config its bool row (base, W + ic bytes, mst) read; per
+    row that probed the memo table one 16-byte slot read; per new
+    config its row and its memo entry written."""
+    row = 8 + W + ic
+    return (tally["const_bytes"] + explored * row + tally["probed"] * 16
+            + new * (row + 16))
+
+
+def dense_square_cost(S: int, n_pad: int) -> dict:
+    """One bf16 squaring of S reach planes of n_pad^2: 2 S n^3 flops on
+    the tensor cores, the planes read and written once."""
+    return {"flops": 2.0 * S * n_pad ** 3,
+            "bytes_accessed": 2.0 * S * n_pad * n_pad * 2}
+
+
+def packed_square_cost(S: int, n_pad: int, set_bits: int) -> dict:
+    """One packed squaring: a set bit j of row i ORs row j in, one int32
+    op per (set bit, word) of this run's bits; the bitset read and
+    written once."""
+    W = n_pad // 32
+    return {"ops": float(set_bits) * W,
+            "bytes_accessed": 2.0 * S * n_pad * W * 4}
+
+
+def sharded_square_cost(full_words: int, block_words: int, set_bits: int,
+                        local_words: int) -> dict:
+    """One sharded squaring of one word-column shard: one OR per (set
+    bit, local word); the gathered reach read, the block read and
+    written."""
+    return {"ops": float(set_bits) * local_words,
+            "bytes_accessed": (full_words + 2 * block_words) * 4.0}
+
+
+def trim_bytes(arrays, n_pad: int, S: int) -> int:
+    """The trim's inputs read once and its outputs (the live planes, 64
+    count rows per subset, the body count) written once."""
+    return sum(a.nbytes for a in arrays) + n_pad * S + 64 * S * 4 + 4
+
+
+def trim_work(t: dict, device) -> int:
+    """The operations the trim's data needs: per subset, for every peel
+    up to that subset's own fixpoint (the body whose count repeats), one
+    check per real neighbor slot (mask set) of each live node, and one
+    compare per live node on each side (has_in, has_out) for each jump
+    family that is on. Replays the peels of `elle.tpu.trim_ref` on
+    `t = elle.tpu.trim_inputs(g)`."""
+    import numpy as np
+    import torch
+
+    from .elle import tpu as etpu
+
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in t["arrays"]]
+    args, live = ins[:8], ins[8]
+    kw = dict(p_pad=t["p_pad"], use_rt=t["use_rt"], use_proc=t["use_proc"])
+    per_node = (ins[1].sum(dim=1, dtype=torch.int64)
+                + ins[3].sum(dim=1, dtype=torch.int64)
+                + 2 * (int(t["use_rt"]) + int(t["use_proc"])))
+    active = torch.ones(live.shape[1], dtype=torch.bool, device=device)
+    prev = None
+    ops = 0
+    for _ in range(t["n_pad"]):
+        for _ in range(2):
+            ops += int((live * active * per_node).sum())
+            live = etpu._peel_ref(live, *args, **kw)
+        c = live.sum(dim=0)
+        if prev is not None:
+            active &= c != prev
+        if not bool(active.any()):
+            break
+        prev = c
+    return ops

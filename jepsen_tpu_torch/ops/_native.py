@@ -107,7 +107,20 @@ KERNELS = {
     "wgl_frontier_migrate": ("wgl_lanes", 2, 4),
     # one squaring of a word-column shard of the packed closure
     "elle_sharded_square": ("elle_sharded", 4, 3),
+    # the bool-window WGL chunk (the reference's general search)
+    "wgl_chunk": ("wgl_chunk", 21, 13),
 }
+
+
+def cold_sources(names) -> list:
+    """The source stems of the entry points `names` (KERNELS keys) whose
+    library this process has neither bound nor found built on disk: what
+    a first launch of each would build with nvcc."""
+    stems = sorted({KERNELS[n][0] for n in names})
+    with _LOCK:
+        bound = {KERNELS[n][0] for n in _LIBS}
+    return [s for s in stems
+            if s not in bound and not _lib_path(CSRC / f"{s}.cu").exists()]
 
 
 def _lib(name: str):

@@ -40,7 +40,7 @@ from ..history import History
 from ..models.core import Model
 from ..util import device_name, resolve_device
 from . import adapt as _adapt
-from . import wgl32, wgl_ref, wgln
+from . import wgl32, wgl_bool, wgl_ref, wgln
 from .encode import Encoded, EncodingUnsupported, encode
 
 INF = np.int32(2**31 - 1)
@@ -72,6 +72,42 @@ _ESCALATE_AT = 200_000
 _K_BIG = 512
 
 
+def _build_search(n_pad: int, ic_pad: int, W: int, S: int, O: int,
+                  K: int, H: int, B: int, chunk: int, probes: int):
+    """The bool-window search for one shape bucket (the JAX package's
+    `_build_search`): (init_fn, chunk_fn) over torch tensors, chunk_fn
+    the plain PyTorch chunk (`wgl_bool.chunk_ref`). `init_fn(mstate0,
+    device=None)` makes the 13-leaf carry; `chunk_fn(consts, carry)`
+    runs one chunk, updates the carry in place and returns it. The
+    consts are `wgl_bool.consts_from_numpy`'s tuple over an encoding
+    padded to (n_pad, ic_pad, S, O). No checker path routes here, as
+    in the reference: `_search_loop` runs `wgl32` or `wgln`."""
+    def init_fn(mstate0: int, device=None) -> tuple:
+        return wgl_bool.init_carry(K, W, ic_pad, H, B, mstate0, device)
+
+    def chunk_fn(consts, carry) -> tuple:
+        return wgl_bool.chunk_ref(consts, carry, K=K, W=W, ic=ic_pad, H=H,
+                                  B=B, chunk=chunk, probes=probes)
+
+    return init_fn, chunk_fn
+
+
+def _compiled_search(n_pad: int, ic_pad: int, W: int, S: int, O: int,
+                     K: int, H: int, B: int, chunk: int, probes: int):
+    """`_build_search` with the chunk on the card (the JAX package's
+    jitted `_compiled_search`): CUDA tensors launch the `wgl_chunk`
+    kernel (`wgl_bool.chunk`, counted in `wgl_bool.chunk.launches`),
+    CPU tensors run the plain chunk."""
+    init_fn, _ = _build_search(n_pad, ic_pad, W, S, O, K, H, B, chunk,
+                               probes)
+
+    def chunk_fn(consts, carry) -> tuple:
+        return wgl_bool.chunk(consts, carry, K=K, W=W, ic=ic_pad, H=H, B=B,
+                              chunk=chunk, probes=probes)
+
+    return init_fn, chunk_fn
+
+
 def derive_plan(*, window_raw: int, ic_pad: int, n: int,
                 n_info: int, accel: bool,
                 frontier: Optional[int] = None,
@@ -84,8 +120,11 @@ def derive_plan(*, window_raw: int, ic_pad: int, n: int,
     narrow kernel runs 4096-round chunks on the card and 1024 on the
     CPU. A `shape_bucket` (`parallel.shared_shape_bucket`) widens
     W_eff and ic_eff to the bucket's and sizes H by its largest key.
-    Returns {kern, K, H, B, W_eff, ic_eff, L, chunk, probes, ladder}; L
-    is 0 for the narrow kernel."""
+    Returns {kern, K, H, B, W_eff, ic_eff, L, chunk, depth, probes,
+    ladder, use_adapt, buckets}; L is 0 for the narrow kernel, and
+    `buckets` is every frontier capacity the search may visit (the
+    ladder, the legacy [K, 512] escalation, or a pinned frontier), the
+    plan the admission plane (`analysis/preflight.py`) bills."""
     n_caps = (max(n, int(shape_bucket.get("n_cap", 0))) if shape_bucket
               else n)
     H = _pick_capacities(max(n_caps, 1), window_raw)
@@ -129,9 +168,16 @@ def derive_plan(*, window_raw: int, ic_pad: int, n: int,
             K = ladder[0]
     if frontier:
         K = frontier
+    if ladder:
+        buckets = list(ladder)
+    elif kern == "wgl32" and not frontier and K < _K_BIG:
+        buckets = [K, _K_BIG]  # the legacy one-shot escalation
+    else:
+        buckets = [K]
     return {"kern": kern, "K": K, "H": H, "B": B, "W_eff": W_eff,
-            "ic_eff": ic_eff, "L": L, "chunk": chunk, "probes": 4,
-            "ladder": ladder}
+            "ic_eff": ic_eff, "L": L, "chunk": chunk, "depth": 1,
+            "probes": 4, "ladder": ladder, "use_adapt": use_adapt,
+            "buckets": buckets}
 
 
 def _widen_frontier(carry, k_new: int):

@@ -34,9 +34,10 @@ card (no host fallback for a backend that does not come up); a
 kernel's build or launch failure raises instead of becoming a per-key
 fault that the oracle then decides. A named device list does not pin
 the vmap path as the reference's explicit mesh does: the list is the
-mesh, and "auto" takes the mesh scheduler over it. Not ported yet: the
-preflight admission gate, and the telemetry planes (fleet status,
-metrics series, watchdog, HBM block).
+mesh, and "auto" takes the mesh scheduler over it. Both paths admit
+through the preflight gate (`analysis/preflight.gate_fanout`). Not
+ported yet: the telemetry planes (fleet status, metrics series,
+watchdog, HBM block).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .. import fleet as _fleet
+from ..analysis import preflight
 from ..history import History
 from ..models.core import Model
 from ..ops import adapt as _adapt
@@ -251,22 +253,54 @@ def check_streamed(model: Model, histories: Sequence[History],
     devs = resolve_devices(devices, device)
     race = oracle_fallback and devs[0].type == "cuda"
     deadline = _time.monotonic() + time_limit if time_limit else None
-    bucket_n = bucket_w = None
-    if encs is not None and len(histories) > 1:
-        bucket_n = shared_shape_bucket(
-            [e for e in encs if e.window_raw <= 32])
-        bucket_w = shared_shape_bucket(
-            [e for e in encs if e.window_raw > 32])
     labels = _fleet.device_labels(devs)
 
     def ki_of(i: int) -> int:
         return key_indices[i] if key_indices is not None else i
+
+    # Admission preflight: each kernel branch's shared shape bucket pads
+    # every key of its group, so a key whose plan blows the device
+    # budget is rejected before any kernel or device byte, with the
+    # keys of admissible groups running on. A rejected key is annotated
+    # like any other shard; with oracle_fallback the host oracle (no
+    # device budget) still decides it.
+    rejected = preflight.gate_fanout(model, histories, encs=encs,
+                                     where="parallel.streamed",
+                                     devices=devs) or {}
+
+    def rejected_result(i: int) -> dict:
+        return _annotate_shard(
+            dict(rejected[i], op_count=len(histories[i])),
+            key_index=ki_of(i), device="none", engine="preflight",
+            t0=_time.monotonic(), wall_s=0.0)
+
+    if not oracle_fallback and len(rejected) == len(histories):
+        return [rejected_result(i) for i in range(len(histories))]
+    bucket_n = bucket_w = None
+    if encs is not None and len(histories) > 1:
+        # rejected keys do not size the admitted groups' buckets
+        admitted = [e for j, e in enumerate(encs) if j not in rejected]
+        bucket_n = shared_shape_bucket(
+            [e for e in admitted if e.window_raw <= 32])
+        bucket_w = shared_shape_bucket(
+            [e for e in admitted if e.window_raw > 32])
 
     def one(di: int, i: int) -> dict:
         dev, label, ki = devs[di], labels[di], ki_of(i)
         h = histories[i]
         enc = encs[i] if encs else None
         t0 = _time.monotonic()
+        rej = rejected.get(i)
+        if rej is not None:
+            if not oracle_fallback:
+                return rejected_result(i)
+            res = _oracle_fallback(model, h, deadline,
+                                   dict(rej, op_count=len(h)))
+            res.setdefault("preflight", rej["preflight"])
+            return _annotate_shard(
+                res, key_index=ki, device=label, device_index=di,
+                engine=str(res.get("engine") or "preflight"), t0=t0,
+                wall_s=_time.monotonic() - t0)
         remaining = None
         if deadline is not None:
             remaining = deadline - t0
@@ -472,10 +506,26 @@ def check_batched(model: Model, histories: Sequence[History],
             oracle_fallback=oracle_fallback, encs=encs, key_indices=keys,
             devices=devs)
     elif strategy == "vmap":
-        out = _check_vmap(model, kept, encs, keys, time_limit=time_limit,
-                          max_configs=max_configs,
-                          oracle_fallback=oracle_fallback, chunk=chunk,
-                          devs=devs)
+        # Admission preflight of the lane-batched kernel: every lane is
+        # padded to the batch maxima and ceil(lanes / devices) lanes sit
+        # on a device. An infeasible batch degrades to the streamed
+        # path (per-key kernels), whose own group gate rejects what no
+        # single kernel fits.
+        bad = preflight.gate_fanout(model, kept, encs=encs,
+                                    where="parallel.batched", mode="batch",
+                                    n_devices=len(devs), devices=devs,
+                                    on_infeasible="degrade")
+        if bad:
+            out = check_streamed(
+                model, kept, time_limit=time_limit,
+                max_configs=max_configs, oracle_fallback=oracle_fallback,
+                encs=encs, key_indices=keys, devices=devs)
+        else:
+            out = _check_vmap(model, kept, encs, keys,
+                              time_limit=time_limit,
+                              max_configs=max_configs,
+                              oracle_fallback=oracle_fallback, chunk=chunk,
+                              devs=devs)
     for i, res in zip(keys, out):
         results[i] = res
     return results  # type: ignore[return-value]

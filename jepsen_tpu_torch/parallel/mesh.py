@@ -30,10 +30,10 @@ One process drives every shard, as the reference's single controller
 does; nothing here uses `torch.distributed`. On a CPU device list (the
 tests) every kernel wrapper runs its plain version.
 
-Not ported yet (ROADMAP Queue A 9): `warm_plan`, the pre-zeroed carry
-pool, `plan_cache_key`, the preflight gate (`preflight.gate_mesh`), and
-the metrics, watchdog and device-monitor planes; `kernel_params` has no
-`accel` key (the port's kernels have one layout).
+`check_mesh` admits through `preflight.gate_mesh`. Not ported yet: the
+warm plane (`warm_plan`, the pre-zeroed carry pool, `plan_cache_key`)
+and the metrics, watchdog and device-monitor planes; `kernel_params`
+has no `accel` key (the port's kernels have one layout).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from .. import fleet as _fleet
 from ..history import History
 from ..models.core import Model
 from ..ops import adapt as _adapt
+from ..analysis import preflight
 from ..ops import wgl, wgl32, wgln
 from ..ops.encode import INF, Encoded
 from ..util import default_devices, on_stream, resolve_devices, shard_streams
@@ -612,6 +613,20 @@ def check_mesh(model: Model, histories: Sequence[History], *,
         if (len(groups) != 1 or not covers
                 or forced_wide != (groups[0][0] == "wide")):
             return None
+
+    # admission (analysis/preflight): the mesh plan's lane groups, each
+    # card billed for the lane slots of every shard it holds. An
+    # infeasible group degrades the whole request (None: check_batched
+    # takes its one-device decision, whose own gates re-decide with
+    # fewer lanes), before the first carry is made.
+    s_d_plan = int(lanes_per_device
+                   or lanes_for(max(len(i) for _, i in groups), nd))
+    bad = preflight.gate_mesh(list(encs), n_devices=nd,
+                              lanes_per_device=s_d_plan,
+                              where="parallel.mesh", devices=devs,
+                              shape_bucket=shape_bucket)
+    if bad is not None:
+        return None
 
     t0_all = _time.monotonic()
     results: list = [None] * len(histories)

@@ -60,17 +60,28 @@ def history(name):
     return _HIST[name]
 
 
-def run(name, jb, tb):
+def run_ref(name, jb):
     kind, _ = HISTORIES[name]
     h = history(name)
     if kind == "append":
-        kw = dict(additional_graphs=("realtime",))
-        return (jappend.check(h, cycle_backend=jb, **kw),
-                tappend.check(to_port(h), cycle_backend=tb, device="cpu",
-                              **kw))
-    kw = dict(linearizable_keys=True, additional_graphs=("realtime",))
-    return (jwr.check(h, cycle_backend=jb, **kw),
-            twr.check(to_port(h), cycle_backend=tb, device="cpu", **kw))
+        return jappend.check(h, cycle_backend=jb,
+                             additional_graphs=("realtime",))
+    return jwr.check(h, cycle_backend=jb, linearizable_keys=True,
+                     additional_graphs=("realtime",))
+
+
+def run_port(name, tb):
+    kind, _ = HISTORIES[name]
+    h = to_port(history(name))
+    if kind == "append":
+        return tappend.check(h, cycle_backend=tb, device="cpu",
+                             additional_graphs=("realtime",))
+    return twr.check(h, cycle_backend=tb, device="cpu",
+                     linearizable_keys=True, additional_graphs=("realtime",))
+
+
+def run(name, jb, tb):
+    return run_ref(name, jb), run_port(name, tb)
 
 
 _ADDR = re.compile(r"<object object at 0x[0-9a-f]+>")
@@ -188,16 +199,34 @@ def test_sharded_backend_is_not_ported():
         ttpu.standard_cycle_search(g, backend="tpu", device="cpu")
 
 
-def test_forced_packed_over_capacity_falls_back_to_host(monkeypatch):
-    # no preflight gate in the port (ROADMAP Queue A 9): an over-capacity
-    # forced "packed" runs the host oracle where the reference answers
-    # "preflight"
+def _forced_packed_over_capacity(name, monkeypatch):
+    """A forced "packed" closure past a capacity cut to 100 txns, in both
+    packages, with one word shard (the port's one-device list; the
+    reference's `JEPSEN_TPU_ELLE_SHARDS` pin, set for the reference's call
+    alone: the port does not read it), so the sharded remedy cannot hold
+    it either: the preflight gate answers before the graph build."""
+    from jepsen_tpu.elle import tpu as jtpu
     monkeypatch.setattr(ttpu, "PACKED_MAX_N", 100)
-    h = to_port(history("append-corrupt"))
-    res = tappend.check(h, additional_graphs=("realtime",),
-                        cycle_backend="packed", device="cpu")
-    assert res["cycle-engine"] == "host-fallback"
-    assert res["valid?"] is False
+    monkeypatch.setattr(jtpu, "PACKED_MAX_N", 100)
+    with monkeypatch.context() as m:
+        m.setenv("JEPSEN_TPU_ELLE_SHARDS", "1")
+        want = run_ref(name, "packed")
+    got = run_port(name, "packed")
+    for res in (want, got):
+        assert res["valid?"] == "unknown"
+        assert res["anomaly-types"] == ["preflight"]
+        assert res["preflight"]["verdict"] == "infeasible"
+        assert [r["rule"] for r in res["preflight"]["rules"]] == ["P002"]
+    assert got["preflight"]["kernel"] == want["preflight"]["kernel"]
+    assert "cycle-engine" not in got
+
+
+def test_forced_packed_over_capacity_answers_preflight(monkeypatch):
+    _forced_packed_over_capacity("append-corrupt", monkeypatch)
+
+
+def test_forced_packed_over_capacity_answers_preflight_wr(monkeypatch):
+    _forced_packed_over_capacity("wr-stale", monkeypatch)
 
 
 # --- on the card ------------------------------------------------------------

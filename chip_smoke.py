@@ -41,7 +41,8 @@ device list `[card] * n`; each shard launches on its own stream):
 
   * the mesh lane scheduler's kernels against their plain versions:
     `wgl_lane_reset` on a 100-lane narrow carry and an 8-lane wide one,
-    `wgl_frontier_migrate` up and down one ladder step;
+    `wgl_frontier_migrate` up and down one ladder step (timed as a call
+    and device-only, beside `F.pad` or a slice);
   * the 100 x 2k history, valid and invalid, through
     `independent.cuda_checker(cas_register(), devices=[card] * 2)`: the
     mesh scheduler, 2 shards x 4 lane slots refilled from the shards'
@@ -59,7 +60,11 @@ Then Elle:
   * the dense closure (`elle_closure`): 3k-txn list-append and
     rw-register histories through `elle.append.check` /
     `elle.wr.check` with `cycle_backend="auto"` (bf16 at n_pad 4096),
-    against the host oracle, plus two invalid histories;
+    against the host oracle, plus two invalid histories; one squaring
+    timed device-only and as a call at n_pad 4096 (the 3k main path's
+    seed) and at 8320 (the dense route's largest, a random seed at the
+    10k graph's density) beside the `torch.bmm` yardstick, both held
+    bit for bit against the plain f32 squaring;
   * the packed closure (`elle_packed_closure`): a 10k-txn list-append
     history through the same call (n_pad 16384);
   * the trim (`elle_trim`): the 3k list-append history with
@@ -295,6 +300,87 @@ def event_ms(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20, spin_cycles: int = 4_000_000) -> float:
+    """Median device time of `fn()` over `reps` calls, after one warm
+    call: each call is queued behind a spin kernel (`torch.cuda._sleep`,
+    ~2 ms) so that the events around it bracket the device's work only,
+    not the host's time to enqueue it. `fn` must not synchronise."""
+    fn()
+    times = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(spin_cycles)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def square_timing(r16, plain=None) -> dict:
+    """One dense squaring of the bf16 reach `r16` on the card: the kernel
+    (`elle.tpu.dense_square`) and the yardstick (`torch.bmm` in bf16,
+    `> 0`, the count), each held bit for bit, outputs and counts, against
+    `dense_square_ref` in f32, each timed device-only and as a call
+    (median of 20), beside the bound (operations at the bf16 peak).
+    `plain` also times `dense_square_ref` (call time)."""
+    from jepsen_tpu_torch import occupancy
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    S, n = r16.shape[0], r16.shape[-1]
+    r32 = r16.float()
+    want_cnt = torch.zeros(S, dtype=torch.int32, device=r16.device)
+    want = etpu.dense_square_ref(r32, want_cnt)
+    cnt = torch.zeros(S, dtype=torch.int32, device=r16.device)
+    got = etpu.dense_square(r16, cnt)
+    lib = torch.bmm(r16, r16) > 0
+    lib_cnt = lib.sum(dim=(1, 2), dtype=torch.int32)
+    torch.cuda.synchronize()
+    err = max(int((got.float() - want).abs().max()),
+              int((lib.float() - want).abs().max()),
+              max_abs_err([cnt, lib_cnt], [want_cnt, want_cnt]))
+    if err:
+        raise AssertionError(f"dense squaring at n_pad {n}: kernel or "
+                             f"yardstick differ from dense_square_ref "
+                             f"({err})")
+    del want, got, lib
+    out = {"n_pad": n, "err": err, "ones_out": int(want_cnt.sum())}
+    c = torch.zeros(S, dtype=torch.int32, device=r16.device)
+
+    def kernel():
+        return etpu.dense_square(r16, c)
+
+    def yardstick():
+        return (torch.bmm(r16, r16) > 0).sum(dim=(1, 2), dtype=torch.int32)
+
+    # in turns: kernel, yardstick, yardstick, kernel
+    k1, l1 = device_ms(kernel), device_ms(yardstick)
+    l2, k2 = device_ms(yardstick), device_ms(kernel)
+    out.update(ms=float(np.median([k1, k2])),
+               library_ms=float(np.median([l1, l2])),
+               call_ms=event_ms(kernel, reps=20),
+               library_call_ms=event_ms(yardstick, reps=20))
+    if plain:
+        out["plain_ms"] = event_ms(lambda: etpu.dense_square_ref(
+            r32, want_cnt), reps=plain)
+    dc = occupancy.dense_square_cost(S, n)
+    ops = dc["flops"] / card_peak("bf16_flops")
+    nbytes = dc["bytes_accessed"] / card_peak("hbm_bytes_per_s")
+    out.update(bound_ms=max(ops, nbytes) * 1e3,
+               bound_by="operations" if ops > nbytes else "bytes")
+    print(f"  dense squaring at n_pad {n}: kernel == dense_square_ref and "
+          f"the yardstick == it (outputs and counts, max abs err 0); "
+          f"device-only kernel {k1:.4f} / {k2:.4f} ms, torch.bmm bf16 + "
+          f"(> 0) + count {l1:.4f} / {l2:.4f} ms; as calls (host path "
+          f"included) {out['call_ms']:.4f} / {out['library_call_ms']:.4f} "
+          f"ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+          f"{dc['flops']:.4e} flops at the bf16 peak); "
+          f"{dc['flops'] / out['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+    del r32
+    return out
 
 
 def same_carry(a, b) -> bool:
@@ -582,18 +668,12 @@ def elle_phases(dev, host10) -> list:
         errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr,
                                           pderr)
         n_pad = a["n_pad"]
-        seed = etpu.adjacency(*ins[:3], n_pad, torch.float32)
-        cnt = torch.zeros(S, dtype=torch.int32, device=dev)
-        plain_ms = event_ms(lambda: etpu.dense_square_ref(seed, cnt))
-        seed16 = seed.to(torch.bfloat16)
-        library_ms = event_ms(lambda: (torch.bmm(seed16, seed16) > 0).sum(
-            dim=(1, 2), dtype=torch.int32))
-        del seed, seed16
         print(f"  dense kernel == closure_ref after every one of "
               f"{got[3]} squarings and on every output; packed == dense at "
-              f"n_pad {n_pad}; closure_ref {plain_s:.3f} s in all, one plain "
-              f"f32 squaring {plain_ms:.4f} ms, one torch.bmm bf16 + (> 0) "
-              f"+ count {library_ms:.4f} ms")
+              f"n_pad {n_pad}; closure_ref {plain_s:.3f} s in all; the main "
+              f"path's first squaring (its seed A|I):", flush=True)
+        timing = square_timing(etpu.adjacency(*ins[:3], n_pad,
+                                              torch.bfloat16), plain=3)
 
         rt_, wall_t, counts_t, tt = elle_drive(check, hist,
                                                cycle_backend="trim", **kw)
@@ -612,7 +692,7 @@ def elle_phases(dev, host10) -> list:
               f"{trim_ms[0]:.4f} ms, wall {wall_t:.4f} s; == trim_ref "
               f"({tplain_s * 1e3:.1f} ms plain)")
         out[kind] = dict(res=res, counts=counts, sq=sq, lab=lab,
-                         plain_ms=plain_ms, library_ms=library_ms,
+                         timing=timing,
                          n_pad=n_pad, trim_ms=trim_ms, trim_counts=counts_t,
                          trim_plain_ms=tplain_s * 1e3, trim_inputs=ti,
                          bodies=ut["iters_run"] // 2)
@@ -684,6 +764,24 @@ def elle_phases(dev, host10) -> list:
     print(f"  packed kernel == packed_closure_ref on the first squaring "
           f"and the label pass; one plain squaring {pplain_ms:.1f} ms")
     errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr)
+
+    # the dense route's largest shape, n_pad 8320 (8192 txns), on a
+    # random seed A|I with the 10k graph's off-diagonal density
+    n_nodes = int(np.asarray(gt.nodes).shape[0])
+    seed_ones = int(etpu._popcount32(p[0].to(torch.int64)
+                                     & 0xFFFFFFFF).sum())
+    density = (seed_ones - S * a["n_pad"]) / (S * n_nodes * (n_nodes - 1))
+    n_big = etpu._n_pad_for(etpu.DEFAULT_MAX_N)
+    gen = torch.Generator(device=dev).manual_seed(8320)
+    big = (torch.rand((S, n_big, n_big), generator=gen, device=dev)
+           < density).to(torch.bfloat16)
+    big.diagonal(dim1=1, dim2=2).fill_(1)
+    print(f"elle dense squaring at the route's largest n_pad {n_big}: a "
+          f"random seed at the 10k graph's density {density:.3e} "
+          f"({seed_ones} ones in its packed seed over {n_nodes} nodes), "
+          f"plus the identity", flush=True)
+    big_timing = square_timing(big)
+    del big
 
     # ---- the sharded closure: shards of this card ------------------------------
     # one squaring of the 10k reach, every shard's block against the
@@ -803,7 +901,8 @@ def elle_phases(dev, host10) -> list:
     d_ops = dc["flops"] / card_peak("bf16_flops")
     d_bytes = dc["bytes_accessed"] / hbm
     d_bound = max(d_ops, d_bytes) * 1e3
-    d_ms = float(np.median(d["sq"]))
+    d_ms = d["timing"]["ms"]
+    d_main_ms = float(np.median(d["sq"]))
     # packed, per squaring (mean over the run): a set bit j of row i
     # selects row j, so one OR per (set bit, word), this run's bits; the
     # bitset read and written once
@@ -831,7 +930,12 @@ def elle_phases(dev, host10) -> list:
                                       + 16)
     print(f"elle bounds: dense {d_bound:.4f} ms per squaring (n_pad "
           f"{d['n_pad']}: {2 * S * d['n_pad'] ** 3:.3e} flops at 989 "
-          f"TFLOP/s) against {d_ms:.4f} ms median; packed {p_bound:.4f} ms "
+          f"TFLOP/s) against {d_ms:.4f} ms device-only ({d_main_ms:.4f} ms "
+          f"median on the main path, the launch's host path inside the "
+          f"events); at n_pad {big_timing['n_pad']} "
+          f"{big_timing['bound_ms']:.4f} ms against {big_timing['ms']:.4f} "
+          f"ms (yardstick {big_timing['library_ms']:.4f} ms); packed "
+          f"{p_bound:.4f} ms "
           f"per squaring ({p_by}; one OR per set bit per word, set bits "
           f"{ones}, int32 peak {int_ops_per_s:.3e}/s; bytes "
           f"{p_bytes * 1e3:.6f} ms; the dense formulation's "
@@ -848,10 +952,11 @@ def elle_phases(dev, host10) -> list:
         "source": "jepsen_tpu_torch/csrc/elle_closure.cu",
         "replaces": "jepsen_tpu/elle/tpu.py:115",
         "launches": d["counts"]["elle_closure"],
-        "max_abs_err": errs["elle_closure"], "ms": d_ms,
-        "plain_ms": d["plain_ms"], "bound_ms": d_bound,
+        "max_abs_err": max(errs["elle_closure"], d["timing"]["err"],
+                           big_timing["err"]), "ms": d_ms,
+        "plain_ms": d["timing"]["plain_ms"], "bound_ms": d_bound,
         "bound_by": "operations" if d_ops > d_bytes else "bytes",
-        "library_ms": d["library_ms"]}, {
+        "library_ms": d["timing"]["library_ms"]}, {
         "name": "elle_packed_closure", "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/elle_packed.cu",
         "replaces": "jepsen_tpu/elle/tpu.py:399",
@@ -946,8 +1051,12 @@ def lane_kernel_checks(dev, plan, wplan) -> list:
     with a random lane mask; the migration up and down one ladder step
     of each. Times from CUDA events; the library call is `torch.where`
     over the carry leaves for the reset and `torch.nn.functional.pad` or
-    a slice for the migration. Returns the two kernels' entries of the
-    kernels line (launches filled in by the caller)."""
+    a slice for the migration. The migration, its plain version and its
+    library call are timed two ways: as calls (events around the Python
+    call on an idle card, so the host path is inside) and device-only
+    (`device_ms`); the kernels line takes the device-only times. Returns
+    the two kernels' entries of the kernels line (launches filled in by
+    the caller)."""
     from jepsen_tpu_torch.ops import adapt, wgl32, wgln
     from jepsen_tpu_torch.parallel import mesh
 
@@ -1009,23 +1118,49 @@ def lane_kernel_checks(dev, plan, wplan) -> list:
                                      f"{k_to} differs on {name}")
             fr = src[0]
             grow = k_to - k_from
-            mk = event_ms(lambda: mesh.migrate_lanes(src, k_to))
-            mp = event_ms(lambda: adapt.migrate_frontier_batch(src, k_to))
-            ml = event_ms(
-                (lambda: torch.nn.functional.pad(fr, (0, 0, 0, grow)))
-                if grow > 0 else (lambda: fr[:, :k_to].contiguous()))
+            fns = {"kernel": lambda: mesh.migrate_lanes(src, k_to),
+                   "plain": lambda: adapt.migrate_frontier_batch(src, k_to),
+                   "library": (
+                       (lambda: torch.nn.functional.pad(fr, (0, 0, 0, grow)))
+                       if grow > 0 else (lambda: fr[:, :k_to].contiguous()))}
+            # each way, in three turns: kernel, library, plain, then
+            # back, then forth again
+            call, devt = {}, {}
+            for order in (("kernel", "library", "plain"),
+                          ("plain", "library", "kernel"),
+                          ("kernel", "library", "plain")):
+                for which in order:
+                    call.setdefault(which, []).append(
+                        event_ms(fns[which], reps=30))
+                    devt.setdefault(which, []).append(
+                        device_ms(fns[which], reps=30))
+            call = {k: float(np.mean(v)) for k, v in call.items()}
+            devt = {k: float(np.mean(v)) for k, v in devt.items()}
             mbytes = lanes * (min(k_from, k_to) + k_to) * C * 4
             mbound = mbytes / card_peak("hbm_bytes_per_s") * 1e3
+            lib = "F.pad" if grow > 0 else "slice"
             print(f"  wgl_frontier_migrate == migrate_frontier_batch "
-                  f"{k_from} -> {k_to}: kernel {mk:.4f} ms, plain "
-                  f"{mp:.4f} ms, library {ml:.4f} ms; bound {mbytes} bytes "
-                  f"(rows kept read, new frontier written) = {mbound:.6f} ms",
-                  flush=True)
-            out.setdefault("migrate", dict(ms=mk, plain_ms=mp, library_ms=ml,
-                                           bound_ms=mbound))
+                  f"{k_from} -> {k_to}: device-only kernel "
+                  f"{devt['kernel']:.4f} ms, plain {devt['plain']:.4f} ms, "
+                  f"{lib} {devt['library']:.4f} ms; as calls kernel "
+                  f"{call['kernel']:.4f} ms, plain {call['plain']:.4f} ms, "
+                  f"{lib} {call['library']:.4f} ms (medians of 30, three "
+                  f"turns averaged); bound {mbytes} bytes (rows kept read, "
+                  f"new frontier written) = {mbound:.6f} ms", flush=True)
+            out.setdefault("migrate", dict(
+                ms=devt["kernel"], plain_ms=devt["plain"],
+                library_ms=devt["library"], bound_ms=mbound))
+            out.setdefault("migrate_rows", []).append(
+                (name, k_from, k_to, devt, call))
         out.setdefault("migrate_err", 0)
         out["migrate_err"] = max(out["migrate_err"], m_err)
         del carry
+    rows = out["migrate_rows"]
+    print(f"  wgl_frontier_migrate against its library call at all "
+          f"{len(rows)} shapes: device-only time at or under it at "
+          f"{sum(d['kernel'] <= d['library'] for *_, d, _ in rows)}, call "
+          f"time at or under it at "
+          f"{sum(c['kernel'] <= c['library'] for *_, c in rows)}", flush=True)
     return [{
         "name": "wgl_lane_reset", "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/wgl_lanes.cu",

@@ -25,8 +25,13 @@
 //
 // wgl_frontier_migrate. dst (lanes, k_new, C) = src (lanes, k_old, C)
 // padded with zero rows or cut to k_new rows. Bound: the rows kept read
-// once and the new frontier written once; a grid-stride copy, one word
-// a thread.
+// once and the new frontier written once. In each lane the kept rows
+// are one contiguous run of min(k_old, k_new) C words and the rest of
+// the lane is zero, so the design copies that run and zeroes the rest:
+// grid (blocks, lanes), 16-byte vectors where source and destination
+// share their alignment, scalar head and tail, and no division by C or
+// k. The frontier is KB to a few hundred KB, so the launch's host path
+// (jepsen_tpu_torch/ops/_native.py::launch) is most of its cost.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -78,19 +83,39 @@ reset_kernel(int32_t* __restrict__ fr, int32_t* __restrict__ fr_cnt,
   }
 }
 
+// copy n words src -> dst, thread t of `stride`: 16-byte vectors
+// between a scalar head and tail when both share their alignment
+__device__ __forceinline__ void copy_words(int32_t* dst, const int32_t* src,
+                                           size_t n, size_t t,
+                                           size_t stride) {
+  if ((reinterpret_cast<uintptr_t>(dst) ^ reinterpret_cast<uintptr_t>(src))
+      & 15) {
+    for (size_t i = t; i < n; i += stride) dst[i] = src[i];
+    return;
+  }
+  size_t head = ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2;
+  if (head > n) head = n;
+  for (size_t i = t; i < head; i += stride) dst[i] = src[i];
+  int4* dv = reinterpret_cast<int4*>(dst + head);
+  const int4* sv = reinterpret_cast<const int4*>(src + head);
+  const size_t nv = (n - head) >> 2;
+  for (size_t i = t; i < nv; i += stride) dv[i] = sv[i];
+  for (size_t i = head + (nv << 2) + t; i < n; i += stride) dst[i] = src[i];
+}
+
+// grid (blocks per lane, lanes), block kThreads
 __global__ void __launch_bounds__(kThreads)
 migrate_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
-               size_t n, int k_old, int k_new, int C) {
+               int k_old, int k_new, int C) {
+  const size_t lane = blockIdx.y;
+  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                  threadIdx.x;
-       i < n; i += stride) {
-    const size_t row = i / C;
-    const int c = static_cast<int>(i - row * C);
-    const size_t lane = row / k_new;
-    const int k = static_cast<int>(row - lane * k_new);
-    dst[i] = k < k_old ? src[(lane * k_old + k) * C + c] : 0;
-  }
+  const size_t total = static_cast<size_t>(k_new) * C;
+  const size_t keep = static_cast<size_t>(k_old < k_new ? k_old : k_new) * C;
+  int32_t* d = dst + lane * total;
+  copy_words(d, src + lane * k_old * C, keep, t, stride);
+  zero_words(d + keep, total - keep, t, stride);
 }
 
 int blocks_for(size_t work) {
@@ -121,11 +146,14 @@ extern "C" int wgl_lane_reset(int32_t* fr, int32_t* fr_cnt, int32_t* bk,
 extern "C" int wgl_frontier_migrate(const int32_t* src, int32_t* dst,
                                     int lanes, int k_old, int k_new, int C,
                                     void* stream) {
-  const size_t n = static_cast<size_t>(lanes) * k_new * C;
-  if (n == 0) return 0;
-  migrate_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(src, dst, n, k_old,
-                                                        k_new, C);
+  if (lanes > 65535 || k_old < 1 || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t words = static_cast<size_t>(k_new) * C;
+  if (lanes < 1 || words == 0) return 0;
+  // enough blocks a lane for its words in 16-byte pieces
+  const dim3 grid(blocks_for(words / 4 + 1), lanes);
+  migrate_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, dst, k_old, k_new, C);
   return static_cast<int>(cudaGetLastError());
 }
 

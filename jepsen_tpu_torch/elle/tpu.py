@@ -59,7 +59,8 @@ import torch
 
 from ..fleet import device_labels
 from ..ops.wgl32 import _M32, _popcount32, _to_i32
-from ..util import on_stream, resolve_device, resolve_devices, shard_streams
+from ..util import (on_device, on_stream, raw_stream, resolve_device,
+                    resolve_devices, shard_streams)
 from .graph import (PROCESS, REALTIME, RW, WR, WW, DepGraph,
                     _bfs_path)
 
@@ -105,8 +106,8 @@ def _n_pad_for(n: int) -> int:
 def _launch(name: str, ptrs, ints, dev) -> None:
     from ..ops import _native
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _native.launch(name, [t.data_ptr() for t in ptrs], ints, stream)
+    _native.launch(name, [t.data_ptr() for t in ptrs], ints,
+                   raw_stream(dev))
 
 
 def _count(wrapper) -> None:
@@ -242,6 +243,34 @@ def closure(src, dst, w, q_src, q_dst, *, n_pad: int, iters: int,
 
 
 closure.launches = 0
+
+
+def dense_square(r: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """One squaring (see `dense_square_ref`): the (S, n_pad, n_pad) 0/1
+    reach `r` in, (R @ R > 0) out, each subset's count of ones into the
+    (S,) int32 `cnt`. A CUDA reach (bf16, contiguous, n_pad a multiple
+    of 128) runs one `elle_closure_square` launch into a new buffer,
+    counted in `closure.launches`, as a squaring of `closure` is; a CPU
+    reach runs the plain version."""
+    dev = r.device
+    if dev.type == "cpu":
+        return dense_square_ref(r, cnt)
+    if dev.type != "cuda":
+        raise ValueError(f"elle dense_square: unsupported device {dev}")
+    S, n_pad = r.shape[0], r.shape[-1]
+    if (r.dtype != torch.bfloat16 or r.shape != (S, n_pad, n_pad)
+            or not r.is_contiguous() or n_pad % 128 or n_pad < 128
+            or cnt.shape != (S,) or cnt.dtype != torch.int32
+            or cnt.device != dev):
+        raise ValueError("elle dense_square: a contiguous bf16 (S, n, n) "
+                         "reach with n a multiple of 128 and an (S,) int32 "
+                         f"count on {dev}, got {tuple(r.shape)} {r.dtype}")
+    out = torch.empty_like(r)
+    cnt.zero_()
+    with on_device(dev):
+        _launch("elle_closure_square", (r, out, cnt), (S, n_pad), dev)
+    _count(closure)
+    return out
 
 
 def _closure_on_card(wrapper, kernel: str, seed, q_src, q_dst, *,

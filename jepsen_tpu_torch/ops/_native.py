@@ -124,9 +124,9 @@ def cold_sources(names) -> list:
 
 
 def _lib(name: str):
-    """The ctypes binding of entry point `name` (a KERNELS key), its
-    library built on first use and bound once, with its error-string
-    function."""
+    """The binding of entry point `name` (a KERNELS key): (ctypes
+    function, error-string function, pointer count, int count), its
+    library built on first use and bound once."""
     import ctypes
 
     stem, n_ptrs, n_ints = KERNELS[name]
@@ -143,20 +143,22 @@ def _lib(name: str):
             err = getattr(lib, f"{stem}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _LIBS[name] = (fn, err)
+            _LIBS[name] = (fn, err, n_ptrs, n_ints)
         return _LIBS[name]
 
 
 def launch(name: str, ptrs, ints, stream) -> None:
     """Launch entry point `name` (a KERNELS key) with its device
     pointers and int32 scalars on `stream`, and raise on a launch
-    error."""
-    _, n_ptrs, n_ints = KERNELS[name]
+    error. Once the entry point is bound this is a dict lookup, the
+    argument counts and the ctypes call (ctypes converts the ints): no
+    lock is taken and no list is rebuilt."""
+    bound = _LIBS.get(name) or _lib(name)
+    fn, err, n_ptrs, n_ints = bound
     if len(ptrs) != n_ptrs or len(ints) != n_ints:
         raise ValueError(f"{name} takes {n_ptrs} pointers and {n_ints} "
                          "ints")
-    fn, err = _lib(name)
-    rc = fn(*ptrs, *[int(x) for x in ints], stream)
+    rc = fn(*ptrs, *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{err(rc).decode()} (cuda {rc})")

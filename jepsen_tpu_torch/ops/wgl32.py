@@ -56,6 +56,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..util import raw_stream
+
 INF = np.int32(2**31 - 1)
 
 # The JAX package's packed-table eligibility bound (`wgl._packable`).
@@ -660,7 +662,7 @@ def launch(name: str, consts: Consts, carry, *, K, W, L, ic, H, B, rounds,
                               device=dev)
         summary = torch.empty(SUMMARY_HEAD + RING_ROWS * RING_COLS,
                               dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = raw_stream(dev)
         ptrs = [consts.meta, consts.tk, consts.iinv, consts.iopc,
                 *carry, summary, scratch]
         _native.launch(name, [t.data_ptr() for t in ptrs],
@@ -686,7 +688,7 @@ def launch_batched(name: str, consts: BatchConsts, carry, *, K, W, L, ic,
                               dtype=torch.int32, device=dev)
         summary = torch.empty((lanes, SUMMARY_HEAD + RING_ROWS * RING_COLS),
                               dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = raw_stream(dev)
         ptrs = [consts.meta, consts.tk, consts.iinv, consts.iopc, *carry,
                 summary, scratch, consts.n_ok, consts.n_info, consts.max_cfg]
         _native.launch(name, [t.data_ptr() for t in ptrs],

@@ -52,7 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..util import resolve_device
+from ..util import raw_stream, resolve_device
 from .wgl32 import _FNV_SEEDS, _M32, _fnv, _to_i32
 
 INF = np.int32(2**31 - 1)
@@ -426,7 +426,7 @@ def chunk(consts, carry, *, K: int, W: int, ic: int, H: int, B: int,
     with torch.cuda.device(dev):
         scratch = torch.empty(scratch_words(K, W, ic), dtype=torch.int32,
                               device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = raw_stream(dev)
         ptrs = list(consts[:7]) + list(carry) + [scratch]
         _native.launch("wgl_chunk", [t.data_ptr() for t in ptrs],
                        [inv.shape[0], ic, W, S, O, K, H, B, chunk, probes,

@@ -51,11 +51,13 @@ import torch
 from .. import fleet as _fleet
 from ..history import History
 from ..models.core import Model
+from ..ops import _native
 from ..ops import adapt as _adapt
 from ..analysis import preflight
 from ..ops import wgl, wgl32, wgln
 from ..ops.encode import INF, Encoded
-from ..util import default_devices, on_stream, resolve_devices, shard_streams
+from ..util import (default_devices, on_device, on_stream, raw_stream,
+                    resolve_devices, shard_streams)
 from .batched import (_annotate_shard, _batch_capacities, _oracle_fallback,
                       shared_shape_bucket)
 
@@ -174,15 +176,12 @@ def reset_lanes(carry, mask, *, mst_col: int, mstate0: int = 0):
                              f"on {dev}")
     if not 0 <= mst_col < C or lanes > 65535:
         raise ValueError(f"reset_lanes: mst_col {mst_col}, lanes {lanes}")
-    from ..ops import _native
-
-    with torch.cuda.device(dev):
-        mask_t = torch.from_numpy(m.astype(np.int32)).to(dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    mask_t = torch.from_numpy(m.astype(np.int32)).to(dev)
+    with on_device(dev):
         _native.launch("wgl_lane_reset",
                        [t.data_ptr() for t in (*carry, mask_t)],
                        [lanes, K, C, B, H, ring[0].numel(), mst_col,
-                        mstate0], stream)
+                        mstate0], raw_stream(dev))
     reset_lanes.launches += 1
     return carry
 
@@ -197,25 +196,27 @@ def migrate_lanes(carry, k_new: int):
     leaves ride along. The same carry comes back when K does not
     change. CUDA tensors run the `wgl_frontier_migrate` kernel into a
     new frontier (one launch per call, counted in
-    `migrate_lanes.launches`); CPU tensors run the plain version."""
+    `migrate_lanes.launches`); CPU tensors run the plain version. The
+    frontier is small, so the host path is most of the call: no device
+    switch when `fr`'s card is current, the raw stream, one
+    allocation."""
     fr = carry[wgl32.FR]
-    dev = fr.device
-    if dev.type == "cpu" or fr.shape[1] == k_new:
-        return _adapt.migrate_frontier_batch(carry, k_new)
-    if dev.type != "cuda":
-        raise ValueError(f"migrate_lanes: unsupported device {dev}")
+    lanes, k_old, C = fr.shape
+    if k_old == k_new:
+        return carry
+    if not fr.is_cuda:
+        if fr.device.type == "cpu":
+            return _adapt.migrate_frontier_batch(carry, k_new)
+        raise ValueError(f"migrate_lanes: unsupported device {fr.device}")
     if k_new < 1 or fr.dtype != torch.int32 or not fr.is_contiguous():
         raise ValueError("migrate_lanes: a contiguous int32 (lanes, K, C) "
                          f"frontier and k_new >= 1, got k_new {k_new}")
-    lanes, k_old, C = fr.shape
-    from ..ops import _native
-
-    with torch.cuda.device(dev):
-        out = torch.empty((lanes, k_new, C), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    out = fr.new_empty((lanes, k_new, C))
+    idx = fr.get_device()
+    with on_device(idx):
         _native.launch("wgl_frontier_migrate",
-                       [fr.data_ptr(), out.data_ptr()],
-                       [lanes, k_old, k_new, C], stream)
+                       (fr.data_ptr(), out.data_ptr()),
+                       (lanes, k_old, k_new, C), raw_stream(idx))
     migrate_lanes.launches += 1
     return (out, *carry[1:])
 

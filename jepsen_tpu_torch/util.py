@@ -79,6 +79,32 @@ def on_stream(stream):
     return torch.cuda.stream(stream)
 
 
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _index(dev) -> int:
+    idx = dev if isinstance(dev, int) else dev.index
+    return torch._C._cuda_getDevice() if idx is None else idx
+
+
+def on_device(dev):
+    """`torch.cuda.device(dev)` for a launch on `dev` (a CUDA device or
+    its index), or nothing when `dev` is already the current device (the
+    context switch costs two device exchanges on the host). For a caller
+    that holds a tensor on `dev`, so CUDA is initialised."""
+    idx = _index(dev)
+    if idx == torch._C._cuda_getDevice():
+        return _SAME_DEVICE
+    return torch.cuda.device(idx)
+
+
+def raw_stream(dev) -> int:
+    """The cudaStream_t of the current stream of `dev` (a CUDA device or
+    its index), as an int: what a kernel's C entry point takes, read
+    without making a `torch.cuda.Stream`."""
+    return torch._C._cuda_getCurrentRawStream(_index(dev))
+
+
 def device_name(device: torch.device) -> str:
     """The card's name (`torch.cuda.get_device_name`), or "cpu"."""
     if device.type == "cuda":

@@ -216,6 +216,65 @@ def test_native_table_binds_every_entry_point():
     assert found.keys() == _native.KERNELS.keys()
 
 
+
+def test_dense_square_on_the_cpu_is_the_plain_version():
+    rng = np.random.default_rng(12)
+    r = torch.from_numpy((rng.random((S, 128, 128)) < 0.05)
+                         .astype(np.float32))
+    cnt, want_cnt = (torch.full((S,), 7, dtype=torch.int32)
+                     for _ in range(2))
+    before = ttpu.closure.launches
+    got = ttpu.dense_square(r, cnt)
+    want = ttpu.dense_square_ref(r, want_cnt)
+    assert ttpu.closure.launches == before
+    assert torch.equal(got, want) and torch.equal(cnt, want_cnt)
+    with pytest.raises(ValueError):
+        ttpu.dense_square(r.to("meta"), cnt.to("meta"))
+
+
+class _NoLock:
+    def __enter__(self):
+        raise AssertionError("the launch fast path took the lock")
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_launch_fast_path_is_a_table_lookup(monkeypatch):
+    """A bound entry point launches from `_native._LIBS` alone: no
+    lock, the argument counts checked, ints handed to ctypes as given,
+    and a nonzero return code raised with the library's error text."""
+    from jepsen_tpu_torch.ops import _native
+
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return calls[-1][-2]   # the last int plays the return code
+
+    def err(rc):
+        return f"error {rc}".encode()
+
+    monkeypatch.setattr(_native, "_LIBS",
+                        {"elle_closure_square": (fn, err, 3, 2)})
+    monkeypatch.setattr(_native, "_LOCK", _NoLock())
+    _native.launch("elle_closure_square", (1, 2, 3), (np.int64(3), 0), 99)
+    assert calls == [(1, 2, 3, np.int64(3), 0, 99)]
+    with pytest.raises(ValueError):
+        _native.launch("elle_closure_square", (1, 2), (3, 0), 99)
+    with pytest.raises(ValueError):
+        _native.launch("elle_closure_square", (1, 2, 3), (3,), 99)
+    with pytest.raises(RuntimeError, match=r"error 700 \(cuda 700\)"):
+        _native.launch("elle_closure_square", (1, 2, 3), (3, 700), 99)
+    assert len(calls) == 2
+
+
+def test_launch_helpers_take_a_device_or_its_index():
+    from jepsen_tpu_torch import util
+
+    assert util._index(3) == 3
+    assert util._index(torch.device("cuda", 2)) == 2
+
 # --- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -243,3 +302,65 @@ def test_kernels_match_plain_on_card(cuda_device, case):
     assert ttpu.packed_closure.launches == launches + got[3] + 1
     assert_same(got, ref)
 
+
+
+def random_reach(seed, n_pad, density):
+    """A (S, n_pad, n_pad) 0/1 float32 reach with ones at `density`,
+    made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    r = np.zeros((S, n_pad, n_pad), np.float32)
+    for s in range(S):
+        r[s] = rng.random((n_pad, n_pad), dtype=np.float32) < density
+    return torch.from_numpy(r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.001, 0.3])
+@pytest.mark.parametrize("n_pad", [128, 384, 4096, 8320])
+def test_dense_square_matches_plain_on_card(cuda_device, n_pad, density):
+    """The wgmma squaring against `dense_square_ref` (f32): every entry
+    of the output and every subset's count, at one tile, an odd tile
+    count (3), the 3k main path's n_pad and the largest the route
+    takes."""
+    r = random_reach(n_pad + int(density * 1000), n_pad, density).to(
+        cuda_device)
+    want_cnt = torch.zeros(S, dtype=torch.int32, device=cuda_device)
+    want = ttpu.dense_square_ref(r, want_cnt)
+    cnt = torch.zeros(S, dtype=torch.int32, device=cuda_device)
+    before = ttpu.closure.launches
+    got = ttpu.dense_square(r.to(torch.bfloat16), cnt)
+    torch.cuda.synchronize()
+    assert ttpu.closure.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == r.shape
+    assert torch.equal(got.float(), want)
+    assert torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.gpu
+def test_closure_chain_matches_ref_on_card(cuda_device):
+    """Three squarings through `closure` against `closure_ref`: the
+    reach after each squaring and every output."""
+    a = inputs(random_graph(9, 250, 400), 256)
+    keep, bad = [], []
+    got = port_dense(256, a, fn=lambda *x, **kw: ttpu.closure(
+        *x, **dict(kw, iters=3), on_square=lambda i, r: keep.append(
+            r.clone())), device=cuda_device)
+    ref = port_dense(256, a, fn=lambda *x, **kw: ttpu.closure_ref(
+        *x, **dict(kw, iters=3), on_square=lambda i, r: bad.append(i) if
+        not torch.equal(r > 0, keep[i].cpu() != 0) else None))
+    assert len(keep) == got[3] == ref[3] and not bad
+    for x, y in zip(got[:3], ref[:3]):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.gpu
+def test_launch_helpers_on_card(cuda_device):
+    from jepsen_tpu_torch import util
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert util.raw_stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+    s = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(s):
+        assert util.raw_stream(dev) == s.cuda_stream
+    with util.on_device(dev):
+        assert torch.cuda.current_device() == dev.index

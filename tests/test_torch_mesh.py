@@ -483,3 +483,31 @@ def test_check_mesh_on_card_matches_cpu(cuda_device):
     for a, b in zip(cpu, card):
         for k in ("valid?", "configs_explored", "K", "mesh"):
             assert a[k] == b[k], k
+
+
+# (lanes, k_old, k_new, C): the six migrations chip_smoke.py times (the
+# fan-out's 100 lanes and its mesh shard's 4, one ladder step each way;
+# 8 wide lanes), and one whose lanes' kept runs and strides are not
+# multiples of 4 words (k_old C = 15)
+MIGRATIONS = [(100, 16, 64, 4), (100, 64, 16, 4), (4, 16, 64, 4),
+              (4, 64, 16, 4), (8, 512, 1024, 5), (8, 1024, 512, 5),
+              (7, 3, 10, 5), (7, 10, 3, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,k_old,k_new,C", MIGRATIONS)
+def test_migrate_lanes_matches_plain_on_card(cuda_device, lanes, k_old,
+                                             k_new, C):
+    rng = np.random.default_rng(lanes * 10007 + k_old * 31 + k_new)
+    fr = torch.from_numpy(rng.integers(-2**31, 2**31, (lanes, k_old, C),
+                                       dtype=np.int64).astype(np.int32))
+    carry = (fr.to(cuda_device), torch.ones(lanes, dtype=torch.int32,
+                                            device=cuda_device))
+    before = tmesh.migrate_lanes.launches
+    got = tmesh.migrate_lanes(carry, k_new)
+    torch.cuda.synchronize()
+    assert tmesh.migrate_lanes.launches == before + 1
+    want = tadapt.migrate_frontier_batch(carry, k_new)
+    assert got[0].shape == (lanes, k_new, C)
+    assert torch.equal(got[0], want[0])
+    assert got[1] is carry[1]

@@ -18,6 +18,16 @@ after:
   * wide windows: the 16-wave adversarial history (window 71, ~2.08M
     configs to exhaust) through the same checker (`wgln_chunk`).
 
+Before those main paths, the WGL chunk's launch forms
+(`csrc/wgl_common.cuh`: one CTA with the round in shared or device
+memory, and the solo wide search's grid form) run against each other at
+the same shapes in turns, every pair bit-identical: one CTA against the
+grid on the 16-wave at K 16 to 2048 and on the long tail at K 1 to 256
+(the crossover `wgln.solo_form` takes, at two widths), shared against
+global scratch on the headline at
+K 2 and 64; two grid chunks run on two streams of the card at once.
+Every WGL launch prints the form it took.
+
 Then the default checker (`algorithm="competition"`) decides a 900-op
 long tail (window 657) and a 100k-op FIFO-queue history (queue-poly),
 and the frontier migration of a ladder switch is timed. Then the
@@ -25,7 +35,8 @@ per-key fan-out:
 
   * narrow lanes (`wgl32_chunk_batched`): one tuple-valued history of
     100 keys x 2000-op cas-register through
-    `independent.cuda_checker(cas_register())` (every key True), and a
+    `independent.cuda_checker(cas_register())` (every key True; its
+    first poll's shared form against global scratch, in turns), and a
     variant with four keys made invalid (failing keys == the host
     oracle's, the oracle run per key in a process pool);
   * wide lanes (`wgln_chunk_batched`): 8 adversarial-wave keys (window
@@ -39,7 +50,8 @@ per-key fan-out:
 Then the several-devices paths, every shard on this one card (the
 device list `[card] * n`; each shard launches on its own stream):
 
-  * the mesh lane scheduler's kernels against their plain versions:
+  * the mesh lane scheduler's kernels against their plain versions
+    (and a mesh poll's shared form against global scratch, in turns):
     `wgl_lane_reset` on a 100-lane narrow carry and an 8-lane wide one,
     `wgl_frontier_migrate` up and down one ladder step (timed as a call
     and device-only, beside `F.pad` or a slice);
@@ -97,6 +109,14 @@ numbers and
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a card,
 or a directory without the package.
+
+    python3 chip_smoke.py --paths DIR
+
+drives only the headline, the 16-wave's search and the mesh fan-out
+through the package under DIR (this checkout, or an older one unpacked
+beside it with `git archive`) and prints one JSON line of verdicts,
+walls and kernel times: run it on both trees in turns in one call to
+time a change against its parent.
 """
 
 import json
@@ -261,13 +281,39 @@ def read_counts() -> dict:
     return {k: w.launches for k, w in counters().items()}
 
 
+# the WGL chunk entry points, whose ints end with their launch form
+CHUNK_KERNELS = ("wgl32_chunk", "wgln_chunk", "wgl32_chunk_batched",
+                 "wgln_chunk_batched")
+
+
+def form_label(form) -> str:
+    """The text of an `ops/wgl32.py::Form`."""
+    if form.name == "grid":
+        return f"grid (<= {form.blocks} blocks of {form.threads})"
+    if form.name == "shared":
+        return f"shared ({form.threads} threads, {form.smem} B)"
+    return f"global ({form.threads} threads)"
+
+
+def launch_form(name, ints):
+    """The text of the form a launch of `name` took, read from its ints
+    by `wgl32.form_of`; None for another kernel, or under `--paths` for
+    a tree whose launches have no form."""
+    from jepsen_tpu_torch.ops import wgl32
+    if name not in getattr(wgl32, "FORM_FIELDS", ()):
+        return None
+    return form_label(wgl32.form_of(name, ints))
+
+
 class Timed:
     """CUDA events around every kernel launch made inside the block,
-    by C entry point (a `_native.KERNELS` name)."""
+    by C entry point (a `_native.KERNELS` name), and the form each WGL
+    chunk launch took."""
 
     def __enter__(self):
         from jepsen_tpu_torch.ops import _native
         self.native, self.launch, self.events = _native, _native.launch, []
+        self.forms: list = []
 
         def timed(name, *a):
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -275,6 +321,9 @@ class Timed:
             self.launch(name, *a)
             e1.record()
             self.events.append((name, e0, e1))
+            form = launch_form(name, a[1])
+            if form is not None:
+                self.forms.append((name, form))
 
         _native.launch = timed
         return self
@@ -285,6 +334,14 @@ class Timed:
     def ms(self, name) -> list:
         torch.cuda.synchronize()
         return [a.elapsed_time(b) for n, a, b in self.events if n == name]
+
+    def form_counts(self, name) -> dict:
+        """{form: launches} of kernel `name` inside the block."""
+        out: dict = {}
+        for n, f in self.forms:
+            if n == name:
+                out[f] = out.get(f, 0) + 1
+        return out
 
 
 def event_ms(fn, reps: int = 3) -> float:
@@ -381,6 +438,152 @@ def square_timing(r16, plain=None) -> dict:
           f"{dc['flops'] / out['ms'] / 1e9:.1f} TFLOP/s", flush=True)
     del r32
     return out
+
+
+# the launch forms timed against each other (csrc/wgl_common.cuh): the
+# 16-wave's buckets (L 3) and the long tail's (L 21) for the solo wide
+# crossover (one CTA against the grid), the headline's for global
+# against shared scratch; rounds of each timed chunk
+FORM_WAVE_K = (16, 24, 32, 40, 48, 64, 128, 256, 2048)
+FORM_TAIL_K = (1, 2, 3, 4, 6, 8, 16, 256)
+FORM_WAVE_ROUNDS = 64
+FORM_NARROW = ((2, 1024), (64, 256))     # (K, rounds)
+
+
+def form_turns(run, start, forms) -> tuple:
+    """`run(carry, form)` (one launch, returns the summary) from clones
+    of `start` in turns, the forms then the same reversed (a, b, b, a),
+    CUDA events around each launch (the clone outside them); every
+    output equals the first form's on every carry leaf and the summary.
+    Returns ({form label: [ms, ms]}, rounds in the chunk, the first
+    output (carry, summary))."""
+    times: dict = {}
+    first = None
+    for f in list(forms) + list(reversed(forms)):
+        c = tuple(t.clone() for t in start)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        summary = run(c, f)
+        e1.record()
+        torch.cuda.synchronize()
+        times.setdefault(form_label(f), []).append(e0.elapsed_time(e1))
+        if first is None:
+            first = (c, summary)
+        elif not (same_carry(c, first[0]) and torch.equal(summary, first[1])):
+            raise AssertionError(f"form {form_label(f)} differs from "
+                                 f"{form_label(forms[0])}")
+    return times, int(first[1][..., 5].max()), first
+
+
+def form_phases(dev, wconsts, wkw, wave_starts, hconsts, hkw, hstart,
+                tconsts, tkw) -> None:
+    """The launch forms against each other at the same shapes, in turns,
+    every pair bit-identical: one CTA against the grid on the 16-wave at
+    FORM_WAVE_K and on the long tail at FORM_TAIL_K (the solo wide
+    crossover at two widths, `wgln.solo_form`'s rule); global against
+    shared scratch (and the
+    old 1024-thread block) on the headline at FORM_NARROW. Then two
+    16-wave-shaped grid chunks (K 2048) on two streams of the card at
+    once, each bit-identical to the chunk run alone."""
+    from jepsen_tpu_torch.ops import wgl32, wgln
+
+    print("launch forms, in turns (a, b, b, a), each pair bit-identical:",
+          flush=True)
+
+    def wide_run(consts, p, K, rounds):
+        return lambda c, f: wgl32.launch(
+            "wgln_chunk", consts, c, K=K, W=32 * p["L"], L=p["L"],
+            ic=p["ic"], H=p["H"], B=p["B"], rounds=rounds,
+            probes=p["probes"], form=f)
+
+    def wide_forms(K, L, ic):
+        W = 32 * L
+        R = K * (W + ic)
+        one = wgl32.block_form(K, W, ic, wgln.row_words(L, ic))
+        return R, [one, wgl32.Form("grid", wgl32.MAX_THREADS, -(-R // 1024))]
+
+    def us(ms, rounds):
+        return float(np.mean(ms)) * 1e3 / max(rounds, 1)
+
+    def crossover(what, consts, p, Ks, starts):
+        """One CTA against the grid at each K of Ks on `consts`; returns
+        {K: (start, grid form, first output, grid ms, rounds)}."""
+        L, ic = p["L"], p["ic"]
+        C = wgln.row_words(L, ic)
+        rows, runs = [], {}
+        for K in Ks:
+            start = starts.get(K) or wgln.init_carry(K, L, ic, p["H"],
+                                                     p["B"], 0, dev)
+            R, forms = wide_forms(K, L, ic)
+            times, rounds, first = form_turns(
+                wide_run(consts, p, K, FORM_WAVE_ROUNDS), start, forms)
+            one, grid = (times[form_label(f)] for f in forms)
+            rows.append((R, us(one, rounds), us(grid, rounds)))
+            print(f"  {what} K={K} (L {L}, C {C}, R {R}, R C {R * C}, "
+                  f"{rounds} rounds): {form_label(forms[0])} "
+                  f"{[round(x, 4) for x in one]} ms = {us(one, rounds):.2f} "
+                  f"us/round; {form_label(forms[1])} "
+                  f"{[round(x, 4) for x in grid]} ms = {us(grid, rounds):.2f}"
+                  f" us/round; the rule takes "
+                  f"{form_label(wgln.solo_form(K, L, ic))}", flush=True)
+            runs[K] = (start, forms[1], first, float(np.mean(grid)), rounds)
+        wins = [R for R, one, grid in rows if grid < one]
+        loses = [R for R, one, grid in rows if grid >= one]
+        print(f"  {what} crossover (L {L}): the grid wins at R {wins}, one "
+              f"CTA at R {loses}; GRID_MIN_ROWS = {wgln.GRID_MIN_ROWS}",
+              flush=True)
+        return runs
+
+    alone = crossover("16-wave", wconsts, wkw, FORM_WAVE_K,
+                      wave_starts)[2048]
+    crossover("long tail", tconsts, tkw, FORM_TAIL_K, {})
+
+    C = wgl32.row_words(hkw["ic"])
+    for K, rounds_k in FORM_NARROW:
+        start = hstart if K == hstart[0].shape[0] else wgl32.init_carry(
+            K, C, hkw["H"], hkw["B"], 0, dev)
+        shared = wgl32.block_form(K, hkw["W"], hkw["ic"], C)
+        forms = [shared, wgl32.Form("global", shared.threads),
+                 wgl32.Form("global", wgl32.MAX_THREADS)]
+        times, rounds, _ = form_turns(
+            lambda c, f: wgl32.launch(
+                "wgl32_chunk", hconsts, c, K=K, W=hkw["W"], L=1,
+                ic=hkw["ic"], H=hkw["H"], B=hkw["B"], rounds=rounds_k,
+                probes=hkw["probes"], form=f), start, forms)
+        print(f"  headline K={K} ({rounds} rounds): "
+              + "; ".join(f"{k} {[round(x, 4) for x in v]} ms = "
+                          f"{us(v, rounds):.2f} us/round"
+                          for k, v in times.items()), flush=True)
+
+    # two grid chunks on two streams of the card at once, twice (the
+    # first pair also fills each stream's allocator cache); the second
+    # pair's time from the host clock, the launches queued behind a spin
+    # kernel on each stream so that both start together
+    start, grid, (want, want_summary), ms_alone, rounds = alone
+    run = wide_run(wconsts, wkw, 2048, FORM_WAVE_ROUNDS)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for turn in range(2):
+        a, b = (tuple(t.clone() for t in start) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = []
+        for carry, st in zip((a, b), streams):
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(1_000_000)
+                outs.append(run(carry, grid))
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        for carry, summary in zip((a, b), outs):
+            if not (same_carry(carry, want)
+                    and torch.equal(summary, want_summary)):
+                raise AssertionError("a grid chunk on two streams differs "
+                                     "from the chunk run alone")
+    print(f"  two 16-wave grid chunks (K 2048, {rounds} rounds each) on two "
+          f"streams at once, twice: both identical to the chunk alone each "
+          f"time; the second pair {wall_ms:.3f} ms (host clock, a ~0.5 ms "
+          f"spin before each included), {ms_alone:.3f} ms alone (events)",
+          flush=True)
 
 
 def same_carry(a, b) -> bool:
@@ -1232,6 +1435,22 @@ def fanout_phases(dev) -> list:
             times.append(e0.elapsed_time(e1))
         return float(np.median(times)), times
 
+    def batched_forms(consts, start, rounds, what, *, K, W, ic, H, B,
+                      probes):
+        """The narrow batched kernel's shared form against global
+        scratch at its thread count and at the old 1024, in turns."""
+        C = wgl32.row_words(ic)
+        shared = wgl32.block_form(K, W, ic, C)
+        forms = [shared, wgl32.Form("global", shared.threads),
+                 wgl32.Form("global", wgl32.MAX_THREADS)]
+        times, r, _ = form_turns(
+            lambda c, f: wgl32.launch_batched(
+                "wgl32_chunk_batched", consts, c, K=K, W=W, L=1, ic=ic, H=H,
+                B=B, rounds=rounds, probes=probes, form=f), start, forms)
+        print(f"  {what} ({consts.lanes} lanes, K {K}, {r} rounds at most): "
+              + "; ".join(f"{k} {[round(x, 4) for x in v]} ms"
+                          for k, v in times.items()), flush=True)
+
     def plan_of(hists, chunk):
         encs = [encode.encode(cas_register(), x) for x in hists]
         batch = batched.encode_batch(encs)
@@ -1336,9 +1555,11 @@ def fanout_phases(dev) -> list:
           f"{full[:, 9].tolist()} rounds, kernel {f_ms:.3f} ms, plain "
           f"{f_plain_ms:.1f} ms", flush=True)
     poll_ms, poll_times = kernel_ms(wgl32, consts, start, chunk=1024, **kw)
-    print(f"  first poll of the main path (1024 rounds, all lanes): "
-          f"{[round(x, 3) for x in poll_times]} ms, median {poll_ms:.3f} ms",
-          flush=True)
+    print(f"  first poll of the main path (1024 rounds, all lanes, "
+          f"{form_label(wgl32.block_form(plan['K'], plan['W'], plan['ic'], C))}"
+          f"): {[round(x, 3) for x in poll_times]} ms, median "
+          f"{poll_ms:.3f} ms", flush=True)
+    batched_forms(consts, start, 1024, "vmap first poll", **kw)
     del start, sub_start
 
     # ---- wide lanes -------------------------------------------------------
@@ -1393,7 +1614,8 @@ def fanout_phases(dev) -> list:
           f"each one launch: {[round(x, 2) for x in k_ms]} ms; launches "
           f"{counts}; rounds per lane max {max(rounds)} min {min(rounds)}; "
           f"configs {sum(r['configs_explored'] for r in per_key)}; peak "
-          f"memory {peak} B", flush=True)
+          f"memory {peak} B; forms {t.form_counts('wgl32_chunk_batched')}",
+          flush=True)
     Peaks.add("fan-out vmap 100 x 2k", t.gates, peak)
     if (res["valid?"] is not True or n_launches < 1
             or len(res["results"]) != FANOUT["n_keys"]
@@ -1437,7 +1659,8 @@ def fanout_phases(dev) -> list:
     w_launches = counts["wgln_chunk_batched"]
     print(f"main path, wide fan-out: verdicts {[r['valid?'] for r in res]} "
           f"wall {wall:.4f} s ({split_line(wall, host, wk_ms)}; "
-          f"{w_launches} polls: {[round(x, 2) for x in wk_ms]} ms), rounds "
+          f"{w_launches} polls: {[round(x, 2) for x in wk_ms]} ms, forms "
+          f"{t.form_counts('wgln_chunk_batched')}), rounds "
           f"{[r['util']['rounds'] for r in res]}, configs {got} (JAX "
           f"package: {FANOUT_WAVE_CONFIGS}), launches {counts}, peak memory "
           f"{peak} B", flush=True)
@@ -1544,7 +1767,9 @@ def fanout_phases(dev) -> list:
           f"{[round(x, 2) for x in k_ms['wgl32_chunk_batched'][:12]]}..., "
           f"resets (ms) {[round(x, 4) for x in k_ms['wgl_lane_reset'][:6]]}"
           f"..., configs {sum(r['configs_explored'] for r in per_key.values())}"
-          f"; peak memory {peak} B", flush=True)
+          f"; peak memory {peak} B; summed polls "
+          f"{sum(k_ms['wgl32_chunk_batched']):.3f} ms; forms "
+          f"{t.form_counts('wgl32_chunk_batched')}", flush=True)
     Peaks.add(f"mesh fan-out {MESH_SHARDS} shards", t.gates, peak)
     verdicts = {k: r["valid?"] for k, r in per_key.items()}
     if (res["valid?"] is not True or verdicts != vmap_verdicts
@@ -1582,6 +1807,10 @@ def fanout_phases(dev) -> list:
           f"probed, {int(msum[:, 8].sum())} new) = "
           f"{m_bytes / card_peak('hbm_bytes_per_s') * 1e3:.6f} ms",
           flush=True)
+    for K in (mkw["K"], kp["ladder"][-1]):
+        batched_forms(mconsts, wgl32.init_carry_batch(
+            4, K, mC, mkw["H"], mkw["B"], 0, dev), kp["chunk"],
+            "mesh poll", **dict(mkw, K=K))
     res, wall, counts, t, host, _ = drive(
         lambda: independent.cuda_checker(cas_register(),
                                          devices=cards).check({}, hb, {}))
@@ -1625,7 +1854,7 @@ def fanout_phases(dev) -> list:
           f"{[r['mesh']['shard'] for r in res]}; launches {counts}; "
           f"chunk polls (ms) "
           f"{[round(x, 2) for x in t.ms('wgln_chunk_batched')]}; peak memory "
-          f"{peak} B", flush=True)
+          f"{peak} B; forms {t.form_counts('wgln_chunk_batched')}", flush=True)
     if ([r["valid?"] for r in res] != [r["valid?"] for r in vm]
             or not idle or counts["wgln_chunk_batched"] < 1
             or counts["wgl_lane_reset"] < 1):
@@ -1925,7 +2154,76 @@ def preflight_phases(dev) -> None:
         raise AssertionError(f"preflight CLI parity: {par}")
 
 
+def paths_main(root: str) -> int:
+    """`--paths ROOT`: the main paths this slice's kernels serve, driven
+    through the package under ROOT (this checkout's, or an older one's
+    unpacked beside it, to time the two in turns in one call): the
+    headline through `checker.linearizable(algorithm="cuda-wgl")`, the
+    16-wave's search (`ops.wgl.check`, without the oracle's diagnostics
+    of the False verdict) and the mesh fan-out over 2 shards of the card.
+    Prints one JSON line of verdicts, walls and kernel times (CUDA events
+    around each launch)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 1
+    root_p = Path(root).resolve()
+    sys.path.insert(0, str(root_p))
+    import jepsen_tpu_torch
+    if root_p not in Path(jepsen_tpu_torch.__file__).resolve().parents:
+        raise AssertionError(f"jepsen_tpu_torch not from {root_p}")
+    from jepsen_tpu_torch import checker, independent, synth
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import _native, wgl
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _native.build_all()
+    for name in CHUNK_KERNELS:      # bound before any timed launch
+        _native._lib(name)
+    for name in getattr(_native, "CONSTANTS", ()):
+        _native.constant(name)
+    out = {"root": str(root_p), "card": card_line()}
+
+    def run(what, fn, kernel):
+        torch.cuda.synchronize()
+        with Timed() as t:
+            t0 = time.monotonic()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        ms = t.ms(kernel)
+        out[what] = {"wall_s": wall, "kernel_ms": sum(ms),
+                     "launches": len(ms),
+                     "launch_ms": [round(x, 4) for x in ms[:8]]}
+        return res
+
+    h = synth.cas_register_history(HEADLINE["n_ops"],
+                                   n_procs=HEADLINE["n_procs"],
+                                   seed=HEADLINE["seed"],
+                                   crash_p=HEADLINE["crash_p"])
+    lin = checker.linearizable(cas_register(), algorithm="cuda-wgl")
+    res = run("headline", lambda: lin.check({}, h, {}), "wgl32_chunk")
+    out["headline"].update(valid=res["valid?"], rounds=res["util"]["rounds"])
+    wave = synth.adversarial_wave_history(
+        WAVE["n_waves"], width=WAVE["width"], span=WAVE["span"],
+        seed=WAVE["seed"])
+    res = run("16-wave search", lambda: wgl.check(cas_register(), wave,
+                                                  device=dev), "wgln_chunk")
+    out["16-wave search"].update(valid=res["valid?"], search_s=res["wall_s"],
+                                 rounds=res["util"]["rounds"],
+                                 configs=res["configs_explored"])
+    fan = multikey_history(**FANOUT)
+    res = run("mesh fan-out", lambda: independent.cuda_checker(
+        cas_register(), devices=[dev] * MESH_SHARDS).check({}, fan, {}),
+              "wgl32_chunk_batched")
+    out["mesh fan-out"].update(valid=res["valid?"])
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--paths":
+        return paths_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2058,14 +2356,18 @@ def run_phases(dev, host10) -> int:
     worst_err = max(worst_err, err)
     sh = summary[:wgl32.SUMMARY_HEAD].tolist()
     rounds_k2, explored_k2, new_k2 = sh[4 + 5], sh[4], sh[4 + 4]
-    print(f"headline chunk 1 (K={plan['K']}): {rounds_k2} rounds, kernel "
+    print(f"headline chunk 1 (K={plan['K']}, "
+          f"{form_label(wgl32.block_form(plan['K'], kw['W'], kw['ic'], C))}):"
+          f" {rounds_k2} rounds, kernel "
           f"{first_ms:.3f} ms, chunk_ref {plain_ms:.1f} ms, identical")
     wide = adapt.migrate_frontier(carry, 512)
     _, summary512, ms512, plain512, err = run_both(
         consts, wide, K=512, **dict(kw, chunk=HEADLINE_K512_ROUNDS))
     worst_err = max(worst_err, err)
     r512 = int(summary512[9]) - rounds_k2
-    print(f"headline chunk 2 after migrate to K=512: {r512} rounds, kernel "
+    print(f"headline chunk 2 after migrate to K=512 "
+          f"({form_label(wgl32.block_form(512, kw['W'], kw['ic'], C))}): "
+          f"{r512} rounds, kernel "
           f"{ms512:.3f} ms ({ms512 * 1e3 / max(r512, 1):.2f} us/round), "
           f"chunk_ref {plain512:.1f} ms, identical")
 
@@ -2092,6 +2394,8 @@ def run_phases(dev, host10) -> int:
           f"reached, {explored_k2} configs expanded, "
           f"{tally['probed']} successors probed, {new_k2} new) over "
           f"3.35 TB/s = {bound_ms:.6f} ms for {rounds_k2} rounds")
+
+    hconsts = consts
 
     # ---- 3. the wide kernel against its plain version -----------------------
     wide_corpora = {
@@ -2169,17 +2473,34 @@ def run_phases(dev, host10) -> int:
           f"{[round(t, 4) for t in mig_times]} ms, median {mig_ms:.4f} ms; "
           f"bytes {mig_bytes} (read K*C*4 + write K'*C*4), bound "
           f"{mig_bound_ms:.6f} ms")
+    wave_starts = {wplan["K"]: wstart}
+    wave_bounds = {}
+    s_prev = wsummary
     for k_new in (2048, 4096):
         carry = adapt.migrate_frontier(carry, k_new)
+        wave_starts[k_new] = tuple(t.clone() for t in carry)
+        ktally: dict = {}
         carry, s_k, ms_k, plain_k, err = run_both(wconsts, carry, mod=wgln,
-                                                  K=k_new, **wkw)
+                                                  tally=ktally, K=k_new, **wkw)
         wide_err = max(wide_err, err)
         r_k = int(s_k[9]) - rounds_prev
         rounds_prev = int(s_k[9])
         per_bucket[k_new] = (r_k, ms_k)
-        print(f"16-wave chunk at K={k_new}: {r_k} rounds, kernel {ms_k:.3f} "
-              f"ms ({ms_k * 1e3 / max(r_k, 1):.2f} us/round), chunk_ref "
-              f"{plain_k:.1f} ms, identical")
+        # this chunk's own counts: the summary's stats are the search's
+        head = s_k[:wgl32.SUMMARY_HEAD].tolist()
+        head[4] -= int(s_prev[4])
+        head[8] -= int(s_prev[8])
+        s_prev = s_k
+        kbytes = occupancy.wgl_chunk_bytes(head, wC, ktally, s_k.numel())
+        wave_bounds[k_new] = kbytes / card_peak("hbm_bytes_per_s") * 1e3
+        print(f"16-wave chunk at K={k_new} ("
+              f"{form_label(wgln.solo_form(k_new, wkw['L'], wkw['ic']))}): "
+              f"{r_k} rounds, kernel {ms_k:.3f} ms "
+              f"({ms_k * 1e3 / max(r_k, 1):.2f} us/round), chunk_ref "
+              f"{plain_k:.1f} ms, identical; bound {kbytes} bytes "
+              f"({ktally['const_bytes']} of consts reached, {head[4]} configs "
+              f"expanded, {ktally['probed']} successors probed, {head[8]} "
+              f"new) = {wave_bounds[k_new]:.6f} ms")
     # kernel time at the plan's first chunk, repeated from the same start
     # state (the clone sits outside the timed window)
     wtimes = []
@@ -2198,7 +2519,9 @@ def run_phases(dev, host10) -> int:
     wbytes = bound_bytes(wsummary, wC, wtally)
     wbound_ms = wbytes / card_peak("hbm_bytes_per_s") * 1e3
     sh = wsummary[:wgl32.SUMMARY_HEAD].tolist()
-    print(f"16-wave chunk 1 (K={wplan['K']}): {r0} rounds, kernel times (ms) "
+    print(f"16-wave chunk 1 (K={wplan['K']}, "
+          f"{form_label(wgln.solo_form(wplan['K'], wkw['L'], wkw['ic']))}): "
+          f"{r0} rounds, kernel times (ms) "
           f"{[round(t, 4) for t in wtimes]}; median {wkernel_ms:.4f} ms = "
           f"{wkernel_ms * 1e3 / max(r0, 1):.2f} us/round; chunk_ref "
           f"{wplain_ms:.1f} ms; bound {wbytes} bytes ({wtally['const_bytes']} "
@@ -2227,9 +2550,14 @@ def run_phases(dev, host10) -> int:
                                  tkw["B"], 0, dev), mod=wgln, **tkw)
     wide_err = max(wide_err, err)
     print(f"long tail {LONG_TAIL} chunk 1 (window {tenc.window_raw}, "
-          f"{json.dumps(tkw)}): {int(ts[9])} rounds, kernel {tms:.3f} ms "
+          f"{json.dumps(tkw)}, "
+          f"{form_label(wgln.solo_form(tkw['K'], tkw['L'], tkw['ic']))}): "
+          f"{int(ts[9])} rounds, kernel {tms:.3f} ms "
           f"({tms * 1e3 / max(int(ts[9]), 1):.2f} us/round), chunk_ref "
           f"{tplain:.1f} ms, identical")
+
+    form_phases(dev, wconsts, wkw, wave_starts, hconsts, kw, start, tconsts,
+                tkw)
 
     # ---- 4. the main paths ----------------------------------------------------
     # in this process, every count set to 0 just before a path and read
@@ -2242,7 +2570,12 @@ def run_phases(dev, host10) -> int:
         e0.record()
         launch(name, *a)
         e1.record()
-        events.append((name, e0, e1))
+        events.append((name, e0, e1, launch_form(name, a[1])))
+
+    def launch_line(name) -> str:
+        """Each launch of `name` in the last drive: ms and form."""
+        return "; ".join(f"{a.elapsed_time(b):.3f} ms {f}"
+                         for n, a, b, f in events if n == name)
 
     def drive(lin, hist):
         """One check with both counts at 0 before it; returns (result,
@@ -2264,8 +2597,8 @@ def run_phases(dev, host10) -> int:
             counts = read_counts()
         finally:
             _native.launch = launch
-        dev_ms = {k: sum(a.elapsed_time(b) for n, a, b in events if n == k)
-                  for k in counts}
+        dev_ms = {k: sum(a.elapsed_time(b) for n, a, b, _ in events
+                         if n == k) for k in counts}
         return (res, wall, counts, dev_ms,
                 torch.cuda.max_memory_allocated(dev) - before, gates)
 
@@ -2279,7 +2612,8 @@ def run_phases(dev, host10) -> int:
           f"{counts}, kernel {dev_ms['wgl32_chunk']:.3f} ms = "
           f"{dev_ms['wgl32_chunk'] * 1e3 / u['rounds']:.2f} us/round, "
           f"configs {res['configs_explored']}, adapt "
-          f"{u.get('adapt', {}).get('path')}, peak memory {peak} B")
+          f"{u.get('adapt', {}).get('path')}, peak memory {peak} B; "
+          f"launches: {launch_line('wgl32_chunk')}")
     if res["valid?"] is not True or launches < 1:
         raise AssertionError(f"headline: {res['valid?']}, {launches} "
                              "launches")
@@ -2332,7 +2666,7 @@ def run_phases(dev, host10) -> int:
           f"configs {total} (JAX package: {WAVE_CONFIGS}, slack {slack}), "
           f"memo hit rate {u['memo_hit_rate']}, backlog peak "
           f"{u['backlog_peak']}, adapt {u.get('adapt', {}).get('path')}, "
-          f"peak memory {wpeak} B")
+          f"peak memory {wpeak} B; launches: {launch_line('wgln_chunk')}")
     if (res["valid?"] is not False or wlaunches < 1
             or abs(total - WAVE_CONFIGS) > slack):
         raise AssertionError(f"16-wave: {res['valid?']}, {wlaunches} "
@@ -2343,7 +2677,8 @@ def run_phases(dev, host10) -> int:
         checker.linearizable(cas_register()), tail)
     print(f"default checker, long tail {LONG_TAIL} (window "
           f"{tenc.window_raw}): valid? {res['valid?']} engine "
-          f"{res.get('engine')} wall {wall:.4f} s, launches {counts}")
+          f"{res.get('engine')} wall {wall:.4f} s, launches {counts}: "
+          f"{launch_line('wgln_chunk')}")
     if res["valid?"] is not True or res.get("algorithm") != "competition":
         raise AssertionError(f"long tail: {res}")
     fifo = synth.fifo_queue_history(FIFO["n_ops"], n_procs=FIFO["n_procs"],

@@ -18,19 +18,25 @@
 // successor rows) the bytes per round are a few tens of KB, so the
 // round is latency-bound, not bandwidth- or compute-bound.
 //
-// What this design does about it: one persistent CTA of 1024 threads
-// runs the whole round loop of a chunk on the device, with
-// __syncthreads() between phases, so a chunk is one launch and no
-// round pays a launch or a host round trip. One block keeps JAX's row
+// What this design does about it: one persistent CTA runs the whole
+// round loop of a chunk on the device, so a chunk is one launch and no
+// round pays a launch or a host round trip; one block keeps JAX's row
 // order deterministic (the compaction order is a block-wide prefix sum
-// over all R rows) and nothing has to cross blocks. At K = 512 (R =
-// 20,480) the block loops over its rows. A grid-wide design
-// (cooperative groups, memo insert by 128-bit CAS) and CUDA graphs over
-// chunk launches are later work.
-//
-// The phases of one round are in wgl_common.cuh, shared with the
-// wide-window kernel (wgln_chunk.cu); this file holds the narrow
-// layout's ok-row window update: one uint32 window word.
+// over all R rows) and nothing has to cross blocks. Where the round's
+// working set fits in shared memory (the successor rows, the three
+// signatures, insert slots, row flags, per-parent min rets and both
+// frontiers: the mesh's K = 64 at W 32, ic 16 takes 112,896 bytes), it
+// lives there,
+// so the only device-memory round trips of a round are the memo probe,
+// the claim, the won-check read, the entry write and the verify read;
+// the block has a warp multiple of R threads, not 1024 at every K (at
+// K = 2, R = 80 rows take 3 warps). Larger buckets (the headline's K =
+// 512, R = 20,480 rows, ~740 KB) keep the round's scratch in device
+// memory. The wrapper picks the form by shape (ops/wgl32.py::
+// block_form); the phases of one round are in wgl_common.cuh, shared
+// with the wide-window kernel (wgln_chunk.cu), which also has a
+// grid-wide form. This file holds the narrow layout's ok-row window
+// update: one uint32 window word.
 
 #include "wgl_common.cuh"
 
@@ -55,39 +61,45 @@ struct Narrow {
   }
 };
 
-__global__ void __launch_bounds__(wgl::kThreads, 1)
+template <bool kShared>
+__global__ void __launch_bounds__(wgl::kMaxThreads, 1)
 wgl32_chunk_kernel(wgl::Params p) {
-  wgl::chunk_body<Narrow>(p);
+  wgl::chunk_body<Narrow, kShared>(p);
 }
 
 // The lane-batched form: one CTA per lane (key), each running the chunk
 // loop above on its own slice to its own stop. Replaces
 // jepsen_tpu/ops/wgl32.py::chunk_fn_batched (:757) and the narrow branch of
 // jepsen_tpu/parallel/batched.py::_compiled_batched (:234). A lane's CTA
-// is the solo kernel's, so a batch of lanes takes one wave of the 132
-// SMs up to 132 lanes and more waves past that; each lane's round is
-// bound as the solo kernel's is, by its chain of dependent global
-// accesses, and the lanes' random memo probes (one table per lane, far
-// past the L2 together) queue on the same device memory.
-__global__ void __launch_bounds__(wgl::kThreads, 1)
+// is the solo kernel's, in either one-CTA form, so a batch of lanes takes
+// one wave of the 132 SMs up to 132 lanes (more where a lane's block is
+// small) and more waves past that; each lane's round is bound as the
+// solo kernel's is, by its chain of dependent memo accesses, and the
+// lanes' random memo probes (one table per lane, far past the L2
+// together) queue on the same device memory.
+template <bool kShared>
+__global__ void __launch_bounds__(wgl::kMaxThreads, 1)
 wgl32_chunk_batched_kernel(wgl::BatchParams b) {
-  wgl::lane_chunk_body<Narrow>(b);
+  wgl::lane_chunk_body<Narrow, kShared>(b);
 }
 
 }  // namespace
 
-extern "C" int wgl32_chunk(WGL_CHUNK_ARGS) {
+// The launch form: `threads` a block, `smem` > 0 the shared form's
+// dynamic bytes (the narrow search has no grid form)
+extern "C" int wgl32_chunk(WGL_CHUNK_ARGS, int threads, int smem,
+                           void* stream) {
   const wgl::Params p = WGL_CHUNK_PARAMS;
-  wgl32_chunk_kernel<<<1, wgl::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(wgl::launch_block(
+      &wgl32_chunk_kernel<false>, &wgl32_chunk_kernel<true>, p, 1, threads,
+      smem, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int wgl32_chunk_batched(WGL_BATCHED_ARGS) {
   const wgl::BatchParams b = WGL_BATCHED_PARAMS;
-  wgl32_chunk_batched_kernel<<<lanes, wgl::kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(b);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(wgl::launch_block(
+      &wgl32_chunk_batched_kernel<false>, &wgl32_chunk_batched_kernel<true>,
+      b, lanes, threads, smem, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* wgl32_chunk_error_string(int code) {

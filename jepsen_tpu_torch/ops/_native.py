@@ -90,12 +90,15 @@ def build_all() -> dict:
 # then its ints, then the stream, and returns cudaGetLastError(); each
 # library exports `<stem>_error_string` beside them.
 KERNELS = {
-    # the WGL chunk loop (csrc/wgl_common.cuh)
-    "wgl32_chunk": ("wgl32_chunk", 14, 13),
-    "wgln_chunk": ("wgln_chunk", 14, 13),
-    # the same loop with a lane axis, one CTA per lane
-    "wgl32_chunk_batched": ("wgl32_chunk", 17, 12),
-    "wgln_chunk_batched": ("wgln_chunk", 17, 12),
+    # the WGL chunk loop (csrc/wgl_common.cuh); the last ints are the
+    # launch form (ops/wgl32.py::FORM_FIELDS): threads and shared bytes,
+    # the solo wide kernel's blocks between them
+    "wgl32_chunk": ("wgl32_chunk", 14, 15),
+    "wgln_chunk": ("wgln_chunk", 14, 16),
+    # the same loop with a lane axis, one CTA per lane (threads, shared
+    # bytes)
+    "wgl32_chunk_batched": ("wgl32_chunk", 17, 14),
+    "wgln_chunk_batched": ("wgln_chunk", 17, 14),
     # Elle's closures and trim
     "elle_closure_square": ("elle_closure", 3, 2),
     "elle_closure_labels": ("elle_closure", 5, 3),
@@ -112,6 +115,15 @@ KERNELS = {
 }
 
 
+# Sizes the kernels' sources own, by exported function name: (source
+# stem). Each function takes nothing and returns an int.
+CONSTANTS = {
+    # int32 words of the grid form's control block after the scratch
+    "wgln_chunk_grid_ctl_words": "wgln_chunk",
+}
+_CONSTANTS: dict = {}
+
+
 def cold_sources(names) -> list:
     """The source stems of the entry points `names` (KERNELS keys) whose
     library this process has neither bound nor found built on disk: what
@@ -123,6 +135,17 @@ def cold_sources(names) -> list:
             if s not in bound and not _lib_path(CSRC / f"{s}.cu").exists()]
 
 
+def _load(stem: str):
+    """The library of source `stem`, built first when it is not on
+    disk. Call with _LOCK held."""
+    import ctypes
+
+    path = _lib_path(CSRC / f"{stem}.cu")
+    if not path.exists():
+        build_all()
+    return ctypes.CDLL(str(path))
+
+
 def _lib(name: str):
     """The binding of entry point `name` (a KERNELS key): (ctypes
     function, error-string function, pointer count, int count), its
@@ -132,10 +155,7 @@ def _lib(name: str):
     stem, n_ptrs, n_ints = KERNELS[name]
     with _LOCK:
         if name not in _LIBS:
-            path = _lib_path(CSRC / f"{stem}.cu")
-            if not path.exists():
-                build_all()
-            lib = ctypes.CDLL(str(path))
+            lib = _load(stem)
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * n_ptrs
                            + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
@@ -145,6 +165,20 @@ def _lib(name: str):
             err.restype = ctypes.c_char_p
             _LIBS[name] = (fn, err, n_ptrs, n_ints)
         return _LIBS[name]
+
+
+def constant(name: str) -> int:
+    """The value of the exported size `name` (a CONSTANTS key), its
+    library built on first use; read once."""
+    value = _CONSTANTS.get(name)
+    if value is None:
+        import ctypes
+
+        with _LOCK:
+            fn = getattr(_load(CONSTANTS[name]), name)
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            value = _CONSTANTS[name] = int(fn())
+    return value
 
 
 def launch(name: str, ptrs, ints, stream) -> None:

@@ -25,8 +25,10 @@ Two implementations of the same function live here:
     for bit against the JAX `chunk_fn`; uint32 arithmetic runs in
     int64 masked to 32 bits (torch's int32 `>>` is arithmetic).
   * `chunk` — the wrapper: a CUDA tensor goes to the hand-written
-    kernel `csrc/wgl32_chunk.cu` (built and bound by `_native`); a CPU
-    tensor goes to `chunk_ref`. There is no fallback between the two.
+    kernel `csrc/wgl32_chunk.cu` (built and bound by `_native`), in the
+    launch form `block_form` picks by shape (the round in shared memory
+    where it fits, else in device memory); a CPU tensor goes to
+    `chunk_ref`. There is no fallback between the two.
 
 The lane-batched pair runs one chunk on every lane of a batch of keys
 padded into one shape bucket (`parallel.batched`): `chunk_batched_ref`
@@ -647,19 +649,105 @@ def scratch_words(K: int, W: int, ic: int, C: int) -> int:
     return R * (C + 5) + K + K * C
 
 
+# ---------------------------------------------------------------------------
+# the launch forms of the chunk kernels (csrc/wgl_common.cuh) and the
+# shape rules that pick one
+# ---------------------------------------------------------------------------
+
+MAX_THREADS = 1024
+# shared memory one block may use on the H100 (227 KB), and what the
+# rule leaves for the kernels' static __shared__ state (ptxas reports
+# 320-496 bytes; the card refuses a shared form past what the real
+# static bytes leave)
+SMEM_BLOCK_MAX = 232_448
+SMEM_STATIC = 1024
+
+
+@dataclass(frozen=True)
+class Form:
+    """How one chunk kernel launch runs the round loop:
+
+      * "global": one CTA a search (a lane when batched), the round's
+        scratch in device memory;
+      * "shared": one CTA a search (a lane), the round's scratch and
+        both frontiers in `smem` bytes of dynamic shared memory;
+      * "grid": one cooperative launch of at most `blocks` CTAs of 1024
+        threads on one search (capped on the card at what every SM
+        holds at once), each block on a contiguous range of the
+        round's rows.
+
+    `threads` is the block's thread count, a warp multiple."""
+
+    name: str
+    threads: int
+    blocks: int = 0
+    smem: int = 0
+
+
+# The launch form's ints at the end of each chunk entry point's, in
+# order (csrc/wgl32_chunk.cu, csrc/wgln_chunk.cu): only the solo wide
+# kernel has the grid form's `blocks`.
+FORM_FIELDS = {"wgl32_chunk": ("threads", "smem"),
+               "wgln_chunk": ("threads", "blocks", "smem"),
+               "wgl32_chunk_batched": ("threads", "smem"),
+               "wgln_chunk_batched": ("threads", "smem")}
+
+
+def form_ints(name: str, form: Form) -> list:
+    """`form` as the ints chunk entry point `name` takes; raises for a
+    form that entry point does not have."""
+    fields = FORM_FIELDS[name]
+    if form.blocks and "blocks" not in fields:
+        raise ValueError(f"{name} has no grid form")
+    return [getattr(form, f) for f in fields]
+
+
+def form_of(name: str, ints) -> Form:
+    """The form of a launch of chunk entry point `name` from its ints
+    (`form_ints`' inverse)."""
+    fields = FORM_FIELDS[name]
+    v = dict(zip(fields, list(ints)[-len(fields):]))
+    kind = ("grid" if v.get("blocks") else "shared" if v["smem"]
+            else "global")
+    return Form(kind, **v)
+
+
+def shared_bytes(K: int, W: int, ic: int, C: int) -> int:
+    """Dynamic shared bytes of the shared form: the round's scratch and
+    the first frontier's copy."""
+    return 4 * (scratch_words(K, W, ic, C) + K * C)
+
+
+def block_form(K: int, W: int, ic: int, C: int) -> Form:
+    """The one-CTA form of a chunk of R = K (W + ic) successor rows of
+    C words, by shape alone: shared when the round's working set fits
+    in a block's shared memory beside the static state, else global;
+    a warp multiple of R threads, at most 1024."""
+    R = K * (W + ic)
+    threads = min(MAX_THREADS, -(-R // 32) * 32)
+    smem = shared_bytes(K, W, ic, C)
+    if smem <= SMEM_BLOCK_MAX - SMEM_STATIC:
+        return Form("shared", threads, 0, smem)
+    return Form("global", threads)
+
+
 def launch(name: str, consts: Consts, carry, *, K, W, L, ic, H, B, rounds,
-           probes) -> torch.Tensor:
+           probes, form: Form) -> torch.Tensor:
     """Launch the chunk kernel `name` (`wgl32_chunk` or `wgln_chunk`,
-    which share one C interface) on the carry's card, on the current
-    stream: scratch and the summary come from `torch.empty`. Returns
-    the summary; the carry is updated in place."""
+    which share one C interface up to the form's ints) in `form` on the
+    carry's card, on the
+    current stream: scratch and the summary come from `torch.empty`.
+    Returns the summary; the carry is updated in place."""
     from . import _native
 
+    form_args = form_ints(name, form)
     dev = carry[FR].device
     C = carry[FR].shape[1]
+    words = 0 if form.name == "shared" else scratch_words(K, W, ic, C)
+    if form.name == "grid":     # the control block after the scratch
+        words += _native.constant(f"{name}_grid_ctl_words")
     with torch.cuda.device(dev):
-        scratch = torch.empty(scratch_words(K, W, ic, C), dtype=torch.int32,
-                              device=dev)
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
         summary = torch.empty(SUMMARY_HEAD + RING_ROWS * RING_COLS,
                               dtype=torch.int32, device=dev)
         stream = raw_stream(dev)
@@ -667,25 +755,28 @@ def launch(name: str, consts: Consts, carry, *, K, W, L, ic, H, B, rounds,
                 *carry, summary, scratch]
         _native.launch(name, [t.data_ptr() for t in ptrs],
                        [K, W, L, ic, H, B, rounds, probes, consts.n_pad,
-                        consts.S, consts.n_ok, consts.n_info, consts.max_cfg],
-                       stream)
+                        consts.S, consts.n_ok, consts.n_info, consts.max_cfg,
+                        *form_args], stream)
     return summary
 
 
 def launch_batched(name: str, consts: BatchConsts, carry, *, K, W, L, ic,
-                   H, B, rounds, probes) -> torch.Tensor:
+                   H, B, rounds, probes,
+                   form: Form | None = None) -> torch.Tensor:
     """Launch the lane-batched chunk kernel `name`
     (`wgl32_chunk_batched` or `wgln_chunk_batched`, one CTA per lane)
-    on the carry's card, on the current stream. Returns the (lanes,
-    SUMMARY_HEAD + ring) summary; the carry is updated in place."""
+    in `form` (`block_form` when None) on the carry's card, on the
+    current stream. Returns the (lanes, SUMMARY_HEAD + ring) summary;
+    the carry is updated in place."""
     from . import _native
 
     dev = carry[FR].device
     lanes = consts.lanes
     C = carry[FR].shape[2]
+    form = form or block_form(K, W, ic, C)
+    words = lanes * scratch_words(K, W, ic, C) if form.name == "global" else 0
     with torch.cuda.device(dev):
-        scratch = torch.empty(lanes * scratch_words(K, W, ic, C),
-                              dtype=torch.int32, device=dev)
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
         summary = torch.empty((lanes, SUMMARY_HEAD + RING_ROWS * RING_COLS),
                               dtype=torch.int32, device=dev)
         stream = raw_stream(dev)
@@ -693,16 +784,17 @@ def launch_batched(name: str, consts: BatchConsts, carry, *, K, W, L, ic,
                 summary, scratch, consts.n_ok, consts.n_info, consts.max_cfg]
         _native.launch(name, [t.data_ptr() for t in ptrs],
                        [K, W, L, ic, H, B, rounds, probes, consts.n_pad,
-                        consts.S, consts.O, lanes], stream)
+                        consts.S, consts.O, lanes, *form_ints(name, form)],
+                       stream)
     return summary
 
 
 def chunk(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
           B: int, chunk: int, probes: int):
     """One chunk of the search (see `chunk_ref`). CUDA tensors run the
-    `wgl32_chunk` kernel (one launch per call, counted in
-    `chunk.launches`); CPU tensors run `chunk_ref`. Updates `carry` in
-    place; returns (carry, summary)."""
+    `wgl32_chunk` kernel in `block_form` (one launch per call, counted
+    in `chunk.launches`); CPU tensors run `chunk_ref`. Updates `carry`
+    in place; returns (carry, summary)."""
     dev = carry[FR].device
     if dev.type == "cpu":
         return chunk_ref(consts, carry, K=K, W=W, ic=ic, H=H, B=B,
@@ -712,7 +804,8 @@ def chunk(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
     _check_launch(consts, carry, K=K, W=W, ic=ic, H=H, B=B, chunk=chunk,
                   probes=probes)
     summary = launch("wgl32_chunk", consts, carry, K=K, W=W, L=1, ic=ic,
-                     H=H, B=B, rounds=chunk, probes=probes)
+                     H=H, B=B, rounds=chunk, probes=probes,
+                     form=block_form(K, W, ic, row_words(ic)))
     _count_launch()
     return carry, summary
 

@@ -27,9 +27,10 @@ Two implementations of the same function live here:
     JAX `chunk_fn` by the CPU tests (uint32 math in int64 masked to 32
     bits).
   * `chunk` — the wrapper: a CUDA tensor goes to the hand-written
-    kernel `csrc/wgln_chunk.cu`; a CPU tensor goes to `chunk_ref`.
-    There is no fallback between the two. Both update the carry in
-    place.
+    kernel `csrc/wgln_chunk.cu`, in the launch form `solo_form` picks
+    by shape (one CTA while the round is short and fits in shared
+    memory, else the grid form); a CPU tensor goes to `chunk_ref`. There is no
+    fallback between the two. Both update the carry in place.
 
 The lane-batched pair (`chunk_batched_ref`, `chunk_batched` on the
 `wgln_chunk_batched` kernel, one CTA per lane) runs one chunk on every
@@ -45,6 +46,18 @@ from . import wgl32
 from .wgl32 import FR, Consts, _ctz32, _M32, _to_i32
 
 MIN_LANES, MAX_LANES = 2, 32
+
+# The solo wide search's crossover: a round of at least this many
+# successor rows runs the grid form (csrc/wgl_common.cuh); so does a
+# smaller round that one CTA could not keep in shared memory. Measured
+# on the card by chip_smoke.py, both forms in turns (PERF.md row 3): on
+# the 16-wave (L 3) one CTA in shared memory 13.67 / 19.12 / 23.98 us a
+# round against the grid's 19.28 / 19.63 / 19.50 at 1664 / 2496 / 3328
+# rows; on the long tail (L 21) one CTA 21.99 us (shared) against 35.59
+# at 1360 rows, then 61.94 (global) against 44.11 at 2040 and 77.96
+# against 40.41 at 2720. The grid holds ~20 us at L 3 and ~40 at L 21;
+# one CTA wins only while its round is in shared memory and short.
+GRID_MIN_ROWS = 3072
 
 
 def row_words(L: int, ic: int) -> int:
@@ -160,6 +173,20 @@ def chunk_batched_ref(consts: wgl32.BatchConsts, carry, *, K: int, L: int,
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
+def solo_form(K: int, L: int, ic: int) -> wgl32.Form:
+    """The launch form of a solo wide chunk, by shape alone:
+    `wgl32.block_form` while it keeps the round in shared memory and the
+    round has fewer than GRID_MIN_ROWS successor rows, else the grid
+    form (asking for one block per 1024 rows; the card caps it at what
+    every SM holds at once)."""
+    W = 32 * L
+    R = K * (W + ic)
+    one = wgl32.block_form(K, W, ic, row_words(L, ic))
+    if one.name == "shared" and R < GRID_MIN_ROWS:
+        return one
+    return wgl32.Form("grid", wgl32.MAX_THREADS, -(-R // wgl32.MAX_THREADS))
+
+
 def _check_launch(consts, carry, *, K, L, ic, H, B, chunk, probes,
                   lanes=None):
     if not MIN_LANES <= L <= MAX_LANES:
@@ -173,9 +200,9 @@ def _check_launch(consts, carry, *, K, L, ic, H, B, chunk, probes,
 def chunk(consts: Consts, carry, *, K: int, L: int, ic: int, H: int,
           B: int, chunk: int, probes: int):
     """One chunk of the wide search (see `chunk_ref`). CUDA tensors run
-    the `wgln_chunk` kernel (one launch per call, counted in
-    `chunk.launches`); CPU tensors run `chunk_ref`. Updates `carry` in
-    place; returns (carry, summary)."""
+    the `wgln_chunk` kernel in `solo_form` (one launch per call,
+    counted in `chunk.launches`); CPU tensors run `chunk_ref`. Updates
+    `carry` in place; returns (carry, summary)."""
     dev = carry[FR].device
     if dev.type == "cpu":
         return chunk_ref(consts, carry, K=K, L=L, ic=ic, H=H, B=B,
@@ -185,7 +212,8 @@ def chunk(consts: Consts, carry, *, K: int, L: int, ic: int, H: int,
     _check_launch(consts, carry, K=K, L=L, ic=ic, H=H, B=B, chunk=chunk,
                   probes=probes)
     summary = wgl32.launch("wgln_chunk", consts, carry, K=K, W=32 * L, L=L,
-                           ic=ic, H=H, B=B, rounds=chunk, probes=probes)
+                           ic=ic, H=H, B=B, rounds=chunk, probes=probes,
+                           form=solo_form(K, L, ic))
     _count_launch()
     return carry, summary
 

@@ -190,7 +190,9 @@ def test_wrappers_refuse_other_devices():
 
 def test_native_table_binds_every_entry_point():
     """Every `extern "C" int` entry point under csrc/ is in
-    `_native.KERNELS` with its source and its pointer and int counts."""
+    `_native.KERNELS` with its source and its pointer and int counts,
+    and every one that takes nothing (an exported size) in
+    `_native.CONSTANTS` with its source."""
     import re
     from pathlib import Path
 
@@ -201,19 +203,24 @@ def test_native_table_binds_every_entry_point():
         r"#define (WGL_\w+_ARGS)((?:.*\\\n)*.*)",
         (Path(_native.CSRC) / "wgl_common.cuh").read_text())}
     assert set(macros) == {"WGL_CHUNK_ARGS", "WGL_BATCHED_ARGS"}
-    found = {}
+    found, sizes = {}, {}
     for src in sorted(Path(_native.CSRC).glob("*.cu")):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                        src.read_text()):
+            if not params.strip():
+                sizes[name] = src.stem
+                continue
             found[name] = src.stem
             stem, n_ptrs, n_ints = _native.KERNELS[name]
             assert stem == src.stem
-            params = macros.get(params.strip(), params)
+            for macro, body in macros.items():
+                params = params.replace(macro, body)
             args = [a.strip() for a in params.split(",")]
             assert args[-1].replace(" ", "") == "void*stream"
             assert sum("*" in a for a in args[:-1]) == n_ptrs, name
             assert sum("*" not in a for a in args[:-1]) == n_ints, name
     assert found.keys() == _native.KERNELS.keys()
+    assert sizes == _native.CONSTANTS
 
 
 

@@ -78,11 +78,19 @@ Then Elle:
     10k graph's density) beside the `torch.bmm` yardstick, both held
     bit for bit against the plain f32 squaring;
   * the packed closure (`elle_packed_closure`): a 10k-txn list-append
-    history through the same call (n_pad 16384);
+    history through the same call (n_pad 16384), then every squaring
+    of its closure held against `packed_closure_ref`; the tensor
+    cores' 1-bit and int8 rates (`elle_bitmm_rate`), each squaring's
+    time beside its bound (the flagged tiles' tensor-core work at the
+    measured 1-bit rate, the bytes) and, at the first and the last
+    squaring, the kernel device-only beside the yardstick
+    (`torch._int_mm` per subset and bf16 `torch.bmm` on the unpacked
+    0/1 planes);
   * the trim (`elle_trim`): the 3k list-append history with
     `cycle_backend="trim"`;
-  * the sharded closure (`elle_sharded_square`): one squaring of the
-    10k reach with 1, 2 and 4 shards against `packed_square_ref`, then
+  * the sharded closure (`elle_sharded_square`): every squaring of the
+    10k closure with 1, 2 and 4 shards against `packed_square_ref`'s
+    column blocks, the first at 2 shards timed beside its yardstick, then
     the 10k history with `cycle_backend="sharded"` over 2 and 4 shards
     of the card, bit-identical to the packed closure and equal to the
     host oracle's verdict (run in a background process from the start).
@@ -205,8 +213,8 @@ def card_line() -> str:
 
 
 def card_peak(name: str) -> float:
-    """The card's peak `name` ("hbm_bytes_per_s", "bf16_flops",
-    "int32_ops") from `jepsen_tpu_torch.occupancy`, by its name."""
+    """The card's peak `name` (a key of `jepsen_tpu_torch.occupancy.
+    PEAKS`), by the card's name."""
     from jepsen_tpu_torch import occupancy
     return occupancy.peaks(torch.cuda.get_device_name(0))[0][name]
 
@@ -375,6 +383,23 @@ def device_ms(fn, reps: int = 20, spin_cycles: int = 4_000_000) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def kernel_split(fn, reps: int = 5) -> dict:
+    """Device microseconds a call of `fn` spends in each kernel (and
+    memset), by name, from `torch.profiler` over `reps` calls after a
+    warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            .strip()[:48]: round(e.device_time_total / reps, 1)
+            for e in prof.key_averages() if e.device_time_total > 0}
 
 
 def square_timing(r16, plain=None) -> dict:
@@ -949,24 +974,126 @@ def elle_phases(dev, host10) -> list:
               elle_plan(gt, "auto", [dev]))
     a = etpu.closure_inputs(gt, packed=True)
     p = on_card(a["args"], dev)
-    kw = dict(n_pad=a["n_pad"], iters=1)
+    n, W = a["n_pad"], a["n_pad"] // 32
+    kw = dict(n_pad=n, iters=a["iters"])
     keep, bad = [], []
     got = etpu.packed_closure(*p, **kw,
                               on_square=lambda i, r: keep.append(r.clone()))
     torch.cuda.synchronize()
+    t0 = time.monotonic()
     ref = etpu.packed_closure_ref(
         *p, **kw, on_square=lambda i, r: bad.append(i) if not
         torch.equal(r, keep[i]) else None)
+    torch.cuda.synchronize()
+    pref_s = time.monotonic() - t0
     perr = outputs_err(got, ref) + len(bad)
-    if perr:
-        raise AssertionError(f"elle append 10k packed first squaring and "
-                             f"label pass differ from the plain version "
-                             f"({perr})")
+    if perr or got[3] != u.get("iters_run") or len(psq) != got[3]:
+        raise AssertionError(f"elle append 10k packed: the kernel differs "
+                             f"from the plain version ({perr}, squarings "
+                             f"{bad}) or ran {got[3]} squarings against "
+                             f"the main path's {u.get('iters_run')}")
     cnt = torch.zeros(S, dtype=torch.int32, device=dev)
     pplain_ms = event_ms(lambda: etpu.packed_square_ref(p[0], cnt), reps=1)
-    print(f"  packed kernel == packed_closure_ref on the first squaring "
-          f"and the label pass; one plain squaring {pplain_ms:.1f} ms")
+    print(f"  packed kernel == packed_closure_ref on every one of {got[3]} "
+          f"squarings (reach and counts) and the label pass "
+          f"({pref_s:.1f} s plain); one plain squaring {pplain_ms:.1f} ms",
+          flush=True)
     errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr)
+
+    # each squaring's bound: its bytes, the bitset read and written
+    # once. Beside it, not in it: the kernel's own work, the stages of
+    # its flagged tiles on the tensor cores at the card's 1-bit peak,
+    # and the old bit walk's, one OR per set bit per word at the int32
+    # peak
+    rates = bitmm_rates(dev)
+    b1_peak = card_peak("b1_ops")
+    sq_in = [p[0]] + keep[:-1]          # each squaring's input
+    p_rows = []
+    for i, r in enumerate(sq_in):
+        fa, fb = etpu.bitmm_flags_ref(r, r)
+        steps = occupancy.bitmm_steps(fa.cpu().numpy(), fb.cpu().numpy(),
+                                      n_pad=n, n_cols=n)
+        ones_i = int(etpu._popcount32(r.to(torch.int64) & 0xFFFFFFFF).sum())
+        pc = occupancy.packed_square_cost(S, n, ones_i, steps=steps)
+        row = {"ms": psq[i], "tc_ms": pc["tc_ops"] / b1_peak * 1e3,
+               "bytes_ms": pc["bytes_accessed"] / hbm * 1e3,
+               "or_ms": pc["ops"] / int_ops_per_s * 1e3, "ones": ones_i,
+               "stages": steps / (S * n ** 3)}
+        row["bound_ms"] = row["bytes_ms"]
+        p_rows.append(row)
+        print(f"  squaring {i}: {row['ms']:.4f} ms (main path) against a "
+              f"bound of {row['bound_ms']:.4f} ms (bytes); the kernel's "
+              f"tensor-core work {row['tc_ms']:.4f} ms at the 1-bit peak "
+              f"(its flagged stages, {100 * row['stages']:.1f}% of the "
+              f"dense product's); the bit walk's {row['or_ms']:.4f} ms at "
+              f"the int32 peak ({ones_i} set bits)", flush=True)
+    del fa, fb
+    # the yardstick and the kernel device-only, at the first and the
+    # last squaring's input
+    p_yard = []
+    scratch = etpu.bitmm_scratch(S, n, W, dev)
+    for i in (0, len(sq_in) - 1):
+        r, c = sq_in[i], torch.zeros(S, dtype=torch.int32, device=dev)
+        y = product_yardstick(r, r, keep[i], dev)
+        y["kernel_ms"] = device_ms(lambda: etpu.packed_square(r, c, scratch),
+                                   reps=10)
+        y["split_us"] = kernel_split(lambda: etpu.packed_square(r, c,
+                                                                scratch))
+        p_yard.append(y)
+        print(f"  squaring {i} device-only: kernel {y['kernel_ms']:.4f} ms "
+              f"(us a call by kernel, torch.profiler: {y['split_us']}); "
+              f"torch._int_mm x {S} {y['int_mm_ms']:.4f} ms "
+              f"({y['int_mm_layout']}; all {y['int_mm_all']}), torch.bmm "
+              f"bf16 {y['bmm_ms']:.4f} ms (the product alone on unpacked "
+              f"0/1 planes; no unpack, threshold or pack)", flush=True)
+    # the A flags two ways on the same product: set by the transpose when
+    # A is B (the packed squaring's form), or by a flag pass of their own
+    # (the sharded squaring's): sharded_square with the reach as its own
+    # block, and with a copy of it, device-only, in turns
+    for i in (0, len(sq_in) - 1):
+        r, r2 = sq_in[i], sq_in[i].clone()
+        c = torch.zeros(S, dtype=torch.int32, device=dev)
+        calls = {"transpose": lambda: etpu.sharded_square(r, r, c,
+                                                          scratch=scratch),
+                 "flag pass": lambda: etpu.sharded_square(r, r2, c,
+                                                          scratch=scratch)}
+        for form, call in calls.items():
+            if not torch.equal(call(), keep[i]):
+                raise AssertionError(f"squaring {i} with the A flags by "
+                                     f"the {form} differs")
+        turns = {form: [] for form in calls}
+        for form in ("transpose", "flag pass", "flag pass", "transpose"):
+            turns[form].append(device_ms(calls[form], reps=10))
+        print(f"  squaring {i}, the A flags set by the transpose against a "
+              f"flag pass of their own (device-only ms, in turns): "
+              f"{turns}", flush=True)
+        del r2
+    # every tile flagged: a random reach at density 0.5, the tensor
+    # cores' own regime
+    gen = torch.Generator(device=dev).manual_seed(n)
+    rnd = torch.empty_like(p[0])
+    for si in range(S):
+        rnd[si] = etpu.pack_bits(torch.rand((n, n), generator=gen, device=dev)
+                                < 0.5)
+    c, want_cnt = (torch.zeros(S, dtype=torch.int32, device=dev)
+                   for _ in range(2))
+    rnd_err = max_abs_err([etpu.packed_square(rnd, c, scratch), c],
+                          [etpu.packed_square_ref(rnd, want_cnt), want_cnt])
+    if rnd_err:
+        raise AssertionError(f"packed squaring of a dense random reach "
+                             f"differs from packed_square_ref ({rnd_err})")
+    errs["elle_packed_closure"] = max(errs["elle_packed_closure"], rnd_err)
+    rnd_ms = device_ms(lambda: etpu.packed_square(rnd, c, scratch), reps=10)
+    fa, fb = etpu.bitmm_flags_ref(rnd, rnd)
+    rnd_ops = 2 * occupancy.bitmm_steps(fa.cpu().numpy(), fb.cpu().numpy(),
+                                        n_pad=n, n_cols=n)
+    print(f"  a dense squaring (a random reach at 0.5, every tile "
+          f"flagged) == packed_square_ref: kernel {rnd_ms:.4f} ms "
+          f"device-only, {rnd_ops / rnd_ms / 1e9:.1f} TOP/s "
+          f"({100 * rnd_ops / (rnd_ms / 1e3) / b1_peak:.1f}% of the 1-bit "
+          f"peak, {100 * rnd_ops / (rnd_ms / 1e3) / rates['b1_wgmma']:.1f}% "
+          f"of the probe's reading)", flush=True)
+    del scratch, got, ref, rnd, fa, fb
 
     # the dense route's largest shape, n_pad 8320 (8192 txns), on a
     # random seed A|I with the 10k graph's off-diagonal density
@@ -987,40 +1114,46 @@ def elle_phases(dev, host10) -> list:
     del big
 
     # ---- the sharded closure: shards of this card ------------------------------
-    # one squaring of the 10k reach, every shard's block against the
-    # matching column block of packed_square_ref
-    cnt = torch.zeros(S, dtype=torch.int32, device=dev)
-    full_ref = etpu.packed_square_ref(p[0], cnt)
-    n, W = a["n_pad"], a["n_pad"] // 32
+    # every squaring of the 10k closure at 1, 2 and 4 shards: each
+    # shard's block against the matching column block of the packed
+    # kernel's reach (== packed_square_ref's, checked above)
     s_err = 0
     for ns in SHARD_CHECK:
         w_loc = W // ns
-        blocks = etpu.shard_blocks(p[0], ns)
+        sc_ns = etpu.bitmm_scratch(S, n, w_loc, dev)
         times = []
-        for k, b in enumerate(blocks):
-            c = torch.zeros(S, dtype=torch.int32, device=dev)
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            o = etpu.sharded_square(p[0], b, c)
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-            want_blk = full_ref[..., k * w_loc:(k + 1) * w_loc]
-            want_cnt = etpu._popcount32(want_blk.to(torch.int64)
-                                        & 0xFFFFFFFF).sum(dim=(1, 2))
-            err = max(max_abs_err([o], [want_blk]),
-                      max_abs_err([c], [want_cnt]))
-            s_err = max(s_err, err)
-            if err:
-                raise AssertionError(f"elle_sharded_square, {ns} shards, "
-                                     f"block {k}: max abs err {err}")
-        print(f"elle_sharded_square == packed_square_ref's column blocks, "
-              f"{ns} shard(s) of {w_loc} words on the card: kernel ms per "
-              f"shard {[round(x, 3) for x in times]}", flush=True)
-    # the main path's shape: 2 shards, shard 0
+        for i, r in enumerate(sq_in):
+            for k, b in enumerate(etpu.shard_blocks(r, ns)):
+                c = torch.zeros(S, dtype=torch.int32, device=dev)
+                o = etpu.sharded_square(r, b, c, scratch=sc_ns)
+                if i == 0:
+                    c_t = torch.zeros_like(c)
+                    times.append(device_ms(lambda: etpu.sharded_square(
+                        r, b, c_t, scratch=sc_ns), reps=10))
+                want_blk = keep[i][..., k * w_loc:(k + 1) * w_loc]
+                want_cnt = etpu._popcount32(want_blk.to(torch.int64)
+                                            & 0xFFFFFFFF).sum(dim=(1, 2))
+                err = max(max_abs_err([o], [want_blk]),
+                          max_abs_err([c], [want_cnt]))
+                s_err = max(s_err, err)
+                if err:
+                    raise AssertionError(
+                        f"elle_sharded_square, {ns} shards, squaring {i}, "
+                        f"block {k}: max abs err {err}")
+        print(f"elle_sharded_square == packed_square_ref's column blocks "
+              f"on every one of {len(sq_in)} squarings (outputs and "
+              f"counts), {ns} shard(s) of {w_loc} words on the card: the "
+              f"first squaring's kernel ms per shard (device-only, warm) "
+              f"{[round(x, 4) for x in times]}", flush=True)
+        del sc_ns
+    # the main path's shape: 2 shards, shard 0, the first squaring
     blk0 = etpu.shard_blocks(p[0], ELLE_SHARDS[0])[0]
+    w_loc0 = blk0.shape[-1]
     c0 = torch.zeros(S, dtype=torch.int32, device=dev)
-    sh_ms = event_ms(lambda: etpu.sharded_square(p[0], blk0, c0))
+    sh_scratch = etpu.bitmm_scratch(S, n, w_loc0, dev)
+    sh_ms = device_ms(lambda: etpu.sharded_square(p[0], blk0, c0,
+                                                  scratch=sh_scratch))
+    sh_call_ms = event_ms(lambda: etpu.sharded_square(p[0], blk0, c0))
     c1 = torch.zeros(S, dtype=torch.int32, device=dev)
     ref_blk = etpu.sharded_square_ref(p[0], blk0, c1)
     torch.cuda.synchronize()
@@ -1029,20 +1162,29 @@ def elle_phases(dev, host10) -> list:
         [ref_blk]))
     sh_plain_ms = event_ms(lambda: etpu.sharded_square_ref(p[0], blk0, c1),
                            reps=1)
-    w_loc0 = blk0.shape[-1]
+    sh_yard = product_yardstick(p[0], blk0, keep[0][..., :w_loc0], dev)
     ones0 = int(etpu._popcount32(p[0].to(torch.int64) & 0xFFFFFFFF).sum())
+    fa, fb = etpu.bitmm_flags_ref(p[0], blk0)
+    sh_steps = occupancy.bitmm_steps(fa.cpu().numpy(), fb.cpu().numpy(),
+                                     n_pad=n, n_cols=32 * w_loc0)
     sc = occupancy.sharded_square_cost(p[0].numel(), blk0.numel(), ones0,
-                                       w_loc0)
+                                       w_loc0, steps=sh_steps)
+    sh_tc = sc["tc_ops"] / b1_peak
     sh_ops = sc["ops"] / int_ops_per_s
     sh_bytes = sc["bytes_accessed"] / hbm
-    sh_bound = max(sh_ops, sh_bytes) * 1e3
-    print(f"  2 shards, shard 0: kernel {sh_ms:.4f} ms median, "
-          f"sharded_square_ref {sh_plain_ms:.1f} ms (== the kernel); bound "
-          f"{sh_bound:.4f} ms (operations: {ones0} set bits x {w_loc0} "
-          f"local words at {int_ops_per_s:.3e}/s = {sh_ops * 1e3:.4f} ms; "
-          f"bytes: the gathered reach read, the block read and written = "
-          f"{sh_bytes * 1e3:.4f} ms)", flush=True)
-    del full_ref, ref_blk
+    sh_bound = sh_bytes * 1e3
+    print(f"  2 shards, shard 0, first squaring: kernel {sh_ms:.4f} ms "
+          f"device-only ({sh_call_ms:.4f} ms as a call), "
+          f"sharded_square_ref {sh_plain_ms:.1f} ms (== the kernel); "
+          f"torch._int_mm x {S} {sh_yard['int_mm_ms']:.4f} ms "
+          f"({sh_yard['int_mm_layout']}), torch.bmm bf16 "
+          f"{sh_yard['bmm_ms']:.4f} ms (device-only, the product alone); "
+          f"bound {sh_bound:.4f} ms (bytes: the gathered reach read, the "
+          f"block read and written); the kernel's tensor-core work "
+          f"{sh_tc * 1e3:.4f} ms at the 1-bit peak (its flagged stages); "
+          f"the bit walk's ({ones0} set bits x {w_loc0} local words) "
+          f"{sh_ops * 1e3:.4f} ms at the int32 peak", flush=True)
+    del ref_blk, keep, sq_in, sh_scratch, fa, fb
 
     host = host10.result()
     print(f"elle append 10k, host oracle (background process): "
@@ -1092,8 +1234,8 @@ def elle_phases(dev, host10) -> list:
         "replaces": "jepsen_tpu/elle/tpu.py:627",
         "launches": sh_counts["elle_sharded_square"], "max_abs_err": s_err,
         "ms": sh_ms, "plain_ms": sh_plain_ms, "bound_ms": sh_bound,
-        "bound_by": "operations" if sh_ops > sh_bytes else "bytes",
-        "library_ms": None}
+        "bound_by": "bytes",
+        "library_ms": sh_yard["int_mm_ms"]}
 
     # ---- bounds -------------------------------------------------------------
     # dense, per squaring: 2 S n^3 flops on the tensor cores; reach read
@@ -1106,19 +1248,12 @@ def elle_phases(dev, host10) -> list:
     d_bound = max(d_ops, d_bytes) * 1e3
     d_ms = d["timing"]["ms"]
     d_main_ms = float(np.median(d["sq"]))
-    # packed, per squaring (mean over the run): a set bit j of row i
-    # selects row j, so one OR per (set bit, word), this run's bits; the
-    # bitset read and written once
-    n, W = a["n_pad"], a["n_pad"] // 32
-    ones = [int(etpu._popcount32(p[0].to(torch.int64) & 0xFFFFFFFF).sum())]
-    ones += [sum(row) for row in u["iter_reach"][:-1]]
-    pcs = [occupancy.packed_square_cost(S, n, o) for o in ones]
-    p_ops = [c["ops"] / int_ops_per_s for c in pcs]
-    p_bytes = pcs[0]["bytes_accessed"] / hbm
-    p_bound = float(np.mean([max(x, p_bytes) for x in p_ops])) * 1e3
-    # named by the limit that holds the larger share of the summed bound
-    p_by = ("operations" if sum(x for x in p_ops if x > p_bytes)
-            > p_bytes * sum(x <= p_bytes for x in p_ops) else "bytes")
+    # packed, per squaring (mean over the run, `p_rows` above): the
+    # bitset read and written once; beside it the kernel's tensor-core
+    # work at the 1-bit peak and the bit walk's ORs at the int32 peak
+    p_bound = float(np.mean([r["bound_ms"] for r in p_rows]))
+    p_tc = float(np.mean([r["tc_ms"] for r in p_rows]))
+    p_or = float(np.mean([r["or_ms"] for r in p_rows]))
     p_ms = float(np.mean(psq))
     # trim, one launch: each input read once and each output written
     # once, against the checks this run's live nodes need (trim_work)
@@ -1138,13 +1273,14 @@ def elle_phases(dev, host10) -> list:
           f"events); at n_pad {big_timing['n_pad']} "
           f"{big_timing['bound_ms']:.4f} ms against {big_timing['ms']:.4f} "
           f"ms (yardstick {big_timing['library_ms']:.4f} ms); packed "
-          f"{p_bound:.4f} ms "
-          f"per squaring ({p_by}; one OR per set bit per word, set bits "
-          f"{ones}, int32 peak {int_ops_per_s:.3e}/s; bytes "
-          f"{p_bytes * 1e3:.6f} ms; the dense formulation's "
-          f"{2 * S * n * n * W:.3e} word ops = "
-          f"{2 * S * n * n * W / int_ops_per_s * 1e3:.3f} ms) against "
-          f"{p_ms:.3f} ms mean; trim {t_bound:.6f} ms (bytes "
+          f"{p_bound:.4f} ms per squaring, mean of {len(p_rows)} (bytes; "
+          f"the kernel's tensor-core work {p_tc:.4f} ms mean at "
+          f"{b1_peak / 1e12:.0f} TOP/s, the bit walk's {p_or:.4f} ms mean "
+          f"at the int32 peak) against {p_ms:.4f} ms mean, the "
+          f"torch._int_mm yardstick "
+          f"{[round(y['int_mm_ms'], 4) for y in p_yard]} ms and bf16 "
+          f"torch.bmm {[round(y['bmm_ms'], 4) for y in p_yard]} ms at the "
+          f"first and last squaring; trim {t_bound:.6f} ms (bytes "
           f"{t_bytes * 1e3:.6f}, ops {t_ops * 1e3:.6f}: {t_work} checks of "
           f"live nodes' real slots and thresholds; re-read per body "
           f"{t_body_bytes} B x {d['bodies']} bodies = "
@@ -1165,8 +1301,8 @@ def elle_phases(dev, host10) -> list:
         "replaces": "jepsen_tpu/elle/tpu.py:399",
         "launches": counts["elle_packed_closure"],
         "max_abs_err": errs["elle_packed_closure"], "ms": p_ms,
-        "plain_ms": pplain_ms, "bound_ms": p_bound, "bound_by": p_by,
-        "library_ms": None}, {
+        "plain_ms": pplain_ms, "bound_ms": p_bound, "bound_by": "bytes",
+        "library_ms": float(np.mean([y["int_mm_ms"] for y in p_yard]))}, {
         "name": "elle_trim", "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/elle_trim.cu",
         "replaces": "jepsen_tpu/elle/tpu.py:899",
@@ -1175,6 +1311,90 @@ def elle_phases(dev, host10) -> list:
         "plain_ms": d["trim_plain_ms"], "bound_ms": t_bound,
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
         "library_ms": None}, sharded_entry]
+
+
+def bitmm_rates(dev, iters: int = 4000) -> dict:
+    """The tensor cores' issue rates, in operations a second (2 a bit or
+    int8 multiply-accumulate), from the rate probe `elle_bitmm_rate`
+    (`csrc/elle_packed.cu`): every SM's blocks looping over one shared
+    memory stage, timed with CUDA events after a warm launch. "b1_wgmma"
+    is the packed squaring's own instruction (m64n256k256 .b1 AND/popc),
+    "b1_mma_sync" the sm_80 form (m16n8k256, from registers), "s8_wgmma"
+    int8's m64n256k32. The launches count on no wrapper."""
+    from jepsen_tpu_torch.ops import _native
+    from jepsen_tpu_torch.util import raw_stream
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    # variant, blocks, operations a block an iteration
+    probes = {"b1_wgmma": (0, sms, 3 * 4 * 2 * 64 * 256 * 256),
+              "b1_mma_sync": (1, 2 * sms, 16 * 8 * 2 * 16 * 8 * 256),
+              "s8_wgmma": (2, sms, 3 * 4 * 2 * 64 * 256 * 32)}
+    out = {}
+    for name, (variant, blocks, ops) in probes.items():
+        def run(n):
+            _native.launch("elle_bitmm_rate", [sink.data_ptr()],
+                           [variant, n, blocks], raw_stream(dev))
+        run(10)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        run(iters)
+        e1.record()
+        torch.cuda.synchronize()
+        out[name] = ops * blocks * iters / (e0.elapsed_time(e1) / 1e3)
+    print(f"tensor-core rates (elle_bitmm_rate, {iters} iterations on "
+          f"every SM): 1-bit AND/popc wgmma {out['b1_wgmma'] / 1e12:.1f} "
+          f"TOP/s, 1-bit mma.sync {out['b1_mma_sync'] / 1e12:.1f}, int8 "
+          f"wgmma {out['s8_wgmma'] / 1e12:.1f} (2 operations a "
+          f"multiply-accumulate)", flush=True)
+    return out
+
+
+def product_yardstick(a, b, want, dev) -> dict:
+    """The PyTorch calls that compute a packed squaring's product on the
+    unpacked 0/1 planes of A (S, n, n/32 words) and B (S, n, w words):
+    `torch._int_mm` per subset (int8 in, int32 counts; B row-major and
+    column-major, the faster kept) and one bf16 `torch.bmm`, device-only
+    (median of 5, in turns); unpacking and packing are not timed.
+    `want` (the kernel's packed output on these inputs) is checked
+    against the int8 counts' `> 0`."""
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    S = a.shape[0]
+    a8 = [etpu.unpack_bits(a[s]).to(torch.int8) for s in range(S)]
+    b8 = a8 if b is a else [etpu.unpack_bits(b[s]).to(torch.int8)
+                            for s in range(S)]
+    layouts = {"row-major B": b8,
+               "column-major B": [x.t().contiguous().t() for x in b8]}
+    int_mm = {}
+    for name, bs in layouts.items():
+        try:
+            got = [torch._int_mm(x, y) for x, y in zip(a8, bs)]
+        except RuntimeError as e:       # a layout this build refuses
+            print(f"  torch._int_mm with {name}: {e}", flush=True)
+            continue
+        torch.cuda.synchronize()
+        bad = sum(not torch.equal(etpu.pack_bits(g > 0), want[s])
+                  for s, g in enumerate(got))
+        if bad:
+            raise AssertionError(f"torch._int_mm ({name}) differs from the "
+                                 f"kernel on {bad} subsets")
+        del got
+        int_mm[name] = (lambda bs=bs: [torch._int_mm(x, y)
+                                       for x, y in zip(a8, bs)])
+    ab = torch.stack(a8).to(torch.bfloat16)
+    bb = ab if b is a else torch.stack(b8).to(torch.bfloat16)
+
+    def bmm():
+        return torch.bmm(ab, bb)
+
+    first = {k: device_ms(f, reps=5) for k, f in int_mm.items()}
+    m1, m2 = device_ms(bmm, reps=5), device_ms(bmm, reps=5)
+    both = {k: (first[k] + device_ms(f, reps=5)) / 2
+            for k, f in reversed(list(int_mm.items()))}
+    best = min(both, key=both.get)
+    return {"int_mm_ms": both[best], "int_mm_layout": best,
+            "int_mm_all": both, "bmm_ms": (m1 + m2) / 2}
 
 
 def multikey_history(n_keys, n_ops, n_procs, crash_p, lie_keys=(),

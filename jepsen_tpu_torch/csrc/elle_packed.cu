@@ -12,24 +12,15 @@
 // equal the dense closure's bit for bit (tests/test_elle_tpu.py's
 // contract in the reference).
 //
-// What bounds it. The formulation does 2 S n_pad^2 W 32-bit word
-// operations per squaring (an AND and an OR per (i, j, w)): 8.2e11 at
-// n_pad 16384, about 50 ms at the card's int32 rate (132 SMs x 64 lanes
-// x 1.98 GHz). Its bytes are 2 S n_pad W 4 (read and write the
-// bitset): 200 MB, 0.06 ms at 3.35 TB/s. The work the data needs is
-// less: a set bit j of row i selects row j, so one OR per (set bit,
-// word), ones x W per squaring; chip_smoke.py takes the larger of that
-// and the byte bound for each squaring.
-//
-// What this design does about it. Only the set bits cost work: a warp
-// holds 32 word columns of one row i, and for each 32-row block jb
-// walks the set bits of R[s,i,jb] with __ffs (the word is the same for
-// the whole warp, so the loop is uniform), OR-ing the staged word of
-// row j into its accumulator. A block stages 32 rows x 32 words of
-// block jb in shared memory once and reuses them for 64 rows i, so
-// early sparse squarings run far below the dense count. The counts are
-// __popc of the new words, one atomic per warp. A bit-matrix product
-// on the tensor cores (b1 mma) or a popcount-GEMM form is later work.
+// The squaring (elle_packed_square) is the Boolean product R x R on the
+// tensor cores, csrc/elle_bitmm.cuh with A = B = R: R's bit transpose,
+// which sets the tile flags of both operands, and a persistent TMA + wgmma
+// kernel of 1-bit AND/popc products that skips the k stages whose tiles
+// hold no bit. That header says what bounds it. The first kernel of this
+// file walked the set bits of each row with __ffs against 32-row tiles
+// staged per 64 rows (9.3 to 43.6 ms a squaring at n_pad 16384); its
+// numbers stay in PERF.md. elle_bitmm_rate runs the tensor cores' rate
+// probe (rate_kernel below), which chip_smoke.py prints.
 //
 // The label pass: a warp takes 32 rows i (block ib) and walks column
 // blocks jb <= ib; lane l reads its row's word jb (bits over j) and
@@ -38,61 +29,101 @@
 // label. Extra blocks answer the rw queries.
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+#include "elle_bitmm.cuh"
 
 namespace {
 
-constexpr int kRows = 64;          // rows i per block
-constexpr int kThreadsX = 32;      // word columns per block
-constexpr int kThreadsY = 8;       // warps; each warp kRows / 8 rows
-constexpr int kPerThread = kRows / kThreadsY;
-constexpr unsigned kFull = 0xffffffffu;
+// the same shape in int8 (k 32 bytes): the rate probe's yardstick
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[128], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " BITMM_OPERANDS
+      : BITMM_ACC
+      : "l"(a), "l"(b), "r"(1));
+}
 
-// grid (ceil(W / 32), n / 64, S), block (32, 8)
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-square_kernel(const uint32_t* __restrict__ r, uint32_t* __restrict__ out,
-              int* __restrict__ counts, int n) {
-  const int W = n >> 5;
-  const int s = blockIdx.z;
-  const size_t plane = static_cast<size_t>(n) * W;
-  const uint32_t* a = r + s * plane;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int w = blockIdx.x * kThreadsX + tx;
-  const bool in = w < W;
-  const int i0 = blockIdx.y * kRows + ty;
-  __shared__ uint32_t rows[32][kThreadsX + 1];
-  uint32_t acc[kPerThread];
+// -- the rate probe ---------------------------------------------------------------
+
+// Tensor-core issue rate, no memory traffic: every block loops `iters`
+// times over one stage of its shared memory. Variant 0: three
+// warpgroups, four m64n256k256 .b1 AND/popc wgmma an iteration; 1: 16
+// warps, eight m16n8k256 .b1 AND/popc mma.sync an iteration from
+// registers; 2: variant 0's loop in int8 (m64n256k32).
+template <int V>
+__global__ void __launch_bounds__(V == 1 ? 512 : 384, 1)
+rate_kernel(int* sink, int iters) {
+  int total = 0;
+  if constexpr (V == 1) {
+    uint32_t a[4], b[2];
+    for (int i = 0; i < 4; ++i) a[i] = threadIdx.x * 2654435761u + i;
+    for (int i = 0; i < 2; ++i) b[i] = threadIdx.x * 40503u + i;
+    int acc[8][4] = {};
+    for (int it = 0; it < iters; ++it) {
 #pragma unroll
-  for (int q = 0; q < kPerThread; ++q) acc[q] = 0u;
-
-  for (int jb = 0; jb < W; ++jb) {
-    for (int k = ty; k < 32; k += kThreadsY)
-      rows[k][tx] = in ? a[static_cast<size_t>(jb * 32 + k) * W + w] : 0u;
+      for (int j = 0; j < 8; ++j)
+        asm volatile(
+            "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+            : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]),
+              "+r"(acc[j][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+              "r"(b[1]));
+    }
+    for (int j = 0; j < 8; ++j)
+      for (int i = 0; i < 4; ++i) total += acc[j][i];
+  } else {
+    extern __shared__ __align__(1024) uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    uint32_t* words = reinterpret_cast<uint32_t*>(
+        smem_raw + (base - smem_u32(smem_raw)));
+    for (int i = threadIdx.x; i < static_cast<int>(kStageBytes / 4);
+         i += blockDim.x)
+      words[i] = i * 2654435761u;
     __syncthreads();
+    uint32_t d[128];
 #pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      uint32_t bits = a[static_cast<size_t>(i0 + kThreadsY * q) * W + jb];
-      uint32_t v = acc[q];
-      while (bits) {
-        const int k = __ffs(static_cast<int>(bits)) - 1;
-        bits &= bits - 1;
-        v |= rows[k][tx];
+    for (int i = 0; i < 128; ++i) d[i] = 0u;
+    const int wg = threadIdx.x >> 7;
+    for (int it = 0; it < iters; ++it) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = smem_desc(base + wg * kBoxBytes + kk * 32, 16, 1024);
+        const uint64_t db = smem_desc(base + 2 * kBoxBytes + kk * 32, 16, 1024);
+        if constexpr (V == 0)
+          wgmma_b1(d, da, db);
+        else
+          wgmma_s8(d, da, db);
       }
-      acc[q] = v;
+      wgmma_commit();
+      wgmma_wait<1>();
     }
-    __syncthreads();
+    wgmma_wait<0>();
+    fence_acc(d);
+    for (int i = 0; i < 128; ++i) total += static_cast<int>(d[i]);
   }
-  int ones = 0;
-  if (in) {
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      out[s * plane + static_cast<size_t>(i0 + kThreadsY * q) * W + w] =
-          acc[q];
-      ones += __popc(acc[q]);
-    }
+  if (total == 12345) sink[0] = total;  // keeps the loop
+}
+
+// The rate probe: `blocks` blocks of variant `variant` for `iters`
+// iterations (rate_kernel).
+int bitmm_rate(int* sink, int variant, int iters, int blocks,
+               cudaStream_t stream) {
+  if (variant == 1) {
+    rate_kernel<1><<<blocks, 512, 0, stream>>>(sink, iters);
+    return launched();
   }
-  ones = __reduce_add_sync(kFull, ones);
-  if (tx == 0 && ones) atomicAdd(&counts[s], ones);
+  if (variant != 0 && variant != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = variant == 0 ? rate_kernel<0> : rate_kernel<2>;
+  const int smem = kStageBytes + 1024;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<blocks, 384, smem, stream>>>(sink, iters);
+  return launched();
 }
 
 // grid (ceil(n/32 / 4) + query blocks, S), block 128 (4 warps)
@@ -139,13 +170,13 @@ labels_kernel(const uint32_t* __restrict__ r,
 
 }  // namespace
 
+// t, fa, fb: the squaring's scratch (elle_bitmm.cuh); counts zero on
+// entry
 extern "C" int elle_packed_square(const uint32_t* r, uint32_t* out,
-                                  int* counts, int S, int n, void* stream) {
-  const int W = n / 32;
-  const dim3 grid((W + kThreadsX - 1) / kThreadsX, n / kRows, S);
-  square_kernel<<<grid, dim3(kThreadsX, kThreadsY), 0,
-                  static_cast<cudaStream_t>(stream)>>>(r, out, counts, n);
-  return static_cast<int>(cudaGetLastError());
+                                  int* counts, uint32_t* t, uint8_t* fa,
+                                  uint8_t* fb, int S, int n, void* stream) {
+  return bitmm_square(r, r, out, counts, t, fa, fb, S, n, n / 32,
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int elle_packed_labels(const uint32_t* r, const int32_t* q_src,
@@ -159,6 +190,14 @@ extern "C" int elle_packed_labels(const uint32_t* r, const int32_t* q_src,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the tensor cores' issue rate: `blocks` blocks of rate_kernel<variant>
+// (0: 1-bit wgmma, 1: 1-bit mma.sync, 2: int8 wgmma), `iters` each
+extern "C" int elle_bitmm_rate(int* sink, int variant, int iters, int blocks,
+                               void* stream) {
+  return bitmm_rate(sink, variant, iters, blocks,
+                    static_cast<cudaStream_t>(stream));
+}
+
 extern "C" const char* elle_packed_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_text(code);
 }

@@ -16,90 +16,32 @@
 // plain version is tpu.py::sharded_square_ref (packed_square_ref
 // restricted to the column block).
 //
-// What bounds it: a set bit j of row i selects row j's w_loc local
-// words, one OR per (set bit, local word): ones x w_loc a shard per
-// squaring; bytes: the gathered reach read once, the local block read
-// and written once. The design is elle_packed.cu's square_kernel with
-// separate pointers and strides for the bit source (full, stride W),
-// the staged rows and the output (stride w_loc): a warp holds 32 local
-// word columns of one row i, a block stages 32 rows x 32 local words of
-// row block jb in shared memory and walks the set bits of full[s,i,jb]
-// with __ffs for 64 rows i. A shard narrower than 32 words leaves the
-// rest of the warp's lanes idle.
+// The squaring is the Boolean product full x loc on the tensor cores,
+// csrc/elle_bitmm.cuh with A = full and B = loc: a flag pass over the
+// gathered reach, the bit transpose of the shard's own block only ((S,
+// n, w_loc) -> (S, 32 w_loc, W): exactly the rows of B^T its output
+// columns need), and the persistent TMA + wgmma product over the S x
+// n/128 x ceil(32 w_loc / 256) output tiles, skipping k stages whose
+// tiles hold no bit. A block narrower than 256 columns (w_loc < 8)
+// loads its T rows as boxes whose rows past the block arrive as zeros,
+// and stores only its own words. That header says what bounds it. The
+// first kernel of this file walked the set bits of full with __ffs
+// against staged rows of loc; its numbers stay in PERF.md.
 
 #include <cstdint>
-#include <cuda_runtime.h>
 
-namespace {
+#include "elle_bitmm.cuh"
 
-constexpr int kRows = 64;          // rows i per block
-constexpr int kThreadsX = 32;      // local word columns per block
-constexpr int kThreadsY = 8;       // warps; each warp kRows / 8 rows
-constexpr int kPerThread = kRows / kThreadsY;
-constexpr unsigned kFull = 0xffffffffu;
-
-// grid (ceil(w_loc / 32), n / 64, S), block (32, 8)
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-sharded_square_kernel(const uint32_t* __restrict__ full,
-                      const uint32_t* __restrict__ loc,
-                      uint32_t* __restrict__ out, int* __restrict__ counts,
-                      int n, int w_loc) {
-  const int W = n >> 5;
-  const int s = blockIdx.z;
-  const uint32_t* f = full + s * static_cast<size_t>(n) * W;
-  const uint32_t* a = loc + s * static_cast<size_t>(n) * w_loc;
-  uint32_t* o = out + s * static_cast<size_t>(n) * w_loc;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int w = blockIdx.x * kThreadsX + tx;
-  const bool in = w < w_loc;
-  const int i0 = blockIdx.y * kRows + ty;
-  __shared__ uint32_t rows[32][kThreadsX + 1];
-  uint32_t acc[kPerThread];
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) acc[q] = 0u;
-
-  for (int jb = 0; jb < W; ++jb) {
-    for (int k = ty; k < 32; k += kThreadsY)
-      rows[k][tx] =
-          in ? a[static_cast<size_t>(jb * 32 + k) * w_loc + w] : 0u;
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      uint32_t bits = f[static_cast<size_t>(i0 + kThreadsY * q) * W + jb];
-      uint32_t v = acc[q];
-      while (bits) {
-        const int k = __ffs(static_cast<int>(bits)) - 1;
-        bits &= bits - 1;
-        v |= rows[k][tx];
-      }
-      acc[q] = v;
-    }
-    __syncthreads();
-  }
-  int ones = 0;
-  if (in) {
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      o[static_cast<size_t>(i0 + kThreadsY * q) * w_loc + w] = acc[q];
-      ones += __popc(acc[q]);
-    }
-  }
-  ones = __reduce_add_sync(kFull, ones);
-  if (tx == 0 && ones) atomicAdd(&counts[s], ones);
-}
-
-}  // namespace
-
+// t, fa, fb: the shard's scratch for this squaring (elle_bitmm.cuh),
+// allocated on its stream; counts zero on entry
 extern "C" int elle_sharded_square(const uint32_t* full, const uint32_t* loc,
-                                   uint32_t* out, int* counts, int S, int n,
+                                   uint32_t* out, int* counts, uint32_t* t,
+                                   uint8_t* fa, uint8_t* fb, int S, int n,
                                    int w_loc, void* stream) {
-  const dim3 grid((w_loc + kThreadsX - 1) / kThreadsX, n / kRows, S);
-  sharded_square_kernel<<<grid, dim3(kThreadsX, kThreadsY), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      full, loc, out, counts, n, w_loc);
-  return static_cast<int>(cudaGetLastError());
+  return bitmm_square(full, loc, out, counts, t, fa, fb, S, n, w_loc,
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* elle_sharded_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_text(code);
 }

@@ -12,8 +12,10 @@ CPU tensor:
           re-binarized; SCC labels and rw-edge queries from the
           closure. Capacity DEFAULT_MAX_N txns.
   packed  `packed_closure` (`csrc/elle_packed.cu`): the same closure
-          over uint32 bitset rows (S, N, N/32), OR-accumulated per set
-          bit, popcount counters. Bit-identical outputs to bf16;
+          over uint32 bitset rows (S, N, N/32), each squaring a Boolean
+          product on the tensor cores (`csrc/elle_bitmm.cuh`: 1-bit
+          AND/popc wgmma against the bit transpose, zero tiles
+          skipped), popcount counters. Bit-identical outputs to bf16;
           capacity PACKED_MAX_N.
   trim    `trim` (`csrc/elle_trim.cu`): peel-to-core cycle existence.
           Per subset, peel every node with no live predecessor or
@@ -274,19 +276,22 @@ def dense_square(r: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
 
 
 def _closure_on_card(wrapper, kernel: str, seed, q_src, q_dst, *,
-                     n_pad: int, iters: int, on_square):
+                     n_pad: int, iters: int, on_square, scratch=()):
     """The squaring loop and the label pass of `kernel` ("elle_closure"
-    or "elle_packed") on the card, each launch counted on `wrapper`.
-    Squarings alternate between two buffers (out of place, as the
-    reference's immutable arrays are: squaring in place converges in
-    fewer steps); the seed is left as it was."""
+    or "elle_packed") on the card, each launch counted on `wrapper`;
+    `scratch` follows the count in every squaring's pointers (the
+    packed product's `bitmm_scratch`). Squarings alternate between two
+    buffers (out of place, as the reference's immutable arrays are:
+    squaring in place converges in fewer steps); the seed is left as it
+    was."""
     dev = seed.device
     S, q_pad = seed.shape[0], q_src.shape[0]
     spare = [torch.empty_like(seed), torch.empty_like(seed)]
 
     def square(r, cnt):
         out = spare.pop()
-        _launch(f"{kernel}_square", (r, out, cnt), (S, n_pad), dev)
+        _launch(f"{kernel}_square", (r, out, cnt, *scratch), (S, n_pad),
+                dev)
         _count(wrapper)
         if r is not seed:
             spare.append(r)
@@ -355,6 +360,147 @@ def packed_square_ref(r: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The tensor-core product's tiles (csrc/elle_bitmm.cuh): 128 rows of A
+# by 256 columns of the output (rows of the bit transpose) by 1024 bits
+# of k (32 words) a stage; its skip flags are kept per 128-row tile of
+# A and per 256-row tile of the transpose, each per 32-word k stage.
+BITMM_ROWS = 128
+BITMM_COLS = 256
+BITMM_K_WORDS = 32
+
+
+def bit_transpose_ref(b: torch.Tensor) -> torch.Tensor:
+    """The bit transpose of a packed (S, n, w) block: (S, 32 w, n / 32)
+    int32 words, row c the bits of column c of `b` (bit j of row c's
+    word j / 32 is row j's bit c)."""
+    return torch.stack([pack_bits(unpack_bits(b[s]).t().contiguous())
+                        for s in range(b.shape[0])])
+
+
+def tile_flags_ref(x: torch.Tensor, rows: int,
+                   words: int = BITMM_K_WORDS) -> torch.Tensor:
+    """(S, ceil(R / rows), ceil(Wd / words)) uint8: 1 where the tile of
+    `rows` rows x `words` words of the (S, R, Wd) plane `x` holds a bit
+    (tiles past the plane's edge count its part inside)."""
+    S, R, Wd = x.shape
+    pad = torch.zeros((S, -(-R // rows) * rows, -(-Wd // words) * words),
+                      dtype=x.dtype, device=x.device)
+    pad[:, :R, :Wd] = x
+    t = pad.view(S, pad.shape[1] // rows, rows, pad.shape[2] // words,
+                 words)
+    return (t != 0).any(dim=4).any(dim=2).to(torch.uint8)
+
+
+def bitmm_flags_ref(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """The product's flag planes for A = `a` and B = `b` ((S, n, w)
+    words): `tile_flags_ref(a, BITMM_ROWS)`, and the T tile flags read
+    off B's own tiles (a 256-row x 32-word tile of B's transpose holds
+    a bit exactly when the 1024 rows x 8 words of B behind it do), so no
+    transpose is made."""
+    return (tile_flags_ref(a, BITMM_ROWS),
+            tile_flags_ref(b, 32 * BITMM_K_WORDS, BITMM_COLS // 32)
+            .transpose(1, 2).contiguous())
+
+
+def bitmm_ref(a: torch.Tensor, t: torch.Tensor, fa: torch.Tensor,
+              fb: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """The squaring as the tensor-core kernel computes it, in plain
+    PyTorch: out[s,i,c] = (sum over the k stages whose A tile and T tile
+    are both flagged of popc(A row i AND T row c)) > 0, packed into (S,
+    n, n_cols / 32) words, with `a` the (S, n, n / 32) bit rows, `t`
+    the (S, n_cols, n / 32) transpose of B (`bit_transpose_ref`), `fa` =
+    `tile_flags_ref(a, BITMM_ROWS)` and `fb` = `tile_flags_ref(t,
+    BITMM_COLS)`; `cnt` gets each subset's popcount. Skipping a stage
+    whose tile has no bit drops only zero terms, so this equals
+    `packed_square_ref` (A = B = R) and `sharded_square_ref` (A the
+    gathered reach, B the block)."""
+    S, n, W = a.shape
+    n_cols = t.shape[1]
+    out = torch.empty((S, n, n_cols // 32), dtype=torch.int32,
+                      device=a.device)
+    for s in range(S):
+        acc = torch.zeros((n, n_cols), dtype=torch.float32, device=a.device)
+        for kb in range(fa.shape[2]):
+            k = slice(kb * BITMM_K_WORDS, (kb + 1) * BITMM_K_WORDS)
+            on = (fa[s, :, kb].repeat_interleave(BITMM_ROWS)[:n, None].bool()
+                  & fb[s, :, kb].repeat_interleave(BITMM_COLS)[None, :n_cols]
+                  .bool())
+            acc += torch.mm(unpack_bits(a[s, :, k]).to(torch.float32),
+                            unpack_bits(t[s, :, k]).to(torch.float32).t()) * on
+        out[s] = pack_bits(acc > 0)
+    cnt.copy_(_popcount32(out.to(torch.int64) & _M32).sum(
+        dim=(1, 2)).to(torch.int32))
+    return out
+
+
+def bitmm_scratch_shapes(S: int, n_pad: int, w: int) -> tuple:
+    """(shape, dtype) of each buffer of the tensor-core squaring's
+    scratch for B of w words a row (w = n_pad / 32 packed, w_loc a
+    shard): the bit transpose (S, 32 w, n_pad / 32) int32, the A tile
+    flags (S, n_pad / 128, K) and the T tile flags (S, ceil(32 w / 256),
+    K) uint8, K = ceil(n_pad / 1024) k stages."""
+    W = n_pad // 32
+    K = -(-W // BITMM_K_WORDS)
+    return (((S, 32 * w, W), torch.int32),
+            ((S, n_pad // BITMM_ROWS, K), torch.uint8),
+            ((S, -(-32 * w // BITMM_COLS), K), torch.uint8))
+
+
+def bitmm_scratch(S: int, n_pad: int, w: int, device) -> tuple:
+    """The buffers of `bitmm_scratch_shapes`, allocated on the current
+    stream."""
+    return tuple(torch.empty(shape, dtype=dtype, device=device)
+                 for shape, dtype in bitmm_scratch_shapes(S, n_pad, w))
+
+
+def _check_scratch(name: str, scratch: tuple, S: int, n_pad: int, w: int,
+                   dev) -> None:
+    """A caller's scratch must be `bitmm_scratch(S, n_pad, w, dev)`'s
+    buffers: the kernel writes them up to those sizes unchecked."""
+    shapes = bitmm_scratch_shapes(S, n_pad, w)
+    if len(scratch) != len(shapes) or any(
+            tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+            or not t.is_contiguous()
+            for t, (shape, dtype) in zip(scratch, shapes)):
+        raise ValueError(f"{name}: scratch must be bitmm_scratch({S}, "
+                         f"{n_pad}, {w}) on {dev}")
+
+
+def packed_square(r: torch.Tensor, cnt: torch.Tensor,
+                  scratch: Optional[tuple] = None) -> torch.Tensor:
+    """One packed squaring (see `packed_square_ref`): the (S, n_pad,
+    n_pad / 32) int32 reach `r` in, a new reach out, each subset's
+    popcount into the (S,) int32 `cnt`. A CUDA reach runs one
+    `elle_packed_square` launch (the tensor-core product over
+    `scratch`, a `bitmm_scratch` made here when None), counted in
+    `packed_closure.launches` as a squaring of `packed_closure` is; a
+    CPU reach runs the plain version. A given scratch is checked on
+    either device."""
+    dev = r.device
+    S, n_pad = r.shape[0], r.shape[1]
+    if scratch is not None:
+        _check_scratch("elle packed_square", scratch, S, n_pad, n_pad // 32,
+                       dev)
+    if dev.type == "cpu":
+        return packed_square_ref(r, cnt)
+    if dev.type != "cuda":
+        raise ValueError(f"elle packed_square: unsupported device {dev}")
+    _check_closure_inputs("elle packed_square", (r, cnt), n_pad)
+    if tuple(r.shape) != (S, n_pad, n_pad // 32) or r.dtype != torch.int32 \
+            or tuple(cnt.shape) != (S,) or cnt.dtype != torch.int32:
+        raise ValueError("elle packed_square: an (S, n, n / 32) int32 reach "
+                         "and an (S,) int32 count")
+    out = torch.empty_like(r)
+    cnt.zero_()
+    with on_device(dev):
+        if scratch is None:
+            scratch = bitmm_scratch(S, n_pad, n_pad // 32, dev)
+        _launch("elle_packed_square", (r, out, cnt, *scratch), (S, n_pad),
+                dev)
+    _count(packed_closure)
+    return out
+
+
 def packed_labels_ref(reach, q_src, q_dst):
     """Labels and rw queries from a packed closure (the reference's
     label scan over 32-column blocks, as one mutual-reach min)."""
@@ -381,8 +527,9 @@ def packed_closure_ref(r0, q_src, q_dst, *, n_pad: int, iters: int,
 def packed_closure(r0, q_src, q_dst, *, n_pad: int, iters: int,
                    on_square=None):
     """The packed closure (see `packed_closure_ref`). CUDA tensors run
-    the `elle_packed` kernels (one launch per squaring, one for labels
-    and queries; counted in `packed_closure.launches`); CPU tensors run
+    the `elle_packed` kernels (one launch per squaring, over one
+    `bitmm_scratch` the squarings share, and one for labels and
+    queries; counted in `packed_closure.launches`); CPU tensors run
     `packed_closure_ref`. r0 is not modified."""
     dev = r0.device
     if dev.type == "cpu":
@@ -397,9 +544,10 @@ def packed_closure(r0, q_src, q_dst, *, n_pad: int, iters: int,
     for t in (q_src, q_dst):
         _check_range("elle packed closure", t, n_pad)
     with torch.cuda.device(dev):
-        return _closure_on_card(packed_closure, "elle_packed", r0, q_src,
-                                q_dst, n_pad=n_pad, iters=iters,
-                                on_square=on_square)
+        return _closure_on_card(
+            packed_closure, "elle_packed", r0, q_src, q_dst, n_pad=n_pad,
+            iters=iters, on_square=on_square,
+            scratch=bitmm_scratch(r0.shape[0], n_pad, n_pad // 32, dev))
 
 
 packed_closure.launches = 0
@@ -436,13 +584,20 @@ def sharded_square_ref(full: torch.Tensor, loc: torch.Tensor,
 
 
 def sharded_square(full: torch.Tensor, loc: torch.Tensor, cnt: torch.Tensor,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   scratch: Optional[tuple] = None) -> torch.Tensor:
     """One squaring of a word-column shard (see `sharded_square_ref`),
     into `out` (a new tensor when None). CUDA tensors run the
     `elle_sharded_square` kernel on the current stream (one launch per
     call, counted in `sharded_square.launches`; `cnt` must be zero, the
-    kernel adds to it); CPU tensors run `sharded_square_ref`."""
+    kernel adds to it), the tensor-core product over `scratch` (a
+    `bitmm_scratch` of the block's width, made here when None, and
+    checked on either device when given); CPU tensors run
+    `sharded_square_ref`."""
     dev = loc.device
+    S, n_pad, w_loc = loc.shape
+    if scratch is not None:
+        _check_scratch("elle sharded square", scratch, S, n_pad, w_loc, dev)
     if dev.type == "cpu":
         r = sharded_square_ref(full, loc, cnt)
         if out is None:
@@ -450,7 +605,6 @@ def sharded_square(full: torch.Tensor, loc: torch.Tensor, cnt: torch.Tensor,
         return out.copy_(r)
     if dev.type != "cuda":
         raise ValueError(f"elle sharded square: unsupported device {dev}")
-    S, n_pad, w_loc = loc.shape
     out = torch.empty_like(loc) if out is None else out
     if n_pad % 128 or tuple(full.shape) != (S, n_pad, n_pad // 32) \
             or tuple(out.shape) != tuple(loc.shape) \
@@ -462,8 +616,10 @@ def sharded_square(full: torch.Tensor, loc: torch.Tensor, cnt: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError("elle sharded square: contiguous int32 tensors "
                              f"on {dev}")
-    _launch("elle_sharded_square", (full, loc, out, cnt), (S, n_pad, w_loc),
-            dev)
+    if scratch is None:
+        scratch = bitmm_scratch(S, n_pad, w_loc, dev)
+    _launch("elle_sharded_square", (full, loc, out, cnt, *scratch),
+            (S, n_pad, w_loc), dev)
     _count(sharded_square)
     return out
 
@@ -540,13 +696,14 @@ def sharded_closure(blocks, q_src, q_dst, *, n_pad: int, iters: int,
     for k, dev in enumerate(devs):
         streams[k].wait_stream(torch.cuda.current_stream(dev))
     ready = []                      # the event after each shard's write
-    full, spare, cnts = [], [], []
+    full, spare, scratch, cnts = [], [], [], []
     for k, dev in enumerate(devs):
         with torch.cuda.device(dev), on_stream(streams[k]):
             full.append(torch.empty((S, n_pad, W), dtype=torch.int32,
                                     device=dev))
             spare.append([torch.empty_like(blocks[k]),
                           torch.empty_like(blocks[k])])
+            scratch.append(bitmm_scratch(S, n_pad, w_loc, dev))
             cnts.append(torch.empty(S, dtype=torch.int32, device=dev))
             ev = torch.cuda.Event()
             ev.record(streams[k])
@@ -566,7 +723,7 @@ def sharded_closure(blocks, q_src, q_dst, *, n_pad: int, iters: int,
             with torch.cuda.device(dev), on_stream(streams[d]):
                 cnts[d].zero_()
                 o = sharded_square(full[d], bl[d], cnts[d],
-                                   out=spare[d].pop())
+                                   out=spare[d].pop(), scratch=scratch[d])
                 ready[d].record(streams[d])
             if bl[d] is not blocks[d]:
                 spare[d].append(bl[d])

@@ -15,7 +15,8 @@ from what a run's plain version tallied:
     reads for its `bound_ms` columns: a WGL chunk (`wgl_chunk_bytes`,
     `batched_chunk_bytes`, `wgl_bool_chunk_bytes`), a dense, packed or
     sharded closure squaring (`dense_square_cost`, `packed_square_cost`,
-    `sharded_square_cost`), the trim (`trim_bytes`, `trim_work`);
+    `sharded_square_cost`; the packed ones' tensor-core work from their
+    tile flags, `bitmm_steps`), the trim (`trim_bytes`, `trim_work`);
   * the card's peaks (`PEAKS`, keyed by `torch.cuda.get_device_name`)
     and `bound_ms`, which turns bytes and operations into a least time.
 
@@ -26,6 +27,7 @@ belong to the telemetry plane and come with their callers.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 # The tracked frontier-fill target (the reference's ROADMAP item 5).
@@ -35,12 +37,18 @@ TARGET_FILL = 0.8
 # `torch.cuda.get_device_name`. NVIDIA H100 80GB HBM3 (SXM), at its 700 W
 # power limit: 3.35 TB/s of HBM, 989 TFLOP/s dense bf16 on the tensor
 # cores, and int32 at 64 lanes per SM per clock on 132 SMs at the
-# 1980 MHz maximum SM clock (1.673e13 op/s). A card set below 700 W runs
+# 1980 MHz maximum SM clock (1.673e13 op/s); 1,979 TOP/s dense int8 on
+# the tensor cores, and 1-bit AND/popc at eight times that (the data
+# sheet gives no 1-bit rate: wgmma's .b1 form takes k 256 where int8's
+# takes k 32 at the same m and n, so an instruction does eight times the
+# multiply-accumulates; 2 operations each). A card set below 700 W runs
 # slower under load; its name and limit stand beside every number kept.
 PEAKS = {
     "NVIDIA H100 80GB HBM3": {"hbm_bytes_per_s": 3.35e12,
                               "bf16_flops": 989e12,
-                              "int32_ops": 132 * 64 * 1.98e9},
+                              "int32_ops": 132 * 64 * 1.98e9,
+                              "int8_ops": 1979e12,
+                              "b1_ops": 8 * 1979e12},
 }
 DEFAULT_KIND = "NVIDIA H100 80GB HBM3"
 
@@ -61,7 +69,7 @@ def bound_ms(*, nbytes: float = 0.0, ops: float = 0.0,
              device_kind: Optional[str] = None) -> tuple:
     """(least milliseconds, "bytes" or "operations"): the larger of the
     bytes over the card's memory rate and the operations over its
-    `rate` peak ("int32_ops" or "bf16_flops")."""
+    `rate` peak (a key of `PEAKS`)."""
     pk, _ = peaks(device_kind)
     t_bytes = nbytes / pk["hbm_bytes_per_s"]
     t_ops = ops / pk[rate]
@@ -143,11 +151,13 @@ def elle_closure_bytes(kernel: str, *, S: int, n_pad: int, e: int, q: int,
     and the two buffers the squarings alternate between (bf16 planes,
     or packed uint32 words); for the sharded closure, per shard its
     column block, the gathered full reach and two spare blocks, times
-    the shards the card holds; the rw queries and the label pass's
-    outputs; for bf16 the edge inputs and the seed scatter's index
-    temporaries. `e` and `q` are the edge and rw-query counts
-    (estimates before the graph is built), padded as `closure_inputs`
-    pads them."""
+    the shards the card holds; the packed squaring's scratch
+    (`bitmm_scratch_bytes`: the bit transpose and the tile flags, once
+    for the packed closure, per shard its block's for the sharded one);
+    the rw queries and the label pass's outputs; for bf16 the edge
+    inputs and the seed scatter's index temporaries. `e` and `q` are the
+    edge and rw-query counts (estimates before the graph is built),
+    padded as `closure_inputs` pads them."""
     def bucket(x):
         return 1 << max(0, (max(int(x), 1) - 1).bit_length())
 
@@ -160,11 +170,22 @@ def elle_closure_bytes(kernel: str, *, S: int, n_pad: int, e: int, q: int,
             8 * e_pad, 8 * e_pad, 8 * nnz, 8 * nnz, 8 * n_pad]
     elif kernel == "sharded":
         ns = max(1, int(n_shards))
-        buffers = shards_per_card * ([words] + [words // ns] * 3 + [4 * S])
+        w_loc = (n_pad // 32) // ns
+        buffers = shards_per_card * ([words] + [words // ns] * 3 + [4 * S]
+                                     + bitmm_scratch_bytes(S, n_pad, w_loc))
     else:
-        buffers = [words] * 3
+        buffers = [words] * 3 + bitmm_scratch_bytes(S, n_pad, n_pad // 32)
     buffers += [4 * q_pad, 4 * q_pad, 4 * S * n_pad, S * q_pad, 4 * S]
     return sum(alloc_bytes(b) for b in buffers)
+
+
+def bitmm_scratch_bytes(S: int, n_pad: int, w: int) -> list:
+    """The bytes of each buffer of the packed squaring's scratch
+    (`elle.tpu.bitmm_scratch_shapes`) for B of w words a row."""
+    from .elle import tpu as etpu
+
+    return [math.prod(shape) * dtype.itemsize
+            for shape, dtype in etpu.bitmm_scratch_shapes(S, n_pad, w)]
 
 
 # ---------------------------------------------------------------------------
@@ -214,21 +235,42 @@ def dense_square_cost(S: int, n_pad: int) -> dict:
             "bytes_accessed": 2.0 * S * n_pad * n_pad * 2}
 
 
-def packed_square_cost(S: int, n_pad: int, set_bits: int) -> dict:
-    """One packed squaring: a set bit j of row i ORs row j in, one int32
-    op per (set bit, word) of this run's bits; the bitset read and
-    written once."""
+def bitmm_steps(fa, fb, *, n_pad: int, n_cols: int) -> float:
+    """The bit AND/popc steps the tensor-core squaring does on this run's
+    data: for every k stage whose A tile (`fa[s, i, k]`, 128 rows) and
+    T tile (`fb[s, c, k]`, 256 output columns) both hold a bit, the
+    tile's rows x its columns inside the output (`n_cols`) x its k bits
+    inside the plane. `fa`, `fb` are the kernel's flag planes
+    (`elle.tpu.tile_flags_ref`), as numpy arrays."""
+    import numpy as np
+
+    fa, fb = np.asarray(fa, bool), np.asarray(fb, bool)
+    kbits = np.minimum(1024, n_pad - 1024 * np.arange(fa.shape[2]))
+    cols = np.minimum(256, n_cols - 256 * np.arange(fb.shape[1]))
+    return 128.0 * float(np.einsum(
+        "sk,sk,k->", fa.sum(axis=1, dtype=np.float64),
+        (fb * cols[None, :, None]).sum(axis=1, dtype=np.float64),
+        kbits.astype(np.float64)))
+
+
+def packed_square_cost(S: int, n_pad: int, set_bits: int,
+                       steps: float) -> dict:
+    """One packed squaring: the tensor-core work the kernel does on this
+    run's data, 2 operations per bit AND/popc step (`bitmm_steps`, as
+    the rate probe counts them); beside it the data's own count, a set
+    bit j of row i ORing row j in, one int32 op per (set bit, word); the
+    bitset read and written once."""
     W = n_pad // 32
-    return {"ops": float(set_bits) * W,
+    return {"tc_ops": 2.0 * steps, "ops": float(set_bits) * W,
             "bytes_accessed": 2.0 * S * n_pad * W * 4}
 
 
 def sharded_square_cost(full_words: int, block_words: int, set_bits: int,
-                        local_words: int) -> dict:
-    """One sharded squaring of one word-column shard: one OR per (set
-    bit, local word); the gathered reach read, the block read and
-    written."""
-    return {"ops": float(set_bits) * local_words,
+                        local_words: int, steps: float) -> dict:
+    """One sharded squaring of one word-column shard: the tensor-core
+    work as in `packed_square_cost`; one OR per (set bit, local word);
+    the gathered reach read, the block read and written."""
+    return {"tc_ops": 2.0 * steps, "ops": float(set_bits) * local_words,
             "bytes_accessed": (full_words + 2 * block_words) * 4.0}
 
 

@@ -102,14 +102,18 @@ KERNELS = {
     # Elle's closures and trim
     "elle_closure_square": ("elle_closure", 3, 2),
     "elle_closure_labels": ("elle_closure", 5, 3),
-    "elle_packed_square": ("elle_packed", 3, 2),
+    # the packed and sharded squarings take the tensor-core product's
+    # scratch (bit transpose, A and T tile flags) after the count
+    "elle_packed_square": ("elle_packed", 6, 2),
     "elle_packed_labels": ("elle_packed", 5, 3),
+    # the tensor cores' rate probe (variant, iterations, blocks)
+    "elle_bitmm_rate": ("elle_packed", 1, 3),
     "elle_trim": ("elle_trim", 13, 8),
     # the mesh scheduler's lane reset and batched frontier migration
     "wgl_lane_reset": ("wgl_lanes", 9, 8),
     "wgl_frontier_migrate": ("wgl_lanes", 2, 4),
     # one squaring of a word-column shard of the packed closure
-    "elle_sharded_square": ("elle_sharded", 4, 3),
+    "elle_sharded_square": ("elle_sharded", 7, 3),
     # the bool-window WGL chunk (the reference's general search)
     "wgl_chunk": ("wgl_chunk", 21, 13),
 }

@@ -693,3 +693,36 @@ def test_cli_headline_executes_on_the_cpu(capsys):
     assert ex["verdict"] is True and ex["kernel_match"]
     assert ex["buckets_subset"]
     assert ex["peak_bytes_measured"] is None  # no card: not measured
+
+
+def test_elle_bills_the_packed_squaring_scratch():
+    """The packed closure's bill holds the tensor-core squaring's
+    scratch once (the bit transpose, one plane's bytes, and the A and T
+    tile flags), the sharded bill each shard's (its block's transpose):
+    pinned at the Elle append 10k shape, n_pad 16384."""
+    import torch
+
+    from jepsen_tpu_torch import occupancy as occ
+
+    S, n = 3, 16384
+    words = S * n * (n // 32) * 4
+    assert occ.bitmm_scratch_bytes(S, n, n // 32) == [words, S * 128 * 16,
+                                                      S * 64 * 16]
+    assert occ.bitmm_scratch_bytes(S, n, n // 64) == [words // 2,
+                                                      S * 128 * 16,
+                                                      S * 32 * 16]
+    # the queries (q 1000 pads to 1024) and the label pass's outputs
+    rest = [4 * 1024, 4 * 1024, 4 * S * n, S * 1024, 4 * S]
+    packed = [words] * 3 + [words, S * 128 * 16, S * 64 * 16] + rest
+    got = occ.elle_closure_bytes("packed", S=S, n_pad=n, e=0, q=1000)
+    assert got == sum(occ.alloc_bytes(b) for b in packed) == 407_065_088
+    shard = ([words, words // 2, words // 2, words // 2, 4 * S,
+              words // 2, S * 128 * 16, S * 32 * 16])
+    got = occ.elle_closure_bytes("sharded", S=S, n_pad=n, e=0, q=1000,
+                                 n_shards=2, shards_per_card=2)
+    assert got == sum(occ.alloc_bytes(b) for b in 2 * shard + rest) \
+        == 614_690_304
+    # the plan the gate bills by carries it
+    plan = tpf.plan_elle_sharded(n_txns=10_000, n_shards=2,
+                                 devices=[torch.device("cuda", 0)] * 2)
+    assert plan["hbm_bytes"] >= got - sum(occ.alloc_bytes(b) for b in rest)

@@ -86,8 +86,11 @@ Then Elle:
     squaring, the kernel device-only beside the yardstick
     (`torch._int_mm` per subset and bf16 `torch.bmm` on the unpacked
     0/1 planes);
-  * the trim (`elle_trim`): the 3k list-append history with
-    `cycle_backend="trim"`;
+  * the trim (`elle_trim`): the 3k list-append and rw-register
+    histories and the 10k list-append history with
+    `cycle_backend="trim"`, each held against `trim_ref`, in µs a peel
+    beside the chain's floor (the peels times one measured
+    barrier-and-reduce step, `elle_trim_step_probe`);
   * the sharded closure (`elle_sharded_square`): every squaring of the
     10k closure with 1, 2 and 4 shards against `packed_square_ref`'s
     column blocks, the first at 2 shards timed beside its yardstick, then
@@ -99,9 +102,12 @@ Then the bool-window WGL chunk (`wgl_chunk`, the reference's general
 search, reached through `ops/wgl._compiled_search` as in the
 reference): held bit for bit on every carry leaf against its plain
 version at the headline's consts (K 64), the 16-wave's (K 256, W 96)
-and with a full memo table and an overflowing backlog, then driven to
-a verdict on the headline (True) and the invalid narrow history (the
-host oracle's False) at `derive_plan`'s first bucket.
+and with a full memo table and an overflowing backlog; its two
+switchable forms (the one-warp round, the shared claim map) each timed
+against a build without it on the same inputs, in turns, carries
+identical; then driven to a verdict on the headline (True) and the
+invalid narrow history (the host oracle's False) at `derive_plan`'s
+first bucket.
 
 Then the admission plane (`analysis/preflight.py`): for every main-path
 shape above, the plan's predicted bytes against the peak the check
@@ -120,11 +126,12 @@ or a directory without the package.
 
     python3 chip_smoke.py --paths DIR
 
-drives only the headline, the 16-wave's search and the mesh fan-out
+drives only the headline, the 16-wave's search, the mesh fan-out, the
+bool-window headline and the forced trim at Elle append 3k and 10k
 through the package under DIR (this checkout, or an older one unpacked
 beside it with `git archive`) and prints one JSON line of verdicts,
-walls and kernel times: run it on both trees in turns in one call to
-time a change against its parent.
+walls, kernel times, µs a round and µs a peel: run it on both trees in
+turns in one call to time a change against its parent.
 """
 
 import json
@@ -177,6 +184,14 @@ BOOL_CHECKS = (("headline", None, None, None, None),
                ("headline", 64, None, None, 32),
                ("16-wave", 256, None, None, 16),
                ("16-wave", 64, 1024, 256, 24))
+# wgl_chunk's forms a build can switch off, each timed against the
+# default build in turns on BOOL_CHECKS rows: {label: (define, rows)}.
+# The one-warp round stands in for the block's sort, dedup, probe and
+# compaction at <= 32 explorers (the headline's first launch, K 2); the
+# shared claim map for the claims through the slot's own word (K 64, the
+# 16-wave's K 256 and the full table)
+CHUNK_FORMS = {"one-warp round off": ("WGL_CHUNK_WARP_ROUND=0", (0,)),
+               "claim map off": ("WGL_CHUNK_CLAIM_MAP=0", (2, 3, 4))}
 SMALL_BUDGET = 1_000_000      # bytes: a budget every main path blows
 RT = ("realtime",)
 REPO = Path(__file__).resolve().parent
@@ -737,6 +752,28 @@ def run_trim(g, dev):
     return got, outputs_err(got, ref), time.monotonic() - t0, t
 
 
+def trim_peel_us(t, dev, use_rt: bool) -> tuple:
+    """The trim kernel's µs a peel on `t = trim_inputs(g)` with the
+    realtime thresholds on or off (off: the same inputs reach another
+    fixpoint): the median of 3 launches after a warm one, CUDA events
+    around each launch (`Timed`), every one of the 4 launches held
+    against `trim_ref` with the same thresholds: (µs a peel, peels)."""
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    ins = on_card(t["arrays"], dev)
+    kw = dict(p_pad=t["p_pad"], use_rt=use_rt, use_proc=t["use_proc"])
+    ref = etpu.trim_ref(*ins, **kw)
+    got = [etpu.trim(*ins, **kw)]
+    with Timed() as tm:
+        got += [etpu.trim(*ins, **kw) for _ in range(3)]
+    errs = [outputs_err(g, ref) for g in got]
+    if any(errs):
+        raise AssertionError(f"elle trim (realtime {use_rt}) differs from "
+                             f"trim_ref: max abs err by launch {errs}")
+    peels = 2 * got[0][2]
+    return float(np.median(tm.ms("elle_trim"))) * 1e3 / peels, peels
+
+
 def elle_drive(check, hist, **kw):
     """One Elle check on the card, every count at 0 just before it and
     read just after: (result, wall, counts, Timed). The Timed also holds
@@ -818,7 +855,7 @@ def elle_host_verdict(params: dict) -> dict:
             "seconds": time.monotonic() - t0}
 
 
-def elle_phases(dev, host10) -> list:
+def elle_phases(dev, host10, step_us: float) -> list:
     """Elle on the card: the small corpora, the 3k cells (dense closure
     and trim), the invalid histories, the 10k cell (packed closure), and
     the sharded closure over shards of the card (its verdict against
@@ -914,11 +951,22 @@ def elle_phases(dev, host10) -> list:
             raise AssertionError(f"elle {kind} 3k trim: err {terr}, "
                                  f"{rt_.get('cycle-engine')}, {counts_t}")
         errs["elle_trim"] = max(errs["elle_trim"], terr)
+        Peaks.add(f"elle {kind} 3k trim", tt.gates, tt.peak,
+                  elle_plan(gt, "trim", [dev]))
+        rt_off = trim_peel_us(ti, dev, use_rt=False)
+        rt_on = trim_peel_us(ti, dev, use_rt=True)
+        print(f"  trim per peel, the same inputs with the realtime "
+              f"thresholds on / off (each its own fixpoint, medians of 3 "
+              f"launches, every launch == trim_ref): "
+              f"{rt_on[0]:.3f} us ({rt_on[1]} peels) / {rt_off[0]:.3f} us "
+              f"({rt_off[1]} peels)", flush=True)
         print(f"  trim on the card: valid? {rt_['valid?']} engine "
               f"{rt_['cycle-engine']} iters_run {ut['iters_run']} "
               f"({ut['iters_run'] // 2} bodies), launches {counts_t}, kernel "
-              f"{trim_ms[0]:.4f} ms, wall {wall_t:.4f} s; == trim_ref "
-              f"({tplain_s * 1e3:.1f} ms plain)")
+              f"{trim_ms[0]:.4f} ms = "
+              f"{trim_ms[0] * 1e3 / ut['iters_run']:.3f} us/peel (chain "
+              f"floor {ut['iters_run'] * step_us / 1e3:.4f} ms), wall "
+              f"{wall_t:.4f} s; == trim_ref ({tplain_s * 1e3:.1f} ms plain)")
         out[kind] = dict(res=res, counts=counts, sq=sq, lab=lab,
                          timing=timing,
                          n_pad=n_pad, trim_ms=trim_ms, trim_counts=counts_t,
@@ -970,6 +1018,21 @@ def elle_phases(dev, host10) -> list:
           f"{tt.ms('elle_trim')[0]:.4f} ms, wall {wall_t:.4f} s")
     same_verdict("elle append 10k packed vs trim", res, res_t)
     gt = builders["append"][2](h10)
+    _, terr10, tplain10_s, ti10 = run_trim(gt, dev)
+    peels10 = res_t["cycle-util"]["iters_run"]
+    t10_ms = tt.ms("elle_trim")[0]
+    if terr10 or counts_t["elle_trim"] != 1 or \
+            res_t.get("cycle-engine") != "trim":
+        raise AssertionError(f"elle append 10k trim: err {terr10}, "
+                             f"{res_t.get('cycle-engine')}, {counts_t}")
+    errs["elle_trim"] = max(errs["elle_trim"], terr10)
+    Peaks.add("elle append 10k trim", tt.gates, tt.peak,
+              elle_plan(gt, "trim", [dev]))
+    print(f"  trim kernel == trim_ref at n_pad {ti10['n_pad']} (live "
+          f"planes, every count row, bodies; trim_ref {tplain10_s:.1f} s): "
+          f"{peels10} peels, {t10_ms * 1e3 / peels10:.3f} us/peel, chain "
+          f"floor {peels10} x {step_us:.4f} us = "
+          f"{peels10 * step_us / 1e3:.4f} ms", flush=True)
     Peaks.add("elle append 10k packed", gates10, peak10,
               elle_plan(gt, "auto", [dev]))
     a = etpu.closure_inputs(gt, packed=True)
@@ -1284,7 +1347,9 @@ def elle_phases(dev, host10) -> list:
           f"{t_bytes * 1e3:.6f}, ops {t_ops * 1e3:.6f}: {t_work} checks of "
           f"live nodes' real slots and thresholds; re-read per body "
           f"{t_body_bytes} B x {d['bodies']} bodies = "
-          f"{t_body_bytes * d['bodies'] / hbm * 1e3:.6f} ms) "
+          f"{t_body_bytes * d['bodies'] / hbm * 1e3:.6f} ms; chain floor "
+          f"{2 * d['bodies']} peels x {step_us:.4f} us = "
+          f"{2 * d['bodies'] * step_us / 1e3:.4f} ms) "
           f"against {d['trim_ms'][0]:.4f} ms")
     return [{
         "name": "elle_closure", "route": "cuda",
@@ -2118,7 +2183,201 @@ def fanout_phases(dev) -> list:
         "library_ms": None}] + lanes
 
 
-def bool_chunk_phases(dev) -> dict:
+def bool_consts(hist, dev):
+    """The bool-window chunk's encoding of `hist` and its consts on the
+    card (max_cfg 2e8)."""
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import encode, wgl_bool
+
+    enc = encode.encode(cas_register(), hist)
+    return enc, wgl_bool.consts_from_numpy(
+        enc.inv, enc.ret, enc.opcode, enc.sufminret, enc.inv_info,
+        enc.opcode_info, enc.table, enc.n_ok, enc.n_info, 200_000_000,
+        device=dev)
+
+
+def bool_first_bucket(enc) -> dict:
+    """derive_plan's first bucket, at the bool kernel's widths (the
+    encoding's window and info slots, padded to 32)."""
+    from jepsen_tpu_torch.ops import wgl
+
+    p = wgl.derive_plan(window_raw=enc.window_raw,
+                        ic_pad=len(enc.inv_info), n=enc.n_ok,
+                        n_info=enc.n_info, accel=True)
+    return {"K": p["K"], "H": p["H"], "B": p["B"], "chunk": p["chunk"],
+            "probes": p["probes"], "W": enc.window,
+            "ic": len(enc.inv_info)}
+
+
+def bool_shape(enc, K, H, B, chunk, probes=4) -> tuple:
+    """`ops/wgl._compiled_search`'s shape arguments."""
+    S, O = enc.table.shape
+    return (len(enc.inv), len(enc.inv_info), enc.window, S, O, K, H, B,
+            chunk, probes)
+
+
+def drive_bool(enc, consts, dev, max_chunks=64):
+    """The bool-window search through `ops/wgl._compiled_search` at
+    derive_plan's first bucket, chunk after chunk until it is found or
+    the frontier empties: (the bucket, the final carry, the chunks)."""
+    from jepsen_tpu_torch.ops import wgl, wgl_bool
+
+    fb = bool_first_bucket(enc)
+    init_fn, chunk_fn = wgl._compiled_search(*bool_shape(
+        enc, fb["K"], fb["H"], fb["B"], fb["chunk"], fb["probes"]))
+    carry = init_fn(0, device=dev)
+    for chunks in range(1, max_chunks + 1):
+        chunk_fn(consts, carry)
+        if carry[wgl_bool.FLAGS].tolist()[0] or int(
+                carry[wgl_bool.FR_CNT]) == 0:
+            break
+    return fb, carry, chunks
+
+
+def barrier_step_us(dev, iters: int = 100_000) -> float:
+    """One barrier-and-reduce step of a 1024-thread block, in µs: the
+    probe `elle_trim_step_probe` (a warp sum, the partials in shared
+    memory, a barrier, every warp summing them) at iters + 1 steps less
+    at 1 step, over iters, CUDA events, the least of three each after a
+    warm launch. A dependent chain of n peels or rounds takes at least n
+    such steps: its floor, printed beside a bound, never in it."""
+    from jepsen_tpu_torch.ops import _native
+    from jepsen_tpu_torch.util import raw_stream
+
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def ms(n):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        _native.launch("elle_trim_step_probe", [sink.data_ptr()], [n],
+                       raw_stream(dev))
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    ms(1)
+    step = (min(ms(iters + 1) for _ in range(3))
+            - min(ms(1) for _ in range(3))) * 1e3 / iters
+    print(f"barrier-and-reduce step (elle_trim_step_probe, 1024 threads): "
+          f"{step:.4f} us", flush=True)
+    return step
+
+
+def bool_encs(dev) -> dict:
+    """The bool-window chunk's consts on the card for BOOL_CHECKS: the
+    headline, the invalid narrow history, the 16-wave."""
+    from jepsen_tpu_torch import synth
+
+    h = synth.cas_register_history(HEADLINE["n_ops"],
+                                   n_procs=HEADLINE["n_procs"],
+                                   seed=HEADLINE["seed"],
+                                   crash_p=HEADLINE["crash_p"])
+    bad = synth.cas_register_history(INVALID["n_ops"],
+                                     n_procs=INVALID["n_procs"],
+                                     seed=INVALID["seed"],
+                                     lie_p=INVALID["lie_p"])
+    return {"headline": bool_consts(h, dev), "invalid": bool_consts(bad, dev),
+            "16-wave": bool_consts(synth.adversarial_wave_history(
+                WAVE["n_waves"], width=WAVE["width"], span=WAVE["span"],
+                seed=WAVE["seed"]), dev)}
+
+
+def chunk_variants(defines) -> dict:
+    """`csrc/wgl_chunk.cu` built once for each define (a form switched
+    off), every nvcc started together, each library named after the
+    default's (so an edited source rebuilds it) and bound as `_native`
+    binds the default: {define: binding}."""
+    import ctypes
+
+    from jepsen_tpu_torch.ops import _native
+
+    src = _native.CSRC / "wgl_chunk.cu"
+    base = _native._lib_path(src)
+    _, _, n_ptrs, n_ints = _native._lib("wgl_chunk")
+    running = {}
+    for d in defines:
+        lib = base.with_name(f"{base.stem}-{d.split('=')[0].lower()}.so")
+        proc = None if lib.exists() else subprocess.Popen(
+            [_native._nvcc(), *_native.ARCH_FLAGS, *_native.NVCC_FLAGS,
+             f"-D{d}", "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[d] = (lib, proc)
+    out = {}
+    for d, (lib, proc) in running.items():
+        if proc is not None:
+            _, err = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -D{d} wgl_chunk.cu: {err}")
+        so = ctypes.CDLL(str(lib))
+        fn = so.wgl_chunk
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        es = so.wgl_chunk_error_string
+        es.argtypes, es.restype = [ctypes.c_int], ctypes.c_char_p
+        out[d] = (fn, es, n_ptrs, n_ints)
+    return out
+
+
+def chunk_form_turns(dev, encs) -> dict:
+    """Each of `wgl_chunk`'s switchable forms (CHUNK_FORMS) against the
+    default build on the same inputs, in turns default / off / off /
+    default, each turn the median of 3 launches from the search's start
+    (CUDA events), every launch's carry identical to the default's:
+    {(label, BOOL_CHECKS row): [ms of each turn]}."""
+    from jepsen_tpu_torch.ops import _native, wgl, wgl_bool
+
+    variants = chunk_variants([d for d, _ in CHUNK_FORMS.values()])
+    default = _native._lib("wgl_chunk")
+    out = {}
+    for label, (define, rows) in CHUNK_FORMS.items():
+        for i in rows:
+            name, K, H, B, rounds = BOOL_CHECKS[i]
+            enc, consts = encs[name]
+            fb = bool_first_bucket(enc)
+            K, H, B = K or fb["K"], H or fb["H"], B or fb["B"]
+            rounds = rounds or fb["chunk"]
+            init_fn, chunk_k = wgl._compiled_search(*bool_shape(
+                enc, K, H, B, rounds, fb["probes"]))
+            start = init_fn(0, device=dev)
+            want, turns = None, []
+            for off in (False, True, True, False):
+                times = []
+                _native._LIBS["wgl_chunk"] = variants[define] if off \
+                    else default
+                try:
+                    for _ in range(3):
+                        c = tuple(t.clone() for t in start)
+                        torch.cuda.synchronize()
+                        e0, e1 = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                        e0.record()
+                        chunk_k(consts, c)
+                        e1.record()
+                        torch.cuda.synchronize()
+                        times.append(e0.elapsed_time(e1))
+                        if want is None:
+                            want = c
+                        elif not same_carry(c, want):
+                            raise AssertionError(
+                                f"wgl_chunk with {define}: the carry "
+                                f"differs from the default build's on "
+                                f"{name} K {K}")
+                finally:
+                    _native._LIBS["wgl_chunk"] = default
+                turns.append(float(np.median(times)))
+            n = max(int(want[wgl_bool.STATS][1]), 1)
+            print(f"wgl_chunk forms in turns, {name} K {K} H {H} B {B}, "
+                  f"{n} rounds: default / {label} / {label} / default "
+                  f"{' / '.join(f'{x:.4f}' for x in turns)} ms = "
+                  f"{' / '.join(f'{x * 1e3 / n:.2f}' for x in turns)} "
+                  f"us/round; carries identical", flush=True)
+            out[label, i] = turns
+            del start, want
+    return out
+
+
+def bool_chunk_phases(dev, step_us: float) -> dict:
     """The bool-window chunk (`wgl_chunk`) on the card: held against its
     plain version (`wgl_bool.chunk_ref`) bit for bit on every carry leaf
     at BOOL_CHECKS, each from the search's start (the first two are the
@@ -2130,29 +2389,7 @@ def bool_chunk_phases(dev) -> dict:
     the kernels line."""
     from jepsen_tpu_torch import occupancy, synth
     from jepsen_tpu_torch.models import cas_register
-    from jepsen_tpu_torch.ops import encode, wgl, wgl_bool, wgl_ref
-
-    def consts_of(hist):
-        enc = encode.encode(cas_register(), hist)
-        return enc, wgl_bool.consts_from_numpy(
-            enc.inv, enc.ret, enc.opcode, enc.sufminret, enc.inv_info,
-            enc.opcode_info, enc.table, enc.n_ok, enc.n_info, 200_000_000,
-            device=dev)
-
-    def first_bucket(enc):
-        """derive_plan's first bucket, at the bool kernel's widths (the
-        encoding's window and info slots, padded to 32)."""
-        p = wgl.derive_plan(window_raw=enc.window_raw,
-                            ic_pad=len(enc.inv_info), n=enc.n_ok,
-                            n_info=enc.n_info, accel=True)
-        return {"K": p["K"], "H": p["H"], "B": p["B"], "chunk": p["chunk"],
-                "probes": p["probes"], "W": enc.window,
-                "ic": len(enc.inv_info)}
-
-    def shape(enc, K, H, B, chunk, probes=4):
-        S, O = enc.table.shape
-        return (len(enc.inv), len(enc.inv_info), enc.window, S, O, K, H, B,
-                chunk, probes)
+    from jepsen_tpu_torch.ops import wgl, wgl_bool, wgl_ref
 
     h = synth.cas_register_history(HEADLINE["n_ops"],
                                    n_procs=HEADLINE["n_procs"],
@@ -2162,21 +2399,17 @@ def bool_chunk_phases(dev) -> dict:
                                      n_procs=INVALID["n_procs"],
                                      seed=INVALID["seed"],
                                      lie_p=INVALID["lie_p"])
-    encs = {"headline": consts_of(h), "invalid": consts_of(bad),
-            "16-wave": consts_of(synth.adversarial_wave_history(
-                WAVE["n_waves"], width=WAVE["width"], span=WAVE["span"],
-                seed=WAVE["seed"]))}
-    hbm = card_peak("hbm_bytes_per_s")
+    encs = bool_encs(dev)
     err = 0
     row = None
     for name, K, H, B, rounds in BOOL_CHECKS:
         enc, consts = encs[name]
-        fb = first_bucket(enc)
+        fb = bool_first_bucket(enc)
         K, H, B = K or fb["K"], H or fb["H"], B or fb["B"]
         rounds = rounds or fb["chunk"]
         W, ic = enc.window, len(enc.inv_info)
-        init_fn, chunk_k = wgl._compiled_search(*shape(enc, K, H, B, rounds,
-                                                        fb["probes"]))
+        init_fn, chunk_k = wgl._compiled_search(*bool_shape(
+            enc, K, H, B, rounds, fb["probes"]))
         start = init_fn(0, device=dev)
         carry = tuple(t.clone() for t in start)
         ref = tuple(t.clone() for t in start)
@@ -2223,7 +2456,9 @@ def bool_chunk_phases(dev) -> dict:
               f"{plain_ms:.1f} ms; bound {nbytes} bytes "
               f"({tally['const_bytes']} of consts reached, {stats[0]} rows "
               f"read, {tally['probed']} probed, {stats[4]} new) = "
-              f"{bound:.6f} ms", flush=True)
+              f"{bound:.6f} ms; chain floor {stats[1]} rounds x "
+              f"{step_us:.4f} us = {stats[1] * step_us / 1e3:.4f} ms",
+              flush=True)
         if H < 1 << 12 and not (flags[1] and used == H):
             raise AssertionError(f"wgl_chunk full-table check: overflow "
                                  f"{flags[1]}, table {used}/{H}")
@@ -2232,25 +2467,20 @@ def bool_chunk_phases(dev) -> dict:
                        bound_by=by)
         del start, carry, ref
 
+    chunk_form_turns(dev, encs)
+
     # ---- driven to a verdict through _compiled_search ---------------------
-    def drive_bool(name, hist, enc, consts, max_chunks=64):
-        fb = first_bucket(enc)
-        init_fn, chunk_fn = wgl._compiled_search(*shape(
-            enc, fb["K"], fb["H"], fb["B"], fb["chunk"], fb["probes"]))
+    def main_bool(name, enc, consts):
         torch.cuda.synchronize()
         with Timed() as t:
             zero_counts()
             t0 = time.monotonic()
-            carry = init_fn(0, device=dev)
-            for chunks in range(1, max_chunks + 1):
-                chunk_fn(consts, carry)
-                flags = carry[wgl_bool.FLAGS].tolist()
-                if flags[0] or int(carry[wgl_bool.FR_CNT]) == 0:
-                    break
+            fb, carry, chunks = drive_bool(enc, consts, dev)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             counts = read_counts()
         stats = carry[wgl_bool.STATS].tolist()
+        flags = carry[wgl_bool.FLAGS].tolist()
         verdict = (True if flags[0] else "unknown"
                    if flags[1] or int(carry[wgl_bool.FR_CNT]) else False)
         k_ms = sum(t.ms("wgl_chunk"))
@@ -2258,14 +2488,16 @@ def bool_chunk_phases(dev) -> dict:
               f"derive_plan's first bucket {json.dumps(fb)}: verdict "
               f"{verdict}, {stats[5]} rounds, {stats[0]} configs, {chunks} "
               f"chunks, kernel {k_ms:.3f} ms = "
-              f"{k_ms * 1e3 / max(stats[5], 1):.2f} us/round, wall "
-              f"{wall:.4f} s, launches {counts}", flush=True)
+              f"{k_ms * 1e3 / max(stats[5], 1):.2f} us/round (chain floor "
+              f"{stats[5]} rounds x {step_us:.4f} us = "
+              f"{stats[5] * step_us / 1e3:.3f} ms), wall {wall:.4f} s, "
+              f"launches {counts}", flush=True)
         if counts["wgl_chunk"] != chunks:
             raise AssertionError(f"{name}: {counts} for {chunks} chunks")
         return verdict, counts
 
     enc, consts = encs["headline"]
-    verdict, counts = drive_bool("headline", h, enc, consts)
+    verdict, counts = main_bool("headline", enc, consts)
     ref = wgl.check(cas_register(), h, device=dev)
     print(f"  the wgl32 search of the same history: verdict "
           f"{ref['valid?']}, {ref['util']['rounds']} rounds, "
@@ -2274,7 +2506,7 @@ def bool_chunk_phases(dev) -> dict:
     if verdict is not True or ref["valid?"] is not True:
         raise AssertionError(f"bool-window headline: {verdict}")
     benc, bconsts = encs["invalid"]
-    bverdict, _ = drive_bool("invalid narrow history", bad, benc, bconsts)
+    bverdict, _ = main_bool("invalid narrow history", benc, bconsts)
     want = wgl_ref.check(cas_register(), bad, time_limit=30)["valid?"]
     print(f"  host oracle: {want}", flush=True)
     if bverdict != want or want is not False:
@@ -2309,7 +2541,7 @@ def preflight_phases(dev) -> None:
               f"{measured} B, ratio {predicted / max(measured, 1):.4f}",
               flush=True)
     short = [r for r in Peaks.rows if r[3] > r[2] or r[1] == "infeasible"]
-    if short or len(Peaks.rows) < 8:
+    if short or len(Peaks.rows) < 11:
         raise AssertionError(f"preflight under-billed or rejected: {short} "
                              f"({len(Peaks.rows)} shapes)")
 
@@ -2375,14 +2607,17 @@ def preflight_phases(dev) -> None:
 
 
 def paths_main(root: str) -> int:
-    """`--paths ROOT`: the main paths this slice's kernels serve, driven
-    through the package under ROOT (this checkout's, or an older one's
-    unpacked beside it, to time the two in turns in one call): the
+    """`--paths ROOT`: the main paths the redesigned kernels serve,
+    driven through the package under ROOT (this checkout's, or an older
+    one's unpacked beside it, to time the two in turns in one call): the
     headline through `checker.linearizable(algorithm="cuda-wgl")`, the
     16-wave's search (`ops.wgl.check`, without the oracle's diagnostics
-    of the False verdict) and the mesh fan-out over 2 shards of the card.
-    Prints one JSON line of verdicts, walls and kernel times (CUDA events
-    around each launch)."""
+    of the False verdict), the mesh fan-out over 2 shards of the card,
+    the headline through the bool-window chunk (`_compiled_search` at
+    derive_plan's first bucket, µs a round) and the forced trim of the
+    Elle append 3k and 10k histories (`cycle_backend="trim"`, µs a
+    peel). Prints one JSON line of verdicts, walls and kernel times
+    (CUDA events around each launch)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -2392,8 +2627,9 @@ def paths_main(root: str) -> int:
     if root_p not in Path(jepsen_tpu_torch.__file__).resolve().parents:
         raise AssertionError(f"jepsen_tpu_torch not from {root_p}")
     from jepsen_tpu_torch import checker, independent, synth
+    from jepsen_tpu_torch.elle import append
     from jepsen_tpu_torch.models import cas_register
-    from jepsen_tpu_torch.ops import _native, wgl
+    from jepsen_tpu_torch.ops import _native, wgl, wgl_bool
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2437,6 +2673,29 @@ def paths_main(root: str) -> int:
         cas_register(), devices=[dev] * MESH_SHARDS).check({}, fan, {}),
               "wgl32_chunk_batched")
     out["mesh fan-out"].update(valid=res["valid?"])
+
+    # these two paths run once untimed first: a kernel's first launch in
+    # a process loads its module (lazy loading), milliseconds that are
+    # not the kernel's
+    enc, consts = bool_consts(h, dev)
+    drive_bool(enc, consts, dev)
+    _, carry, _ = run("bool-window headline",
+                      lambda: drive_bool(enc, consts, dev), "wgl_chunk")
+    stats = carry[wgl_bool.STATS].tolist()
+    kms = out["bool-window headline"]["kernel_ms"]
+    out["bool-window headline"].update(
+        valid=bool(carry[wgl_bool.FLAGS].tolist()[0]), rounds=stats[5],
+        us_per_round=kms * 1e3 / max(stats[5], 1))
+    for name, params in (("trim append 3k", ELLE_3K),
+                         ("trim append 10k", ELLE_10K)):
+        hist = synth.list_append_history(**params)
+        append.check(hist, additional_graphs=RT, cycle_backend="trim")
+        res = run(name, lambda: append.check(
+            hist, additional_graphs=RT, cycle_backend="trim"), "elle_trim")
+        peels = res["cycle-util"]["iters_run"]
+        out[name].update(valid=res["valid?"], engine=res.get("cycle-engine"),
+                         peels=peels, us_per_peel=out[name]["kernel_ms"]
+                         * 1e3 / peels)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -2911,8 +3170,9 @@ def run_phases(dev, host10) -> int:
         raise AssertionError(f"fifo queue: {res}")
 
     fanout = fanout_phases(dev)
-    elle = elle_phases(dev, host10)
-    bool_entry = bool_chunk_phases(dev)
+    step_us = barrier_step_us(dev)
+    elle = elle_phases(dev, host10, step_us)
+    bool_entry = bool_chunk_phases(dev, step_us)
     preflight_phases(dev)
 
     print("card:", card_line())

@@ -674,10 +674,25 @@ def plan_elle(*, n_txns: int, edges: Optional[int] = None,
                   occupancy.elle_closure_bytes(kernel, S=n_sub,
                                                n_pad=n_pad, e=e, q=rw))
     else:
-        # trim: padded neighbor gathers, O((E + N) x S)
+        # trim: the padded neighbor lists, then the wrapper's outputs
+        # and scratch (the transposed lists: one entry an edge end, at
+        # most 2 e masked slots)
         n_pad_t = elle_tpu._round_up(elle_tpu._bucket(max(n, 2)), 128)
-        d_est = elle_tpu._bucket(max(4, (2 * e) // max(n, 1)))
-        hbm = int(3 * n_pad_t * d_est * n_sub * 4)
+        if accel:
+            # on the card, the lists at the largest degree bucket a graph
+            # of e edges can need and the trim takes (past
+            # TRIM_MAX_DEGREE they go to the closures): the gate runs
+            # before the build, and the mean degree 2 e / n says nothing
+            # of the largest (wr 3k: mean 8, out-degree bucket 64)
+            d = min(elle_tpu.TRIM_MAX_DEGREE, elle_tpu._bucket(max(4, e)))
+            inputs = occupancy.trim_input_bytes(n_pad_t, d, d, n_sub)
+        else:
+            # on the CPU (the plain trim_ref) the reference's estimate,
+            # padded neighbor gathers at the mean degree
+            d = elle_tpu._bucket(max(4, (2 * e) // max(n, 1)))
+            inputs = int(3 * n_pad_t * d * n_sub * 4)
+        hbm = inputs + occupancy.trim_alloc_bytes(n_pad_t, 2 * e, n_sub,
+                                                  d_max=d)
     if hbm > budget:
         if backend == "auto":
             # auto still holds the host engine: degrade, not reject

@@ -831,6 +831,26 @@ def trim_ref(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc,
     return live, counts, i
 
 
+# the process segments `csrc/elle_trim.cu` keeps in shared memory (its
+# kSmemProcs); past them its segment buffers live in the scratch
+TRIM_SMEM_PROCS = 4096
+
+
+def trim_scratch_words(n_pad: int, slots: int, S: int, p_pad: int,
+                       use_proc: bool) -> int:
+    """int32 words of the trim kernel's scratch (`csrc/elle_trim.cu`):
+    [ticket, bodies per subset] padded to an even count, then per subset
+    the sort keys (n_pad uint64), the ends of the transposed lists (2
+    n_pad), the two row orders (2 n_pad), the lists' uint16 entries (one
+    a masked slot: `slots`, the slots of both lists masked in any
+    subset, in an even count of words) and, with the process chains on
+    past TRIM_SMEM_PROCS segments, the two segment buffers (4 p_pad)."""
+    per = 6 * n_pad + (slots + 3) // 4 * 2
+    if use_proc and p_pad > TRIM_SMEM_PROCS:
+        per += 4 * p_pad
+    return (S + 2) // 2 * 2 + S * per
+
+
 def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
          live0, *, p_pad: int, use_rt: bool, use_proc: bool,
          counts_rows: int = TRIM_COUNTS_ROWS):
@@ -860,7 +880,12 @@ def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
         if t.device != dev or not t.is_contiguous():
             raise ValueError("elle trim: tensors must be contiguous on "
                              f"{dev}")
-    if n_pad > PACKED_MAX_N or p_pad < 1 or counts_rows < 1:
+    if max(d_in, d_out) > TRIM_MAX_DEGREE:
+        # the kernel packs a node's in- and out-counts in 16 bits each
+        raise ValueError(f"elle trim: degree buckets {d_in}, {d_out} past "
+                         f"{TRIM_MAX_DEGREE}")
+    if n_pad > PACKED_MAX_N or n_pad < 128 or n_pad & (n_pad - 1) or \
+            p_pad < 1 or counts_rows < 1:
         raise ValueError(f"elle trim: n_pad={n_pad} p_pad={p_pad} "
                          f"counts_rows={counts_rows} out of range")
     _check_range("elle trim", in_neigh, n_pad)
@@ -871,12 +896,17 @@ def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
         counts = torch.empty((counts_rows, S), dtype=torch.int32,
                              device=dev)
         bodies = torch.empty((), dtype=torch.int32, device=dev)
-        # [ticket, bodies per subset] then the segment min/max arrays
-        scratch = torch.zeros(1 + S + 2 * S * p_pad, dtype=torch.int32,
-                              device=dev)
+        # the transposes hold one entry a masked slot
+        slots = int(in_mask.any(dim=2).sum()) + int(
+            out_mask.any(dim=2).sum())
+        # [ticket, bodies per subset] zeroed; the rest the kernel writes
+        scratch = torch.empty(trim_scratch_words(n_pad, slots, S, p_pad,
+                                                 use_proc),
+                              dtype=torch.int32, device=dev)
+        scratch[:1 + S].zero_()
         _launch("elle_trim", args + (live, counts, bodies, scratch),
                 (n_pad, d_in, d_out, S, p_pad, int(use_rt), int(use_proc),
-                 counts_rows), dev)
+                 counts_rows, slots), dev)
         _count(trim)
     return live, counts, int(bodies)
 

@@ -16,7 +16,8 @@ from what a run's plain version tallied:
     `batched_chunk_bytes`, `wgl_bool_chunk_bytes`), a dense, packed or
     sharded closure squaring (`dense_square_cost`, `packed_square_cost`,
     `sharded_square_cost`; the packed ones' tensor-core work from their
-    tile flags, `bitmm_steps`), the trim (`trim_bytes`, `trim_work`);
+    tile flags, `bitmm_steps`), the trim (`trim_bytes`, `trim_work`,
+    `trim_input_bytes`, `trim_alloc_bytes`);
   * the card's peaks (`PEAKS`, keyed by `torch.cuda.get_device_name`)
     and `bound_ms`, which turns bytes and operations into a least time.
 
@@ -278,6 +279,30 @@ def trim_bytes(arrays, n_pad: int, S: int) -> int:
     """The trim's inputs read once and its outputs (the live planes, 64
     count rows per subset, the body count) written once."""
     return sum(a.nbytes for a in arrays) + n_pad * S + 64 * S * 4 + 4
+
+
+def trim_input_bytes(n_pad: int, d_in: int, d_out: int, S: int) -> int:
+    """The trim's inputs on the card (`elle.tpu.trim_inputs`): both
+    padded neighbor lists (int32) with their per-subset masks (bool),
+    the four event arrays and the initial live planes."""
+    return sum(alloc_bytes(b) for b in (
+        4 * n_pad * d_in, n_pad * d_in * S, 4 * n_pad * d_out,
+        n_pad * d_out * S, *(4 * n_pad,) * 4, n_pad * S))
+
+
+def trim_alloc_bytes(n_pad: int, slots: int, S: int, p_pad: int = 8,
+                     use_proc: bool = False, d_max: int = 0) -> int:
+    """What the trim wrapper allocates on the card: the live planes, the
+    64 count rows, the body count, the kernel's scratch
+    (`elle.tpu.trim_scratch_words`: the transposed lists of `slots`
+    masked slots) and, while it counts those slots, a bool a slot of
+    the longer list (degree bucket `d_max`)."""
+    from .elle import tpu as etpu
+
+    return sum(alloc_bytes(b) for b in (
+        n_pad * S, etpu.TRIM_COUNTS_ROWS * S * 4, 4,
+        4 * etpu.trim_scratch_words(n_pad, slots, S, p_pad, use_proc),
+        n_pad * d_max))
 
 
 def trim_work(t: dict, device) -> int:

@@ -108,7 +108,10 @@ KERNELS = {
     "elle_packed_labels": ("elle_packed", 5, 3),
     # the tensor cores' rate probe (variant, iterations, blocks)
     "elle_bitmm_rate": ("elle_packed", 1, 3),
-    "elle_trim": ("elle_trim", 13, 8),
+    # the trim's ints end with the masked slots its scratch has room for
+    "elle_trim": ("elle_trim", 13, 9),
+    # one block barrier-and-reduce step, timed (iterations)
+    "elle_trim_step_probe": ("elle_trim", 1, 1),
     # the mesh scheduler's lane reset and batched frontier migration
     "wgl_lane_reset": ("wgl_lanes", 9, 8),
     "wgl_frontier_migrate": ("wgl_lanes", 2, 4),

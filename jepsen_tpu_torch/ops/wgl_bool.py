@@ -63,7 +63,8 @@ INF = np.int32(2**31 - 1)
 BOOL_LEAVES = (FR_WIN, FR_INFO, BK_WIN, BK_INFO, FLAGS)
 
 # the kernel's limits: the window and info words one thread streams
-# through its hashes, the successor rows one CTA sorts, the probe loop
+# through its hashes, the successor rows one CTA expands (and the most
+# explorers it sorts), the probe loop
 MAX_W = 1024
 MAX_IC = 256
 MAX_ROWS = 1 << 20
@@ -200,6 +201,8 @@ def _round_ref(consts, carry, sc: dict, *, K, W, ic, H, B, probes):
     sig = [_fnv(words, _FNV_SEEDS[0]) | 1, _fnv(words, _FNV_SEEDS[1]),
            _fnv(words, _FNV_SEEDS[2])]
     sig = [torch.where(explore, s, _M32) for s in sig]
+    if sc.get("on_keys") is not None:
+        sc["on_keys"](sig, explore)
     perm = torch.arange(R, device=dev)
     for key in reversed(sig):
         perm = perm[torch.sort(key[perm], stable=True).indices]
@@ -279,7 +282,8 @@ def _round_ref(consts, carry, sc: dict, *, K, W, ic, H, B, probes):
 
 
 def chunk_ref(consts, carry, *, K: int, W: int, ic: int, H: int, B: int,
-              chunk: int, probes: int, tally: dict | None = None) -> tuple:
+              chunk: int, probes: int, tally: dict | None = None,
+              on_keys=None) -> tuple:
     """Plain PyTorch chunk: up to `chunk` rounds, stopping when a
     linearization is found, the frontier is empty, or `max_cfg`
     configs were explored. Updates `carry` in place; returns it. A
@@ -288,7 +292,9 @@ def chunk_ref(consts, carry, *, K: int, W: int, ic: int, H: int, B: int,
     the bytes of the const entries the live parents had to read (inv,
     ret and opcode of their open window slots, their suffix tail, the
     transitions of their candidates, the info slots they considered),
-    each entry once."""
+    each entry once. `on_keys(sig, explore)`, when given, sees each
+    round's sort keys before the sort: the three signature words by row
+    (all ones where the row does not explore) and the explore flags."""
     (fr_base, fr_win, fr_info, fr_mst, fr_cnt_t, bk_base, bk_win, bk_info,
      bk_mst, bk_cnt_t, table, flags_t, stats_t) = carry
     max_cfg = int(consts[9])
@@ -296,7 +302,8 @@ def chunk_ref(consts, carry, *, K: int, W: int, ic: int, H: int, B: int,
     sc = {"fr_cnt": int(fr_cnt_t), "bk_cnt": int(bk_cnt_t), "probed": 0,
           "flags": [bool(x) for x in flags_t.tolist()],
           "stats": [int(x) for x in stats_t.tolist()],
-          "bk": (bk_base, bk_win, bk_info, bk_mst, table)}
+          "bk": (bk_base, bk_win, bk_info, bk_mst, table),
+          "on_keys": on_keys}
     if tally is not None:
         dev = fr_base.device
         sc["reach"] = {k: torch.zeros(n, dtype=torch.bool, device=dev)
@@ -332,20 +339,33 @@ def chunk_ref(consts, carry, *, K: int, W: int, ic: int, H: int, B: int,
 # ---------------------------------------------------------------------------
 
 def sort_rows(K: int, W: int, ic: int) -> int:
-    """R_pad: the successor rows a round sorts, padded to a power of
-    two."""
+    """R_pad: a round's successor rows padded to a power of two, the
+    most explorers a round can sort."""
     R = K * (W + ic)
     return 1 << max(0, (R - 1).bit_length())
 
 
-def scratch_words(K: int, W: int, ic: int) -> int:
-    """int32 words of kernel scratch: two packed frontiers of K rows of
-    [base, W/32 window words, ic/32 info words, mst], the per-parent
-    min-ret, per row an explore flag, per sorted position a probe state
-    and a slot, and the sort's (s0, s1, s2, row) keys."""
-    R = K * (W + ic)
+def scratch_layout(K: int, W: int, ic: int) -> dict:
+    """The kernel's device scratch, {region: (offset, words)} in int32
+    words, in the order `csrc/wgl_chunk.cu` lays it out: the explorers'
+    sort keys (s0, s1, s2, row) for R_pad rows (first, so 16-byte
+    aligned), the probe state and the claimed slot by sorted position,
+    the two packed frontiers of K rows of [base, W/32 window words,
+    ic/32 info words, mst], and the per-parent min-ret. The kernel uses a
+    region where its copy in shared memory does not fit."""
+    rp = sort_rows(K, W, ic)
     cw = 2 + W // 32 + ic // 32
-    return 2 * K * cw + K + 3 * R + 4 * sort_rows(K, W, ic)
+    out, off = {}, 0
+    for name, words in (("keys", 4 * rp), ("state", rp), ("slot", rp),
+                        ("cur", K * cw), ("nxt", K * cw), ("minret", K)):
+        out[name] = (off, words)
+        off += words
+    return out
+
+
+def scratch_words(K: int, W: int, ic: int) -> int:
+    """int32 words of kernel scratch (`scratch_layout`)."""
+    return sum(words for _, words in scratch_layout(K, W, ic).values())
 
 
 def check_launch(consts, carry, *, K, W, ic, H, B, chunk, probes) -> None:
@@ -364,7 +384,7 @@ def check_launch(consts, carry, *, K, W, ic, H, B, chunk, probes) -> None:
         raise ValueError(f"bad capacities K={K} B={B} chunk={chunk}")
     if K * (W + ic) > MAX_ROWS:
         raise ValueError(f"K*(W+ic)={K * (W + ic)} successor rows past the "
-                         f"kernel's sort cap {MAX_ROWS}")
+                         f"kernel's row cap {MAX_ROWS}")
     want = {FR_BASE: (K,), FR_WIN: (K, W), FR_INFO: (K, ic), FR_MST: (K,),
             FR_CNT: (), BK_BASE: (B,), BK_WIN: (B, W), BK_INFO: (B, ic),
             BK_MST: (B,), BK_CNT: (), TABLE: (H, 4), FLAGS: (3,),

@@ -726,3 +726,69 @@ def test_elle_bills_the_packed_squaring_scratch():
     plan = tpf.plan_elle_sharded(n_txns=10_000, n_shards=2,
                                  devices=[torch.device("cuda", 0)] * 2)
     assert plan["hbm_bytes"] >= got - sum(occ.alloc_bytes(b) for b in rest)
+
+
+_TRIM_GRAPHS: dict = {}
+
+
+def _trim_graph(kind, n):
+    """The built graph of the chip smoke's Elle histories (seed 7, 5
+    processes, realtime edges), built once."""
+    if (kind, n) not in _TRIM_GRAPHS:
+        from jepsen_tpu_torch import synth as tsynth
+        from jepsen_tpu_torch.elle import build as tbuild
+
+        gen = (tsynth.list_append_history if kind == "append"
+               else tsynth.wr_register_history)
+        h = gen(n, n_procs=5, seed=7)
+        oks = [op for op in h if op.is_ok and op.f in ("txn", None)
+               and op.value]
+        infos = [op for op in h if op.is_info and op.f in ("txn", None)
+                 and op.value]
+        if kind == "append":
+            g = tbuild.build_append(h, oks, infos,
+                                    additional_graphs=("realtime",))
+        else:
+            g = tbuild.build_wr(h, oks, infos, linearizable_keys=True,
+                                additional_graphs=("realtime",))
+        _TRIM_GRAPHS[kind, n] = g.tensors
+    return _TRIM_GRAPHS[kind, n]
+
+
+@pytest.mark.parametrize("kind,n", [("append", 3000), ("wr", 3000),
+                                    ("append", 10000)])
+def test_trim_bill_covers_the_wrappers_allocation(kind, n):
+    """The trim plan's bill holds the trim's inputs on the card and what
+    `elle.tpu.trim` allocates there (outputs, the kernel's scratch, the
+    transposed lists sized by the masked slots, the slot count's
+    transient) at the chip smoke's 3k and 10k shapes, whose largest
+    degree bucket the mean degree does not show (wr 3k: 64), under the
+    gate's estimated edge counts and under the built graph's own, in a
+    plan for the card."""
+    import torch
+
+    from jepsen_tpu_torch.elle import tpu as ttpu
+    from jepsen_tpu_torch.elle.graph import RW
+
+    g = _trim_graph(kind, n)
+    t = ttpu.trim_inputs(g)
+    in_mask, out_mask = t["arrays"][1], t["arrays"][3]
+    slots = int(in_mask.any(2).sum() + out_mask.any(2).sum())
+    S = len(ttpu.SUBSETS)
+    d_max = max(t["d_in"], t["d_out"])
+    scratch = occupancy.trim_alloc_bytes(t["n_pad"], slots, S, t["p_pad"],
+                                         t["use_proc"], d_max=d_max)
+    assert scratch >= 4 * ttpu.trim_scratch_words(t["n_pad"], slots, S,
+                                                  t["p_pad"], t["use_proc"])
+    inputs = occupancy.trim_input_bytes(t["n_pad"], t["d_in"], t["d_out"], S)
+    assert inputs >= sum(a.nbytes for a in t["arrays"])
+    alloc = inputs + scratch
+    edges = np.asarray(g.edges)
+    n_nodes = int(np.asarray(g.nodes).shape[0])
+    for kw in ({}, {"edges": len(edges),
+                    "rw_edges": int((edges[:, 2] == RW).sum())}):
+        rep = tpf.plan_elle(n_txns=n_nodes, backend="trim",
+                            devices=[torch.device("cuda", 0)], **kw)
+        (node,) = rep["plan"]
+        assert node["kernel"] == "trim" and node["n_pad"] >= t["n_pad"]
+        assert node["hbm_bytes"] >= alloc, (kw, node["hbm_bytes"], alloc)

@@ -182,6 +182,138 @@ def test_check_launch_takes_a_plain_shape():
     assert wgl_bool.sort_rows(2, 32, 32) == 128
 
 
+# --- the kernel's explorer order -------------------------------------------
+
+_ONES = 0xFFFFFFFF
+
+
+def kernel_order(sig, explore):
+    """The order `csrc/wgl_chunk.cu` gives a round's explorers: the rows
+    that explore with a signature other than all ones, by (s0, s1, s2,
+    r); then, if an all-ones explorer comes before every other row that
+    is not in that list, that one. Returns (rows by sorted position, the
+    kernel's adjacent-duplicate flags, its duplicate count)."""
+    s0, s1, s2 = (np.asarray(x, np.int64) for x in sig)
+    ex = np.asarray(explore, bool)
+    ones = ex & (s0 == _ONES) & (s1 == _ONES) & (s2 == _ONES)
+    reg = ex & ~ones
+    rows = np.flatnonzero(reg)
+    rows = rows[np.lexsort((rows, s2[rows], s1[rows], s0[rows]))]
+    others, ones_rows = np.flatnonzero(~reg), np.flatnonzero(ones)
+    tail = len(ones_rows) > 0 and ones_rows[0] == others[0]
+    listed = np.concatenate([rows, ones_rows[:1] if tail else []]).astype(
+        np.int64)
+    key = np.stack([s0[listed], s1[listed], s2[listed]], 1)
+    same = np.zeros(len(listed), bool)
+    same[1:] = (key[1:] == key[:-1]).all(1)
+    return listed, same, int(same.sum()) + len(ones_rows) - int(tail)
+
+
+def full_sort(sig, explore):
+    """The reference's order: every row, stably by (s0, s1, s2) (as
+    `chunk_ref`'s three stable sorts); its adjacent duplicates among the
+    explorers and the unique explorers."""
+    s0, s1, s2 = (np.asarray(x, np.int64) for x in sig)
+    ex = np.asarray(explore, bool)
+    perm = np.lexsort((s2, s1, s0))
+    key = np.stack([s0[perm], s1[perm], s2[perm]], 1)
+    samep = np.zeros(len(perm), bool)
+    samep[1:] = (key[1:] == key[:-1]).all(1)
+    return perm, ex[perm] & ~samep, int((ex[perm] & samep).sum())
+
+
+def assert_ranks_agree(sig, explore):
+    listed, same, dup = kernel_order(sig, explore)
+    perm, uniq, ref_dup = full_sort(sig, explore)
+    n = len(listed)
+    # an explorer's rank in the list is its position in the full sort
+    np.testing.assert_array_equal(perm[:n], listed)
+    np.testing.assert_array_equal(uniq[:n], ~same)
+    assert not uniq[n:].any()   # every explorer past the list is a dup
+    assert dup == ref_dup
+    return n
+
+
+def _round_keys(name, chunks):
+    _, K, H, B, chunk, max_cfg = CASES[name]
+    enc = _encoded(name)
+    consts = wgl_bool.consts_from_numpy(*_arrays(enc), enc.n_ok, enc.n_info,
+                                        max_cfg, device="cpu")
+    carry = wgl_bool.init_carry(K, enc.window, len(enc.inv_info), H, B, 0,
+                                "cpu")
+    seen = []
+    for _ in range(chunks):
+        wgl_bool.chunk_ref(consts, carry, K=K, W=enc.window,
+                           ic=len(enc.inv_info), H=H, B=B, chunk=chunk,
+                           probes=PROBES,
+                           on_keys=lambda sig, ex: seen.append(
+                               ([x.numpy().copy() for x in sig],
+                                ex.numpy().copy())))
+    return seen
+
+
+@pytest.mark.parametrize("name", ["cas-crashes", "wave-w64"])
+def test_explorer_rank_is_the_full_sort_position(name):
+    rounds = _round_keys(name, 3)
+    assert rounds
+    explorers = 0
+    for sig, ex in rounds:
+        explorers += assert_ranks_agree(sig, ex)
+        # the same round with its first explorer's signature all ones:
+        # a tail row of its own, kept only when no other row precedes it
+        first = np.flatnonzero(ex)
+        if len(first):
+            forced = [x.copy() for x in sig]
+            for x in forced:
+                x[first[0]] = _ONES
+            assert_ranks_agree(forced, ex)
+    assert explorers > 0
+
+
+@pytest.mark.parametrize("ones_at,plain_at,want_tail", [
+    ([10, 12], [11], True),       # kept, the second a duplicate
+    ([0], [], True),              # the first row
+    ([5, 6], [], True),           # every row before it explores
+    ([12], [3], False),           # a row before it does not explore
+    ([], [], False)])
+def test_all_ones_explorers_sort_into_the_tail(ones_at, plain_at, want_tail):
+    rng = np.random.default_rng(5)
+    R = 64
+    sig = [rng.integers(0, 2**32 - 1, R, dtype=np.int64) | (i == 0)
+           for i in range(3)]
+    sig[0][7] = sig[0][8]         # one real duplicate pair
+    sig[1][7], sig[2][7] = sig[1][8], sig[2][8]
+    ex = np.ones(R, bool)
+    ex[plain_at] = False
+    ex[40:] = False
+    for x in sig:
+        x[~ex] = _ONES
+        x[ones_at] = _ONES
+    listed, _, _ = kernel_order(sig, ex)
+    assert (len(ones_at) > 0 and listed[-1] == ones_at[0]) == want_tail
+    assert_ranks_agree(sig, ex)
+
+
+@pytest.mark.parametrize("K,W,ic", [(2, 32, 32), (64, 32, 32),
+                                    (256, 96, 32), (16, 1024, 256)])
+def test_scratch_words_cover_the_layout(K, W, ic):
+    """`scratch_layout` is `csrc/wgl_chunk.cu`'s: the keys first (16-byte
+    aligned) with room for every row of the round, the probe state and
+    slot by sorted position, both packed frontiers and the min-rets,
+    back to back; `scratch_words` is its end."""
+    lay = wgl_bool.scratch_layout(K, W, ic)
+    R, rp = K * (W + ic), wgl_bool.sort_rows(K, W, ic)
+    cw = 2 + W // 32 + ic // 32
+    want = {"keys": 4 * rp, "state": rp, "slot": rp, "cur": K * cw,
+            "nxt": K * cw, "minret": K}
+    off = 0
+    for name, words in want.items():
+        assert lay[name] == (off, words), name
+        off += words
+    assert off == wgl_bool.scratch_words(K, W, ic)
+    assert rp >= R and rp & (rp - 1) == 0 and rp < 2 * R
+
+
 # --- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -213,3 +345,76 @@ def test_kernel_matches_plain_chunk_on_card(cuda_device, name):
                 or int(carry[wgl_bool.STATS][0]) >= max_cfg:
             break
     assert wgl_bool.chunk.launches == before + step + 1
+
+
+# name -> (history, K, H, B, rounds a chunk, chunks, max_cfg, the explorer
+# counts a round must reach: (least, most) over the rounds run)
+CARD_CASES = {
+    # the headline's bucket: at most 32 explorers, one warp a round
+    "narrow-k2": (lambda: jsynth.cas_register_history(
+        2000, n_procs=5, seed=42, crash_p=0.002), 2, 1 << 16, 1 << 12, 512,
+        2, 10**8, (0, 32)),
+    # the 16-wave: sorts in shared memory, then in device scratch
+    "wave-k256": (lambda: jsynth.adversarial_wave_history(
+        16, width=14, span=5, seed=7), 256, 1 << 20, 1 << 16, 16, 1, 10**8,
+        (33, 4096)),
+    "wave-k2048": (lambda: jsynth.adversarial_wave_history(
+        16, width=14, span=5, seed=7), 2048, 1 << 22, 1 << 18, 8, 2, 10**8,
+        (4097, 1 << 20)),
+    # a roomy table: the claims of the block's rounds settle in probe 0
+    "roomy-k64": (lambda: jsynth.adversarial_wave_history(
+        16, width=14, span=5, seed=7), 64, 1 << 20, 1 << 16, 16, 1, 10**8,
+        (33, 4096)),
+    # tiny tables: claims of one round collide on a slot, then fill it
+    # (one warp, then the block's shared map)
+    "tiny-h16": (lambda: jsynth.cas_register_history(
+        200, n_procs=5, seed=4, crash_p=0.05), 16, 16, 4096, 16, 4, 3000,
+        (0, 64)),
+    "tiny-h64-k64": (lambda: jsynth.adversarial_wave_history(
+        16, width=14, span=5, seed=7), 64, 64, 4096, 16, 2, 10**8,
+        (33, 4096)),
+    # a full 1024-slot table and a 256-row backlog that overflows
+    "full-table": (lambda: jsynth.adversarial_wave_history(
+        16, width=14, span=5, seed=7), 64, 1024, 256, 24, 1, 10**8,
+        (0, 4096)),
+}
+_CARD_ENC: dict = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_kernel_paths_match_plain_chunk_on_card(cuda_device, name):
+    """Each of the kernel's paths (one warp at <= 32 explorers, the
+    shared sort, the device-scratch sort and probe, tiny and full
+    tables, an overflowing backlog) against `chunk_ref` on the card, bit
+    for bit on every carry leaf after every chunk; the plain chunk's
+    keys show the round sizes each case was built to reach."""
+    hist, K, H, B, rounds, chunks, max_cfg, (lo, hi) = CARD_CASES[name]
+    if name not in _CARD_ENC:
+        _CARD_ENC[name] = jencode.encode(cas_register(), hist())
+    enc = _CARD_ENC[name]
+    W, ic = enc.window, len(enc.inv_info)
+    consts = wgl_bool.consts_from_numpy(*_arrays(enc), enc.n_ok, enc.n_info,
+                                        max_cfg, device=cuda_device)
+    carry = wgl_bool.init_carry(K, W, ic, H, B, 0, cuda_device)
+    n_ex = []
+    for step in range(chunks):
+        ref = tuple(t.clone() for t in carry)
+        wgl_bool.chunk_ref(consts, ref, K=K, W=W, ic=ic, H=H, B=B,
+                           chunk=rounds, probes=PROBES,
+                           on_keys=lambda sig, ex: n_ex.append(len(
+                               kernel_order([x.cpu().numpy() for x in sig],
+                                            ex.cpu().numpy())[0])))
+        before = wgl_bool.chunk.launches
+        wgl_bool.chunk(consts, carry, K=K, W=W, ic=ic, H=H, B=B,
+                       chunk=rounds, probes=PROBES)
+        torch.cuda.synchronize()
+        assert wgl_bool.chunk.launches == before + 1
+        for i, (a, b) in enumerate(zip(carry, ref)):
+            assert torch.equal(a, b), (name, step, i)
+        if bool(carry[wgl_bool.FLAGS][0]) or int(carry[wgl_bool.FR_CNT]) == 0:
+            break
+    assert n_ex and lo <= max(n_ex) <= hi, (name, max(n_ex))
+    if name == "full-table":
+        flags = carry[wgl_bool.FLAGS].tolist()
+        assert flags[1] and int((carry[wgl_bool.TABLE][:, 0] != 0).sum()) == H

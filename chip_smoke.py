@@ -13,8 +13,11 @@ after:
 
   * narrow windows: the 10k-op cas-register headline through
     `checker.linearizable(..., algorithm="cuda-wgl")` (`wgl32_chunk`),
-    then the first check of a fresh process, and an invalid history
-    against the host oracle;
+    the same check with the telemetry and device planes (`metrics`,
+    `watchdog`, `devices`) off and on in turns, its measured peak beside
+    its `Peaks` row, one profiled check (a `torch.profiler` trace under
+    build/), then the first check of a fresh process, and an invalid
+    history against the host oracle;
   * wide windows: the 16-wave adversarial history (window 71, ~2.08M
     configs to exhaust) through the same checker (`wgln_chunk`).
 
@@ -52,9 +55,11 @@ device list `[card] * n`; each shard launches on its own stream):
 
   * the mesh lane scheduler's kernels against their plain versions
     (and a mesh poll's shared form against global scratch, in turns):
-    `wgl_lane_reset` on a 100-lane narrow carry and an 8-lane wide one,
-    `wgl_frontier_migrate` up and down one ladder step (timed as a call
-    and device-only, beside `F.pad` or a slice);
+    `wgl_lane_reset` on a 100-lane narrow carry, the mesh fan-out's
+    4-lane shard and an 8-lane wide one (device-only, as a call and its
+    host path, beside `torch.where`), `wgl_frontier_migrate` up and
+    down one ladder step (timed as a call and device-only, beside
+    `F.pad` or a slice);
   * the 100 x 2k history, valid and invalid, through
     `independent.cuda_checker(cas_register(), devices=[card] * 2)`: the
     mesh scheduler, 2 shards x 4 lane slots refilled from the shards'
@@ -126,10 +131,12 @@ or a directory without the package.
 
     python3 chip_smoke.py --paths DIR
 
-drives only the headline, the 16-wave's search, the mesh fan-out, the
-bool-window headline and the forced trim at Elle append 3k and 10k
-through the package under DIR (this checkout, or an older one unpacked
-beside it with `git archive`) and prints one JSON line of verdicts,
+drives only the lane reset at its three shapes (device-only and as a
+call), the headline, the 16-wave's search, the mesh fan-out (its reset
+launches summed), the bool-window headline and the forced trim at Elle
+append 3k and 10k through the package under DIR (this checkout, or an
+older one unpacked beside it with `git archive`) and prints one JSON
+line of verdicts,
 walls, kernel times, µs a round and µs a peel: run it on both trees in
 turns in one call to time a change against its parent.
 """
@@ -192,6 +199,14 @@ BOOL_CHECKS = (("headline", None, None, None, None),
 # 16-wave's K 256 and the full table)
 CHUNK_FORMS = {"one-warp round off": ("WGL_CHUNK_WARP_ROUND=0", (0,)),
                "claim map off": ("WGL_CHUNK_CLAIM_MAP=0", (2, 3, 4))}
+# the lane reset's shapes (name, lanes, K, C, H, B, model-state column,
+# the ladder step the migration takes from K): 100 narrow lanes at the
+# vmap fan-out's capacities, the mesh fan-out's own 4-lane shard at its
+# first bucket, 8 wide lanes at the waves' capacities
+RESET_SHAPES = (("narrow 100 lanes", 100, 64, 4, 1 << 19, 1 << 14, 2, 16),
+                ("narrow shard of the mesh fan-out", 4, 16, 4, 1 << 19,
+                 1 << 14, 2, 64),
+                ("wide 8 lanes", 8, 1024, 5, 1 << 19, 1 << 16, 3, 512))
 SMALL_BUDGET = 1_000_000      # bytes: a budget every main path blows
 RT = ("realtime",)
 REPO = Path(__file__).resolve().parent
@@ -398,6 +413,21 @@ def device_ms(fn, reps: int = 20, spin_cycles: int = 4_000_000) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def host_ms(fn, reps: int = 300, spin_cycles: int = 200_000_000) -> float:
+    """Host milliseconds a call of `fn` takes while the card is busy (a
+    spin kernel, `torch.cuda._sleep`, ahead of the calls, so that each
+    launch only queues): the call's host path, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin_cycles)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
 
 
 def kernel_split(fn, reps: int = 5) -> dict:
@@ -1531,36 +1561,21 @@ def random_carry(lanes, K, C, H, B, dev, seed):
     return carry
 
 
-def lane_kernel_checks(dev, plan, wplan) -> list:
-    """`wgl_lane_reset` and `wgl_frontier_migrate` against their plain
-    versions on the card: the reset on a 100-lane narrow carry at the
-    fan-out's capacities (H 2^19), on the mesh fan-out's own 4-lane shard
-    carry, and on an 8-lane wide carry at the waves' capacities, each
-    with a random lane mask; the migration up and down one ladder step
-    of each. Times from CUDA events; the library call is `torch.where`
-    over the carry leaves for the reset and `torch.nn.functional.pad` or
-    a slice for the migration. The migration, its plain version and its
-    library call are timed two ways: as calls (events around the Python
-    call on an idle card, so the host path is inside) and device-only
-    (`device_ms`); the kernels line takes the device-only times. Returns
-    the two kernels' entries of the kernels line (launches filled in by
-    the caller)."""
-    from jepsen_tpu_torch.ops import adapt, wgl32, wgln
-    from jepsen_tpu_torch.parallel import mesh
+def reset_turns(dev, mesh) -> list:
+    """`wgl_lane_reset` (the wrapper `mesh.reset_lanes` of the package
+    imported) at RESET_SHAPES, each carry random words made on the card
+    from a seed and each mask drawn from one generator: held bit for bit
+    against `reset_lanes_ref` on the same inputs, then the kernel, its
+    plain version and `torch.where` over the leaves timed in three turns
+    (kernel, library, plain; back; forth again), each turn the median of
+    30 calls device-only (`device_ms`) and as a call (`event_ms`, the
+    host path inside). Returns one row a shape: {name, lanes, masked,
+    err, bytes, bound_ms, device: {which: ms}, call: {which: ms}}."""
+    from jepsen_tpu_torch.ops import wgl32
 
     rng = np.random.default_rng(11)
-    out = {}
-    # (name, lanes, K, C, H, B, model-state column, the ladder step
-    # the migration takes from K)
-    cases = [("narrow 100 lanes", 100, plan["K"], wgl32.row_words(plan["ic"]),
-              plan["H"], plan["B"], 2, 16),
-             ("narrow shard of the mesh fan-out", 4, 16,
-              wgl32.row_words(plan["ic"]), plan["H"], plan["B"], 2, 64),
-             ("wide 8 lanes", 8, wplan["K"],
-              wgln.row_words(wplan["L"], wplan["ic"]), wplan["H"],
-              wplan["B"], 1 + wplan["L"], wplan["K"] // 2)]
-    r_err = 0
-    for name, lanes, K, C, H, B, mst, k_step in cases:
+    rows = []
+    for name, lanes, K, C, H, B, mst, _ in RESET_SHAPES:
         carry = random_carry(lanes, K, C, H, B, dev, seed=lanes)
         mask = rng.random(lanes) < 0.5
         mask[0] = True
@@ -1569,29 +1584,127 @@ def lane_kernel_checks(dev, plan, wplan) -> list:
         mesh.reset_lanes_ref(ref, mask, mst_col=mst)
         torch.cuda.synchronize()
         err = max_abs_err(carry, ref)
-        r_err = max(r_err, err)
         if err or not same_carry(carry, ref):
             raise AssertionError(f"wgl_lane_reset differs from "
                                  f"reset_lanes_ref on {name} ({err})")
-        k_ms = event_ms(lambda: mesh.reset_lanes(carry, mask, mst_col=mst))
-        p_ms = event_ms(lambda: mesh.reset_lanes_ref(ref, mask,
-                                                     mst_col=mst))
         init = wgl32.init_carry_batch(lanes, K, C, H, B, 0, dev)
         m_t = torch.as_tensor(mask, device=dev)
-        l_ms = event_ms(lambda: [torch.where(
-            m_t.view((-1,) + (1,) * (c.dim() - 1)), i, c)
-            for c, i in zip(carry, init)])
+        fns = {"kernel": lambda: mesh.reset_lanes(carry, mask, mst_col=mst),
+               "plain": lambda: mesh.reset_lanes_ref(ref, mask, mst_col=mst),
+               "library": lambda: [torch.where(
+                   m_t.view((-1,) + (1,) * (c.dim() - 1)), i, c)
+                   for c, i in zip(carry, init)]}
+        call, devt = {}, {}
+        for order in (("kernel", "library", "plain"),
+                      ("plain", "library", "kernel"),
+                      ("kernel", "library", "plain")):
+            for which in order:
+                call.setdefault(which, []).append(
+                    event_ms(fns[which], reps=30))
+                devt.setdefault(which, []).append(
+                    device_ms(fns[which], reps=30))
+        call = {k: float(np.mean(v)) for k, v in call.items()}
+        devt = {k: float(np.mean(v)) for k, v in devt.items()}
+        host = host_ms(fns["kernel"])
+        if lanes <= 64 and hasattr(mesh, "_reset_block"):
+            ride_turns(mesh, carry, ref, mask, mst, name)
         lane_bytes = sum(t[0].numel() * 4 for t in carry)
         nbytes = int(mask.sum()) * lane_bytes + lanes * 4
         bound = nbytes / card_peak("hbm_bytes_per_s") * 1e3
         print(f"  wgl_lane_reset == reset_lanes_ref on {name} (K {K}, C "
               f"{C}, H {H}, B {B}; {int(mask.sum())} of {lanes} lanes "
-              f"masked): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"torch.where over the leaves {l_ms:.4f} ms; bound "
-              f"{nbytes} bytes written = {bound:.6f} ms", flush=True)
-        out.setdefault("reset", dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                     bound_ms=bound))
-        del init, ref
+              f"masked): device-only kernel {devt['kernel']:.4f} ms, plain "
+              f"{devt['plain']:.4f} ms, torch.where over the leaves "
+              f"{devt['library']:.4f} ms; as calls kernel "
+              f"{call['kernel']:.4f} ms, plain {call['plain']:.4f} ms, "
+              f"torch.where {call['library']:.4f} ms (medians of 30, three "
+              f"turns averaged); the kernel's host path {host:.4f} ms a "
+              f"call; bound {nbytes} bytes written = {bound:.6f} ms",
+              flush=True)
+        rows.append(dict(name=name, lanes=lanes, masked=int(mask.sum()),
+                         err=err, bytes=nbytes, bound_ms=bound, device=devt,
+                         call=call, host_ms=host))
+        del init, ref, carry
+    return rows
+
+
+def ride_turns(mesh, carry, ref, mask, mst: int, name: str) -> None:
+    """The alternative to the reset's mask by value, timed against it in
+    turns (by value, ride, ride, by value; device-only and as a call,
+    medians of 30): the masked lanes' indices ride the refilled shard's
+    consts re-send, one more host-to-card copy beside it, and the kernel
+    reads them on the card (its path for carries of more than 64
+    lanes). Both held bit for bit against `reset_lanes_ref` first."""
+    from jepsen_tpu_torch.ops import _native
+    from jepsen_tpu_torch.util import raw_stream
+
+    def ride():
+        sel = torch.from_numpy(np.flatnonzero(mask).astype(np.int32)).to(
+            carry[0].device)
+        blk = mesh._reset_block(carry).copy()
+        blk[8], blk[9], blk[10] = sel.data_ptr(), 0, len(sel)
+        blk[16], blk[17] = mst, 0
+        _native.launch("wgl_lane_reset", (blk.ctypes.data,), (),
+                       raw_stream(carry[0].get_device()))
+
+    ride()
+    torch.cuda.synchronize()
+    if not same_carry(carry, ref):
+        raise AssertionError(f"wgl_lane_reset by index differs from "
+                             f"reset_lanes_ref on {name}")
+    fns = {"by value": lambda: mesh.reset_lanes(carry, mask, mst_col=mst),
+           "ride": ride}
+    call, devt = {}, {}
+    for which in ("by value", "ride", "ride", "by value"):
+        call.setdefault(which, []).append(event_ms(fns[which], reps=30))
+        devt.setdefault(which, []).append(device_ms(fns[which], reps=30))
+    print(f"  wgl_lane_reset on {name}, in turns by value / ride / ride / "
+          f"by value: device-only {[round(x, 4) for x in devt['by value']]}"
+          f" / {[round(x, 4) for x in devt['ride']]} ms, as calls "
+          f"{[round(x, 4) for x in call['by value']]} / "
+          f"{[round(x, 4) for x in call['ride']]} ms (the ride: the masked "
+          f"lanes' indices copied to the card beside the consts re-send)",
+          flush=True)
+
+
+def lane_kernel_checks(dev, plan, wplan) -> list:
+    """`wgl_lane_reset` and `wgl_frontier_migrate` against their plain
+    versions on the card: the reset at RESET_SHAPES (`reset_turns`: a
+    100-lane narrow carry at the fan-out's capacities, H 2^19, the mesh
+    fan-out's own 4-lane shard carry, and an 8-lane wide carry at the
+    waves' capacities, each with a random lane mask); the migration up
+    and down one ladder step of each. Times from CUDA events; the
+    library call is `torch.where` over the carry leaves for the reset
+    and `torch.nn.functional.pad` or a slice for the migration. Both
+    kernels, their plain versions and their library calls are timed two
+    ways: as calls (events around the Python call on an idle card, so
+    the host path is inside) and device-only (`device_ms`); the kernels
+    line takes the device-only times. Returns the two kernels' entries
+    of the kernels line (launches filled in by the caller)."""
+    from jepsen_tpu_torch.ops import adapt, wgl32, wgln
+    from jepsen_tpu_torch.parallel import mesh
+
+    want = {"narrow 100 lanes": (plan["K"], wgl32.row_words(plan["ic"]),
+                                 plan["H"], plan["B"], 2),
+            "narrow shard of the mesh fan-out": (
+                16, wgl32.row_words(plan["ic"]), plan["H"], plan["B"], 2),
+            "wide 8 lanes": (wplan["K"],
+                             wgln.row_words(wplan["L"], wplan["ic"]),
+                             wplan["H"], wplan["B"], 1 + wplan["L"])}
+    for name, _, K, C, H, B, mst, _ in RESET_SHAPES:
+        if want[name] != (K, C, H, B, mst):
+            raise AssertionError(f"RESET_SHAPES {name}: {(K, C, H, B, mst)}"
+                                 f" != the main path's {want[name]}")
+    rows = reset_turns(dev, mesh)
+    r_err = max(r["err"] for r in rows)
+    # the kernels line: the main path's shape, the mesh fan-out's shard
+    shard = rows[1]
+    out = {"reset": dict(ms=shard["device"]["kernel"],
+                         plain_ms=shard["device"]["plain"],
+                         library_ms=shard["device"]["library"],
+                         bound_ms=shard["bound_ms"])}
+    for name, lanes, K, C, H, B, mst, k_step in RESET_SHAPES:
+        carry = random_carry(lanes, K, C, H, B, dev, seed=lanes)
         # the migration one ladder step up, then down
         lo, hi = sorted((K, k_step))
         m_err = 0
@@ -2051,7 +2164,8 @@ def fanout_phases(dev) -> list:
           f"{counts}; chunk polls (ms) "
           f"{[round(x, 2) for x in k_ms['wgl32_chunk_batched'][:12]]}..., "
           f"resets (ms) {[round(x, 4) for x in k_ms['wgl_lane_reset'][:6]]}"
-          f"..., configs {sum(r['configs_explored'] for r in per_key.values())}"
+          f"..., all {len(k_ms['wgl_lane_reset'])} resets summed "
+          f"{sum(k_ms['wgl_lane_reset']):.4f} ms, configs {sum(r['configs_explored'] for r in per_key.values())}"
           f"; peak memory {peak} B; summed polls "
           f"{sum(k_ms['wgl32_chunk_batched']):.3f} ms; forms "
           f"{t.form_counts('wgl32_chunk_batched')}", flush=True)
@@ -2518,6 +2632,103 @@ def bool_chunk_phases(dev, step_us: float) -> dict:
             "library_ms": None}
 
 
+def planes_phases(dev, lin, hist, peak: int, bill: int) -> None:
+    """The telemetry and device planes on the headline (the package's
+    `metrics`, `watchdog` and `devices`): the check through `lin` with
+    every plane off and with a metrics registry, a watchdog and a device
+    monitor on, in turns (off, on, on, off, four times), every verdict
+    True.
+    Off, the result carries none of the planes' keys and nothing is
+    recorded (the zero-cost contract); on, it carries `telemetry`,
+    `occupancy` and `hbm`, whose `peak_measured` (the allocator's peak
+    inside the search's window) is printed beside the headline's Peaks
+    row (`peak`, over the check's baseline) and its gate's bill; no
+    stall is declared. Then one `ops/wgl.check` with `profile_dir` under
+    build/, whose Chrome trace must hold the chunk kernel's launches."""
+    import contextlib
+    import shutil
+
+    from jepsen_tpu_torch import devices, metrics, watchdog
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import wgl
+
+    keys = ("telemetry", "occupancy", "hbm")
+    for mod in (metrics, watchdog, devices):
+        if mod.get_default().enabled:
+            raise AssertionError(f"{mod.__name__}: a plane is on by default")
+    walls: dict = {"off": [], "on": []}
+    on = None
+    for which in ("off", "on", "on", "off") * 4:
+        with contextlib.ExitStack() as planes:
+            reg = wd = None
+            if which == "on":
+                reg = planes.enter_context(metrics.use(metrics.Registry()))
+                wd = watchdog.Watchdog()
+                planes.callback(wd.stop)
+                planes.enter_context(watchdog.use(wd))
+                planes.enter_context(devices.use(devices.DeviceMonitor()))
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            res = lin.check({}, hist, {})
+            torch.cuda.synchronize()
+            walls[which].append(time.monotonic() - t0)
+        if res["valid?"] is not True:
+            raise AssertionError(f"headline, planes {which}: {res['valid?']}")
+        if which == "off" and any(k in res for k in keys):
+            raise AssertionError(f"headline, planes off: {sorted(res)}")
+        if which == "on":
+            hbm = res.get("hbm") or {}
+            if (not all(k in res for k in keys) or wd.stalls
+                    or not hbm.get("stats_available")
+                    or not hbm.get("peak_measured")
+                    or hbm["peak_measured"] < peak
+                    or not reg.series("wgl_chunks").points):
+                raise AssertionError(f"headline, planes on: {sorted(res)}, "
+                                     f"hbm {hbm}, stalls {wd.stalls}")
+            on = (res, reg)
+    off_s, on_s = (float(np.median(walls[k])) for k in ("off", "on"))
+    res, reg = on
+    occ = res["occupancy"]
+    print(f"planes on the headline ({card_line()}), in turns off / on / on "
+          f"/ off, four times: walls off {[round(x, 4) for x in walls['off']]} s, "
+          f"on {[round(x, 4) for x in walls['on']]} s; medians off "
+          f"{off_s:.4f} s, on {on_s:.4f} s, the planes' cost "
+          f"{on_s - off_s:+.4f} s ({(on_s / off_s - 1) * 100:+.1f}%); on: "
+          f"{len(res['telemetry']['chunks'])} chunk points, "
+          f"{occ['rounds_seen']} of {occ['rounds_total']} rounds drained "
+          f"({occ['rounds_dropped']} dropped past the ring), "
+          f"{len(reg.instruments())} instruments, roofline "
+          f"{occ['roofline']['bytes_per_round']:.1f} B a round "
+          f"(achieved {occ['roofline']['achieved_frac']}); hbm "
+          f"peak_measured {res['hbm']['peak_measured']} B (the allocator's "
+          f"peak in the search's window, bytes in use), Peaks row "
+          f"{peak} B over the check's baseline, preflight's bill {bill} B",
+          flush=True)
+    pdir = REPO / "build" / "torch_kernels" / "profile"
+    shutil.rmtree(pdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    res = wgl.check(cas_register(), hist, device=dev, profile_dir=str(pdir))
+    wall = time.monotonic() - t0
+    traces = sorted(pdir.glob("*.json"))
+    if res["valid?"] is not True or res.get("profile_dir") != str(pdir) \
+            or len(traces) != 1:
+        raise AssertionError(f"profiled headline: {res.get('profile_dir')}, "
+                             f"{traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and "chunk" in str(e.get("name"))]
+    if not kern:
+        raise AssertionError(f"profiled headline: no chunk kernel among "
+                             f"{len(events)} trace events")
+    print(f"profiled headline: wall {wall:.4f} s (search {res['wall_s']} "
+          f"s), trace {traces[0].relative_to(REPO)} "
+          f"({traces[0].stat().st_size} B, {len(events)} events, "
+          f"{len(kern)} chunk kernels, "
+          f"{sum(e.get('dur', 0) for e in kern) / 1e3:.3f} ms of them)",
+          flush=True)
+
+
 def preflight_phases(dev) -> None:
     """The admission plane on the card: every main path's predicted bytes
     against its measured peak (`Peaks`), a rejection under a small
@@ -2610,6 +2821,7 @@ def paths_main(root: str) -> int:
     """`--paths ROOT`: the main paths the redesigned kernels serve,
     driven through the package under ROOT (this checkout's, or an older
     one's unpacked beside it, to time the two in turns in one call): the
+    lane reset at RESET_SHAPES (`reset_turns`), the
     headline through `checker.linearizable(algorithm="cuda-wgl")`, the
     16-wave's search (`ops.wgl.check`, without the oracle's diagnostics
     of the False verdict), the mesh fan-out over 2 shards of the card,
@@ -2630,6 +2842,7 @@ def paths_main(root: str) -> int:
     from jepsen_tpu_torch.elle import append
     from jepsen_tpu_torch.models import cas_register
     from jepsen_tpu_torch.ops import _native, wgl, wgl_bool
+    from jepsen_tpu_torch.parallel import mesh
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2640,7 +2853,7 @@ def paths_main(root: str) -> int:
         _native.constant(name)
     out = {"root": str(root_p), "card": card_line()}
 
-    def run(what, fn, kernel):
+    def run(what, fn, kernel, also=()):
         torch.cuda.synchronize()
         with Timed() as t:
             t0 = time.monotonic()
@@ -2651,7 +2864,14 @@ def paths_main(root: str) -> int:
         out[what] = {"wall_s": wall, "kernel_ms": sum(ms),
                      "launches": len(ms),
                      "launch_ms": [round(x, 4) for x in ms[:8]]}
+        for k in also:
+            ms = t.ms(k)
+            out[what][k] = {"kernel_ms": sum(ms), "launches": len(ms)}
         return res
+
+    # the lane reset at its three shapes, then in its main path (the
+    # mesh fan-out below: every reset launch's events summed)
+    out["reset"] = reset_turns(dev, mesh)
 
     h = synth.cas_register_history(HEADLINE["n_ops"],
                                    n_procs=HEADLINE["n_procs"],
@@ -2671,7 +2891,7 @@ def paths_main(root: str) -> int:
     fan = multikey_history(**FANOUT)
     res = run("mesh fan-out", lambda: independent.cuda_checker(
         cas_register(), devices=[dev] * MESH_SHARDS).check({}, fan, {}),
-              "wgl32_chunk_batched")
+              "wgl32_chunk_batched", also=("wgl_lane_reset",))
     out["mesh fan-out"].update(valid=res["valid?"])
 
     # these two paths run once untimed first: a kernel's first launch in
@@ -3097,6 +3317,7 @@ def run_phases(dev, host10) -> int:
         raise AssertionError(f"headline: {res['valid?']}, {launches} "
                              "launches")
     Peaks.add("headline", gates, peak)
+    planes_phases(dev, lin, h, peak, Peaks.rows[-1][2])
 
     # the first check of a fresh process (the kernel library is built)
     cold = json.loads(subprocess.run(

@@ -105,9 +105,9 @@ def device_memory_budget(platform: Optional[str] = None,
 
       1. JEPSEN_TPU_PREFLIGHT_MEM_BUDGET (the operator always wins);
       2. on the card: the smallest total memory of the CUDA devices
-         planned for (`torch.cuda.mem_get_info(dev)[1]`; every card when
-         none is named). The total, not the free bytes, so that a
-         verdict does not drift with the caching allocator;
+         planned for (`devices.bytes_limit`; every card when none is
+         named). The total, not the free bytes, so that a verdict does
+         not drift with the caching allocator;
       3. `HOST_PLAN_BUDGET_BYTES` for a plan on the CPU.
     """
     env = os.environ.get("JEPSEN_TPU_PREFLIGHT_MEM_BUDGET")
@@ -121,7 +121,8 @@ def device_memory_budget(platform: Optional[str] = None,
                 cards = ([d for d in devs if d.type == "cuda"] if devs
                          else [torch.device("cuda", i) for i in
                                range(torch.cuda.device_count())])
-                totals = [torch.cuda.mem_get_info(d)[1] for d in cards]
+                from .. import devices as devices_mod
+                totals = [devices_mod.bytes_limit(d) for d in cards]
                 if totals:
                     return int(min(totals))
         except Exception:  # noqa: BLE001 — the budget must never raise
@@ -790,10 +791,12 @@ def compact(report: dict) -> dict:
 
 
 def _register(report: dict, where: str) -> None:
-    """Record one verdict in the in-process recent window (`snapshot`).
-    The reference also appends a `preflight` metrics point and, for a
-    top-level analysis, a kind="preflight" ledger record: those wait for
-    the port's telemetry plane."""
+    """Record one verdict in the in-process recent window (`snapshot`)
+    and, with metrics on, as a `preflight` series point and a
+    `preflight_checks_total{where, verdict}` count (the reference's
+    names). The reference also banks a top-level analysis as a
+    kind="preflight" record of its run ledger, which the port does not
+    have yet."""
     entry = {"where": where, "kind": report.get("kind"),
              "verdict": report.get("verdict"),
              "engine": report.get("engine"),
@@ -803,6 +806,14 @@ def _register(report: dict, where: str) -> None:
     with _LOCK:
         _RECENT.append(entry)
         _COUNTS[entry["verdict"]] = _COUNTS.get(entry["verdict"], 0) + 1
+    from .. import metrics as metrics_mod
+    mx = metrics_mod.get_default()
+    if mx.enabled:
+        mx.series("preflight", "admission-control preflight verdicts"
+                  ).append(dict(entry))
+        mx.counter("preflight_checks_total",
+                   "preflight admission decisions").inc(
+            where=where, verdict=str(entry["verdict"]))
 
 
 def snapshot() -> dict:
@@ -1071,17 +1082,21 @@ CLI_CONFIGS = ("headline", "elle_append_8k", "dense_100k")
 
 def _peak_of(fn, device) -> tuple:
     """(result, the bytes the call allocated at its peak on `device`
-    over what was allocated before it; None on the CPU)."""
+    over what was allocated before it; None on the CPU), through the
+    device monitor's peak window (`devices.reset_peak`,
+    `devices.read_memory_stats`)."""
     import torch
+
+    from .. import devices
 
     if device.type != "cuda":
         return fn(), None
     torch.cuda.synchronize(device)
-    before = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
+    before = devices.reset_peak(device)
     res = fn()
     torch.cuda.synchronize(device)
-    return res, torch.cuda.max_memory_allocated(device) - before
+    return res, devices.read_memory_stats(device)["peak_bytes_in_use"] \
+        - before
 
 
 def _cli_headline(n_ops: int, execute: bool, device=None) -> dict:
@@ -1097,9 +1112,12 @@ def _cli_headline(n_ops: int, execute: bool, device=None) -> dict:
     _register(rep, "cli.headline")
     out = {"report": rep}
     if execute:
+        from .. import metrics as metrics_mod
         from ..ops import wgl
-        res, peak = _peak_of(lambda: wgl.check(model, hist, device=dev),
-                             dev)
+        # a registry of its own: the result's occupancy block carries
+        # the measured bytes a round
+        res, peak = _peak_of(lambda: wgl.check(
+            model, hist, device=dev, metrics=metrics_mod.Registry()), dev)
         out["executed"] = _parity(rep, res, peak)
     return out
 
@@ -1164,11 +1182,11 @@ def _engines_match(rep: dict, res: dict) -> bool:
 def _parity(rep: dict, res: dict, peak_measured: Optional[int] = None
             ) -> dict:
     """Planned against executed for the WGL path: did the check stay
-    inside the planned buckets, on the planned kernel, and how do the
-    plan's bytes compare with what the check allocated at its peak on
-    the card. The per-round byte stream has no measured side yet (the
-    port's results carry no occupancy block until its telemetry plane
-    lands): `bytes_per_round_measured` is None."""
+    inside the planned buckets, on the planned kernel, how far is the
+    measured per-round byte stream (the result's `occupancy.roofline`,
+    present when metrics were on) from the plan's prediction for the
+    bucket it ended on, and how do the plan's bytes compare with what
+    the check allocated at its peak on the card."""
     util = res.get("util") or {}
     adapt = util.get("adapt") or {}
     visited = [b for b in (adapt.get("buckets_visited")
@@ -1179,6 +1197,8 @@ def _parity(rep: dict, res: dict, peak_measured: Optional[int] = None
         if node.get("K") == res.get("K") and node.get("cost"):
             pred = node["cost"].get("bytes_accessed")
     peak_pred = (rep.get("hbm") or {}).get("peak_bytes")
+    measured = ((res.get("occupancy") or {}).get("roofline")
+                or {}).get("bytes_per_round")
     out = {
         "verdict": res.get("valid?"),
         "kernel_match": ("wgl32" if res.get("W", 33) <= 32
@@ -1187,10 +1207,12 @@ def _parity(rep: dict, res: dict, peak_measured: Optional[int] = None
         "buckets_visited": visited,
         "buckets_subset": all(k in planned for k in visited),
         "bytes_per_round_predicted": pred,
-        "bytes_per_round_measured": None,
+        "bytes_per_round_measured": measured,
         "peak_bytes_predicted": peak_pred,
         "peak_bytes_measured": peak_measured,
     }
+    if pred and measured:
+        out["drift_x"] = round(measured / pred, 4)
     if peak_pred and peak_measured:
         out["peak_ratio"] = round(peak_pred / peak_measured, 4)
     return out

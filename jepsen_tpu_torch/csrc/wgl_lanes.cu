@@ -18,10 +18,18 @@
 // stats and ring zero. Other lanes are not touched. What bounds it:
 // the bytes written, H x 16 + B x C x 4 + K x C x 4 + ring_words x 4 +
 // 48 a masked lane (8.4 MB at the fan-out's H 2^19, B 2^14, C 5), over
-// 3.35 TB/s. The design: grid (blocks, lanes), a block of an unmasked
-// lane returns at once; the blocks of a masked lane stride over its
-// slices with 16-byte stores (the memo slice dominates). jnp.where
-// instead reads and writes every lane of every leaf.
+// 3.35 TB/s. The design: the grid is (blocks, masked lanes), so no block
+// is launched only to return: block row y resets the y-th masked lane.
+// A carry of at most 64 lanes passes its mask by value, one 64-bit
+// word (the mesh resets 4-lane shards: no mask buffer, no copy to the
+// card); row y takes the y-th set bit. A wider carry passes the masked
+// lanes' indices in device memory instead. The wrapper hands every
+// argument over in one host block (below). The blocks of a lane are
+// sized so that the whole grid is about one wave of resident blocks
+// (kBlocksPerSM a multiprocessor), capped by the lane's widest slice in
+// 16-byte stores (the memo slice dominates), and stride over its
+// slices with 16-byte stores. jnp.where instead reads and writes every
+// lane of every leaf.
 //
 // wgl_frontier_migrate. dst (lanes, k_new, C) = src (lanes, k_old, C)
 // padded with zero rows or cut to k_new rows. Bound: the rows kept read
@@ -54,16 +62,25 @@ __device__ __forceinline__ void zero_words(int32_t* p, size_t n, size_t t,
   for (size_t i = head + (nv << 2) + t; i < n; i += stride) p[i] = 0;
 }
 
-// grid (blocks per lane, lanes), block kThreads
+// the lane of block row y: the y-th set bit of `mask`, or idx[y]
+__device__ __forceinline__ size_t masked_lane(const int32_t* idx,
+                                              unsigned long long mask,
+                                              unsigned y) {
+  if (idx) return static_cast<size_t>(idx[y]);
+  for (; y; --y) mask &= mask - 1;  // drop the y lowest set bits
+  return static_cast<size_t>(__ffsll(static_cast<long long>(mask)) - 1);
+}
+
+// grid (blocks per lane, masked lanes), block kThreads
 __global__ void __launch_bounds__(kThreads)
 reset_kernel(int32_t* __restrict__ fr, int32_t* __restrict__ fr_cnt,
              int32_t* __restrict__ bk, int32_t* __restrict__ bk_cnt,
              int32_t* __restrict__ table, int32_t* __restrict__ flags,
              int32_t* __restrict__ stats, int32_t* __restrict__ ring,
-             const int32_t* __restrict__ mask, int K, int C, int B, int H,
-             int ring_words, int mst_col, int mstate0) {
-  const size_t lane = blockIdx.y;
-  if (!mask[lane]) return;  // whole block
+             const int32_t* __restrict__ idx, unsigned long long mask,
+             int K, int C, int B, int H, int ring_words, int mst_col,
+             int mstate0) {
+  const size_t lane = masked_lane(idx, mask, blockIdx.y);
   const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
@@ -123,23 +140,60 @@ int blocks_for(size_t work) {
   return static_cast<int>(b < 1 ? 1 : (b > 4096 ? 4096 : b));
 }
 
+// resident kThreads-thread blocks a multiprocessor holds (2048 threads)
+constexpr int kBlocksPerSM = 2048 / kThreads;
+
+// the multiprocessors of the current card, read once a card
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (!counts[dev]) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 132;
+  }
+  return counts[dev];
+}
+
 }  // namespace
 
-extern "C" int wgl_lane_reset(int32_t* fr, int32_t* fr_cnt, int32_t* bk,
-                              int32_t* bk_cnt, int32_t* table,
-                              int32_t* flags, int32_t* stats, int32_t* ring,
-                              const int32_t* mask, int lanes, int K, int C,
-                              int B, int H, int ring_words, int mst_col,
-                              int mstate0, void* stream) {
-  if (lanes < 1 || lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // enough blocks a lane for its largest slice in 16-byte stores
-  size_t widest = static_cast<size_t>(H);  // int4 slots of the table
+// The arguments arrive in one host block of int64 words (one pointer
+// through ctypes in place of twenty conversions, about 7 us of a call's
+// host path; layout parallel/mesh.py::RESET_WORDS): a[0..7] the leaves
+// fr, fr_cnt, bk, bk_cnt, table, flags, stats, ring; a[8] the masked
+// lanes' indices on the card, or 0 when a[9] holds the mask by value (a
+// carry of at most 64 lanes); a[10] the masked count; a[11..15] K, C,
+// B, H, ring words a lane; a[16] the model-state column, a[17] its
+// value. The block is read before the launch returns.
+extern "C" int wgl_lane_reset(const int64_t* a, void* stream) {
+  auto ptr = [a](int i) {
+    return reinterpret_cast<int32_t*>(static_cast<intptr_t>(a[i]));
+  };
+  const int32_t* idx = ptr(8);
+  const unsigned long long mask = static_cast<unsigned long long>(a[9]);
+  const long long n_masked = a[10];
+  const int K = static_cast<int>(a[11]), C = static_cast<int>(a[12]);
+  const int B = static_cast<int>(a[13]), H = static_cast<int>(a[14]);
+  if (n_masked < 0 || n_masked > 65535 ||
+      (!idx && __builtin_popcountll(mask) != n_masked))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_masked == 0) return 0;
+  const int n = static_cast<int>(n_masked);
+  // a lane's widest slice in 16-byte stores: the table's H slots or
+  // the backlog's B x C words
+  size_t widest = static_cast<size_t>(H);
   const size_t bk_v = static_cast<size_t>(B) * C / 4 + 1;
   if (bk_v > widest) widest = bk_v;
-  const dim3 grid(blocks_for(widest), lanes);
+  // about one wave of resident blocks over all masked lanes, no more
+  // blocks a lane than its widest slice fills
+  const int wave = (sm_count() * kBlocksPerSM + n - 1) / n;
+  const int need = blocks_for(widest);
+  const dim3 grid(need < wave ? need : wave, n);
   reset_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fr, fr_cnt, bk, bk_cnt, table, flags, stats, ring, mask, K, C, B, H,
-      ring_words, mst_col, mstate0);
+      ptr(0), ptr(1), ptr(2), ptr(3), ptr(4), ptr(5), ptr(6), ptr(7), idx,
+      mask, K, C, B, H, static_cast<int>(a[15]), static_cast<int>(a[16]),
+      static_cast<int>(a[17]));
   return static_cast<int>(cudaGetLastError());
 }
 

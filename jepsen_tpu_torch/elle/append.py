@@ -32,6 +32,7 @@ Pipeline:
 from __future__ import annotations
 
 import random
+import time as _time
 from typing import Any, Iterable, Optional
 
 from ..history import History
@@ -73,6 +74,7 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     `devices` is the sharded closure's device list (None: every card;
     it may repeat a device). The host backend needs neither."""
     from ..analysis import history_lint
+    t_start = _time.monotonic()
     bad = history_lint.gate(history, where="elle.append",
                             rules=history_lint.ELLE_GATE_RULES)
     if bad is not None:
@@ -118,6 +120,7 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
         gt = bt.tensors
         gt._explain = lambda: _legacy_graph(history, orders, writer,
                                             oks, additional_graphs)
+        _record_build("append", bt)
     except build_mod.BuildUnsupported:
         writer, dup_anoms = _writer_index(oks, infos)
         orders, order_anoms = _version_orders(oks)
@@ -176,7 +179,42 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
         out["cycle-route-reason"] = cycles["route_reason"]
     if silent:
         out["unchecked-anomaly-types"] = sorted(silent)
+    _record_elle("elle.append", out, len(oks), _time.monotonic() - t_start)
     return out
+
+
+def _record_build(checker: str, bt) -> None:
+    """The `elle_build` series (metrics on): one point a tensorized
+    graph build, the reference's fields."""
+    from .. import metrics as _metrics
+    mx = _metrics.get_default()
+    if not mx.enabled:
+        return
+    mx.series("elle_build", "tensorized elle graph construction").append(
+        {"checker": checker, "txns": int(len(bt.tensors.nodes)),
+         "mops": int(bt.micro_ops), "edges": len(bt.tensors),
+         "edge_counts": bt.tensors.counts(),
+         "build_s": round(bt.tensors.build_s, 4), "builder": bt.builder})
+
+
+def _record_elle(name: str, out: dict, op_count: int,
+                 wall_s: float) -> None:
+    """One check's run record, the fields the reference banks as a
+    kind="elle" record of its run ledger (verdict, anomaly types as the
+    cause, ops, cycle engine and kernel, kernel and check seconds). The
+    port has no run ledger yet: with metrics on, the record is a point
+    of the `elle` series."""
+    from .. import metrics as _metrics
+    mx = _metrics.get_default()
+    if not mx.enabled:
+        return
+    util = out.get("cycle-util") or {}
+    mx.series("elle", "per-check Elle run records").append(
+        {"kind": "elle", "name": name, "valid?": out.get("valid?"),
+         "cause": ",".join(out.get("anomaly-types") or []) or None,
+         "op_count": int(op_count), "engine": out.get("cycle-engine"),
+         "kernel": util.get("kernel"), "kernel_s": util.get("kernel_s"),
+         "wall_s": round(wall_s, 4)})
 
 
 def preflight_gate(n_txns: int, backend: str, where: str, device,

@@ -1008,6 +1008,65 @@ def closure_inputs(g, subsets: Sequence[frozenset] = SUBSETS,
             "nodes": nodes, "rw_edges": rw_edges, "edges": len(src)}
 
 
+def _hbm_close(util: dict, dm, dmark, devices) -> None:
+    """Close the window onto the util block: `hbm` the measured block
+    (the explicit stats_unavailable marker on the CPU),
+    `hbm_peak_measured` its peak."""
+    if dmark is None:
+        return
+    block = dm.measured(dmark, where="elle-closure", devices=devices)
+    util["hbm"] = block
+    if block.get("peak_measured") is not None:
+        util["hbm_peak_measured"] = block["peak_measured"]
+
+
+def _watched(fn, devices, **progress):
+    """`fn()` (one closure call on `devices`) in a device-monitor window
+    and under a watchdog source, as the reference has them: the closure
+    has no poll loop to beat from, so the one beat lands before the
+    call, and only a multi-minute silence is a hang. Returns (fn's
+    result, the monitor, the window's token: None when the monitor is
+    off)."""
+    from .. import devices as _devices
+    from .. import watchdog as _watchdog
+    wd = _watchdog.get_default()
+    dm = _devices.get_default()
+    dmark = dm.mark(where="elle-closure", devices=devices) \
+        if dm.enabled else None
+    with wd.watch("elle-closure", device=str(devices[0]),
+                  stall_s=300.0) as hb:
+        wd.beat(hb, **progress)
+        out = fn()
+    return out, dm, dmark
+
+
+def _record_closure(util: dict, edges: int, n: int) -> None:
+    """The `elle_closure` series, `elle_closure_calls_total` and the
+    `elle_closure_seconds` histogram (metrics on), and an `elle` strip on
+    the live occupancy block (status on), under the reference's names;
+    every device closure variant records here."""
+    from .. import fleet as _fleet
+    from .. import metrics as _metrics
+    mx = _metrics.get_default()
+    if mx.enabled:
+        mx.series("elle_closure",
+                  "per-call Elle closure-kernel telemetry").append(
+            {"edges": int(edges), "n": int(n), **util})
+        mx.counter("elle_closure_calls_total",
+                   "batched closure kernel invocations").inc()
+        mx.histogram("elle_closure_seconds",
+                     "closure kernel wall (post-compile)").observe(
+            float(util.get("kernel_s") or 0.0))
+    st = _fleet.get_default()
+    if st.enabled:
+        st.occupancy_poll({"elle": {
+            "kernel": util.get("kernel", "bf16"), "n": int(n),
+            "edges": int(edges), "iters_run": util.get("iters_run"),
+            "kernel_s": util.get("kernel_s"),
+            "reach_density": util.get("reach_density")}},
+            search_id="elle")
+
+
 def _run_closure(g, subsets, rw_type, max_n, device, packed):
     """cycle_queries / cycle_queries_packed: the closure of `g` on
     `device`, its sccs and rw answers, and the occupancy block."""
@@ -1020,9 +1079,14 @@ def _run_closure(g, subsets, rw_type, max_n, device, packed):
     _sync(dev)
     t0 = time.monotonic()
     fn = packed_closure if packed else closure
-    labels, closed, iter_counts, iters_run = fn(*ins, n_pad=n_pad,
-                                                iters=iters)
-    _sync(dev)
+
+    def run():
+        out = fn(*ins, n_pad=n_pad, iters=iters)
+        _sync(dev)
+        return out
+
+    (labels, closed, iter_counts, iters_run), dm, dmark = _watched(
+        run, [dev], edges=int(a["edges"]), n=n, n_pad=n_pad, iters=iters)
     kernel_s = time.monotonic() - t0
     util = _reach_util(iter_counts.cpu().numpy(), iters, iters_run, n_pad)
     util["kernel_s"] = round(kernel_s, 4)
@@ -1036,6 +1100,8 @@ def _run_closure(g, subsets, rw_type, max_n, device, packed):
         flops = 2.0 * n_sub * iters_run * float(n_pad) ** 3
         util["achieved_tflops"] = round(flops / 1e12 / max(kernel_s, 1e-9),
                                         2)
+    _hbm_close(util, dm, dmark, [dev])
+    _record_closure(util, a["edges"], n)
     labels = labels.cpu().numpy()[:, :n]
     closed = closed.cpu().numpy()[:, :len(a["rw_edges"])]
     return {"sccs": _sccs_from_labels(labels, a["nodes"], n, n_sub),
@@ -1100,13 +1166,20 @@ def cycle_queries_sharded(g, subsets: Sequence[frozenset] = SUBSETS,
     blocks = [b.to(dev) for b, dev in
               zip(shard_blocks(torch.from_numpy(r0), n_shards), devs)]
     qs, qd = _tensor(q_src, devs[0]), _tensor(q_dst, devs[0])
-    for dev in set(devs[:n_shards]):
+    cards = list(dict.fromkeys(devs[:n_shards]))
+    for dev in cards:
         _sync(dev)
     t0 = time.monotonic()
-    labels, closed, iter_counts, iters_run = sharded_closure(
-        blocks, qs, qd, n_pad=n_pad, iters=iters)
-    for dev in set(devs[:n_shards]):
-        _sync(dev)
+
+    def run():
+        out = sharded_closure(blocks, qs, qd, n_pad=n_pad, iters=iters)
+        for dev in cards:
+            _sync(dev)
+        return out
+
+    (labels, closed, iter_counts, iters_run), dm, dmark = _watched(
+        run, cards, edges=int(a["edges"]), n=n, n_pad=n_pad, iters=iters,
+        kernel="sharded")
     kernel_s = time.monotonic() - t0
     util = _reach_util(iter_counts.numpy(), iters, iters_run, n_pad)
     gops = 2.0 * n_sub * iters_run * float(n_pad) ** 3 / 32 / 1e9
@@ -1117,6 +1190,8 @@ def cycle_queries_sharded(g, subsets: Sequence[frozenset] = SUBSETS,
             "per_shard_bytes": int(r0.nbytes + 2 * r0.nbytes // n_shards),
             "achieved_gops": round(gops / max(kernel_s, 1e-9), 2),
             "closure_bytes": int(r0.nbytes)}
+    _hbm_close(util, dm, dmark, cards)
+    _record_closure(util, a["edges"], n)
     labels = labels.cpu().numpy()[:, :n]
     closed = closed.cpu().numpy()[:, :len(a["rw_edges"])]
     return {"sccs": _sccs_from_labels(labels, a["nodes"], n, n_sub),
@@ -1292,9 +1367,15 @@ def trim_cycle_search(g, max_n: int = PACKED_MAX_N,
         t["n_pad"], t["d_in"], t["d_out"], t["use_rt"], t["use_proc"])
     _sync(dev)
     t0 = time.monotonic()
-    live, counts, bodies = trim(*ins, p_pad=t["p_pad"], use_rt=use_rt,
-                                use_proc=use_proc)
-    _sync(dev)
+
+    def run():
+        out = trim(*ins, p_pad=t["p_pad"], use_rt=use_rt,
+                   use_proc=use_proc)
+        _sync(dev)
+        return out
+
+    (live, counts, bodies), dm, dmark = _watched(
+        run, [dev], edges=int(t["edges"]), n=n, n_pad=n_pad, kernel="trim")
     kernel_s = time.monotonic() - t0
     bodies = max(1, int(bodies))
     iters_run = 2 * bodies  # two peel rounds per loop body
@@ -1311,6 +1392,8 @@ def trim_cycle_search(g, max_n: int = PACKED_MAX_N,
             "core_sizes": core_sizes,
             "reach_density": round(max(core_sizes) / max(n, 1), 6),
             "jumps": {"rt": use_rt, "proc": use_proc}}
+    _hbm_close(util, dm, dmark, [dev])
+    _record_closure(util, t["edges"], n)
 
     out: dict = {**battery, "engine": "device", "util": util}
     if not any(core_sizes):

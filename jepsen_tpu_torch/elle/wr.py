@@ -28,13 +28,15 @@ intermediate read, internal) don't need version orders at all.
 
 from __future__ import annotations
 
+import time as _time
 from collections import defaultdict
 from typing import Any, Iterable
 
 from ..history import History
 from ..txn import R, W
 from .graph import RW, WR, WW, DepGraph, process_graph, realtime_graph
-from .append import MODEL_VIOLATIONS, AppendGen, preflight_gate
+from .append import (MODEL_VIOLATIONS, AppendGen, _record_build,
+                     _record_elle, preflight_gate)
 
 DEFAULT_ANOMALIES = ("G0", "G1a", "G1b", "G1c", "G-single", "G2",
                      "internal", "cyclic-versions")
@@ -52,6 +54,7 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
     devices as in append.check: "host" | "cuda" | "packed" | "trim" |
     "sharded" | "device" | "auto"."""
     from ..analysis import history_lint
+    t_start = _time.monotonic()
     bad = history_lint.gate(history, where="elle.wr",
                             rules=history_lint.ELLE_GATE_RULES)
     if bad is not None:
@@ -94,6 +97,7 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
         gt = bt.tensors
         gt._explain = lambda: _legacy_graph(history, oks, writer,
                                             orders, additional_graphs)
+        _record_build("wr", bt)
     except build_mod.BuildUnsupported:
         writer = _writer_index(oks + infos)
         orders, cyclic = _version_orders(
@@ -146,6 +150,7 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
         out["cycle-route-reason"] = cycles["route_reason"]
     if silent:
         out["unchecked-anomaly-types"] = sorted(silent)
+    _record_elle("elle.wr", out, len(oks), _time.monotonic() - t_start)
     return out
 
 

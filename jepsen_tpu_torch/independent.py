@@ -129,6 +129,9 @@ class IndependentChecker:
             return bad
         ks = history_keys(history)
         key_idx = {k: i for i, k in enumerate(ks)}
+        status = _fleet.get_default()
+        if status.enabled and ks:
+            status.begin_keys(len(ks))
 
         def check_key(k):
             t0 = _time.monotonic()
@@ -144,6 +147,7 @@ class IndependentChecker:
                             "wall_s": round(_time.monotonic() - t0, 4),
                             "valid?": res.get("valid?"),
                             "op_count": res.get("op_count")}
+            _fleet.record_shard(res["shard"])
             _write_key_artifacts(test, subdir, h, res)
             return k, res
 

@@ -21,18 +21,38 @@ from what a run's plain version tallied:
   * the card's peaks (`PEAKS`, keyed by `torch.cuda.get_device_name`)
     and `bound_ms`, which turns bytes and operations into a least time.
 
-The per-round occupancy drain and its roofline (`drain_chunk`,
-`build_block`, `roofline`, `per_shard_cost`, `safe_device_kind`)
-belong to the telemetry plane and come with their callers.
+and the per-round half of the reference's module, which the telemetry
+plane reads (`ops/wgl.py` when metrics are on, `parallel/mesh.py`):
+
+  * `drain_chunk` turns one packed poll summary's occupancy ring into
+    per-round dicts (the ring rides the summary the search already
+    copies to the host: no extra transfer); `memo_hit_rate` is the one
+    hits / (hits + inserts); `build_block` folds drained rounds into a
+    search's `occupancy` result block;
+  * `roofline` sets the search's measured round time against the least
+    time its bytes take at the card's peak, the bytes from the port's
+    own count of a chunk (`search_bytes`, over `wgl_chunk_bytes`), not
+    the reference's memo-stream model; `safe_device_kind` names the
+    card; `per_shard_cost` scales a cost to one shard of the sharded
+    Elle closure.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .ops.wgl32 import RING_COLS, RING_ROWS, SUMMARY_HEAD
 
 # The tracked frontier-fill target (the reference's ROADMAP item 5).
 TARGET_FILL = 0.8
+
+# Cap on per-round rows copied into a RESULT's occupancy block — the
+# registry series keeps everything the ring surfaced. Overflow is
+# counted in `rounds_truncated`, never silent.
+MAX_RESULT_ROUNDS = 2048
 
 # Published peaks of the cards the port runs on, by
 # `torch.cuda.get_device_name`. NVIDIA H100 80GB HBM3 (SXM), at its 700 W
@@ -55,7 +75,7 @@ DEFAULT_KIND = "NVIDIA H100 80GB HBM3"
 
 # The chunk kernels' packed poll summary (ops/wgl32.py): 11 head words
 # and a 512 x 7 occupancy ring.
-_SUMMARY_WORDS = 11 + 512 * 7
+_SUMMARY_WORDS = SUMMARY_HEAD + RING_ROWS * RING_COLS
 
 
 def peaks(device_kind: Optional[str] = None) -> tuple:
@@ -76,6 +96,191 @@ def bound_ms(*, nbytes: float = 0.0, ops: float = 0.0,
     t_ops = ops / pk[rate]
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# the per-round occupancy drain and the search's roofline
+# ---------------------------------------------------------------------------
+
+def memo_hit_rate(hits, inserts) -> float:
+    """hits / (hits + inserts), guarded — the single definition both
+    the per-chunk telemetry points and the final util block use."""
+    hits, inserts = int(hits), int(inserts)
+    return round(hits / max(hits + inserts, 1), 4)
+
+
+def drain_chunk(summary, rounds_before: int, K: int) -> tuple[list, int]:
+    """Per-round occupancy rows from ONE packed poll summary.
+
+    `summary` is the (SUMMARY_HEAD + RING_ROWS*RING_COLS,) int32 poll
+    vector (already on the host — the drain adds no transfer);
+    `rounds_before` is the cumulative rounds_total at the PREVIOUS
+    poll, which anchors the first row's round span; `K` is the beam
+    capacity fill is normalized by.
+
+    Returns (rows, rounds_dropped): `rows` are dicts with round id,
+    frontier (configs expanded), fill (frontier / (span * K) — span
+    covers the depth-fused accel rounds, where one ring row spans
+    `depth` levels), memo hits/inserts, survivors, post-compaction
+    frontier, backlog and max linearized base; `rounds_dropped`
+    counts rounds past RING_ROWS in this chunk (dropped on device,
+    reported so coverage gaps are visible, never silent)."""
+    s = np.asarray(summary).reshape(-1)
+    if s.shape[0] < SUMMARY_HEAD + RING_COLS:
+        return [], 0  # a ring-less summary (e.g. the legacy kernel)
+    ring = s[SUMMARY_HEAD:SUMMARY_HEAD + RING_ROWS * RING_COLS]
+    ring = ring.reshape(RING_ROWS, RING_COLS)
+    writes = int(s[5])           # stats[1]: round-body calls this chunk
+    rounds_total = int(s[9])     # stats[5]: cumulative rounds
+    rows: list = []
+    prev = int(rounds_before)
+    for r in ring[:min(writes, RING_ROWS)]:
+        rnd = int(r[0])
+        span = max(1, rnd - prev)
+        prev = rnd
+        frontier = int(r[1])
+        rows.append({
+            "round": rnd,
+            "span": span,
+            "frontier": frontier,
+            "fill": round(frontier / max(span * K, 1), 4),
+            "memo_hits": int(r[2]),
+            # memo inserts == compaction survivors by construction
+            # (a successor survives iff its signature inserted), so
+            # ONE field carries both meanings
+            "memo_inserts": int(r[3]),
+            "frontier_after": int(r[4]),
+            "backlog": int(r[5]),
+            "max_base": int(r[6]),
+        })
+    covered = (rows[-1]["round"] - int(rounds_before)) if rows else 0
+    dropped = max(0, (rounds_total - int(rounds_before)) - covered)
+    return rows, dropped
+
+
+def _fill_stats(rounds: Sequence[dict]) -> dict:
+    fills = [r["fill"] for r in rounds if r.get("fill") is not None]
+    if not fills:
+        return {"mean": None, "min": None, "max": None, "last": None}
+    return {"mean": round(float(np.mean(fills)), 4),
+            "min": round(float(np.min(fills)), 4),
+            "max": round(float(np.max(fills)), 4),
+            "last": fills[-1]}
+
+
+def roofline(*, bytes_per_round: float, rounds: int, wall_s: float,
+             device_kind: Optional[str] = None) -> dict:
+    """The search's measured round time against the least time its
+    bytes take at the card's memory rate (`PEAKS`; the H100's row,
+    labeled, for another card or the CPU). `bytes_per_round` is the
+    port's own count (`search_bytes`): a WGL round is bound by the
+    memory trips its bytes make, and the port counts no operations for
+    it, so `flops_per_round` and `arithmetic_intensity` are None.
+    `achieved_frac` = bound / measured round time: latency-bound rounds
+    sit far below 1.0, and that gap is the finding."""
+    pk, chip = peaks(device_kind)
+    peak_bytes = pk["hbm_bytes_per_s"]
+    t_bound = max(float(bytes_per_round) / peak_bytes, 1e-12)
+    round_time = wall_s / max(rounds, 1)
+    return {
+        "source": "port-byte-count",
+        "bound": "memory",
+        "flops_per_round": None,
+        "bytes_per_round": float(bytes_per_round),
+        "arithmetic_intensity": None,
+        "peak_bf16_flops": pk["bf16_flops"],
+        "peak_hbm_bytes_per_s": peak_bytes,
+        "peak_chip": chip,
+        "roofline_round_time_s": t_bound,
+        "measured_round_time_s": round(round_time, 9),
+        "achieved_frac": round(min(1.0, t_bound / max(round_time,
+                                                      1e-12)), 6),
+    }
+
+
+def search_bytes(head, C: int, n_chunks: int) -> int:
+    """Least bytes a whole `wgl32` / `wgln` search moved, from its last
+    poll summary's head (cumulative counts): `wgl_chunk_bytes` with
+    every memo probe counted (hits + inserts) and the consts the
+    parents reached left out (a live search keeps no tally of them, so
+    the count is a lower bound), plus one summary written a chunk."""
+    probed = int(head[7]) + int(head[8])
+    return wgl_chunk_bytes(head, C, {"const_bytes": 0, "probed": probed},
+                           _SUMMARY_WORDS * max(int(n_chunks), 1))
+
+
+def build_block(rounds: Sequence[dict], *, K: int, kernel: str,
+                platform: str, wall_s: float, rounds_total: int,
+                configs_explored: int, memo_hits: int,
+                memo_inserts: int, bytes_total: int,
+                rounds_dropped: int = 0,
+                rounds_seen: Optional[int] = None,
+                device_kind: Optional[str] = None) -> dict:
+    """The per-search `occupancy` result block (doc/OBSERVABILITY.md):
+    drained per-round rows (capped at MAX_RESULT_ROUNDS, overflow
+    counted in `rounds_truncated` — `rounds_seen` is what the drain
+    surfaced in total, when the caller capped before passing), fill
+    statistics, memo dedup, expansion totals, and the roofline of
+    `bytes_total` (`search_bytes`) over the search's rounds. Every count
+    is device-measured; the bytes are the port's count from them."""
+    rounds = list(rounds)
+    kept = rounds[:MAX_RESULT_ROUNDS]
+    seen = len(rounds) if rounds_seen is None else int(rounds_seen)
+    # compaction survivors == memo inserts (see drain_chunk)
+    survivors = sum(r.get("memo_inserts", 0) for r in rounds)
+    return {
+        "schema": 1,
+        "kernel": kernel,
+        "platform": platform,
+        "K": K,
+        "rounds_total": int(rounds_total),
+        "rounds_seen": seen,
+        "rounds_dropped": int(rounds_dropped),
+        "rounds_truncated": max(0, seen - len(kept)),
+        "fill": _fill_stats(rounds),
+        "memo": {"hits": int(memo_hits), "inserts": int(memo_inserts),
+                 "hit_rate": memo_hit_rate(memo_hits, memo_inserts)},
+        "expansion": {
+            "configs_explored": int(configs_explored),
+            "survivors_seen": int(survivors),
+            "expanded_per_round": round(
+                configs_explored / max(rounds_total, 1), 2)},
+        "roofline": roofline(
+            bytes_per_round=bytes_total / max(int(rounds_total), 1),
+            rounds=rounds_total, wall_s=wall_s, device_kind=device_kind),
+        "rounds": kept,
+    }
+
+
+def safe_device_kind() -> Optional[str]:
+    """The current card's name (`torch.cuda.get_device_name`), the key
+    of `PEAKS`, or None when CUDA is not initialised in this process (a
+    CPU search; the roofline then labels the H100's peaks)."""
+    import torch
+
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return None
+    return torch.cuda.get_device_name(torch.cuda.current_device())
+
+
+def per_shard_cost(cost: Optional[dict], n_shards: int
+                   ) -> Optional[dict]:
+    """A whole-kernel per-round cost scaled to ONE shard of the
+    mesh-sharded Elle closure's word-column layout: flops split
+    evenly (each shard squares its own column block), bytes scaled by
+    (1 + 2/n_shards)/3 — the gathered full row set is read once per
+    shard regardless of the split, while the two writable blocks
+    (local r + local accumulator) shrink with it. Used by
+    elle/tpu._squaring_select to sanity-check the analytic per-shard
+    HBM bill against the compiler's own packed-closure numbers."""
+    if not cost or n_shards < 1:
+        return None
+    ns = int(n_shards)
+    return {"flops": cost.get("flops", 0.0) / ns,
+            "bytes_accessed": cost.get("bytes_accessed", 0.0)
+            * (1.0 + 2.0 / ns) / 3.0,
+            "n_shards": ns}
+
 
 
 # ---------------------------------------------------------------------------

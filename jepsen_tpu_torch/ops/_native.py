@@ -112,8 +112,10 @@ KERNELS = {
     "elle_trim": ("elle_trim", 13, 9),
     # one block barrier-and-reduce step, timed (iterations)
     "elle_trim_step_probe": ("elle_trim", 1, 1),
-    # the mesh scheduler's lane reset and batched frontier migration
-    "wgl_lane_reset": ("wgl_lanes", 9, 8),
+    # the mesh scheduler's lane reset (its one pointer is a host block of
+    # int64 arguments, parallel/mesh.py::RESET_WORDS) and batched
+    # frontier migration
+    "wgl_lane_reset": ("wgl_lanes", 1, 0),
     "wgl_frontier_migrate": ("wgl_lanes", 2, 4),
     # one squaring of a word-column shard of the packed closure
     "elle_sharded_square": ("elle_sharded", 7, 3),

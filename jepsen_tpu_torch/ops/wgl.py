@@ -31,10 +31,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time as _time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from ..history import History
 from ..models.core import Model
@@ -232,32 +234,47 @@ def _apply_bucket(enc: Encoded, bucket: dict) -> Encoded:
         opcode_info=pad1(enc.opcode_info, ic_pad, 0), table=table)
 
 
-def memo_hit_rate(hits, inserts) -> float:
-    """hits / (hits + inserts), guarded (the JAX package's
-    `occupancy.memo_hit_rate`)."""
-    hits, inserts = int(hits), int(inserts)
-    return round(hits / max(hits + inserts, 1), 4)
-
-
 def check(model: Model, history: History, time_limit: Optional[float] = None,
           max_configs: int = 200_000_000, frontier: Optional[int] = None,
           enc: Optional[Encoded] = None,
           stop: Optional[Callable[[], bool]] = None,
           adaptive: Optional[bool] = None, device=None,
-          shape_bucket: Optional[dict] = None) -> dict:
+          shape_bucket: Optional[dict] = None, metrics=None,
+          profile_dir: Optional[str] = None) -> dict:
     """Decide linearizability with the device search.
 
     Returns {"valid?": True/False/"unknown", ...}. "unknown" (deadline,
-    config budget, capacity overflow, unsupported encoding) signals the
-    caller to fall back to the host oracle. `enc` skips re-encoding;
-    `stop` is polled between device chunks (True cancels with cause
-    "cancelled"); `frontier` pins the beam width; `adaptive=False`
-    turns the bucket ladder off. `shape_bucket` pads the encoding into
-    a fan-out's shared shape bucket (`_apply_bucket`; built by
-    `parallel.shared_shape_bucket`). `device=None` is the CUDA card (it
-    raises when there is none); `device="cpu"` runs the plain PyTorch
-    chunk with the host plan (1024-round chunks)."""
+    config budget, capacity overflow, unsupported encoding, a watchdog
+    stall) signals the caller to fall back to the host oracle. `enc`
+    skips re-encoding; `stop` is polled between device chunks (True
+    cancels with cause "cancelled"); `frontier` pins the beam width;
+    `adaptive=False` turns the bucket ladder off. `shape_bucket` pads
+    the encoding into a fan-out's shared shape bucket (`_apply_bucket`;
+    built by `parallel.shared_shape_bucket`). `device=None` is the CUDA
+    card (it raises when there is none); `device="cpu"` runs the plain
+    PyTorch chunk with the host plan (1024-round chunks).
+
+    The telemetry and device planes, as in the reference, each off
+    unless enabled (and then free in the loop): `metrics` (default the
+    ambient `metrics` registry) records each chunk's packed poll summary
+    (`wgl_chunks`), the occupancy ring's rounds (`wgl_rounds`, drained
+    from the summary the loop already copies) and ladder switches
+    (`wgl_adapt`), and the result carries `telemetry.chunks` and an
+    `occupancy` block; the ambient `watchdog` gets a heartbeat a chunk
+    and may soft-cancel the search between chunks (cause "stalled",
+    with the partial progress); the ambient `devices` monitor samples
+    the card a poll and puts `hbm` (and `util.hbm_peak_measured`) on
+    the result; the ambient `fleet.RunStatus` gets the live search and
+    occupancy. `profile_dir` (or env JEPSEN_TPU_PROFILE_DIR) wraps the
+    search in a `torch.profiler` capture (CPU and CUDA activities)
+    exported as a Chrome trace there; `res["profile_dir"]` is set only
+    when a trace was written, and a failure to capture never blocks the
+    verdict."""
+    from .. import fleet as _fleet
+    from .. import metrics as _metrics
+
     dev = resolve_device(device)
+    mx = metrics if metrics is not None else _metrics.get_default()
     t_enter = _time.monotonic()
     # Device stats are int32; cap the budget so the explored counter can
     # reach it without wrapping (it grows by at most K per round).
@@ -280,32 +297,103 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
                        n=n, n_info=enc.n_info,
                        accel=accel, frontier=frontier, adaptive=adaptive,
                        shape_bucket=shape_bucket)
-    res = _search_loop(enc, plan, n, max_configs, frontier, dev, t_enter,
-                       time_limit, stop)
+    profile_dir = profile_dir or os.environ.get("JEPSEN_TPU_PROFILE_DIR")
+    prof = None
+    if profile_dir:
+        try:
+            prof = _start_profile(dev)
+        except Exception as e:  # noqa: BLE001 — profiling never blocks
+            # the verdict, but a missing capture is recorded
+            _fleet.record_fault(_fleet.fault_event(
+                e, stage="wgl/profiler-start"))
+    try:
+        res = _run_search(enc, plan, n, max_configs, frontier, dev,
+                          t_enter, time_limit, stop, mx)
+    finally:
+        if prof is not None:
+            try:
+                _stop_profile(prof, profile_dir)
+            except Exception as e:  # noqa: BLE001 — capture lost;
+                # recorded so that the missing trace is explicable
+                _fleet.record_fault(_fleet.fault_event(
+                    e, stage="wgl/profiler-stop"))
+                prof = None
+    if prof is not None:
+        res["profile_dir"] = profile_dir
     res["platform"] = dev.type
     res["device"] = device_name(dev)
     return res
 
 
+def _start_profile(dev):
+    """A started `torch.profiler` capture of the CPU and, on a card,
+    CUDA activities."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda" and ProfilerActivity.CUDA in supported_activities():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str) -> str:
+    """Stop the capture and export it as a Chrome trace into
+    `profile_dir`; returns the trace's path."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"wgl-{os.getpid()}-"
+                                     f"{_time.time_ns()}.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def _run_search(enc, plan, n, max_configs, frontier, dev, t_enter,
+                time_limit, stop, mx) -> dict:
+    """`_search_loop` under a watchdog source (the reference's
+    `_run_search`): the loop beats once a chunk, so a chunk that hangs
+    on the card stops the beats and the watchdog declares the source
+    stalled; the grace covers the first chunk's kernel build."""
+    from .. import watchdog as _watchdog
+
+    wd = _watchdog.get_default()
+    hb = wd.register(f"wgl/{dev.type}", device=str(dev), grace_s=300.0)
+    try:
+        return _search_loop(enc, plan, n, max_configs, frontier, dev,
+                            t_enter, time_limit, stop, mx, wd, hb)
+    finally:
+        wd.unregister(hb)
+
+
 def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
-                 frontier, dev, t_enter: float, time_limit, stop) -> dict:
+                 frontier, dev, t_enter: float, time_limit, stop, mx, wd,
+                 hb) -> dict:
+    from .. import devices as _devices
+    from .. import fleet as _fleet
+    from .. import occupancy as _occ
+    from .. import watchdog as _watchdog
+
     K, H, B = plan["K"], plan["H"], plan["B"]
     W_eff, ic_eff = plan["W_eff"], plan["ic_eff"]
     chunk, probes = plan["chunk"], plan["probes"]
     ladder = plan["ladder"]
     L = plan["L"]
     row_cols = W_eff + ic_eff
+    kern, plat = plan["kern"], dev.type
     consts = wgl32.consts_from_numpy(
         enc.inv, enc.ret, enc.opcode, enc.sufminret,
         enc.inv_info[:ic_eff], enc.opcode_info[:ic_eff], enc.table,
         n, enc.n_info, min(max_configs, 2**31 - 1), dev)
-    if plan["kern"] == "wgl32":
-        carry = wgl32.init_carry(K, wgl32.row_words(ic_eff), H, B, 0, dev)
+    if kern == "wgl32":
+        C = wgl32.row_words(ic_eff)
+        carry = wgl32.init_carry(K, C, H, B, 0, dev)
 
         def next_chunk(carry, K):
             return wgl32.chunk(consts, carry, K=K, W=W_eff, ic=ic_eff, H=H,
                                B=B, chunk=chunk, probes=probes)
     else:
+        C = wgln.row_words(L, ic_eff)
         carry = wgln.init_carry(K, L, ic_eff, H, B, 0, dev)
 
         def next_chunk(carry, K):
@@ -316,6 +404,21 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
     if ladder:
         policy = _adapt.Policy(ladder=ladder, n_ok=n, backlog_cap=B,
                                start_k=K)
+    status = _fleet.get_default()
+    # per-chunk telemetry: None when metrics are off, so the loop pays
+    # nothing (the zero-cost contract)
+    tl_points: Optional[list] = [] if mx.enabled else None
+    # the per-round drain of the occupancy ring, paid only when metrics
+    # or the live status consume it
+    drain = tl_points is not None or status.enabled
+    occ_rounds: list = []
+    occ_dropped = occ_seen = rounds_before = 0
+    # the device plane: the allocator sampled at the same poll boundaries
+    # (host-side queries), a window around the search
+    dm = _devices.get_default()
+    dmark = dm.mark(where=f"wgl/{plat}", devices=[dev]) if dm.enabled \
+        else None
+    search_id = (threading.get_ident(), plat)
     t0 = _time.monotonic()
     first_call_s = None
     n_chunks = 0
@@ -323,20 +426,81 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
     beam_area = 0
     prev_rounds_total = 0
     prev_explored_total = 0
+    total_explored = 0
     max_lin = 0
     while True:
+        if wd.cancelled(hb):
+            # soft cancel between chunks (a stall declared elsewhere, or
+            # an operator's cancel): the partial progress, not a verdict
+            return {"valid?": "unknown", "cause": "stalled",
+                    "op_count": n + enc.n_info,
+                    "partial": {"configs_explored": total_explored,
+                                "ops_linearized": max_lin,
+                                "chunks": n_chunks},
+                    "stall": _watchdog.stall_result(hb)["stall"]}
+        t_call = _time.monotonic()
         carry, summary = next_chunk(carry, K)
-        # the one device->host copy per chunk: the packed summary
+        if tl_points is not None and dev.type == "cuda":
+            # instrumented only: wait for the chunk, so that the copy
+            # below is timed apart from the device's compute
+            torch.cuda.current_stream(dev).synchronize()
+        t_xfer = _time.monotonic()
+        # the one device->host copy per chunk: the packed summary, its
+        # occupancy ring included
         s = summary.cpu().numpy()
+        xfer_s = _time.monotonic() - t_xfer
+        poll_s = _time.monotonic() - t_call
         fr_cnt, flags, stats = int(s[0]), s[1:4], s[4:10]
         bk_cnt = int(s[10])
         n_chunks += 1
         bk_peak = max(bk_peak, bk_cnt)
         max_lin = max(max_lin, int(stats[2]))
+        total_explored = int(stats[0])
+        wd.beat(hb, configs_explored=total_explored, ops_linearized=max_lin,
+                chunks=n_chunks, frontier=fr_cnt, backlog=bk_cnt)
         if first_call_s is None:
             first_call_s = _time.monotonic() - t0
         found, overflow = bool(flags[0]), bool(flags[1])
-        total_explored = int(stats[0])
+        if dmark is not None:
+            dm.sample(where=f"wgl/{plat}", mx=mx, devices=[dev])
+        occ_new: list = []
+        if drain:
+            occ_new, dropped = _occ.drain_chunk(s, rounds_before, K)
+            occ_dropped += dropped
+            occ_seen += len(occ_new)
+            # rounds are not timed one by one: spread them over the
+            # chunk's wall
+            wall_now = _time.monotonic() - t0
+            wall_prev = max(wall_now - poll_s, 0.0)
+            for i, r in enumerate(occ_new):
+                r["wall_s"] = round(wall_prev + (i + 1) / len(occ_new)
+                                    * (wall_now - wall_prev), 6)
+        rounds_before = int(stats[5])
+        if status.enabled:
+            status.search_poll({
+                "kernel": kern, "platform": plat, "chunk": n_chunks - 1,
+                "wall_s": round(_time.monotonic() - t0, 4),
+                "poll_s": round(poll_s, 6), "frontier": fr_cnt,
+                "backlog": bk_cnt, "explored": total_explored,
+                "rounds": int(stats[5])}, search_id=search_id)
+            fills = [r["fill"] for r in occ_new]
+            status.occupancy_poll({
+                "mode": "single", "kernel": kern, "platform": plat, "K": K,
+                "adapt": ({"ladder": list(policy.ladder),
+                           "switches": len(policy.switches)}
+                          if policy is not None else None),
+                "fill_last": (fills[-1] if fills
+                              else round(fr_cnt / max(K, 1), 4)),
+                "fill_mean": (round(sum(fills) / len(fills), 4)
+                              if fills else None),
+                "rounds_seen": occ_seen, "rounds_dropped": occ_dropped,
+                "recent_rounds": [{"round": r["round"], "fill": r["fill"]}
+                                  for r in occ_new[-32:]]},
+                search_id=search_id)
+        if tl_points is not None:
+            _record_chunk(mx, tl_points, occ_rounds, occ_new, s, K=K,
+                          kern=kern, plat=plat, t0=t0, poll_s=poll_s,
+                          xfer_s=xfer_s)
         rounds_now = int(stats[5])
         rounds_delta = rounds_now - prev_rounds_total
         explored_delta = total_explored - prev_explored_total
@@ -347,6 +511,17 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
                                explored_delta=explored_delta,
                                frontier=fr_cnt, backlog=bk_cnt)
             if d.switch:
+                if tl_points is not None:
+                    mx.series(
+                        "wgl_adapt",
+                        "bucket-ladder switch decisions of the "
+                        "occupancy-adaptive WGL scheduler").append({
+                            "chunk": n_chunks - 1, "from_K": K,
+                            "to_K": d.to_k, "reason": d.reason,
+                            "fill": round(explored_delta
+                                          / max(rounds_delta * K, 1), 4),
+                            "backlog": bk_cnt, "explored": total_explored,
+                            "kernel": kern, "platform": plat})
                 carry = _adapt.migrate_frontier(carry, d.to_k)
                 K = d.to_k
         prev_rounds_total = rounds_now
@@ -374,7 +549,7 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
             # beam-area weighted: each round normalized by the K it ran at
             "frontier_fill": round(
                 total_explored / max(beam_area or rounds_total * K, 1), 4),
-            "memo_hit_rate": memo_hit_rate(memo_hits, inserted),
+            "memo_hit_rate": _occ.memo_hit_rate(memo_hits, inserted),
             "succ_rows_per_round": K * row_cols,
             "est_table_mb_per_round": round(
                 K * row_cols * 16 * probes / 1e6, 3),
@@ -388,6 +563,23 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
         detail = {"W": enc.window_raw, "W_pad": W_eff, "K": K,
                   "configs_explored": total_explored,
                   "wall_s": round(wall, 4), "util": util}
+        if dmark is not None:
+            # the measured peak of this search's window (the explicit
+            # stats_unavailable marker on the CPU)
+            hbm = dm.measured(dmark, where=f"wgl/{plat}", devices=[dev])
+            detail["hbm"] = hbm
+            if hbm.get("peak_measured") is not None:
+                util["hbm_peak_measured"] = hbm["peak_measured"]
+        if tl_points is not None:
+            detail["telemetry"] = {"chunks": tl_points}
+            detail["occupancy"] = _occ.build_block(
+                occ_rounds, K=K, kernel=kern, platform=plat, wall_s=wall,
+                rounds_total=rounds_total, configs_explored=total_explored,
+                memo_hits=memo_hits, memo_inserts=inserted,
+                bytes_total=_occ.search_bytes(s[:wgl32.SUMMARY_HEAD], C,
+                                              n_chunks),
+                rounds_dropped=occ_dropped, rounds_seen=occ_seen,
+                device_kind=_occ.safe_device_kind())
         if found:
             return {"valid?": True, "op_count": n + enc.n_info, **detail}
         if fr_cnt == 0:
@@ -404,6 +596,66 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
                     "op_count": n + enc.n_info, **detail}
         return {"valid?": "unknown", "cause": "cancelled",
                 "op_count": n + enc.n_info, **detail}
+
+
+def _record_chunk(mx, tl_points: list, occ_rounds: list, occ_new: list, s,
+                  *, K: int, kern: str, plat: str, t0: float, poll_s: float,
+                  xfer_s: float) -> None:
+    """One chunk's telemetry (metrics on): its `wgl_chunks` point (kept
+    in `tl_points` for the result too), its drained rounds into
+    `wgl_rounds` (the first MAX_RESULT_ROUNDS kept in `occ_rounds` for
+    the occupancy block), and the `wgl_*` counters, gauges and poll
+    histogram, under the reference's names."""
+    from .. import occupancy as _occ
+
+    stats = s[4:10]
+    fr_cnt, bk_cnt = int(s[0]), int(s[10])
+    explored, rounds = int(stats[0]), int(stats[5])
+    hits, inserts = int(stats[3]), int(stats[4])
+    prev = tl_points[-1] if tl_points else {}
+    point = {
+        "chunk": len(tl_points), "cold": not tl_points,
+        "wall_s": round(_time.monotonic() - t0, 6),
+        "poll_s": round(poll_s, 6), "transfer_s": round(xfer_s, 6),
+        "frontier": fr_cnt, "fill": round(fr_cnt / max(K, 1), 4),
+        "backlog": bk_cnt, "K": K, "rounds": rounds, "explored": explored,
+        "memo_hits": hits, "memo_inserts": inserts,
+        "memo_hit_rate": _occ.memo_hit_rate(hits, inserts),
+        "rounds_delta": rounds - prev.get("rounds", 0),
+        "explored_delta": explored - prev.get("explored", 0),
+        "kernel": kern, "platform": plat}
+    tl_points.append(point)
+    mx.series("wgl_chunks", "per-chunk packed poll summaries of the WGL "
+              "device search").append(point)
+    rounds_series = mx.series(
+        "wgl_rounds", "per-round device occupancy counters drained from "
+        "the kernel ring buffer")
+    # epoch stamps from the interpolated walls: a chunk's rounds land in
+    # one burst, and the append-time `t` would stack them
+    epoch_now = _time.time()
+    wall_ref = _time.monotonic() - t0
+    for r in occ_new:
+        r.update(kernel=kern, platform=plat, K=K, chunk=point["chunk"],
+                 t=round(epoch_now - (wall_ref - r["wall_s"]), 6))
+        rounds_series.append(r)
+    occ_rounds.extend(occ_new[:max(0, _occ.MAX_RESULT_ROUNDS
+                                   - len(occ_rounds))])
+    lbl = {"kernel": kern, "platform": plat}
+    mx.counter("wgl_chunks_total", "device chunk calls").inc(**lbl)
+    mx.counter("wgl_rounds_total", "search rounds executed on device").inc(
+        point["rounds_delta"], **lbl)
+    mx.counter("wgl_configs_explored_total", "configurations expanded").inc(
+        point["explored_delta"], **lbl)
+    mx.counter("wgl_memo_hits_total", "memo-table dedup hits").inc(
+        hits - prev.get("memo_hits", 0), **lbl)
+    mx.counter("wgl_memo_inserts_total", "memo-table inserts").inc(
+        inserts - prev.get("memo_inserts", 0), **lbl)
+    mx.gauge("wgl_frontier_size", "beam occupancy at last poll").set(
+        fr_cnt, **lbl)
+    mx.gauge("wgl_backlog_size", "backlog depth at last poll").set(
+        bk_cnt, **lbl)
+    mx.histogram("wgl_poll_seconds", "host<->device chunk latency (device "
+                 "compute + packed-summary transfer)").observe(poll_s, **lbl)
 
 
 def enrich_diagnostics(model: Model, history: History, res: dict,
@@ -427,8 +679,8 @@ def enrich_diagnostics(model: Model, history: History, res: dict,
 def check_with_diagnostics(model: Model, history: History,
                            time_limit: Optional[float] = None,
                            stop: Optional[Callable[[], bool]] = None,
-                           device=None) -> dict:
+                           device=None, metrics=None) -> dict:
     """Device verdict + counterexample enrichment (enrich_diagnostics)."""
     res = check(model, history, time_limit=time_limit, stop=stop,
-                device=device)
+                device=device, metrics=metrics)
     return enrich_diagnostics(model, history, res, stop=stop)

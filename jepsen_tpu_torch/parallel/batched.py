@@ -51,7 +51,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import devices as _devices
 from .. import fleet as _fleet
+from .. import metrics as _metrics
+from .. import occupancy as _occ
+from .. import watchdog as _watchdog
 from ..analysis import preflight
 from ..history import History
 from ..models.core import Model
@@ -211,7 +215,9 @@ def _annotate_shard(res: dict, *, key_index: int, device: str,
                     device_index: Optional[int] = None,
                     extra: Optional[dict] = None) -> dict:
     """Stamp a per-key `shard` block (the reference's keys) onto a
-    result. Returns the result for chaining."""
+    result and record it into the ambient metrics registry and
+    RunStatus (`fleet.record_shard`). Returns the result for
+    chaining."""
     shard = {"key_index": key_index, "device": device,
              "engine": engine, "t0": round(t0, 4),
              "wall_s": round(wall_s, 4),
@@ -226,6 +232,7 @@ def _annotate_shard(res: dict, *, key_index: int, device: str,
     if extra:
         shard.update(extra)
     res["shard"] = shard
+    _fleet.record_shard(shard)
     return res
 
 
@@ -448,6 +455,10 @@ def check_batched(model: Model, histories: Sequence[History],
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     devs = resolve_devices(devices, device)
+    # the live status counts the whole key set, host-decided keys too
+    status = _fleet.get_default()
+    if status.enabled and len(histories) > 1:
+        status.begin_keys(len(histories))
     # device stats are int32: cap the budget so the explored counter
     # can reach it without wrapping (it grows by at most K per round)
     max_configs = min(max_configs, 2**30)
@@ -562,6 +573,49 @@ def batch_consts(batch: BatchEncoded, plan: dict, max_configs: int,
         batch.n_ok[sl], batch.n_info[sl], max_configs, dev)
 
 
+# Per-round lane points a lane-batched run drains into the
+# `wgl_batched_rounds` series at most (the reference's budget).
+LANE_ROUNDS_BUDGET = 8192
+
+
+def _record_lanes(mx, s, *, poll: int, wall_s: float, K: int, kern: str,
+                  fill_lanes, drain_lanes, live, hints, prev_rounds,
+                  budget: int, device_of, extra: Optional[dict] = None
+                  ) -> int:
+    """One poll's lane telemetry of a lane-batched search (metrics on),
+    from the packed summaries `s` the poll already copied: the
+    `wgl_batched_lanes` point (each of `fill_lanes`' frontier fill and
+    adaptive hint) and the rounds of each of `drain_lanes` drained from
+    its occupancy ring into `wgl_batched_rounds`, `device_of(lane)` its
+    shard, at most `budget` points in all (exhaustion recorded once).
+    Returns the budget left."""
+    fr = s[fill_lanes, 0]
+    mx.series("wgl_batched_lanes", "per-poll per-lane frontier fill of "
+              "the mesh-batched search").append({
+                  "poll": poll, "wall_s": round(wall_s, 4), "K": K,
+                  "kernel": kern, "live": int(live.sum()),
+                  "empty_lanes": int((fr == 0).sum()),
+                  "fill": [float(f) for f in np.round(fr / max(K, 1), 4)],
+                  "hints": [int(h) for h in hints], **(extra or {})})
+    rounds = mx.series("wgl_batched_rounds", "per-round per-lane frontier "
+                       "fill drained from the lane-batched kernel rings "
+                       "(round x lane heatmap input)")
+    if budget > 0:
+        for lane in drain_lanes:
+            rows, _ = _occ.drain_chunk(s[lane], int(prev_rounds[lane]), K)
+            for r in rows[:max(0, budget)]:
+                budget -= 1
+                rounds.append({"round": r["round"], "lane": int(lane),
+                               "fill": r["fill"], "frontier": r["frontier"],
+                               "device": int(device_of(lane))})
+        if budget <= 0:
+            rounds.append({"round": -1, "lane": -1, "fill": 0.0,
+                           "frontier": 0, "note": "point budget exhausted; "
+                           "later rounds not drained"})
+            budget = -1
+    return budget
+
+
 def _check_vmap(model: Model, histories: Sequence[History],
                 encs: Sequence[Encoded], keys: Sequence[int], *,
                 time_limit, max_configs: int, oracle_fallback: bool,
@@ -606,33 +660,111 @@ def _check_vmap(model: Model, histories: Sequence[History],
 
     t0 = _time.monotonic()
     deadline = t0 + time_limit if time_limit else None
-    timed_out = False
-    while True:
-        # every device's launch before any device's summary is read
-        summaries = []
-        for d, blk in enumerate(blocks):
-            with on_stream(streams[d]):
-                blk[1], summary = step(*blk)
-            summaries.append(summary)
-        # the one device->host copy per device per poll: [fr_cnt, flags
-        # x3, stats x6, bk_cnt, ring] per lane
-        parts = []
-        for d, summary in enumerate(summaries):
-            with on_stream(streams[d]):
-                parts.append(summary.cpu().numpy())
-        s = np.concatenate(parts)
-        fr_cnt, flags, stats = s[:, 0], s[:, 1:4], s[:, 4:10]
-        found = flags[:, 0] != 0
-        empty = fr_cnt == 0
-        budget = stats[:, 0] >= max_configs
-        live = ~(found | empty | budget)
-        live[batch.n_keys:] = False
-        if not live.any():
-            break
-        if deadline is not None and _time.monotonic() > deadline:
-            timed_out = True
-            break
+    timed_out = stalled = False
+    # the planes, as in the reference's vmap loop: one heartbeat a poll
+    # for the whole lockstep batch, the allocator sampled a poll, the
+    # lanes' series and the live status (each free when off)
+    mx, status = _metrics.get_default(), _fleet.get_default()
+    wd, dm = _watchdog.get_default(), _devices.get_default()
+    hb = wd.register("wgl-batched", device=f"mesh[{nd}]", grace_s=300.0)
+    dmark = dm.mark(where="batched", devices=devs) if dm.enabled else None
+    decided_base = (status.snapshot()["keys"]["decided"]
+                    if status.enabled else 0)
+    kern = "wgln" if L else "wgl32"
+    n = batch.n_keys
+    prev_rounds = np.zeros(bk, dtype=np.int64)
+    prev_expl = np.zeros(bk, dtype=np.int64)
+    occ_budget = LANE_ROUNDS_BUDGET
+    n_polls = 0
+    s = None
+    try:
+        while True:
+            if wd.cancelled(hb):
+                stalled = True
+                break
+            t_poll = _time.monotonic()
+            # every device's launch before any device's summary is read
+            summaries = []
+            for d, blk in enumerate(blocks):
+                with on_stream(streams[d]):
+                    blk[1], summary = step(*blk)
+                summaries.append(summary)
+            # the one device->host copy per device per poll: [fr_cnt,
+            # flags x3, stats x6, bk_cnt, ring] per lane
+            parts = []
+            for d, summary in enumerate(summaries):
+                with on_stream(streams[d]):
+                    parts.append(summary.cpu().numpy())
+            s = np.concatenate(parts)
+            n_polls += 1
+            if dmark is not None:
+                dm.sample(where="batched", mx=mx, devices=devs)
+            fr_cnt, flags, stats = s[:, 0], s[:, 1:4], s[:, 4:10]
+            found = flags[:, 0] != 0
+            empty = fr_cnt == 0
+            budget = stats[:, 0] >= max_configs
+            live = ~(found | empty | budget)
+            live[n:] = False
+            decided = int((found | empty)[:n].sum())
+            wd.beat(hb, live_keys=int(live.sum()), decided_keys=decided,
+                    configs_explored=int(stats[:n, 0].sum()))
+            if mx.enabled:
+                wall_s = _time.monotonic() - t0
+                mx.series("wgl_batched_chunks", "per-poll state of the "
+                          "mesh-sharded batched search").append({
+                              "wall_s": round(wall_s, 4),
+                              "poll_s": round(_time.monotonic() - t_poll,
+                                              4),
+                              "live_keys": int(live.sum()),
+                              "decided_keys": decided,
+                              "frontier_total": int(fr_cnt[:n].sum()),
+                              "backlog_total": int(s[:n, 10].sum()),
+                              "explored_total": int(stats[:n, 0].sum())})
+                r_delta = np.maximum(stats[:, 5] - prev_rounds, 0)
+                e_delta = np.maximum(stats[:, 0] - prev_expl, 0)
+                occupied = np.where(r_delta > 0,
+                                    e_delta / np.maximum(r_delta, 1), 0.0)
+                occ_budget = _record_lanes(
+                    mx, s, poll=n_polls - 1, wall_s=wall_s, K=K, kern=kern,
+                    fill_lanes=np.arange(n), drain_lanes=range(n), live=live,
+                    hints=[_adapt.recommend(hint_ladder, float(occupied[i]))
+                           for i in range(n)],
+                    prev_rounds=prev_rounds, budget=occ_budget,
+                    device_of=lambda lane: lane // per_dev)
+            prev_expl = stats[:, 0].astype(np.int64)
+            prev_rounds = stats[:, 5].astype(np.int64)
+            if status.enabled:
+                fills = fr_cnt[:n] / max(K, 1)
+                status.batched_poll(
+                    live=int(live.sum()), decided=decided_base + decided,
+                    total=n, frontier_total=int(fr_cnt[:n].sum()),
+                    backlog_total=int(s[:n, 10].sum()),
+                    explored_total=int(stats[:n, 0].sum()))
+                status.occupancy_poll({
+                    "mode": "batched", "kernel": kern,
+                    "platform": f"mesh[{nd}]", "K": K,
+                    "fill_last": round(float(fills.mean()), 4),
+                    "fill_mean": round(float(fills.mean()), 4),
+                    "lanes": {"n": n,
+                              "fill_min": round(float(fills.min()), 4),
+                              "fill_max": round(float(fills.max()), 4),
+                              "empty": int((fr_cnt[:n] == 0).sum())}},
+                    search_id="batched")
+            if not live.any():
+                break
+            if deadline is not None and _time.monotonic() > deadline:
+                timed_out = True
+                break
+    finally:
+        wd.unregister(hb)
     wall = _time.monotonic() - t0
+    hbm = (dm.measured(dmark, where="batched", devices=devs)
+           if dmark is not None else None)
+    if s is None:
+        # soft-cancelled before the first poll: every lane undecided
+        s = np.zeros((bk, wgl32.SUMMARY_HEAD), dtype=np.int32)
+        fr_cnt, flags, stats = s[:, 0], s[:, 1:4], s[:, 4:10]
+        found = empty = budget = np.zeros(bk, dtype=bool)
 
     overflow = flags[:, 1]
     labels = _fleet.device_labels(devs)
@@ -650,7 +782,7 @@ def _check_vmap(model: Model, histories: Sequence[History],
                       "rounds": rounds,
                       "frontier_fill": round(explored / max(rounds * K, 1),
                                              4),
-                      "memo_hit_rate": wgl.memo_hit_rate(hits, ins)},
+                      "memo_hit_rate": _occ.memo_hit_rate(hits, ins)},
                   "occupancy": {
                       "lane": lane, "K": K,
                       "fill_last": round(int(fr_cnt[lane]) / max(K, 1), 4),
@@ -666,14 +798,31 @@ def _check_vmap(model: Model, histories: Sequence[History],
             res = {"valid?": False, "op_count": n_total,
                    "max_linearized": int(stats[lane, 2]), **detail}
         else:
-            cause = ("backlog-overflow" if overflow[lane]
+            cause = ("stalled" if stalled
+                     else "backlog-overflow" if overflow[lane]
                      else "config-limit" if budget[lane] else "timeout")
             res = {"valid?": "unknown", "cause": cause,
                    "op_count": n_total, **detail}
-            if oracle_fallback and not timed_out:
+            if stalled:
+                # what this lane had explored when the run was declared
+                # stalled
+                res["partial"] = {"configs_explored": explored,
+                                  "rounds": rounds,
+                                  "ops_linearized": int(stats[lane, 2])}
+            elif oracle_fallback and not timed_out:
                 res = _oracle_fallback(model, hist, deadline, res)
                 engine = str(res.get("engine") or engine)
         di = lane // per_dev
+        if hbm is not None:
+            # the lane's card's slice of the measured window
+            dev_hbm = (hbm.get("devices") or {}).get(
+                _fleet.device_label(devs[di]))
+            res["hbm"] = {"device": _fleet.device_label(devs[di]),
+                          "stats_available": dev_hbm is not None,
+                          "peak_measured": (dev_hbm or {}).get(
+                              "peak_measured")}
+            if dev_hbm is None:
+                res["hbm"]["stats_unavailable"] = True
         out.append(_annotate_shard(
             res, key_index=keys[lane], device=labels[di],
             device_index=di, engine=engine, t0=t0,

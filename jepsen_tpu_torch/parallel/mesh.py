@@ -30,10 +30,15 @@ One process drives every shard, as the reference's single controller
 does; nothing here uses `torch.distributed`. On a CPU device list (the
 tests) every kernel wrapper runs its plain version.
 
-`check_mesh` admits through `preflight.gate_mesh`. Not ported yet: the
-warm plane (`warm_plan`, the pre-zeroed carry pool, `plan_cache_key`)
-and the metrics, watchdog and device-monitor planes; `kernel_params`
-has no `accel` key (the port's kernels have one layout).
+`check_mesh` admits through `preflight.gate_mesh`, and carries the
+reference's planes: a watchdog heartbeat a poll (a soft cancel ends the
+run, undecided keys "stalled" with their partial progress), the device
+monitor's samples a poll (each card once, however many shards it
+holds), the `mesh_sched` series of the scheduler's actions and, with
+metrics on, the lanes' `wgl_batched_lanes` and `wgl_batched_rounds`
+points. Not ported yet: the warm plane (`warm_plan`, the pre-zeroed
+carry pool, `plan_cache_key`); `kernel_params` has no `accel` key (the
+port's kernels have one layout).
 """
 
 from __future__ import annotations
@@ -42,23 +47,29 @@ import math
 import os
 import threading
 import time as _time
+import weakref
 from collections import deque
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import devices as _devices
 from .. import fleet as _fleet
+from .. import metrics as _metrics
+from .. import occupancy as _occ
+from .. import watchdog as _watchdog
 from ..history import History
 from ..models.core import Model
 from ..ops import _native
 from ..ops import adapt as _adapt
 from ..analysis import preflight
-from ..ops import wgl, wgl32, wgln
+from ..ops import wgl32, wgln
 from ..ops.encode import INF, Encoded
 from ..util import (default_devices, on_device, on_stream, raw_stream,
                     resolve_devices, shard_streams)
-from .batched import (_annotate_shard, _batch_capacities, _oracle_fallback,
+from .batched import (LANE_ROUNDS_BUDGET, _annotate_shard,
+                      _batch_capacities, _oracle_fallback, _record_lanes,
                       shared_shape_bucket)
 
 # Lane slots per device: the active window is n_devices x this many
@@ -143,23 +154,41 @@ def reset_lanes_ref(carry, mask, *, mst_col: int, mstate0: int = 0):
     return carry
 
 
-def reset_lanes(carry, mask, *, mst_col: int, mstate0: int = 0):
-    """The lane reset (see `reset_lanes_ref`). CUDA tensors run the
-    `wgl_lane_reset` kernel (one launch per call with a lane set,
-    counted in `reset_lanes.launches`; nothing is launched for an empty
-    mask); CPU tensors run `reset_lanes_ref`. Updates the carry in
-    place; returns it."""
+# A carry of at most this many lanes hands the reset kernel its lane
+# mask by value (one 64-bit word of its argument block); a wider one
+# hands it the masked lanes' indices on the card (no main path resets
+# that many lanes).
+MASK_BITS = 64
+
+# The reset kernel's argument block (`csrc/wgl_lanes.cu`): one host
+# array of int64 words, the eight leaves' pointers, the masked lanes'
+# indices (0: by value), the mask, the masked count, K, C, B, H, the
+# ring's words a lane, the model-state column and its value. One
+# pointer crosses ctypes in place of twenty arguments (about 7 µs of a
+# call's host path).
+RESET_WORDS = 18
+_IDX, _MASK, _N, _MST_COL, _MSTATE0 = 8, 9, 10, 16, 17
+
+# Carries whose eight leaves `reset_lanes` has checked: their argument
+# blocks by the leaves' identities, each beside weak references that
+# tell a live carry from a new one at a reused id. Bounded, cleared when
+# full.
+_RESET_BLOCKS: dict = {}
+_RESET_BLOCKS_CAP = 64
+
+
+def _reset_block(carry) -> np.ndarray:
+    """The argument block of `carry`, its leaves checked once a carry
+    (the first call with these eight tensors): contiguous int32 (or
+    uint32) on the frontier's card, each with the frontier's lane count
+    and the carry's shapes. Raises ValueError. The block is the carry's
+    own: one thread resets a carry at a time."""
+    key = tuple(map(id, carry))
+    hit = _RESET_BLOCKS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], carry)):
+        return hit[1]
     fr = carry[wgl32.FR]
-    dev = fr.device
-    if dev.type == "cpu":
-        return reset_lanes_ref(carry, mask, mst_col=mst_col,
-                               mstate0=mstate0)
-    if dev.type != "cuda":
-        raise ValueError(f"reset_lanes: unsupported device {dev}")
     lanes, K, C = fr.shape
-    m = _lane_mask(mask, lanes)
-    if not m.any():
-        return carry
     B, H = carry[wgl32.BK].shape[1], carry[wgl32.TABLE].shape[1]
     ring = carry[wgl32.RING_BUF]
     want = {wgl32.FR_CNT: (lanes,), wgl32.BK: (lanes, B, C),
@@ -170,18 +199,60 @@ def reset_lanes(carry, mask, *, mst_col: int, mstate0: int = 0):
         if i in want and tuple(t.shape) != want[i]:
             raise ValueError(f"reset_lanes: leaf {i} of shape "
                              f"{tuple(t.shape)}, want {want[i]}")
-        if t.device != dev or t.dtype not in (torch.int32, torch.uint32) \
+        if t.device != fr.device or t.dtype not in (torch.int32,
+                                                    torch.uint32) \
                 or not t.is_contiguous():
             raise ValueError("reset_lanes: leaves must be contiguous int32 "
-                             f"on {dev}")
-    if not 0 <= mst_col < C or lanes > 65535:
-        raise ValueError(f"reset_lanes: mst_col {mst_col}, lanes {lanes}")
-    mask_t = torch.from_numpy(m.astype(np.int32)).to(dev)
-    with on_device(dev):
-        _native.launch("wgl_lane_reset",
-                       [t.data_ptr() for t in (*carry, mask_t)],
-                       [lanes, K, C, B, H, ring[0].numel(), mst_col,
-                        mstate0], raw_stream(dev))
+                             f"on {fr.device}")
+    blk = np.zeros(RESET_WORDS, np.int64)
+    blk[:8] = [t.data_ptr() for t in carry]
+    blk[11:16] = (K, C, B, H, ring.numel() // lanes)
+    if len(_RESET_BLOCKS) >= _RESET_BLOCKS_CAP:
+        _RESET_BLOCKS.clear()
+    _RESET_BLOCKS[key] = (tuple(weakref.ref(t) for t in carry), blk)
+    return blk
+
+
+def reset_lanes(carry, mask, *, mst_col: int, mstate0: int = 0):
+    """The lane reset (see `reset_lanes_ref`). CUDA tensors run the
+    `wgl_lane_reset` kernel (one launch per call with a lane set,
+    counted in `reset_lanes.launches`; nothing is launched for an empty
+    mask); CPU tensors run `reset_lanes_ref`. Updates the carry in
+    place; returns it. The launch path is lean, as `migrate_lanes`'s: the
+    leaves are checked once a carry (`_reset_block`), a mask of at most
+    MASK_BITS lanes crosses by value in the argument block, no device
+    switch when the carry's card is current, the current stream's raw
+    handle."""
+    fr = carry[wgl32.FR]
+    if not fr.is_cuda:
+        if fr.device.type == "cpu":
+            return reset_lanes_ref(carry, mask, mst_col=mst_col,
+                                   mstate0=mstate0)
+        raise ValueError(f"reset_lanes: unsupported device {fr.device}")
+    lanes = fr.shape[0]
+    idx = np.flatnonzero(_lane_mask(mask, lanes))
+    if not len(idx):
+        return carry
+    blk = _reset_block(carry)
+    if not 0 <= mst_col < blk[12] or len(idx) > 65535:
+        raise ValueError(f"reset_lanes: mst_col {mst_col}, {len(idx)} "
+                         "lanes masked")
+    sel, words = None, 0
+    if lanes <= MASK_BITS:
+        for i in idx.tolist():
+            words |= 1 << i
+    else:
+        # the indices through pinned memory: an asynchronous copy, which
+        # the caching host allocator keeps alive until it is done
+        sel = torch.from_numpy(idx.astype(np.int32)).pin_memory().to(
+            fr.device, non_blocking=True)
+    blk[_IDX] = 0 if sel is None else sel.data_ptr()
+    blk[_MASK] = words - (1 << 64) if words >= 1 << 63 else words
+    blk[_N], blk[_MST_COL], blk[_MSTATE0] = len(idx), mst_col, mstate0
+    d = fr.get_device()
+    with on_device(d):
+        _native.launch("wgl_lane_reset", (blk.ctypes.data,), (),
+                       raw_stream(d))
     reset_lanes.launches += 1
     return carry
 
@@ -492,10 +563,12 @@ class _GroupRun:
 
     # -- results ----------------------------------------------------------
     def retire(self, sl: int, row: np.ndarray, *, found: bool,
-               empty: bool, overflow: bool, budget: bool, K: int) -> None:
+               empty: bool, overflow: bool, budget: bool, K: int,
+               stalled: bool = False) -> None:
         """One decided (or abandoned) lane becomes a per-key result.
         Keys whose device verdict stays "unknown" and that are owed an
-        oracle fallback are parked in `pending_fallback`."""
+        oracle fallback are parked in `pending_fallback`; a lane of a
+        stalled run carries its partial progress."""
         i = int(self.slot_key[sl])
         self.slot_key[sl] = -1
         e = self.encs[i]
@@ -511,7 +584,7 @@ class _GroupRun:
                 "rounds": rounds,
                 "frontier_fill": round(
                     int(stats[0]) / max(rounds * K, 1), 4),
-                "memo_hit_rate": wgl.memo_hit_rate(int(stats[3]),
+                "memo_hit_rate": _occ.memo_hit_rate(int(stats[3]),
                                                    int(stats[4]))},
             "occupancy": {
                 "lane": sl, "K": K,
@@ -527,10 +600,15 @@ class _GroupRun:
             res = {"valid?": False, "op_count": n_total,
                    "max_linearized": int(stats[2]), **detail}
         else:
-            cause = ("backlog-overflow" if overflow
+            cause = ("stalled" if stalled
+                     else "backlog-overflow" if overflow
                      else "config-limit" if budget else "timeout")
             res = {"valid?": "unknown", "cause": cause,
                    "op_count": n_total, **detail}
+            if stalled:
+                res["partial"] = {"configs_explored": int(stats[0]),
+                                  "rounds": rounds,
+                                  "ops_linearized": int(stats[2])}
         info = {"key_index": self._ki(i), "device": self.labels[di],
                 "device_index": di, "t0": self.slot_t0[sl],
                 "wall_s": wall,
@@ -629,6 +707,10 @@ def check_mesh(model: Model, histories: Sequence[History], *,
     if bad is not None:
         return None
 
+    # the planes, as in the reference: the live status, the metrics
+    # registry, the watchdog and the device monitor (each free when off)
+    planes = (_fleet.get_default(), _metrics.get_default(),
+              _watchdog.get_default(), _devices.get_default())
     t0_all = _time.monotonic()
     results: list = [None] * len(histories)
     run_summaries: list = []
@@ -640,7 +722,7 @@ def check_mesh(model: Model, histories: Sequence[History], *,
                        oracle_fallback=oracle_fallback,
                        key_indices=key_indices, group=gname,
                        steal=steal, shape_bucket=shape_bucket)
-        k_final = _run_group(gr, t0_all)
+        k_final = _run_group(gr, t0_all, planes)
         run_summaries.append(gr.summary(k_final))
         for i, res in gr.results.items():
             results[i] = res
@@ -690,16 +772,25 @@ def _merge_shards(summaries: list) -> dict:
     return out
 
 
-def _run_group(gr: _GroupRun, t0_all: float) -> int:
-    """The scheduler loop for one lane group. Returns the final K."""
+def _run_group(gr: _GroupRun, t0_all: float, planes: tuple) -> int:
+    """The scheduler loop for one lane group. Returns the final K.
+    `planes` is (RunStatus, metrics registry, watchdog, device monitor):
+    a heartbeat a poll (a soft cancel ends the run with every undecided
+    key "stalled", its partial progress kept), the allocator sampled a
+    poll on each card once, and with metrics on the lanes' fill and
+    hints (`wgl_batched_lanes`) and drained rounds
+    (`wgl_batched_rounds`)."""
+    status, mx, wd, dm = planes
     p = gr.params
     ladder = p["ladder"]
     K = ladder[0]
     W, L, ic, H, B = p["W"], p["L"], p["ic_pad"], p["H"], p["B"]
     C = wgln.row_words(L, ic) if L else wgl32.row_words(ic)
     mst_col = 1 + L if L else 2
+    kern = "wgln" if L else "wgl32"
     s_d, nd = gr.s_d, gr.nd
     streams = shard_streams(gr.devices)
+    cards = _devices.distinct(gr.devices)
     gr.pack_initial()
 
     def step(consts, carry, K):
@@ -717,128 +808,183 @@ def _run_group(gr: _GroupRun, t0_all: float) -> int:
             carries.append(wgl32.init_carry_batch(s_d, K, C, H, B, 0,
                                                   gr.devices[d],
                                                   mst_col=mst_col))
-    timed_out = False
+    hb = wd.register("wgl-mesh", device=f"mesh[{nd}]", grace_s=300.0)
+    dmark = dm.mark(where="mesh", devices=cards) if dm.enabled else None
+    timed_out = stalled = False
     sparse_streak = 0
+    occ_budget = LANE_ROUNDS_BUDGET
     s = None
-    while True:
-        # every shard's launch before any shard's summary is read
-        summaries = []
-        for d in range(nd):
-            with on_stream(streams[d]):
-                carries[d], sm = step(consts[d], carries[d], K)
-            summaries.append(sm)
-        parts = []
-        for d in range(nd):
-            with on_stream(streams[d]):
-                parts.append(summaries[d].cpu().numpy())
-        s = np.concatenate(parts)
-        gr.polls += 1
-        wall = _time.monotonic() - t0_all
-        fr_cnt, flags, stats = s[:, 0], s[:, 1:4], s[:, 4:10]
-        found = flags[:, 0] != 0
-        overflow = flags[:, 1] != 0
-        empty = fr_cnt == 0
-        budget = stats[:, 0] >= gr.max_configs
-        active = gr.slot_key >= 0
-        decided = active & (found | empty | budget)
-        live = active & ~decided
+    try:
+        while True:
+            if wd.cancelled(hb):
+                stalled = True
+                break
+            t_poll = _time.monotonic()
+            # every shard's launch before any shard's summary is read
+            summaries = []
+            for d in range(nd):
+                with on_stream(streams[d]):
+                    carries[d], sm = step(consts[d], carries[d], K)
+                summaries.append(sm)
+            parts = []
+            for d in range(nd):
+                with on_stream(streams[d]):
+                    parts.append(summaries[d].cpu().numpy())
+            s = np.concatenate(parts)
+            gr.polls += 1
+            wall = _time.monotonic() - t0_all
+            if dmark is not None:
+                dm.sample(where="mesh", mx=mx, devices=cards)
+            fr_cnt, flags, stats = s[:, 0], s[:, 1:4], s[:, 4:10]
+            found = flags[:, 0] != 0
+            overflow = flags[:, 1] != 0
+            empty = fr_cnt == 0
+            budget = stats[:, 0] >= gr.max_configs
+            active = gr.slot_key >= 0
+            decided = active & (found | empty | budget)
+            live = active & ~decided
 
-        # per-lane deltas (rebucket hints) BEFORE retirement
-        r_delta = np.maximum(stats[:, 5].astype(np.int64) - gr.prev_rounds,
-                             0)
-        e_delta = np.maximum(stats[:, 0].astype(np.int64) - gr.prev_expl, 0)
-        occupied = np.where(r_delta > 0, e_delta / np.maximum(r_delta, 1),
-                            0.0)
-        gr.prev_expl = stats[:, 0].astype(np.int64)
-        prev_rounds_next = stats[:, 5].astype(np.int64)
+            # per-lane deltas (rebucket hints) BEFORE retirement
+            r_delta = np.maximum(
+                stats[:, 5].astype(np.int64) - gr.prev_rounds, 0)
+            e_delta = np.maximum(stats[:, 0].astype(np.int64)
+                                 - gr.prev_expl, 0)
+            occupied = np.where(r_delta > 0,
+                                e_delta / np.maximum(r_delta, 1), 0.0)
+            if mx.enabled:
+                occ_budget = _record_lanes(
+                    mx, s, poll=gr.polls - 1, wall_s=wall, K=K, kern=kern,
+                    fill_lanes=np.arange(gr.bk),
+                    drain_lanes=np.nonzero(active)[0], live=live,
+                    hints=[_adapt.recommend(ladder, float(occupied[sl]))
+                           for sl in range(gr.bk)],
+                    prev_rounds=gr.prev_rounds, budget=occ_budget,
+                    device_of=lambda sl: sl // s_d,
+                    extra={"scheduler": "mesh"})
+            gr.prev_expl = stats[:, 0].astype(np.int64)
+            prev_rounds_next = stats[:, 5].astype(np.int64)
+            n_act = int(active.sum())
+            wd.beat(hb, live_keys=int(live.sum()),
+                    decided_keys=len(gr.results) + len(gr.pending_fallback),
+                    configs_explored=int(stats[active, 0].sum()))
+            if status.enabled:
+                status.search_poll({
+                    "mode": "mesh-sched", "kernel": kern, "K": K,
+                    "frontier": int(fr_cnt[active].sum()),
+                    "backlog": int(s[active, 10].sum()),
+                    "explored": int(stats[active, 0].sum()),
+                    "poll_s": round(_time.monotonic() - t_poll, 4)},
+                    search_id="mesh")
+                af = (fr_cnt[active] / max(K, 1) if n_act
+                      else np.zeros(1))
+                status.occupancy_poll({
+                    "mode": "mesh", "kernel": kern,
+                    "platform": f"mesh[{nd}]", "K": K,
+                    "fill_last": round(float(af.mean()), 4),
+                    "fill_mean": round(float(af.mean()), 4),
+                    "lanes": {"n": n_act,
+                              "fill_min": round(float(af.min()), 4),
+                              "fill_max": round(float(af.max()), 4),
+                              "empty": int((fr_cnt[active] == 0).sum())}},
+                    search_id="mesh")
 
-        for sl in np.nonzero(decided)[0]:
-            gr.retire(int(sl), s[sl], found=bool(found[sl]),
-                      empty=bool(empty[sl]), overflow=bool(overflow[sl]),
-                      budget=bool(budget[sl]), K=K)
+            for sl in np.nonzero(decided)[0]:
+                gr.retire(int(sl), s[sl], found=bool(found[sl]),
+                          empty=bool(empty[sl]),
+                          overflow=bool(overflow[sl]),
+                          budget=bool(budget[sl]), K=K)
 
-        # act on the skew telemetry, then refill every idle slot (a key
-        # stolen into an idle shard's queue is picked up at once)
-        rnd_now = int(stats[:, 5].max()) if len(stats) else 0
-        gr.maybe_steal(poll=gr.polls - 1, wall=wall, rnd=rnd_now)
-        refill_mask = np.zeros(gr.bk, dtype=bool)
-        now = _time.monotonic()
-        for sl in np.nonzero(gr.slot_key < 0)[0]:
-            i = gr.claim(int(sl) // s_d)
-            if i is None:
-                continue
-            gr.load_slot(int(sl), gr.encs[i])
-            gr.slot_key[sl] = i
-            gr.slot_t0[sl] = now
-            refill_mask[sl] = True
-            prev_rounds_next[sl] = 0
-            gr.prev_expl[sl] = 0
-        gr.prev_rounds = prev_rounds_next
-        gr.refills += int(refill_mask.sum())
+            # act on the skew telemetry, then refill every idle slot (a
+            # key stolen into an idle shard's queue is picked up at once)
+            rnd_now = int(stats[:, 5].max()) if len(stats) else 0
+            gr.maybe_steal(poll=gr.polls - 1, wall=wall, rnd=rnd_now)
+            refill_mask = np.zeros(gr.bk, dtype=bool)
+            now = _time.monotonic()
+            for sl in np.nonzero(gr.slot_key < 0)[0]:
+                i = gr.claim(int(sl) // s_d)
+                if i is None:
+                    continue
+                gr.load_slot(int(sl), gr.encs[i])
+                gr.slot_key[sl] = i
+                gr.slot_t0[sl] = now
+                refill_mask[sl] = True
+                prev_rounds_next[sl] = 0
+                gr.prev_expl[sl] = 0
+            gr.prev_rounds = prev_rounds_next
+            gr.refills += int(refill_mask.sum())
 
-        # re-bucket through the ladder on the live lanes' hints (lanes
-        # refilled this poll carry a stale occupant's occupancy: they
-        # do not vote)
-        voters = (gr.slot_key >= 0) & ~refill_mask & live
-        if voters.any() and gr.rebuckets < MAX_REBUCKETS:
-            want = max(_adapt.recommend(ladder, float(occupied[sl]))
-                       for sl in np.nonzero(voters)[0])
-            switch_to = None
-            if want > K:
-                switch_to = want
-                sparse_streak = 0
-            elif want < K:
-                # shrink only when every still-expanding lane's frontier
-                # fits the smaller beam
-                fits = bool((fr_cnt[~found] <= want).all())
-                sparse_streak = sparse_streak + 1 if fits else 0
-                if sparse_streak >= 2:
+            # re-bucket through the ladder on the live lanes' hints
+            # (lanes refilled this poll carry a stale occupant's
+            # occupancy: they do not vote)
+            voters = (gr.slot_key >= 0) & ~refill_mask & live
+            if voters.any() and gr.rebuckets < MAX_REBUCKETS:
+                want = max(_adapt.recommend(ladder, float(occupied[sl]))
+                           for sl in np.nonzero(voters)[0])
+                switch_to = None
+                if want > K:
                     switch_to = want
                     sparse_streak = 0
-            else:
-                sparse_streak = 0
-            if switch_to is not None:
+                elif want < K:
+                    # shrink only when every still-expanding lane's
+                    # frontier fits the smaller beam
+                    fits = bool((fr_cnt[~found] <= want).all())
+                    sparse_streak = sparse_streak + 1 if fits else 0
+                    if sparse_streak >= 2:
+                        switch_to = want
+                        sparse_streak = 0
+                else:
+                    sparse_streak = 0
+                if switch_to is not None:
+                    for d in range(nd):
+                        with on_stream(streams[d]):
+                            carries[d] = migrate_lanes(carries[d],
+                                                       switch_to)
+                    gr.rebuckets += 1
+                    gr._event({"event": "rebucket", "poll": gr.polls - 1,
+                               "wall_s": round(wall, 4), "round": rnd_now,
+                               "from_K": K, "to_K": switch_to,
+                               "reason": ("explored-threshold"
+                                          if switch_to > K
+                                          else "sparse-frontier")})
+                    K = switch_to
+
+            if refill_mask.any():
                 for d in range(nd):
+                    m = refill_mask[d * s_d:(d + 1) * s_d]
+                    if not m.any():
+                        continue
+                    # re-send only the consts of a shard with a refilled
+                    # slot
                     with on_stream(streams[d]):
-                        carries[d] = migrate_lanes(carries[d], switch_to)
-                gr.rebuckets += 1
-                gr._event({"event": "rebucket", "poll": gr.polls - 1,
-                           "wall_s": round(wall, 4), "round": rnd_now,
-                           "from_K": K, "to_K": switch_to,
-                           "reason": ("explored-threshold"
-                                      if switch_to > K
-                                      else "sparse-frontier")})
-                K = switch_to
+                        consts[d] = gr.shard_consts(d)
+                        reset_lanes(carries[d], m, mst_col=mst_col)
+                    gr.resets += 1
 
-        if refill_mask.any():
-            for d in range(nd):
-                m = refill_mask[d * s_d:(d + 1) * s_d]
-                if not m.any():
-                    continue
-                # re-send only the consts of a shard with a refilled slot
-                with on_stream(streams[d]):
-                    consts[d] = gr.shard_consts(d)
-                    reset_lanes(carries[d], m, mst_col=mst_col)
-                gr.resets += 1
+            if not (gr.slot_key >= 0).any() \
+                    and not any(gr.queues[d] for d in range(nd)):
+                break
+            if gr.deadline is not None and _time.monotonic() > gr.deadline:
+                timed_out = True
+                break
+    finally:
+        wd.unregister(hb)
+        if dmark is not None:
+            dm.measured(dmark, where="mesh", devices=cards)
 
-        if not (gr.slot_key >= 0).any() \
-                and not any(gr.queues[d] for d in range(nd)):
-            break
-        if gr.deadline is not None and _time.monotonic() > gr.deadline:
-            timed_out = True
-            break
-
-    # keys the loop never decided (deadline): report partials, never
-    # silence: active slots off the last summary, pending keys as plain
-    # timeouts
-    if timed_out:
+    # keys the loop never decided (deadline, stall): report partials,
+    # never silence: active slots off the last summary, pending keys as
+    # plain timeouts or stalls
+    if timed_out or stalled:
+        cause = "stalled" if stalled else "timeout"
         for sl in np.nonzero(gr.slot_key >= 0)[0]:
-            gr.retire(int(sl), s[sl], found=False, empty=False,
-                      overflow=False, budget=False, K=K)
+            row = s[sl] if s is not None else np.zeros(
+                wgl32.SUMMARY_HEAD, dtype=np.int32)
+            gr.retire(int(sl), row, found=False, empty=False,
+                      overflow=False, budget=False, K=K, stalled=stalled)
         for d in range(nd):
             while gr.queues[d]:
                 i = gr.queues[d].popleft()
-                res = {"valid?": "unknown", "cause": "timeout",
+                res = {"valid?": "unknown", "cause": cause,
                        "op_count": int(gr.encs[i].n_ok + gr.encs[i].n_info)}
                 gr.results[i] = _annotate_shard(
                     res, key_index=gr._ki(i), device=gr.labels[d],

@@ -21,7 +21,9 @@ value is an integer):
     `encode_batch(batch_pad=)`.
 
 The `gpu` cases hold the `wgl_lane_reset` and `wgl_frontier_migrate`
-kernels against their plain versions on the card.
+kernels against their plain versions on the card: the reset with its
+mask by value (1, 4, 64 lanes) and by index (65, 100), unmasked lanes
+untouched, its launch count, and a wrong leaf raising before any launch.
 """
 
 import numpy as np
@@ -432,6 +434,34 @@ def test_default_devices_need_a_card(monkeypatch):
     assert tmesh.word_shard_count(64) == 1
 
 
+_BAD_LEAVES = [
+    (tw.TABLE, lambda t: t[:-1].contiguous()),                  # shape
+    (tw.STATS, lambda t: t.to(torch.int64)),                   # dtype
+    (tw.BK, lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)),
+    (tw.FR_CNT, lambda t: t.reshape(1, -1)),                   # rank
+]
+
+
+def test_reset_block_checks_each_carry_once():
+    # the wrapper's argument block (csrc/wgl_lanes.cu's layout): the
+    # leaves' pointers and the carry's shapes, made once a carry and
+    # found again by the leaves' identities; a wrong leaf raises
+    carry = tw.init_carry_batch(4, 8, 4, 1 << 8, 32, 0, "cpu")
+    blk = tmesh._reset_block(carry)
+    assert blk.shape == (tmesh.RESET_WORDS,) and blk.dtype == np.int64
+    assert blk[:8].tolist() == [t.data_ptr() for t in carry]
+    assert blk[11:16].tolist() == [8, 4, 32, 1 << 8,
+                                   tw.RING_ROWS * tw.RING_COLS]
+    assert tmesh._reset_block(carry) is blk
+    other = tuple(t.clone() for t in carry)
+    assert tmesh._reset_block(other) is not blk
+    for leaf, bad in _BAD_LEAVES:
+        wrong = list(carry)
+        wrong[leaf] = bad(carry[leaf])
+        with pytest.raises(ValueError):
+            tmesh._reset_block(tuple(wrong))
+
+
 # --- on the card ------------------------------------------------------------------
 
 @pytest.fixture
@@ -465,6 +495,75 @@ def test_lane_kernels_match_plain_on_card(cuda_device, L):
         assert tmesh.migrate_lanes.launches == before + 1
         want = tadapt.migrate_frontier_batch(card, k_new)
         assert torch.equal(got[0], want[0]), k_new
+
+
+def _reset_case(dev, lanes, seed, K=8, C=4, H=1 << 10, B=32):
+    """A random lane-batched carry on `dev` and a random mask with at
+    least one lane set (made with numpy from `seed`)."""
+    rng = np.random.default_rng(seed)
+    leaves = [rng.integers(-2**31, 2**31, a.shape, dtype=np.int64)
+              .astype(np.int32) for a in tw.carry_batch_to_numpy(
+                  tw.init_carry_batch(lanes, K, C, H, B, 0, "cpu"))]
+    mask = rng.random(lanes) < 0.4
+    mask[rng.integers(lanes)] = True
+    return tw.carry_from_numpy(leaves, dev), mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 4, 64, 65, 100])
+def test_reset_kernel_by_mask_and_by_index_on_card(cuda_device, lanes):
+    # <= MASK_BITS lanes pass the mask by value, more pass the masked
+    # lanes' indices on the card: both equal reset_lanes_ref bit for bit,
+    # and the unmasked lanes keep every word
+    assert (lanes <= tmesh.MASK_BITS) == (lanes <= 64)
+    card, mask = _reset_case(cuda_device, lanes, seed=lanes)
+    before = [t.clone() for t in card]
+    ref = tuple(t.clone() for t in card)
+    launches = tmesh.reset_lanes.launches
+    tmesh.reset_lanes(card, mask, mst_col=2, mstate0=7)
+    torch.cuda.synchronize()
+    assert tmesh.reset_lanes.launches == launches + 1
+    tmesh.reset_lanes_ref(ref, mask, mst_col=2, mstate0=7)
+    keep = torch.as_tensor(~mask, device=cuda_device)
+    for i, (a, b, old) in enumerate(zip(card, ref, before)):
+        assert torch.equal(a, b), i
+        assert torch.equal(a[keep], old[keep]), i
+    # every lane masked, at the highest bit of the by-value words too
+    every = np.ones(lanes, bool)
+    tmesh.reset_lanes(card, every, mst_col=2)
+    tmesh.reset_lanes_ref(ref, every, mst_col=2)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(card, ref)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.gpu
+def test_reset_kernel_counts_and_checks_on_card(cuda_device):
+    card, mask = _reset_case(cuda_device, 4, seed=3)
+    launches = tmesh.reset_lanes.launches
+    # an empty mask launches nothing and changes nothing
+    before = [t.clone() for t in card]
+    tmesh.reset_lanes(card, np.zeros(4, bool), mst_col=2)
+    torch.cuda.synchronize()
+    assert tmesh.reset_lanes.launches == launches
+    assert all(torch.equal(a, b) for a, b in zip(card, before))
+    # one launch a call with a lane set
+    for _ in range(3):
+        tmesh.reset_lanes(card, mask, mst_col=2)
+    assert tmesh.reset_lanes.launches == launches + 3
+    # a wrong leaf raises before any launch, whatever was checked before
+    bad_cases = _BAD_LEAVES + [(tw.FLAGS, lambda t: t.cpu())]  # device
+    for leaf, bad in bad_cases:
+        wrong = list(card)
+        wrong[leaf] = bad(card[leaf])
+        with pytest.raises(ValueError):
+            tmesh.reset_lanes(tuple(wrong), mask, mst_col=2)
+    with pytest.raises(ValueError):
+        tmesh.reset_lanes(card, mask, mst_col=card[tw.FR].shape[2])
+    with pytest.raises(ValueError):
+        tmesh.reset_lanes(card, mask[:3], mst_col=2)
+    torch.cuda.synchronize()
+    assert tmesh.reset_lanes.launches == launches + 3
 
 
 @pytest.mark.gpu

@@ -211,6 +211,11 @@ SMALL_BUDGET = 1_000_000      # bytes: a budget every main path blows
 RT = ("realtime",)
 REPO = Path(__file__).resolve().parent
 
+# the main run's verdicts the warm phases' fresh processes must repeat,
+# and the mesh fan-out's shared shape bucket (with its key count)
+MAIN_VERDICTS: dict = {}
+MAIN_BUCKETS: dict = {}
+
 # the first check of a fresh process, timed from the checker call (the
 # CUDA context is made first and timed apart)
 COLD = """
@@ -234,6 +239,98 @@ print(json.dumps({"wall_s": time.monotonic() - t0, "context_s": ctx,
                   "launches": wgl32.chunk.launches}))
 """
 
+
+# a fresh process's first checks, warmed or not (`warm_phases`): argv[1]
+# is the mode ("cold": nothing warmed; "bind": the headline's entry
+# point bound, nothing launched; "warm": the warm plane first), argv[2]
+# the paths ("headline", "mesh", "elle"), comma-separated; the CUDA
+# context is made first and timed apart; every first check runs inside
+# a CompileGuard (budget 0 when warmed). Prints one JSON line.
+WARM = """
+import json, os, sys, time, torch
+sys.path.insert(0, %(repo)r)
+import chip_smoke as cs
+from jepsen_tpu_torch import checker, fs_cache, independent, service, synth
+from jepsen_tpu_torch.analysis import guards
+from jepsen_tpu_torch.elle import append, build, tpu as etpu
+from jepsen_tpu_torch.history import strip_nemesis
+from jepsen_tpu_torch.models import cas_register
+from jepsen_tpu_torch.ops import _native, aot, encode
+from jepsen_tpu_torch.parallel import batched, mesh
+fs_cache.DIR = %(cache)r
+mode, paths = sys.argv[1], sys.argv[2].split(",")
+out = {"mode": mode}
+t0 = time.monotonic()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+out["context_s"] = time.monotonic() - t0
+out["module_loading"] = os.environ.get("CUDA_MODULE_LOADING")
+dev = torch.device("cuda", 0)
+
+def first(name, check, precompile):
+    rec = {}
+    if mode == "warm":
+        t0 = time.monotonic()
+        rec["warm"] = precompile()
+        torch.cuda.synchronize()
+        rec["warm_s"] = time.monotonic() - t0
+    g = guards.CompileGuard(max_compiles=0 if mode == "warm" else None,
+                            name=name + "-" + mode)
+    with g:
+        t0 = time.monotonic()
+        res = check()
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.monotonic() - t0
+    rec["guard"] = g.report()
+    rec["transfers"] = g.transfers
+    out[name] = rec
+    return rec, res
+
+if "headline" in paths:
+    h = synth.cas_register_history(**cs.HEADLINE)
+    enc = encode.encode(cas_register(), h)
+    if mode == "bind":
+        _native._lib("wgl32_chunk")
+    lin = checker.linearizable(cas_register(), algorithm="cuda-wgl")
+    rec, res = first("headline", lambda: lin.check({}, h, {}),
+                     lambda: aot.precompile_service_bucket(
+                         service.bucket_for(enc)[1]))
+    rec.update(valid=res["valid?"], chunks=res["util"]["chunks"],
+               first_call_s=res["util"]["first_call_s"],
+               bucket=service.bucket_for(enc)[1])
+if "mesh" in paths:
+    fan = cs.multikey_history(**cs.FANOUT)
+    ks = independent.history_keys(fan)
+    subs = [strip_nemesis(x) for x in independent.subhistories(fan, ks)]
+    encs = [encode.encode(cas_register(), x) for x in subs]
+    cards = [dev] * cs.MESH_SHARDS
+    rec, res = first("mesh", lambda: mesh.check_mesh(
+        cas_register(), subs, encs=encs, devices=cards),
+        lambda: aot.precompile_mesh_plan(
+            batched.shared_shape_bucket(encs), cards, n_keys=len(encs),
+            model_name="cas-register"))
+    summ = mesh.last_summary()
+    rec.update(verdicts={str(k): r["valid?"] for k, r in zip(ks, res)},
+               pool_hit=[g["pool_hit"] for g in summ["groups"]],
+               polls=summ["polls"])
+    mesh.pool_settle()
+    rec["pool_bytes"] = sum(t.numel() * t.element_size()
+                            for e in mesh._CARRY_POOL.values()
+                            for carry, _ in e for t in carry)
+if "elle" in paths:
+    hists = {"elle append 3k": synth.list_append_history(**cs.ELLE_3K),
+             "elle append 10k": synth.list_append_history(**cs.ELLE_10K)}
+    buckets = {k: etpu.shape_bucket_for(build.build_append(
+        x, *cs.split_txns(x), additional_graphs=cs.RT).tensors)
+        for k, x in hists.items()} if mode == "warm" else {}
+    for name, x in hists.items():
+        rec, res = first(name, lambda: append.check(
+            x, additional_graphs=cs.RT),
+            lambda: aot.precompile_elle_closure(buckets[name]))
+        rec.update(valid=res["valid?"], types=res["anomaly-types"],
+                   kernel=(res.get("cycle-util") or {}).get("kernel"))
+print(json.dumps(out))
+"""
 
 def card_line() -> str:
     return subprocess.run(
@@ -942,6 +1039,8 @@ def elle_phases(dev, host10, step_us: float) -> list:
                 or res["valid?"] is not True or counts["elle_closure"] < 1):
             raise AssertionError(f"elle {kind} 3k auto: {res['valid?']} "
                                  f"{res.get('cycle-engine')} {u}")
+        MAIN_VERDICTS[f"elle {kind} 3k"] = [res["valid?"],
+                                            res["anomaly-types"]]
         t0 = time.monotonic()
         host = check(hist, additional_graphs=RT, cycle_backend="host", **kw)
         host_s = time.monotonic() - t0
@@ -1040,6 +1139,7 @@ def elle_phases(dev, host10, step_us: float) -> list:
             or u.get("n_pad") != 16384 or res["valid?"] is not True
             or counts["elle_packed_closure"] < 1):
         raise AssertionError(f"elle append 10k auto: {res['valid?']} {u}")
+    MAIN_VERDICTS["elle append 10k"] = [res["valid?"], res["anomaly-types"]]
     res_t, wall_t, counts_t, tt = elle_drive(append.check, h10,
                                              cycle_backend="trim")
     print(f"  forced trim on the card: valid? {res_t['valid?']} engine "
@@ -1882,6 +1982,9 @@ def fanout_phases(dev) -> list:
                     host[k] += time.monotonic() - t0
             return run
 
+        # a mesh run's pool restock fills off-thread: outside this window
+        from jepsen_tpu_torch.parallel import mesh as _mesh
+        _mesh.pool_settle()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2147,6 +2250,7 @@ def fanout_phases(dev) -> list:
                                          devices=cards).check({}, h, {}))
     summ = mesh.last_summary()
     per_key = res["results"]
+    MAIN_VERDICTS["mesh"] = {str(k): r["valid?"] for k, r in per_key.items()}
     k_ms = {k: t.ms(k) for k in ("wgl32_chunk_batched", "wgl_lane_reset",
                                  "wgl_frontier_migrate")}
     kernel_s = [x for v in k_ms.values() for x in v]
@@ -2185,6 +2289,7 @@ def fanout_phases(dev) -> list:
     kp = mesh.kernel_params(batched.shared_shape_bucket(encs),
                             MESH_SHARDS * mesh.lanes_for(len(encs),
                                                          MESH_SHARDS))
+    MAIN_BUCKETS["mesh"] = (batched.shared_shape_bucket(encs), len(encs))
     mkw = dict(K=kp["ladder"][0], W=kp["W"], ic=kp["ic_pad"], H=kp["H"],
                B=kp["B"], probes=kp["probes"])
     mC = wgl32.row_words(mkw["ic"])
@@ -2817,6 +2922,210 @@ def preflight_phases(dev) -> None:
         raise AssertionError(f"preflight CLI parity: {par}")
 
 
+WARM_TURNS = 3                          # fresh processes per mode
+
+
+def zero_round_checks(dev) -> None:
+    """The warm plane's zero-round launches against their plain versions,
+    at every form its warms launch: each ladder bucket of the headline's
+    and the 16-wave's service buckets (`aot.service_ladder`, through
+    `wgl32.chunk` / `wgln.chunk`) and of the mesh fan-out's plan (one
+    shard's 4 lanes, `wgl32.chunk_batched`); zero consts, a zero config
+    budget, a fresh carry; every carry leaf and the summary equal."""
+    from jepsen_tpu_torch import service, synth
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import aot, encode, wgl32, wgln
+    from jepsen_tpu_torch.parallel import mesh
+
+    def zeros(lanes, n_pad, ic, S, O):
+        z = (lambda *sh: np.zeros(sh if lanes is None else (lanes,) + sh,
+                                  np.int32))
+        make = (wgl32.consts_from_numpy if lanes is None
+                else wgl32.batch_consts_from_numpy)
+        return make(z(n_pad), z(n_pad), z(n_pad), z(n_pad + 1), z(ic),
+                    z(ic), z(S, O), 0, 0, 0, dev)
+
+    def held(what, fn, ref, consts, carry, form, **kw):
+        ref_in = tuple(t.clone() for t in carry)
+        out, summary = fn(consts, carry, **kw)
+        torch.cuda.synchronize()
+        want, want_s = ref(consts, ref_in, **kw)
+        if not (same_carry(out, want) and torch.equal(summary, want_s)):
+            raise AssertionError(f"zero-round {what} K {kw['K']} "
+                                 f"({form_label(form)}) differs from its "
+                                 "plain version")
+        return f"K {kw['K']} {form_label(form)}"
+
+    hists = {"headline": synth.cas_register_history(
+        HEADLINE["n_ops"], n_procs=HEADLINE["n_procs"],
+        seed=HEADLINE["seed"], crash_p=HEADLINE["crash_p"]),
+        "16-wave": synth.adversarial_wave_history(
+            WAVE["n_waves"], width=WAVE["width"], span=WAVE["span"],
+            seed=WAVE["seed"])}
+    for name, hist in hists.items():
+        lad = aot.service_ladder(service.bucket_for(
+            encode.encode(cas_register(), hist))[1], device=dev)
+        n_pad, ic, S, O, L = (lad[k] for k in ("n_pad", "ic_pad", "S", "O",
+                                               "L"))
+        kw = dict(ic=ic, H=lad["H"], B=lad["B"], chunk=lad["chunk"],
+                  probes=lad["probes"])
+        done = []
+        for K in lad["ladder"]:
+            consts = zeros(None, n_pad, ic, S, O)
+            if L:
+                done.append(held(name, wgln.chunk, wgln.chunk_ref, consts,
+                                 wgln.init_carry(K, L, ic, lad["H"],
+                                                 lad["B"], 0, dev),
+                                 wgln.solo_form(K, L, ic), K=K, L=L, **kw))
+            else:
+                C = wgl32.row_words(ic)
+                done.append(held(name, wgl32.chunk, wgl32.chunk_ref, consts,
+                                 wgl32.init_carry(K, C, lad["H"], lad["B"],
+                                                  0, dev),
+                                 wgl32.block_form(K, lad["W"], ic, C), K=K,
+                                 W=lad["W"], **kw))
+        print(f"  zero-round {name} ladder == plain: {'; '.join(done)}",
+              flush=True)
+    bucket, n_keys = MAIN_BUCKETS["mesh"]
+    s_d = mesh.lanes_for(n_keys, MESH_SHARDS)
+    p = mesh.kernel_params(bucket, MESH_SHARDS * s_d)
+    C = wgl32.row_words(p["ic_pad"])
+    done = []
+    for K in p["ladder"]:
+        consts = zeros(s_d, p["n_pad"], p["ic_pad"], p["S"], p["O"])
+        done.append(held("mesh", wgl32.chunk_batched,
+                         wgl32.chunk_batched_ref, consts,
+                         wgl32.init_carry_batch(s_d, K, C, p["H"], p["B"], 0,
+                                                dev),
+                         wgl32.block_form(K, p["W"], p["ic_pad"], C), K=K,
+                         W=p["W"], ic=p["ic_pad"], H=p["H"], B=p["B"],
+                         chunk=p["chunk"], probes=p["probes"]))
+    print(f"  zero-round mesh shard ({s_d} lanes) ladder == plain: "
+          f"{'; '.join(done)}", flush=True)
+
+
+def warm_phases(dev, lin, hist) -> None:
+    """The warm plane and the compile guard on the card. In this process,
+    two steady re-checks of the headline inside `CompileGuard(
+    max_compiles=0)` (one const upload and one poll a chunk each). Then
+    fresh processes (`WARM`), in turns: the headline's first check
+    unwarmed ("cold", whose guard must count a load and a bind), with
+    only its entry point bound ("bind": bound but never launched) and
+    after `aot.precompile_service_bucket` ("warm", guard budget 0: h2d
+    1, d2h one a chunk); the first turn's cold and warm processes also
+    run the mesh fan-out (`check_mesh` over 2 shards of the card, after
+    `aot.precompile_mesh_plan` when warm: its starting carries from the
+    pool) and Elle append 3k (bf16) and 10k (packed) (after
+    `aot.precompile_elle_closure` when warm), each verdict equal to the
+    main run's. Then `python -m jepsen_tpu_torch.bench` once. Any guard
+    over its budget raises in its process, and the phase fails."""
+    from jepsen_tpu_torch.analysis import guards
+
+    print(f"warm plane ({card_line()}):", flush=True)
+    zero_round_checks(dev)
+    g = guards.CompileGuard(max_compiles=0, name="headline-steady")
+    with g:
+        chunks = 0
+        for _ in range(2):
+            res = lin.check({}, hist, {})
+            chunks += res["util"]["chunks"]
+    rep = g.report()
+    print(f"  steady headline re-checks x2 in this process: {rep}, "
+          f"transfers {g.transfers}", flush=True)
+    if res["valid?"] is not True or rep["h2d"] != 2 or rep["d2h"] != chunks:
+        raise AssertionError(f"steady re-checks: {rep}, {chunks} chunks")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cache = str(REPO / "build" / "torch_kernels" / "fs_cache")
+    script = WARM % {"repo": str(REPO), "cache": cache}
+
+    def fresh(mode, paths):
+        proc = subprocess.run([sys.executable, "-c", script, mode,
+                               ",".join(paths)], cwd=REPO,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"warm process {mode} {paths} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    walls: dict = {m: [] for m in ("cold", "bind", "warm")}
+    t_all = time.monotonic()
+    for turn in range(WARM_TURNS):
+        order = ("cold", "bind", "warm") if turn % 2 == 0 else \
+            ("warm", "bind", "cold")
+        for mode in order:
+            paths = ["headline"]
+            if turn == 0 and mode != "bind":
+                paths += ["mesh", "elle"]
+            r = fresh(mode, paths)
+            hl = r["headline"]
+            gr = hl["guard"]
+            walls[mode].append(hl["wall_s"])
+            print(f"  turn {turn} {mode}: context {r['context_s']:.4f} s "
+                  f"(CUDA_MODULE_LOADING {r['module_loading']}); headline "
+                  f"first check {hl['wall_s']:.4f} s (first chunk "
+                  f"{hl['first_call_s']} s, {hl['chunks']} chunks), guard "
+                  f"builds {gr['builds']} loads {gr['loads']} binds "
+                  f"{gr['binds']} compile_s {gr['compile_s']} h2d "
+                  f"{gr['h2d']} d2h {gr['d2h']}"
+                  + (f"; warm {hl['warm_s']:.4f} s, per bucket "
+                     f"{hl['warm']}" if mode == "warm" else ""),
+                  flush=True)
+            if hl["valid"] is not True:
+                raise AssertionError(f"warm headline {mode}: {hl}")
+            if mode == "cold" and (gr["loads"] < 1 or gr["binds"] < 1):
+                raise AssertionError(f"unwarmed headline counted no load "
+                                     f"or bind: {gr}")
+            if mode == "warm" and (gr["compiles"] or gr["h2d"] != 1
+                                   or gr["d2h"] != hl["chunks"]):
+                raise AssertionError(f"warmed headline: {gr}")
+            if turn == 0 and mode == "warm":
+                print(f"  headline's service bucket {hl['bucket']}",
+                      flush=True)
+            for name in ("mesh", "elle append 3k", "elle append 10k"):
+                if name not in r:
+                    continue
+                x = r[name]
+                xg = x["guard"]
+                extra = ""
+                if name == "mesh":
+                    ok = x["verdicts"] == MAIN_VERDICTS["mesh"]
+                    extra = (f"pool hit {x['pool_hit']}, polls {x['polls']}"
+                             f", pool after the run {x['pool_bytes']} B")
+                    if mode == "warm" and x["pool_hit"] != [True]:
+                        raise AssertionError(f"warmed mesh: {x['pool_hit']}")
+                else:
+                    ok = [x["valid"], x["types"]] == MAIN_VERDICTS[name]
+                    extra = f"kernel {x['kernel']}"
+                if not ok:
+                    raise AssertionError(f"{name} {mode}: verdicts differ "
+                                         "from the main run's")
+                if mode == "warm" and xg["compiles"]:
+                    raise AssertionError(f"warmed {name}: {xg}")
+                print(f"    {name} {mode}: first check {x['wall_s']:.4f} s, "
+                      f"guard builds {xg['builds']} loads {xg['loads']} "
+                      f"binds {xg['binds']} h2d {xg['h2d']} d2h {xg['d2h']} "
+                      f"({x['transfers']}); {extra}"
+                      + (f"; warm {x['warm_s']:.4f} s: {x['warm']}"
+                         if mode == "warm" else ""), flush=True)
+    print("  headline first-check walls (s), fresh processes in turns: "
+          + json.dumps(walls), flush=True)
+    proc = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.bench"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    bench = json.loads(lines[-1]) if lines else {}
+    print(f"  python -m jepsen_tpu_torch.bench (exit {proc.returncode}): "
+          f"{json.dumps({k: v for k, v in bench.items() if k != 'configs'})}",
+          flush=True)
+    if (proc.returncode != 0 or len(lines) != 1
+            or bench.get("metric") != "cas_register_10k_wgl_wall_s"
+            or not bench.get("value", 0) > 0 or bench.get("compiles") != 0
+            or bench.get("platform") != "gpu"):
+        raise AssertionError(f"bench: exit {proc.returncode}, "
+                             f"{proc.stderr[-2000:]}")
+    print(f"  warm phases: {time.monotonic() - t_all:.1f} s", flush=True)
+
 def paths_main(root: str) -> int:
     """`--paths ROOT`: the main paths the redesigned kernels serve,
     driven through the package under ROOT (this checkout's, or an older
@@ -3395,6 +3704,7 @@ def run_phases(dev, host10) -> int:
     elle = elle_phases(dev, host10, step_us)
     bool_entry = bool_chunk_phases(dev, step_us)
     preflight_phases(dev)
+    warm_phases(dev, lin, h)
 
     print("card:", card_line())
     print(json.dumps({"kernels": [{

@@ -419,8 +419,9 @@ def plan_wgl(model=None, history=None, *, enc=None,
             "P003", f"{len(cold)} kernel module(s) to build with nvcc "
                     f"({', '.join(cold)}) exceed the compile budget "
                     f"{cbudget}",
-            suggestion="build the kernels first: "
-                       "ops._native.build_all()"))
+            suggestion="warm the ladder first (it builds, loads and "
+                       "binds its kernels): "
+                       "aot.precompile_wgl_ladder(...)"))
 
     # -- P005: predicted fill at the starting bucket --------------------
     wavefront = max(shapes.get("mean_depth") or 0.0, 1.0)
@@ -1024,7 +1025,12 @@ def plan_mesh(encs, *, n_devices: int,
                      "axes": [str(a) for a in axes]}
         for node in rep.get("plan", []):
             nodes.append(dict(node, mesh=dict(mesh_note)))
-        rules.extend(rep.get("rules", []))
+        for r in rep.get("rules", []):
+            if r["rule"] == "P003":
+                r = dict(r, suggestion="warm the mesh plan first: "
+                                       "aot.precompile_mesh_plan("
+                                       "shape_bucket, devices)")
+            rules.append(r)
         group_reports.append({"group": gname, "keys": len(idxs),
                               "kernel": rep.get("kernel"),
                               "buckets": rep.get("buckets"),

@@ -44,10 +44,9 @@ n_pad ones is exact in f32, so the bf16 kernel's outputs equal the
 reference's f32 run bit for bit; the plain dense version multiplies in
 f32.
 
-What is not ported: the telemetry/watchdog/device-monitor planes and
-the AOT warm path. `_squaring_select` decides bf16 vs packed vs sharded
-from an analytic byte model against the cards' memory instead of
-`Lowered.cost_analysis`.
+The warm path is `ops/aot.precompile_elle_closure`. `_squaring_select`
+decides bf16 vs packed vs sharded from an analytic byte model against
+the cards' memory instead of `Lowered.cost_analysis`.
 """
 
 from __future__ import annotations
@@ -123,9 +122,15 @@ def _squarings(reach, iters: int, square: Callable, on_square=None,
     `while_loop`): square until no subset's reach count changed, at
     most `iters` times, at least once. `square(r, counts_row)` returns
     the next reach and writes its per-subset counts into the (S,)
-    row; the host reads the row after each squaring (one small copy).
+    row; the host reads the row after each squaring (one small copy,
+    reported to the compile guard as "elle-square-counts": the
+    reference keeps the loop on the device and reads nothing).
     `counts` (iters, S) int32 is allocated on the reach's device unless
-    given. Returns (reach, counts, iters_run)."""
+    given; a caller that gives host counts reports its own reads.
+    Returns (reach, counts, iters_run)."""
+    from ..analysis import guards
+
+    note = counts is None
     if counts is None:
         counts = torch.zeros((iters, reach.shape[0]), dtype=torch.int32,
                              device=reach.device)
@@ -134,6 +139,8 @@ def _squarings(reach, iters: int, square: Callable, on_square=None,
     while i < iters:
         reach = square(reach, counts[i])
         c = counts[i].tolist()
+        if note:
+            guards.note_transfer("d2h", 4 * len(c), what="elle-square-counts")
         if on_square is not None:
             on_square(i, reach)
         i += 1
@@ -159,8 +166,17 @@ def _check_closure_inputs(name, tensors, n_pad):
 
 
 def _check_range(name: str, t: torch.Tensor, hi: int) -> None:
-    """Indices a kernel dereferences must lie in [0, hi)."""
-    if t.numel() and (int(t.min()) < 0 or int(t.max()) >= hi):
+    """Indices a kernel dereferences must lie in [0, hi). On the card the
+    two reads are copies, reported to the compile guard as
+    "elle-arg-check"."""
+    if not t.numel():
+        return
+    lo, top = int(t.min()), int(t.max())
+    if t.is_cuda:
+        from ..analysis import guards
+        guards.note_transfer("d2h", 4, what="elle-arg-check")
+        guards.note_transfer("d2h", 4, what="elle-arg-check")
+    if lo < 0 or top >= hi:
         raise ValueError(f"{name}: index outside [0, {hi})")
 
 
@@ -637,6 +653,8 @@ def sharded_closure_ref(blocks, q_src, q_dst, *, n_pad: int, iters: int,
     reach. `on_square(i, blocks)` sees the blocks after each squaring.
     Returns `packed_closure_ref`'s (labels, closed, counts, iters_run),
     bit for bit."""
+    from ..analysis import guards
+
     S = blocks[0].shape[0]
 
     def square(bl, cnt):
@@ -645,6 +663,9 @@ def sharded_closure_ref(blocks, q_src, q_dst, *, n_pad: int, iters: int,
         out = [sharded_square_ref(full, b, parts[k])
                for k, b in enumerate(bl)]
         cnt.copy_(parts.sum(dim=0, dtype=torch.int32))
+        # one count read a shard, as on the card
+        for _ in bl:
+            guards.note_transfer("d2h", 4 * S, what="elle-square-counts")
         return out
 
     blocks, counts, iters_run = _squarings(
@@ -691,6 +712,8 @@ def sharded_closure(blocks, q_src, q_dst, *, n_pad: int, iters: int,
                          "device")
     for t in (q_src, q_dst):
         _check_range("elle sharded closure", t, n_pad)
+    from ..analysis import guards
+
     streams = shard_streams(devs)
     # the blocks and queries were written on the callers' streams
     for k, dev in enumerate(devs):
@@ -732,6 +755,7 @@ def sharded_closure(blocks, q_src, q_dst, *, n_pad: int, iters: int,
         for d in range(n_sh):
             ready[d].synchronize()
             total = [a + b for a, b in zip(total, cnts[d].tolist())]
+            guards.note_transfer("d2h", 4 * S, what="elle-square-counts")
         cnt.copy_(torch.tensor(total, dtype=torch.int32))
         return out
 
@@ -888,6 +912,8 @@ def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
             p_pad < 1 or counts_rows < 1:
         raise ValueError(f"elle trim: n_pad={n_pad} p_pad={p_pad} "
                          f"counts_rows={counts_rows} out of range")
+    from ..analysis import guards
+
     _check_range("elle trim", in_neigh, n_pad)
     _check_range("elle trim", out_neigh, n_pad)
     _check_range("elle trim", proc, p_pad)
@@ -899,6 +925,7 @@ def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
         # the transposes hold one entry a masked slot
         slots = int(in_mask.any(dim=2).sum()) + int(
             out_mask.any(dim=2).sum())
+        guards.note_transfer("d2h", 8, what="elle-arg-check")
         # [ticket, bodies per subset] zeroed; the rest the kernel writes
         scratch = torch.empty(trim_scratch_words(n_pad, slots, S, p_pad,
                                                  use_proc),
@@ -908,6 +935,8 @@ def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
                 (n_pad, d_in, d_out, S, p_pad, int(use_rt), int(use_proc),
                  counts_rows, slots), dev)
         _count(trim)
+    # the body count's read (the reference reads it uncounted)
+    guards.note_transfer("d2h", 4, what="elle-trim-bodies")
     return live, counts, int(bodies)
 
 
@@ -958,6 +987,27 @@ def _pad(a, size, fill):
 
 def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _upload(arrays, dev) -> list:
+    """The kernel inputs on `dev`, reported to the compile guard as one
+    upload ("elle-closure-inputs", as the reference does)."""
+    from ..analysis import guards
+
+    ins = [_tensor(a, dev) for a in arrays]
+    guards.note_transfer("h2d", sum(int(np.asarray(a).nbytes)
+                                    for a in arrays),
+                         what="elle-closure-inputs")
+    return ins
+
+
+def _note_outputs(*arrays) -> None:
+    """The kernel outputs' copy to the host, one download
+    ("elle-closure-outputs", as the reference does)."""
+    from ..analysis import guards
+
+    guards.note_transfer("d2h", sum(int(a.nbytes) for a in arrays),
+                         what="elle-closure-outputs")
 
 
 def _sync(dev) -> None:
@@ -1075,7 +1125,7 @@ def _run_closure(g, subsets, rw_type, max_n, device, packed):
     dev = resolve_device(device)
     a = closure_inputs(g, subsets, rw_type, packed=packed)
     n, n_pad, iters, n_sub = a["n"], a["n_pad"], a["iters"], len(subsets)
-    ins = [_tensor(x, dev) for x in a["args"]]
+    ins = _upload(a["args"], dev)
     _sync(dev)
     t0 = time.monotonic()
     fn = packed_closure if packed else closure
@@ -1088,7 +1138,8 @@ def _run_closure(g, subsets, rw_type, max_n, device, packed):
     (labels, closed, iter_counts, iters_run), dm, dmark = _watched(
         run, [dev], edges=int(a["edges"]), n=n, n_pad=n_pad, iters=iters)
     kernel_s = time.monotonic() - t0
-    util = _reach_util(iter_counts.cpu().numpy(), iters, iters_run, n_pad)
+    iter_counts = iter_counts.cpu().numpy()
+    util = _reach_util(iter_counts, iters, iters_run, n_pad)
     util["kernel_s"] = round(kernel_s, 4)
     if packed:
         # word-ops model: one squaring ANDs/ORs n_pad^2 * W words/subset
@@ -1104,6 +1155,7 @@ def _run_closure(g, subsets, rw_type, max_n, device, packed):
     _record_closure(util, a["edges"], n)
     labels = labels.cpu().numpy()[:, :n]
     closed = closed.cpu().numpy()[:, :len(a["rw_edges"])]
+    _note_outputs(labels, closed, iter_counts)
     return {"sccs": _sccs_from_labels(labels, a["nodes"], n, n_sub),
             "rw_edges": a["rw_edges"], "rw_closed": closed, "util": util}
 
@@ -1163,9 +1215,13 @@ def cycle_queries_sharded(g, subsets: Sequence[frozenset] = SUBSETS,
     if n_shards > len(devs):
         raise ValueError(f"{n_shards} shards over {len(devs)} devices")
     r0, q_src, q_dst = a["args"]
+    from ..analysis import guards
+
     blocks = [b.to(dev) for b, dev in
               zip(shard_blocks(torch.from_numpy(r0), n_shards), devs)]
     qs, qd = _tensor(q_src, devs[0]), _tensor(q_dst, devs[0])
+    guards.note_transfer("h2d", r0.nbytes + q_src.nbytes + q_dst.nbytes,
+                         what="elle-closure-inputs")
     cards = list(dict.fromkeys(devs[:n_shards]))
     for dev in cards:
         _sync(dev)
@@ -1194,6 +1250,7 @@ def cycle_queries_sharded(g, subsets: Sequence[frozenset] = SUBSETS,
     _record_closure(util, a["edges"], n)
     labels = labels.cpu().numpy()[:, :n]
     closed = closed.cpu().numpy()[:, :len(a["rw_edges"])]
+    _note_outputs(labels, closed, iter_counts.numpy())
     return {"sccs": _sccs_from_labels(labels, a["nodes"], n, n_sub),
             "rw_edges": a["rw_edges"], "rw_closed": closed, "util": util}
 
@@ -1362,7 +1419,7 @@ def trim_cycle_search(g, max_n: int = PACKED_MAX_N,
     t = trim_inputs(g)
     if t is None:
         return None  # degree past the gather bucket: dense kernels
-    ins = [_tensor(a, dev) for a in t["arrays"]]
+    ins = _upload(t["arrays"], dev)
     n_pad, d_in, d_out, use_rt, use_proc = (
         t["n_pad"], t["d_in"], t["d_out"], t["use_rt"], t["use_proc"])
     _sync(dev)
@@ -1381,6 +1438,7 @@ def trim_cycle_search(g, max_n: int = PACKED_MAX_N,
     iters_run = 2 * bodies  # two peel rounds per loop body
     counts = counts.cpu().numpy()[:min(bodies, TRIM_COUNTS_ROWS)]
     live = live.cpu().numpy()[:n]
+    _note_outputs(live, counts)
     core_sizes = [int(live[:, si].sum()) for si in range(len(SUBSETS))]
     util = {"kernel": "trim", "n_pad": n_pad,
             "d_in": d_in, "d_out": d_out,

@@ -11,6 +11,12 @@ takes minutes); pointers and the stream cross as plain integers.
 `nvcc` and `ctypes` are reached only from the first launch, so the
 package imports on machines without a toolkit. A build or launch
 failure raises; nothing falls back to the plain PyTorch versions.
+
+Each of those first-use costs reports to the compile guard
+(`analysis/guards.note_compile`): one "build" per source `build_all`
+compiles (with its nvcc seconds), one "load" per library `_load` opens
+(`constant` loads through it), one "bind" per entry point `_lib` binds.
+The bound-launch path (`launch` after the first) reports nothing.
 """
 
 from __future__ import annotations
@@ -70,6 +76,8 @@ def build_all() -> dict:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running.append((src, lib, tmp, time.monotonic(), proc))
+    from ..analysis import guards
+
     failed = []
     for src, lib, tmp, t0, proc in running:
         _, err = proc.communicate()
@@ -77,9 +85,10 @@ def build_all() -> dict:
             failed.append(f"{src.name} (exit {proc.returncode}):\n{err}")
             continue
         os.replace(tmp, lib)
+        seconds = time.monotonic() - t0
+        guards.note_compile("build", seconds, src.stem)
         out[src.stem] = {"source": str(src.relative_to(_PKG.parent)),
-                         "seconds": time.monotonic() - t0,
-                         "ptxas": err.strip()}
+                         "seconds": seconds, "ptxas": err.strip()}
     if failed:
         raise RuntimeError("nvcc failed for " + "; ".join(failed))
     return out
@@ -149,10 +158,15 @@ def _load(stem: str):
     disk. Call with _LOCK held."""
     import ctypes
 
+    from ..analysis import guards
+
     path = _lib_path(CSRC / f"{stem}.cu")
     if not path.exists():
         build_all()
-    return ctypes.CDLL(str(path))
+    t0 = time.monotonic()
+    lib = ctypes.CDLL(str(path))
+    guards.note_compile("load", time.monotonic() - t0, stem)
+    return lib
 
 
 def _lib(name: str):
@@ -161,10 +175,13 @@ def _lib(name: str):
     library built on first use and bound once."""
     import ctypes
 
+    from ..analysis import guards
+
     stem, n_ptrs, n_ints = KERNELS[name]
     with _LOCK:
         if name not in _LIBS:
             lib = _load(stem)
+            t0 = time.monotonic()
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * n_ptrs
                            + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
@@ -173,6 +190,7 @@ def _lib(name: str):
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _LIBS[name] = (fn, err, n_ptrs, n_ints)
+            guards.note_compile("bind", time.monotonic() - t0, name)
         return _LIBS[name]
 
 

@@ -277,3 +277,52 @@ def migrate_frontier_batch(carry, k_new: int):
     else:
         fr = fr[:, :k_new].contiguous()
     return (fr, *carry[1:])
+
+
+def precompile_ladder(*, n_pad: int, ic_pad: int, S: int, O: int,
+                      H: int, B: int, chunk: int, probes: int,
+                      W: int, L: int = 0, ladder: tuple = LADDER32,
+                      device=None) -> dict:
+    """Warm every ladder bucket's kernel for one shape bucket, on
+    `device` (None: the card): per bucket, the consts and the carry the
+    search makes (`ops/wgl._search_loop`), zeroed, and one chunk with a
+    zero config budget, so that the loop exits before its first round,
+    through the search's own wrapper (`wgl32.chunk` / `wgln.chunk`) and
+    so in the launch form the search takes at that K. The first launch
+    builds, loads and binds the kernel and loads its form onto the card;
+    the allocator keeps the bucket's segments. One sync per bucket is
+    the job. The reference's layout knobs (`accel`, `depth`, `pack`)
+    have no counterpart: the port's kernels have one layout. Returns
+    {K: seconds}."""
+    import time as _t
+
+    import numpy as np
+    import torch
+
+    from ..util import resolve_device
+    from . import wgl32, wgln
+
+    dev = resolve_device(device)
+    z = np.zeros(n_pad, np.int32)
+    zi = np.zeros(ic_pad, np.int32)
+    out: dict = {}
+    for k in ladder:
+        t0 = _t.monotonic()
+        # max_cfg 0: zero rounds run
+        consts = wgl32.consts_from_numpy(
+            z, z, z, np.zeros(n_pad + 1, np.int32), zi, zi,
+            np.zeros((S, O), np.int32), 0, 0, 0, dev)
+        if L:
+            carry = wgln.init_carry(k, L, ic_pad, H, B, 0, dev)
+            _, summary = wgln.chunk(consts, carry, K=k, L=L, ic=ic_pad, H=H,
+                                    B=B, chunk=chunk, probes=probes)
+        else:
+            carry = wgl32.init_carry(k, wgl32.row_words(ic_pad), H, B, 0,
+                                     dev)
+            _, summary = wgl32.chunk(consts, carry, K=k, W=W, ic=ic_pad,
+                                     H=H, B=B, chunk=chunk, probes=probes)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        del carry, summary
+        out[k] = _t.monotonic() - t0
+    return out

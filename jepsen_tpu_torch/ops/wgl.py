@@ -373,6 +373,7 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
     from .. import fleet as _fleet
     from .. import occupancy as _occ
     from .. import watchdog as _watchdog
+    from ..analysis import guards as _guards
 
     K, H, B = plan["K"], plan["H"], plan["B"]
     W_eff, ic_eff = plan["W_eff"], plan["ic_eff"]
@@ -385,6 +386,9 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
         enc.inv, enc.ret, enc.opcode, enc.sufminret,
         enc.inv_info[:ic_eff], enc.opcode_info[:ic_eff], enc.table,
         n, enc.n_info, min(max_configs, 2**31 - 1), dev)
+    # the search's one const upload (a compile guard's budget point)
+    _guards.note_transfer("h2d", sum(t.numel() * t.element_size() for t in (
+        consts.meta, consts.tk, consts.iinv, consts.iopc)), what="wgl-consts")
     if kern == "wgl32":
         C = wgl32.row_words(ic_eff)
         carry = wgl32.init_carry(K, C, H, B, 0, dev)
@@ -449,6 +453,7 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
         # occupancy ring included
         s = summary.cpu().numpy()
         xfer_s = _time.monotonic() - t_xfer
+        _guards.note_transfer("d2h", s.nbytes, what="wgl-poll")
         poll_s = _time.monotonic() - t_call
         fr_cnt, flags, stats = int(s[0]), s[1:4], s[4:10]
         bk_cnt = int(s[10])

@@ -36,9 +36,15 @@ run, undecided keys "stalled" with their partial progress), the device
 monitor's samples a poll (each card once, however many shards it
 holds), the `mesh_sched` series of the scheduler's actions and, with
 metrics on, the lanes' `wgl_batched_lanes` and `wgl_batched_rounds`
-points. Not ported yet: the warm plane (`warm_plan`, the pre-zeroed
-carry pool, `plan_cache_key`); `kernel_params` has no `accel` key (the
-port's kernels have one layout).
+points. `kernel_params` has no `accel` key (the port's kernels have one
+layout).
+
+The warm plane (`warm_plan`, reached through `ops/aot.
+precompile_mesh_plan`): every kernel a run over one shape bucket may
+launch is built, loaded, bound and launched once, the plan registered in
+the port's `fs_cache` under `plan_cache_key`, and a pre-zeroed starting
+carry stocked in the carry pool, which a run over a caller-named device
+list (the reference's explicit mesh) takes and restocks.
 """
 
 from __future__ import annotations
@@ -330,6 +336,229 @@ def _record_run(summary: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the pre-zeroed carry pool
+# ---------------------------------------------------------------------------
+# A run's starting carries are lanes x H x 16 B of zero-fill a shard
+# (about 67 MB for the 8 slots of a 2k-op narrow fan-out) that every
+# run would otherwise pay inside its wall. `warm_plan` stocks one set a
+# plan and `_run_group` restocks after each healthy run, off-thread, so
+# that the next run over the same bucket and device list finds its
+# carries built. An entry is one carry a shard, each beside the event
+# recorded after its fill on the filling thread's stream (None on the
+# CPU); taking an entry moves ownership to the taker, whose shard
+# streams wait on the events (`_pool_adopt`).
+_CARRY_POOL: dict = {}
+_CARRY_POOL_CAP = 2
+_RESTOCKS: list = []      # restock threads not yet joined
+
+
+def _pool_key(p: dict, K: int, devices, bk: int) -> tuple:
+    return (p["n_pad"], p["ic_pad"], p["W"], p["S"], p["O"], int(K),
+            p["H"], p["B"], p["chunk"], p["probes"], p["L"],
+            tuple(_fleet.device_labels(devices)), int(bk))
+
+
+def _pool_take(key: tuple):
+    with _LOCK:
+        return _CARRY_POOL.pop(key, None)
+
+
+def _pool_stock(key: tuple, build) -> None:
+    with _LOCK:
+        if key in _CARRY_POOL:
+            return
+    entry = build()
+    with _LOCK:
+        while len(_CARRY_POOL) >= _CARRY_POOL_CAP:
+            _CARRY_POOL.pop(next(iter(_CARRY_POOL)), None)
+        _CARRY_POOL[key] = entry
+
+
+def _pool_build(devices, lanes: int, K: int, C: int, H: int, B: int,
+                mst_col: int) -> list:
+    """A pool entry: `wgl32.init_carry_batch` of `lanes` lanes on each
+    device of the list, on the calling thread's current stream of that
+    device, each with the event recorded after its fill."""
+    entry = []
+    for dev in devices:
+        if dev.type != "cuda":
+            entry.append((wgl32.init_carry_batch(lanes, K, C, H, B, 0, dev,
+                                                 mst_col=mst_col), None))
+            continue
+        with on_device(dev):
+            carry = wgl32.init_carry_batch(lanes, K, C, H, B, 0, dev,
+                                           mst_col=mst_col)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+        entry.append((carry, ev))
+    return entry
+
+
+def _pool_adopt(entry, d: int, stream):
+    """Shard d's carry of a pool entry, owned by `stream` (the shard's
+    stream; None on the CPU): the stream waits for the fill, and the
+    allocator learns that the stream uses every leaf."""
+    carry, ev = entry[d]
+    if stream is not None:
+        stream.wait_event(ev)
+        for t in carry:
+            t.record_stream(stream)
+    return carry
+
+
+def _restock(key: tuple, build) -> None:
+    """`_pool_stock` on a daemon thread: the zero-fill belongs to the
+    next run, not this one's wall."""
+    th = threading.Thread(target=_pool_stock, args=(key, build),
+                          daemon=True, name="jepsen-tpu-torch-restock")
+    with _LOCK:
+        _RESTOCKS[:] = [t for t in _RESTOCKS if t.is_alive()] + [th]
+    th.start()
+
+
+def pool_settle(timeout: Optional[float] = None) -> None:
+    """Wait for every restock thread started so far (a caller that
+    measures device memory around a run wants the fill outside its
+    window)."""
+    with _LOCK:
+        pending = list(_RESTOCKS)
+    for th in pending:
+        th.join(timeout)
+
+
+def pool_clear() -> None:
+    """Drop every pooled carry (after `pool_settle`)."""
+    pool_settle()
+    with _LOCK:
+        _CARRY_POOL.clear()
+
+
+
+# ---------------------------------------------------------------------------
+# the warm path (aot.precompile_mesh_plan delegates here)
+# ---------------------------------------------------------------------------
+
+def plan_cache_key(bucket: dict, *, n_devices: int,
+                   lanes_per_device: int, axes: Sequence[str],
+                   model_name: str = "any") -> tuple:
+    """The fs_cache key one warmed mesh plan registers under: (model, W,
+    K ceiling, lane shapes, device list shape), the reference's key
+    string for string. The port's kernels have one layout, so the key
+    says `accel0` where the reference writes its TPU layout bit."""
+    bk = n_devices * lanes_per_device
+    p = kernel_params(bucket, bk)
+    return ("mesh-plan", str(model_name or "any"),
+            f"W{p['W']}", f"L{p['L']}", f"K{p['K_cap']}",
+            f"n{p['n_pad']}", f"ic{p['ic_pad']}",
+            f"S{p['S']}", f"O{p['O']}", "accel0",
+            f"mesh-{n_devices}x{lanes_per_device}",
+            "-".join(str(a) for a in axes))
+
+
+def warm_plan(bucket: dict, *, n_devices: Optional[int] = None,
+              devices=None, lanes_per_device: Optional[int] = None,
+              n_keys: Optional[int] = None,
+              chunk: int = 1024, axes: Sequence[str] = ("keys",),
+              model_name: str = "any", save: bool = True) -> dict:
+    """Build, load, bind and launch once every kernel a mesh run over
+    this shape bucket may launch, on every shard's stream: each ladder
+    bucket's lane-batched chunk (a zero config budget, so that no round
+    runs, through `chunk_batched` and so in the form the run takes),
+    the lane reset (every lane of a fresh carry: the result is that
+    carry, and an empty mask launches nothing) and the adjacent buckets'
+    frontier migrations both ways. One sync per bucket is the job.
+
+    `devices` is the run's device list (`util.resolve_devices`; it may
+    repeat a card), else the first `n_devices` cards. With a named list
+    the pool is stocked with the run's starting carries (a run over an
+    unnamed list does not use the pool). The plan is registered in
+    `fs_cache` under `plan_cache_key` (best effort: the registry is a
+    warm-up accelerant) so that a fresh process can re-warm it
+    (`aot.precompile_cached_mesh_plans`). Pass `n_keys` (or
+    `lanes_per_device`) matching the traffic: the lane count is part of
+    every launch's shape. A build or launch failure raises. Returns {K:
+    seconds}."""
+    named = devices is not None
+    devs = (resolve_devices(devices) if named
+            else default_devices(n_devices))
+    nd = len(devs)
+    axes = tuple(str(a) for a in axes)
+    s_d = int(lanes_per_device
+              or (lanes_for(int(n_keys), nd) if n_keys
+                  else MESH_LANES_PER_DEVICE))
+    bk = nd * s_d
+    p = kernel_params(bucket, bk, chunk)
+    L, ic, H, B = p["L"], p["ic_pad"], p["H"], p["B"]
+    C = wgln.row_words(L, ic) if L else wgl32.row_words(ic)
+    mst_col = 1 + L if L else 2
+    n_pad = p["n_pad"]
+    zeros = np.zeros
+    streams = shard_streams(devs)
+    ladder = p["ladder"]
+    out: dict = {}
+    fronts: dict = {}
+    for k in ladder:
+        t0 = _time.monotonic()
+        fronts[k] = []
+        for d, dev in enumerate(devs):
+            with on_stream(streams[d]):
+                # max_cfg 0: no round runs
+                consts = wgl32.batch_consts_from_numpy(
+                    zeros((s_d, n_pad), np.int32),
+                    zeros((s_d, n_pad), np.int32),
+                    zeros((s_d, n_pad), np.int32),
+                    zeros((s_d, n_pad + 1), np.int32),
+                    zeros((s_d, ic), np.int32), zeros((s_d, ic), np.int32),
+                    zeros((s_d, p["S"], p["O"]), np.int32), 0, 0, 0, dev)
+                carry = wgl32.init_carry_batch(s_d, k, C, H, B, 0, dev,
+                                               mst_col=mst_col)
+                reset_lanes(carry, np.ones(s_d, bool), mst_col=mst_col)
+                kw = dict(K=k, ic=ic, H=H, B=B, chunk=p["chunk"],
+                          probes=p["probes"])
+                if L:
+                    wgln.chunk_batched(consts, carry, L=L, **kw)
+                else:
+                    wgl32.chunk_batched(consts, carry, W=p["W"], **kw)
+                fronts[k].append(carry[wgl32.FR])
+                del carry, consts
+        _sync_streams(streams)
+        out[k] = _time.monotonic() - t0
+    # the adjacent buckets' migrations, both ways: the scheduler's only
+    # other device programs
+    for a, b in zip(ladder, ladder[1:]):
+        for d in range(nd):
+            with on_stream(streams[d]):
+                migrate_lanes((fronts[a][d],), b)
+                migrate_lanes((fronts[b][d],), a)
+    _sync_streams(streams)
+    fronts.clear()
+    if named:
+        _pool_stock(_pool_key(p, ladder[0], devs, bk),
+                    lambda: _pool_build(devs, s_d, ladder[0], C, H, B,
+                                        mst_col))
+    if save:
+        try:
+            from .. import fs_cache
+            fs_cache.save_data(
+                plan_cache_key(bucket, n_devices=nd, lanes_per_device=s_d,
+                               axes=axes, model_name=model_name),
+                {"bucket": {k: bool(v) if k == "pack" else int(v)
+                            for k, v in bucket.items()},
+                 "n_devices": nd, "lanes_per_device": s_d,
+                 "chunk": int(chunk), "axes": list(axes),
+                 "model": str(model_name or "any"), "compile_s": out})
+        except Exception:  # noqa: BLE001 — the registry is a warm-up
+            pass           # accelerant, never a correctness gate
+    return out
+
+
+def _sync_streams(streams) -> None:
+    for st in streams:
+        if st is not None:
+            st.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # the scheduler
 # ---------------------------------------------------------------------------
 
@@ -342,8 +571,13 @@ class _GroupRun:
                  lanes_per_device: Optional[int], assign: str,
                  deadline: Optional[float], max_configs: int,
                  oracle_fallback: bool, key_indices, group: str,
-                 steal: bool = True, shape_bucket: Optional[dict] = None):
+                 steal: bool = True, shape_bucket: Optional[dict] = None,
+                 pooled: bool = False):
         self.encs = encs
+        # a caller-named device list takes its starting carries from
+        # the pool and restocks it
+        self.pooled = pooled
+        self.pool_hit = False
         self.idxs = list(idxs)
         self.deadline = deadline
         self.max_configs = max_configs
@@ -638,7 +872,7 @@ class _GroupRun:
                 "keys": len(self.idxs),
                 "K_final": k_final, "ladder": list(self.params["ladder"]),
                 "polls": self.polls, "refills": self.refills,
-                "resets": self.resets,
+                "resets": self.resets, "pool_hit": self.pool_hit,
                 "steals": self.steals, "rebuckets": self.rebuckets,
                 "work_skew_before": self.skew_before,
                 "work_skew_after": fin.get("work_skew"),
@@ -721,7 +955,8 @@ def check_mesh(model: Model, histories: Sequence[History], *,
                        max_configs=max_configs,
                        oracle_fallback=oracle_fallback,
                        key_indices=key_indices, group=gname,
-                       steal=steal, shape_bucket=shape_bucket)
+                       steal=steal, shape_bucket=shape_bucket,
+                       pooled=devices is not None)
         k_final = _run_group(gr, t0_all, planes)
         run_summaries.append(gr.summary(k_final))
         for i, res in gr.results.items():
@@ -801,19 +1036,28 @@ def _run_group(gr: _GroupRun, t0_all: float, planes: tuple) -> int:
         return wgl32.chunk_batched(consts, carry, K=K, W=W, ic=ic, H=H, B=B,
                                    chunk=p["chunk"], probes=p["probes"])
 
+    # the starting carries come pre-zeroed from the pool when a warm or
+    # the previous run over this bucket and device list stocked them
+    pool_key = (_pool_key(p, K, gr.devices, gr.bk) if gr.pooled
+                else None)
+    pooled = _pool_take(pool_key) if pool_key is not None else None
     consts, carries = [], []
     for d in range(nd):
         with on_stream(streams[d]):
             consts.append(gr.shard_consts(d))
-            carries.append(wgl32.init_carry_batch(s_d, K, C, H, B, 0,
-                                                  gr.devices[d],
-                                                  mst_col=mst_col))
+            carries.append(
+                _pool_adopt(pooled, d, streams[d]) if pooled is not None
+                else wgl32.init_carry_batch(s_d, K, C, H, B, 0,
+                                            gr.devices[d], mst_col=mst_col))
+    gr.pool_hit = pooled is not None
+    del pooled
     hb = wd.register("wgl-mesh", device=f"mesh[{nd}]", grace_s=300.0)
     dmark = dm.mark(where="mesh", devices=cards) if dm.enabled else None
     timed_out = stalled = False
     sparse_streak = 0
     occ_budget = LANE_ROUNDS_BUDGET
     s = None
+    summaries: list = []
     try:
         while True:
             if wd.cancelled(hb):
@@ -970,6 +1214,14 @@ def _run_group(gr: _GroupRun, t0_all: float, planes: tuple) -> int:
         wd.unregister(hb)
         if dmark is not None:
             dm.measured(dmark, where="mesh", devices=cards)
+
+    if pool_key is not None and not (stalled or timed_out):
+        # this run's carries go first, so that the fill never holds a
+        # second set beside them; it runs off-thread, for the next run
+        carries.clear()
+        summaries.clear()
+        _restock(pool_key, lambda: _pool_build(
+            gr.devices, s_d, ladder[0], C, H, B, mst_col))
 
     # keys the loop never decided (deadline, stall): report partials,
     # never silence: active slots off the last summary, pending keys as

@@ -215,6 +215,33 @@ def test_p003_counts_unbuilt_kernel_modules(hist_2k, tmp_path, monkeypatch):
     assert rep["compiles"]["cold"] == [] and rep["verdict"] == "feasible"
 
 
+def test_p003_suggests_the_warm_path(hist_2k, tmp_path, monkeypatch):
+    """P003 names the warm path, as the reference's does: the ladder's
+    warm for one check, the mesh plan's warm for the fan-out."""
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_native, "_LIBS", {})
+    monkeypatch.setenv(BUDGET, str(1 << 40))
+    want = jpf.plan_wgl(jcas(), hist_2k, compile_budget=0)
+    got = tpf.plan_wgl(tcas(), port(hist_2k), platform="cuda",
+                       compile_budget=0)
+    for rep in (want, got):
+        (p003,) = [r for r in rep["rules"] if r["rule"] == "P003"]
+        assert "aot.precompile_wgl_ladder(...)" in p003["suggestion"]
+    hists = [jsynth.cas_register_history(60, n_procs=3, seed=s)
+             for s in range(6)]
+    jencs, tencs = _encs(hists)
+    want = jpf.plan_mesh(jencs, n_devices=2, lanes_per_device=4,
+                         compile_budget=0)
+    got = tpf.plan_mesh(tencs, n_devices=2, lanes_per_device=4,
+                        platform="cuda", compile_budget=0)
+    (jp003,) = [r for r in want["rules"] if r["rule"] == "P003"]
+    (tp003,) = [r for r in got["rules"] if r["rule"] == "P003"]
+    assert "aot.precompile_mesh_plan(shape_bucket" in jp003["suggestion"]
+    assert tp003["suggestion"] == ("warm the mesh plan first: "
+                                   "aot.precompile_mesh_plan(shape_bucket, "
+                                   "devices)")
+
+
 def test_p003_never_fires_for_the_cpu(hist_2k):
     rep = tpf.plan_wgl(tcas(), port(hist_2k), platform="cpu",
                        compile_budget=0)

@@ -123,6 +123,16 @@ no kernel and allocates nothing; a 100k-txn forced bf16 closure
 rejected (P002); and the parity block of `python -m jepsen_tpu_torch
 preflight --headline --execute`, run in this process.
 
+Then the warm plane (`ops/aot.py`, `analysis/guards.CompileGuard`):
+fresh processes' first checks, cold, bound and warmed, in turns, and
+`python -m jepsen_tpu_torch.bench`. Then the checker service
+(`service.Service` behind `web.serve`, over `[card] * 2`): the headline
+POSTed over HTTP and followed on its SSE stream, a warm same-bucket
+request under `CompileGuard(max_compiles=0)`, a held batch of 4 served
+as one mesh lane group, an Elle append 3k request, a preflight
+rejection that launches nothing, a fresh process that answers warm after
+`rewarm`, and the admission-to-verdict walls.
+
 It prints as its last lines the card, one JSON line of per-kernel
 numbers and
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -331,6 +341,52 @@ if "elle" in paths:
                    kernel=(res.get("cycle-util") or {}).get("kernel"))
 print(json.dumps(out))
 """
+
+# a fresh process's service over the same plan registry (`service_phases`
+# step 7): argv[1] the fs_cache root, argv[2] the store root, argv[3] the
+# POST body's JSON file; `rewarm=True`, then one POST under a
+# CompileGuard of budget 0. Prints one JSON line.
+SERVICE_FRESH = """
+import json, sys, time, torch, urllib.request
+from jepsen_tpu_torch import fs_cache, service, web
+from jepsen_tpu_torch.analysis import guards
+fs_cache.DIR = sys.argv[1]
+dev = torch.device("cuda", 0)
+t0 = time.monotonic()
+torch.zeros(1, device=dev)
+torch.cuda.synchronize()
+out = {"context_s": time.monotonic() - t0}
+t0 = time.monotonic()
+svc = service.Service(sys.argv[2], devices=[dev] * 2, workers=1,
+                      rewarm=True, slo_every_s=3600.0)
+out["rewarm_s"] = time.monotonic() - t0
+out["rewarmed"] = sorted(service._key_str(k) for k in svc._warm)
+server = web.serve(host="127.0.0.1", port=0, store_root=sys.argv[2],
+                   service=svc)
+import threading
+th = threading.Thread(target=server.serve_forever, daemon=True)
+th.start()
+base = "http://127.0.0.1:%d" % server.server_port
+body = open(sys.argv[3], "rb").read()
+g = guards.CompileGuard(max_compiles=0, name="service-fresh")
+with g:
+    t0 = time.monotonic()
+    req = urllib.request.Request(base + "/check", data=body,
+                                 headers={"Content-Type": "application/json"})
+    rid = json.loads(urllib.request.urlopen(req, timeout=60).read())["id"]
+    urllib.request.urlopen(base + "/runs/%s/events?wait=120" % rid,
+                           timeout=180).read()
+    out["wall_s"] = time.monotonic() - t0
+info = svc.get(rid)
+out.update(guard=g.report(), verdict=info["verdict"],
+           warm_hit=info["warm_hit"], cause=info.get("cause"),
+           request_wall_s=info["wall_s"], phases=info["phases"])
+server.shutdown()
+server.server_close()
+svc.close()
+print(json.dumps(out))
+"""
+
 
 def card_line() -> str:
     return subprocess.run(
@@ -3126,6 +3182,283 @@ def warm_phases(dev, lin, hist) -> None:
                              f"{proc.stderr[-2000:]}")
     print(f"  warm phases: {time.monotonic() - t_all:.1f} s", flush=True)
 
+SERVICE_WARM_REQUESTS = 8              # warm same-bucket requests timed
+
+
+def same_bucket_seeds(want_key, n: int, start: int,
+                      lie_p: float = 0.0) -> list:
+    """`n` (seed, history) pairs from `start` on whose headline-shaped
+    histories (with `lie_p` of lying reads) land in the service bucket
+    `want_key` (`service.bucket_for`)."""
+    from jepsen_tpu_torch import service, synth
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import encode
+
+    out = []
+    seed = start
+    while len(out) < n:
+        h = synth.cas_register_history(
+            HEADLINE["n_ops"], n_procs=HEADLINE["n_procs"], seed=seed,
+            crash_p=HEADLINE["crash_p"], lie_p=lie_p)
+        if service.bucket_for(encode.encode(cas_register(), h))[0] == \
+                want_key:
+            out.append((seed, h))
+        seed += 1
+        if seed > start + 200:
+            raise AssertionError(f"no {n} seeds in the bucket {want_key}")
+    return out
+
+
+def service_phases(dev) -> dict:
+    """The checker service on the card, through its HTTP front door:
+    `web.serve(port=0)` over `Service(devices=[card] * 2, workers=1)`
+    on an isolated plan registry and store. The headline POSTed and
+    followed on `/runs/<id>/events` (cold); a second same-bucket history
+    under `CompileGuard(max_compiles=0)` (warm: 0 builds, loads and
+    binds); 4 same-bucket histories, one of them invalid (`INVALID`'s
+    lie_p), held and released (one `mesh` batch of 4, each verdict equal
+    to a direct `ops/wgl.check`, the invalid one False); an Elle
+    append 3k request (verdict and anomaly types equal to a direct
+    `elle.append.check`, `elle_closure` launched); a request the
+    preflight gate rejects under `SMALL_BUDGET` (nothing launched); a
+    fresh process that re-warms from the registry and answers warm
+    (`SERVICE_FRESH`); then `SERVICE_WARM_REQUESTS` warm requests for
+    the walls. Every count is set to 0 before the service is driven and
+    read after it; the direct checks run before. A `service-error`
+    cause or a `mesh-declined` degrade fails the phase. Returns the
+    phase's launch counts."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from jepsen_tpu_torch import fs_cache, service, synth, web
+    from jepsen_tpu_torch.analysis import guards
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import encode, wgl
+    from jepsen_tpu_torch.parallel import mesh
+
+    print(f"service ({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    head = synth.cas_register_history(
+        HEADLINE["n_ops"], n_procs=HEADLINE["n_procs"],
+        seed=HEADLINE["seed"], crash_p=HEADLINE["crash_p"])
+    key = service.bucket_for(encode.encode(cas_register(), head))[0]
+    seeds = same_bucket_seeds(key, 4 + SERVICE_WARM_REQUESTS,
+                              HEADLINE["seed"] + 1)
+    bad = same_bucket_seeds(key, 1, HEADLINE["seed"] + 1,
+                            lie_p=INVALID["lie_p"])
+    warm2, batch, walls = seeds[0], seeds[1:4] + bad, seeds[4:]
+    # the comparisons, before the counts are zeroed
+    direct = [wgl.check(cas_register(), h, device=dev)["valid?"]
+              for _, h in batch]
+    if direct[-1] is not False:
+        raise AssertionError(f"seed {bad[0][0]} at lie_p "
+                             f"{INVALID['lie_p']}: direct {direct[-1]}")
+    elle_h = synth.list_append_history(**ELLE_3K)
+    elle_want = append.check(elle_h)
+    torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="service-", dir=str(REPO / "build" /
+                                                      "torch_kernels"))
+    prev_cache = fs_cache.DIR
+    fs_cache.DIR = os.path.join(tmp, "fs_cache")
+    store = os.path.join(tmp, "store")
+    svc = service.Service(store, devices=[dev] * MESH_SHARDS, workers=1,
+                          slo_every_s=3600.0)
+    server = web.serve(host="127.0.0.1", port=0, store_root=store,
+                       service=svc)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+
+    def body(h, **kw):
+        return json.dumps({"model": "cas-register", **kw,
+                           "history": [op.to_dict() for op in h]}).encode()
+
+    def post(data) -> dict:
+        req = urllib.request.Request(
+            base + "/check", data=data,
+            headers={"Content-Type": "application/json"})
+        return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+    def follow(rid) -> dict:
+        """The run's SSE stream to its end: the last `done` event."""
+        raw = urllib.request.urlopen(f"{base}/runs/{rid}/events?wait=300",
+                                     timeout=360).read().decode()
+        frames = [f.split("\n") for f in raw.split("\n\n") if f.strip()]
+        names = [f[0][len("event: "):] for f in frames]
+        if names[-1] != "end" or "done" not in names:
+            raise AssertionError(f"SSE of {rid}: {names}")
+        return json.loads(frames[names.index("done")][1][len("data: "):])
+
+    def served(rid) -> dict:
+        info = svc.get(rid)
+        if str(info.get("cause") or "").startswith("service-error"):
+            raise AssertionError(f"service error: {info}")
+        return info
+
+    out: dict = {}
+    try:
+        zero_counts()
+        # 2. the headline, cold
+        t0 = time.monotonic()
+        rid = post(body(head, tenant="smoke"))["id"]
+        done = follow(rid)
+        cold_wall = time.monotonic() - t0
+        cold = served(rid)
+        print(f"  headline over HTTP (cold): verdict {cold['verdict']} "
+              f"(main run True), warm_hit {cold['warm_hit']}, bucket "
+              f"{cold['bucket']}, POST-to-done {cold_wall:.4f} s, service "
+              f"wall {cold['wall_s']} s, phases {cold['phases']}",
+              flush=True)
+        if done["verdict"] != "true" or cold["verdict"] is not True \
+                or cold["warm_hit"] is not False:
+            raise AssertionError(f"cold headline: {cold}")
+        # 3. a second history of the bucket, warm
+        g = guards.CompileGuard(max_compiles=0, name="service-warm")
+        with g:
+            rid = post(body(warm2[1]))["id"]
+            follow(rid)
+        warm = served(rid)
+        rep = g.report()
+        print(f"  seed {warm2[0]} (same bucket, warm): verdict "
+              f"{warm['verdict']}, warm_hit {warm['warm_hit']}, guard "
+              f"builds {rep['builds']} loads {rep['loads']} binds "
+              f"{rep['binds']} h2d {rep['h2d']} d2h {rep['d2h']}, service "
+              f"wall {warm['wall_s']} s, phases {warm['phases']}",
+              flush=True)
+        if warm["verdict"] is not True or warm["warm_hit"] is not True \
+                or rep["builds"] or rep["loads"] or rep["binds"]:
+            raise AssertionError(f"warm request: {warm}, {rep}")
+        # 4. four held histories: one mesh batch
+        svc.hold(True)
+        rids = [post(body(h))["id"] for _, h in batch]
+        svc.hold(False)
+        for r in rids:
+            follow(r)
+        infos = [served(r) for r in rids]
+        bp = svc.mx.series("service_batch").points[-1]
+        print(f"  held batch of {len(rids)} (seeds "
+              f"{[s for s, _ in batch]}, the last at lie_p "
+              f"{INVALID['lie_p']}): mode {bp['mode']} batch_n "
+              f"{bp['batch_n']} rounds {bp['rounds']} shards {bp['shards']}"
+              f"; verdicts {[i['verdict'] for i in infos]} (direct "
+              f"{direct}); serve walls "
+              f"{[i['serve_s'] for i in infos]} s", flush=True)
+        if (bp["mode"] != "mesh" or bp["batch_n"] != len(batch)
+                or [i["verdict"] for i in infos] != direct):
+            raise AssertionError(f"mesh batch: {bp}, {infos}")
+        # 5. Elle append 3k
+        rid = post(json.dumps({"checker": "elle-append", "history": [
+            op.to_dict() for op in elle_h]}).encode())["id"]
+        follow(rid)
+        ei = served(rid)
+        with svc._lock:
+            er = svc._runs[rid].result
+        print(f"  elle append {ELLE_3K}: verdict {ei['verdict']} "
+              f"anomalies {er.get('anomaly-types')} (direct "
+              f"{elle_want['valid?']} {elle_want['anomaly-types']}), engine "
+              f"{er.get('cycle-engine')}, kernel "
+              f"{(er.get('cycle-util') or {}).get('kernel')}, service wall "
+              f"{ei['wall_s']} s, phases {ei['phases']}", flush=True)
+        if (ei["verdict"] != elle_want["valid?"]
+                or er["anomaly-types"] != elle_want["anomaly-types"]):
+            raise AssertionError(f"elle request: {ei}")
+        # 6. a preflight rejection: nothing launched
+        before = read_counts()
+        prev_budget = os.environ.get("JEPSEN_TPU_PREFLIGHT_MEM_BUDGET")
+        os.environ["JEPSEN_TPU_PREFLIGHT_MEM_BUDGET"] = str(SMALL_BUDGET)
+        try:
+            rej = post(body(head))
+        finally:
+            if prev_budget is None:
+                del os.environ["JEPSEN_TPU_PREFLIGHT_MEM_BUDGET"]
+            else:
+                os.environ["JEPSEN_TPU_PREFLIGHT_MEM_BUDGET"] = prev_budget
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in read_counts().items()
+                 if v != before[k]}
+        print(f"  preflight rejection at a {SMALL_BUDGET} B budget: state "
+              f"{rej['state']} cause {rej.get('cause')}, launches moved "
+              f"{moved}", flush=True)
+        if rej["state"] != "rejected" or rej.get("cause") != "preflight" \
+                or moved:
+            raise AssertionError(f"preflight rejection: {rej}, {moved}")
+        # 8. warm requests for the walls
+        for s, h in walls:
+            rid = post(body(h))["id"]
+            follow(rid)
+            info = served(rid)
+            if info["verdict"] is not True or not info["warm_hit"]:
+                raise AssertionError(f"warm seed {s}: {info}")
+        counts = read_counts()
+        out["counts"] = counts
+        print(f"  launches of the service phase: {counts}", flush=True)
+        need = ("wgl32_chunk", "wgl32_chunk_batched", "wgl_lane_reset",
+                "elle_closure")
+        if any(counts[k] < 1 for k in need):
+            raise AssertionError(f"service phase launched too little: "
+                                 f"{counts}")
+        for p in svc.mx.series("service_batch").points:
+            if p["mode"] == "degrade" and p["cause"] == "mesh-declined":
+                raise AssertionError(f"mesh declined: {p}")
+        recs = svc.ledger.query(kind="service-request")
+        warm_recs = [r for r in recs if r.get("warm_hit")
+                     and r.get("checker") == "wgl" and r.get("batch_n") == 1]
+        wl = sorted(r["wall_s"] for r in warm_recs)
+        print("  walls (s): cold " + json.dumps(recs[0]["wall_s"])
+              + f", warm p50 {wl[len(wl) // 2]} over {len(wl)} warm "
+              f"requests {wl}", flush=True)
+        for r in recs:
+            ph = r.get("phases") or {}
+            print(f"    {r.get('checker')} verdict {r.get('verdict')} "
+                  f"warm {r.get('warm_hit')} batch {r.get('batch_n')}: "
+                  f"wall_s {r.get('wall_s')} queue_wait_s "
+                  f"{ph.get('queue_wait_s')} search_s {ph.get('search_s')} "
+                  f"warm_s {ph.get('warm_s')} device_s {r.get('device_s')}",
+                  flush=True)
+        snap = {k: v for k, v in svc.snapshot().items() if k != "recent"}
+        print(f"  snapshot: {json.dumps(snap)}", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+        svc.close()
+        mesh.pool_settle()
+        mesh.pool_clear()
+        fs_cache.DIR = prev_cache
+    # 7. a fresh process on the same registry, warm after rewarm
+    body_path = os.path.join(tmp, "body.json")
+    with open(body_path, "wb") as fh:
+        fh.write(body(walls[0][1]))
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVICE_FRESH, os.path.join(tmp, "fs_cache"),
+         os.path.join(tmp, "store-fresh"), body_path], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"fresh service exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    gr = fresh["guard"]
+    print(f"  fresh process after rewarm ({fresh['rewarm_s']:.4f} s, "
+          f"plans {fresh['rewarmed']}): verdict {fresh['verdict']} "
+          f"warm_hit {fresh['warm_hit']}, POST-to-done "
+          f"{fresh['wall_s']:.4f} s, service wall "
+          f"{fresh['request_wall_s']} s, guard builds {gr['builds']} loads "
+          f"{gr['loads']} binds {gr['binds']} compiles {gr['compiles']}; "
+          f"phases {fresh['phases']}", flush=True)
+    if (fresh["verdict"] is not True or fresh["warm_hit"] is not True
+            or gr["compiles"] or str(fresh.get("cause") or "").startswith(
+                "service-error")):
+        raise AssertionError(f"fresh service: {fresh}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  service phases: {time.monotonic() - t_all:.1f} s", flush=True)
+    return out["counts"]
+
+
 def paths_main(root: str) -> int:
     """`--paths ROOT`: the main paths the redesigned kernels serve,
     driven through the package under ROOT (this checkout's, or an older
@@ -3705,6 +4038,7 @@ def run_phases(dev, host10) -> int:
     bool_entry = bool_chunk_phases(dev, step_us)
     preflight_phases(dev)
     warm_phases(dev, lin, h)
+    service_phases(dev)
 
     print("card:", card_line())
     print(json.dumps({"kernels": [{

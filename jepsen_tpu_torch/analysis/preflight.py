@@ -791,13 +791,14 @@ def compact(report: dict) -> dict:
     return out
 
 
-def _register(report: dict, where: str) -> None:
-    """Record one verdict in the in-process recent window (`snapshot`)
-    and, with metrics on, as a `preflight` series point and a
+def _register(report: dict, where: str,
+              ledger_name: Optional[str] = None) -> None:
+    """Record one verdict in the in-process recent window (`snapshot`),
+    with metrics on as a `preflight` series point and a
     `preflight_checks_total{where, verdict}` count (the reference's
-    names). The reference also banks a top-level analysis as a
-    kind="preflight" record of its run ledger, which the port does not
-    have yet."""
+    names), and, when `ledger_name` names a top-level analysis, as a
+    kind="preflight" record of the ambient run ledger (the reference's
+    record). Accounting never voids an admission decision."""
     entry = {"where": where, "kind": report.get("kind"),
              "verdict": report.get("verdict"),
              "engine": report.get("engine"),
@@ -815,6 +816,18 @@ def _register(report: dict, where: str) -> None:
         mx.counter("preflight_checks_total",
                    "preflight admission decisions").inc(
             where=where, verdict=str(entry["verdict"]))
+    if ledger_name:
+        try:
+            from .. import ledger as ledger_mod
+            ledger_mod.record({
+                "kind": "preflight", "name": ledger_name,
+                "verdict": str(report.get("verdict")),
+                "engine": report.get("engine"),
+                "where": where,
+                "rules": entry["rules"],
+                "preflight": compact(report)})
+        except Exception:  # noqa: BLE001
+            pass
 
 
 def snapshot() -> dict:
@@ -838,18 +851,19 @@ def _reject(report: dict, op_count: Optional[int] = None) -> dict:
 
 
 def gate_wgl(model, history, *, where: str, enc=None,
-             platform: Optional[str] = None,
-             devices=None) -> Optional[dict]:
+             platform: Optional[str] = None, devices=None,
+             ledger_name: Optional[str] = None) -> Optional[dict]:
     """The WGL admission gate: None when the plan is admissible
     (feasible or degrade), else the reference's `{"valid?": "unknown",
     "cause": "preflight", ...}`. A shape probe plus integer plan math:
-    no encode table, no kernel build, no device byte."""
+    no encode table, no kernel build, no device byte. `ledger_name`
+    banks the analysis as a kind="preflight" ledger record."""
     try:
         rep = plan_wgl(model, history, enc=enc, platform=platform,
                        devices=devices)
     except Exception:  # noqa: BLE001 — an unplannable history is the
         return None    # search engines' problem, not the gate's
-    _register(rep, where)
+    _register(rep, where, ledger_name=ledger_name)
     if rep["verdict"] != "infeasible":
         return None
     return _reject(rep, op_count=len(history))
@@ -859,17 +873,19 @@ def gate_elle(n_txns: int, *, backend: str, where: str,
               edges: Optional[int] = None,
               rw_edges: Optional[int] = None,
               platform: Optional[str] = None,
-              devices=None) -> Optional[dict]:
+              devices=None,
+              ledger_name: Optional[str] = None) -> Optional[dict]:
     """The Elle admission gate: rejects a device cycle search whose
     closure can never fit (P001/P002) before any graph build, kernel
-    build or device byte. None when admissible."""
+    build or device byte. None when admissible. `ledger_name` as in
+    `gate_wgl`."""
     try:
         rep = plan_elle(n_txns=n_txns, edges=edges, rw_edges=rw_edges,
                         backend=backend, platform=platform,
                         devices=devices)
     except Exception:  # noqa: BLE001
         return None
-    _register(rep, where)
+    _register(rep, where, ledger_name=ledger_name)
     if rep["verdict"] != "infeasible":
         return None
     return _reject(rep)
@@ -1115,7 +1131,7 @@ def _cli_headline(n_ops: int, execute: bool, device=None) -> dict:
     hist = synth.cas_register_history(n_ops, n_procs=5, seed=42,
                                       crash_p=0.002)
     rep = plan_wgl(model, hist, lower=True, devices=[dev])
-    _register(rep, "cli.headline")
+    _register(rep, "cli.headline", ledger_name="preflight-headline")
     out = {"report": rep}
     if execute:
         from .. import metrics as metrics_mod
@@ -1148,7 +1164,8 @@ def _cli_elle(n_txns: int, execute: bool, device=None) -> dict:
     rep = plan_elle(n_txns=int(np.asarray(gt.nodes).shape[0]),
                     edges=int(len(edges)), rw_edges=rw, backend="auto",
                     devices=[dev], lower=True)
-    _register(rep, "cli.elle_append_8k")
+    _register(rep, "cli.elle_append_8k",
+              ledger_name="preflight-elle-append-8k")
     out = {"report": rep}
     if execute:
         res, peak = _peak_of(lambda: elle_tpu.standard_cycle_search(
@@ -1171,7 +1188,7 @@ def _cli_dense_100k(device=None) -> dict:
     word shards whose bill fits, else it is rejected."""
     devices = None if device is None else [device]
     rep = plan_elle(n_txns=100_000, backend="packed", devices=devices)
-    _register(rep, "cli.dense_100k")
+    _register(rep, "cli.dense_100k", ledger_name="preflight-dense-100k")
     return {"report": rep}
 
 

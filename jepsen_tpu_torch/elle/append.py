@@ -179,7 +179,8 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
         out["cycle-route-reason"] = cycles["route_reason"]
     if silent:
         out["unchecked-anomaly-types"] = sorted(silent)
-    _record_elle("elle.append", out, len(oks), _time.monotonic() - t_start)
+    _record_elle("elle.append", out, len(oks), _time.monotonic() - t_start,
+                 device, devices)
     return out
 
 
@@ -197,24 +198,26 @@ def _record_build(checker: str, bt) -> None:
          "build_s": round(bt.tensors.build_s, 4), "builder": bt.builder})
 
 
-def _record_elle(name: str, out: dict, op_count: int,
-                 wall_s: float) -> None:
-    """One check's run record, the fields the reference banks as a
-    kind="elle" record of its run ledger (verdict, anomaly types as the
-    cause, ops, cycle engine and kernel, kernel and check seconds). The
-    port has no run ledger yet: with metrics on, the record is a point
-    of the `elle` series."""
-    from .. import metrics as _metrics
-    mx = _metrics.get_default()
-    if not mx.enabled:
-        return
-    util = out.get("cycle-util") or {}
-    mx.series("elle", "per-check Elle run records").append(
-        {"kind": "elle", "name": name, "valid?": out.get("valid?"),
-         "cause": ",".join(out.get("anomaly-types") or []) or None,
-         "op_count": int(op_count), "engine": out.get("cycle-engine"),
-         "kernel": util.get("kernel"), "kernel_s": util.get("kernel_s"),
-         "wall_s": round(wall_s, 4)})
+def _record_elle(name: str, out: dict, op_count: int, wall_s: float,
+                 device=None, devices=None) -> None:
+    """The check's run-ledger record (kind="elle", the reference's):
+    verdict, anomaly types as the cause, ops, cycle engine, and the
+    kernel seconds as `util.kernel_s` (so `ledger.device_seconds` bills
+    them), banked in the ambient ledger (a no-op unless one is on). The
+    platform is the type of the device the kernels ran on."""
+    from .. import ledger as _ledger
+    from ..util import resolve_devices
+    try:
+        platform = resolve_devices(devices, device)[0].type
+    except (RuntimeError, ValueError):
+        platform = None
+    res = {"valid?": out.get("valid?"),
+           "cause": ",".join(out.get("anomaly-types") or []) or None,
+           "op_count": op_count,
+           "engine": out.get("cycle-engine"),
+           "util": out.get("cycle-util")}
+    _ledger.record_result("elle", name, res, wall_s=wall_s,
+                          engine=out.get("cycle-engine"), platform=platform)
 
 
 def preflight_gate(n_txns: int, backend: str, where: str, device,

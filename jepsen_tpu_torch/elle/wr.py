@@ -150,7 +150,8 @@ def check(history: History, anomalies: Iterable[str] = DEFAULT_ANOMALIES,
         out["cycle-route-reason"] = cycles["route_reason"]
     if silent:
         out["unchecked-anomaly-types"] = sorted(silent)
-    _record_elle("elle.wr", out, len(oks), _time.monotonic() - t_start)
+    _record_elle("elle.wr", out, len(oks), _time.monotonic() - t_start,
+                 device, devices)
     return out
 
 

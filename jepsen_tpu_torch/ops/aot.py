@@ -101,32 +101,39 @@ def precompile_mesh_plan(shape_bucket: dict, devices=None, *,
 def precompile_service_plan(shape_bucket: dict, *, bucket_key,
                             model_name: Optional[str] = None,
                             mesh_layout: Optional[dict] = None,
-                            save: bool = True, device=None) -> dict:
+                            save: bool = True, device=None,
+                            devices=None) -> dict:
     """One warm for a service bucket: the serial ladder
     (`precompile_service_bucket` on `device`) and, when a mesh layout is
-    given and its device list holds 2 or more cards, the lane-group plan
-    (`precompile_mesh_plan`) for the same canonical bucket, registered as
-    one `fs_cache` entry under ("service-plan", model, key) (best
-    effort). `mesh_layout` is {"n_devices": int, "lanes_per_device":
-    int, "chunk": int}; its device list is the first `n_devices` cards.
-    Returns {"serial": {K: s}, "mesh": {K: s} | None}."""
-    from ..util import default_devices
+    given, the lane-group plan (`precompile_mesh_plan`) over the
+    caller's mesh `devices` (a list of 2 or more that may repeat a
+    card: a named list also stocks the carry pool) for the same
+    canonical bucket, registered as one `fs_cache` entry under
+    ("service-plan", model, key) (best effort). `mesh_layout` is
+    {"n_devices": int, "lanes_per_device": int, "chunk": int}; a layout
+    without a device list of 2 or more raises rather than skip the
+    mesh warm. Returns {"serial": {K: s}, "mesh": {K: s} | None}."""
+    from ..util import resolve_devices
 
+    layout = None
+    if mesh_layout:
+        if devices is None:
+            raise ValueError("a mesh layout needs the mesh's devices=")
+        devs = resolve_devices(devices)
+        if len(devs) < 2:
+            raise ValueError(f"a mesh of {len(devs)} device(s): a mesh "
+                             f"layout needs 2 or more")
     out: dict = {"serial": precompile_service_bucket(shape_bucket,
                                                      device=device),
                  "mesh": None}
-    layout = None
     if mesh_layout:
-        devs = default_devices(mesh_layout.get("n_devices"))
-        nd = len(devs)
-        if nd >= 2:
-            chunk = int(mesh_layout.get("chunk") or 1024)
-            s_d = int(mesh_layout["lanes_per_device"])
-            out["mesh"] = precompile_mesh_plan(
-                shape_bucket, devs, lanes_per_device=s_d, chunk=chunk,
-                model_name=str(model_name or "any"), save=False)
-            layout = {"n_devices": nd, "lanes_per_device": s_d,
-                      "chunk": chunk, "axes": ["keys"]}
+        chunk = int(mesh_layout.get("chunk") or 1024)
+        s_d = int(mesh_layout["lanes_per_device"])
+        out["mesh"] = precompile_mesh_plan(
+            shape_bucket, devs, lanes_per_device=s_d, chunk=chunk,
+            model_name=str(model_name or "any"), save=False)
+        layout = {"n_devices": len(devs), "lanes_per_device": s_d,
+                  "chunk": chunk, "axes": ["keys"]}
     if save:
         try:
             from .. import fs_cache

@@ -240,7 +240,7 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
           stop: Optional[Callable[[], bool]] = None,
           adaptive: Optional[bool] = None, device=None,
           shape_bucket: Optional[dict] = None, metrics=None,
-          profile_dir: Optional[str] = None) -> dict:
+          profile_dir: Optional[str] = None, tracer=None) -> dict:
     """Decide linearizability with the device search.
 
     Returns {"valid?": True/False/"unknown", ...}. "unknown" (deadline,
@@ -269,19 +269,24 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
     search in a `torch.profiler` capture (CPU and CUDA activities)
     exported as a Chrome trace there; `res["profile_dir"]` is set only
     when a trace was written, and a failure to capture never blocks the
-    verdict."""
+    verdict. `tracer` is a `trace.Tracer`: the reference's phase spans
+    (encode, then per chunk compile / device-round with host-poll
+    inside it) nest under the caller's current span."""
     from .. import fleet as _fleet
     from .. import metrics as _metrics
+    from .. import trace as _trace
 
     dev = resolve_device(device)
     mx = metrics if metrics is not None else _metrics.get_default()
+    tracer = tracer if tracer is not None else _trace.NULL_TRACER
     t_enter = _time.monotonic()
     # Device stats are int32; cap the budget so the explored counter can
     # reach it without wrapping (it grows by at most K per round).
     max_configs = min(max_configs, 2**30)
     try:
         if enc is None:
-            enc = encode(model, history)
+            with tracer.span("encode", attrs={"ops": len(history)}):
+                enc = encode(model, history)
     except EncodingUnsupported as e:
         return {"valid?": "unknown", "cause": f"encoding: {e}",
                 "encoding": e.to_dict(), "op_count": len(history)}
@@ -308,7 +313,7 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
                 e, stage="wgl/profiler-start"))
     try:
         res = _run_search(enc, plan, n, max_configs, frontier, dev,
-                          t_enter, time_limit, stop, mx)
+                          t_enter, time_limit, stop, mx, tracer)
     finally:
         if prof is not None:
             try:
@@ -350,7 +355,7 @@ def _stop_profile(prof, profile_dir: str) -> str:
 
 
 def _run_search(enc, plan, n, max_configs, frontier, dev, t_enter,
-                time_limit, stop, mx) -> dict:
+                time_limit, stop, mx, tracer) -> dict:
     """`_search_loop` under a watchdog source (the reference's
     `_run_search`): the loop beats once a chunk, so a chunk that hangs
     on the card stops the beats and the watchdog declares the source
@@ -361,14 +366,14 @@ def _run_search(enc, plan, n, max_configs, frontier, dev, t_enter,
     hb = wd.register(f"wgl/{dev.type}", device=str(dev), grace_s=300.0)
     try:
         return _search_loop(enc, plan, n, max_configs, frontier, dev,
-                            t_enter, time_limit, stop, mx, wd, hb)
+                            t_enter, time_limit, stop, mx, wd, hb, tracer)
     finally:
         wd.unregister(hb)
 
 
 def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
                  frontier, dev, t_enter: float, time_limit, stop, mx, wd,
-                 hb) -> dict:
+                 hb, tracer) -> dict:
     from .. import devices as _devices
     from .. import fleet as _fleet
     from .. import occupancy as _occ
@@ -412,6 +417,9 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
     # per-chunk telemetry: None when metrics are off, so the loop pays
     # nothing (the zero-cost contract)
     tl_points: Optional[list] = [] if mx.enabled else None
+    # the compute/copy split below costs one extra sync a poll: paid
+    # only when someone records it
+    instrumented = tl_points is not None or tracer.sampled
     # the per-round drain of the occupancy ring, paid only when metrics
     # or the live status consume it
     drain = tl_points is not None or status.enabled
@@ -443,17 +451,22 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
                                 "chunks": n_chunks},
                     "stall": _watchdog.stall_result(hb)["stall"]}
         t_call = _time.monotonic()
-        carry, summary = next_chunk(carry, K)
-        if tl_points is not None and dev.type == "cuda":
-            # instrumented only: wait for the chunk, so that the copy
-            # below is timed apart from the device's compute
-            torch.cuda.current_stream(dev).synchronize()
-        t_xfer = _time.monotonic()
-        # the one device->host copy per chunk: the packed summary, its
-        # occupancy ring included
-        s = summary.cpu().numpy()
-        xfer_s = _time.monotonic() - t_xfer
-        _guards.note_transfer("d2h", s.nbytes, what="wgl-poll")
+        # the first chunk folds in the kernel's build and load (the
+        # reference's "compile" span); later ones are device rounds
+        with tracer.span("compile" if n_chunks == 0 else "device-round",
+                         attrs={"chunk": n_chunks}):
+            carry, summary = next_chunk(carry, K)
+            if instrumented and dev.type == "cuda":
+                # wait for the chunk, so that the copy below is timed
+                # apart from the device's compute
+                torch.cuda.current_stream(dev).synchronize()
+            with tracer.span("host-poll"):
+                t_xfer = _time.monotonic()
+                # the one device->host copy per chunk: the packed
+                # summary, its occupancy ring included
+                s = summary.cpu().numpy()
+                xfer_s = _time.monotonic() - t_xfer
+                _guards.note_transfer("d2h", s.nbytes, what="wgl-poll")
         poll_s = _time.monotonic() - t_call
         fr_cnt, flags, stats = int(s[0]), s[1:4], s[4:10]
         bk_cnt = int(s[10])
@@ -665,15 +678,19 @@ def _record_chunk(mx, tl_points: list, occ_rounds: list, occ_new: list, s,
 
 def enrich_diagnostics(model: Model, history: History, res: dict,
                        time_limit: float = 30.0,
-                       stop: Optional[Callable[[], bool]] = None) -> dict:
+                       stop: Optional[Callable[[], bool]] = None,
+                       tracer=None) -> dict:
     """On a device False verdict, re-run the host oracle briefly to
     extract counterexample diagnostics (final_paths / configs),
     matching the reference's expectation that invalid results explain
-    themselves (checker.clj:205-212)."""
+    themselves (checker.clj:205-212); the rerun is the "enrich" span."""
+    from .. import trace as _trace
+    tracer = tracer if tracer is not None else _trace.NULL_TRACER
     if res.get("valid?") is False and "final_paths" not in res \
             and not (stop is not None and stop()):
-        ref = wgl_ref.check(model, history, time_limit=time_limit,
-                            stop=stop)
+        with tracer.span("enrich"):
+            ref = wgl_ref.check(model, history, time_limit=time_limit,
+                                stop=stop)
         if ref.get("valid?") is False:
             for k in ("final_paths", "configs", "max_linearized"):
                 if k in ref:
@@ -684,8 +701,9 @@ def enrich_diagnostics(model: Model, history: History, res: dict,
 def check_with_diagnostics(model: Model, history: History,
                            time_limit: Optional[float] = None,
                            stop: Optional[Callable[[], bool]] = None,
-                           device=None, metrics=None) -> dict:
+                           device=None, metrics=None, tracer=None) -> dict:
     """Device verdict + counterexample enrichment (enrich_diagnostics)."""
     res = check(model, history, time_limit=time_limit, stop=stop,
-                device=device, metrics=metrics)
-    return enrich_diagnostics(model, history, res, stop=stop)
+                device=device, metrics=metrics, tracer=tracer)
+    return enrich_diagnostics(model, history, res, stop=stop,
+                              tracer=tracer)

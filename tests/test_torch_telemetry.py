@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from jepsen_tpu import devices as jdevices
+from jepsen_tpu import ledger as jledger
 from jepsen_tpu import metrics as jmetrics
 from jepsen_tpu import synth as jsynth
 from jepsen_tpu import watchdog as jwatchdog
@@ -58,6 +59,7 @@ from jepsen_tpu.parallel import mesh as jmesh
 from jepsen_tpu_torch import devices as tdevices
 from jepsen_tpu_torch import fleet as tfleet
 from jepsen_tpu_torch import history as th
+from jepsen_tpu_torch import ledger as tledger
 from jepsen_tpu_torch import metrics as tmetrics
 from jepsen_tpu_torch import occupancy as toccupancy
 from jepsen_tpu_torch import watchdog as twatchdog
@@ -410,7 +412,7 @@ def test_mesh_series_match_reference():
 # --- Elle and preflight -------------------------------------------------------------
 
 @pytest.mark.parametrize("which", ["append", "wr"])
-def test_elle_series_match_reference(which):
+def test_elle_series_match_reference(which, tmp_path):
     if which == "append":
         h = jsynth.list_append_history(120, n_procs=3, seed=5)
         jmod, tmod = jappend, tappend
@@ -418,12 +420,16 @@ def test_elle_series_match_reference(which):
         h = jsynth.wr_register_history(120, n_procs=3, seed=5)
         jmod, tmod = jwr, twr
     rj, rt = jmetrics.Registry(), tmetrics.Registry()
-    with jmetrics.use(rj):
+    lj, lt = jledger.Ledger(str(tmp_path / "j")), \
+        tledger.Ledger(str(tmp_path / "t"))
+    with jmetrics.use(rj), jledger.use(lj):
         a = jmod.check(h, cycle_backend="trim")
-    with tmetrics.use(rt), tdevices.use(tdevices.DeviceMonitor()):
+    with tmetrics.use(rt), tdevices.use(tdevices.DeviceMonitor()), \
+            tledger.use(lt):
         b = tmod.check(to_port(h), cycle_backend="trim", device="cpu")
     assert a["valid?"] == b["valid?"]
-    names_j = set(_names(rj)) - {"history_lint_checks_total"}
+    names_j = set(_names(rj)) - {"history_lint_checks_total",
+                                 "ledger_records_total"}
     assert names_j == {"elle_build", "elle_closure",
                        "elle_closure_calls_total", "elle_closure_seconds",
                        "preflight", "preflight_checks_total"}
@@ -436,11 +442,55 @@ def test_elle_series_match_reference(which):
     for k in ("edges", "n", "n_pad", "iters_run", "iter_reach",
               "core_sizes", "kernel"):
         assert ca[0][k] == cb[0][k], k
-    # the run record the reference banks in its ledger, as a series
-    rec, = rt.series("elle").points
-    assert rec["name"] == f"elle.{which}" and rec["valid?"] == b["valid?"]
+    # the run record both packages bank in their run ledgers
+    ra, = lj.query(kind="elle")
+    rb, = lt.query(kind="elle")
+    # timed fields, and the device window the port's monitor adds
+    timed = {"id", "t", "wall_s", "device_s", "util", "hbm"}
+    assert {k: v for k, v in rb.items() if k not in timed} == \
+        {k: v for k, v in ra.items() if k not in timed}
+    assert rb["name"] == f"elle.{which}" and rb["verdict"] == b["valid?"]
+    assert rb["platform"] == "cpu" and rb["hbm"]["stats_unavailable"]
+    assert sorted(set(rb) - {"hbm"}) == sorted(ra)
+    # the port has no XLA compile inside the closure's wall
+    assert set(rb["util"]) == set(ra["util"]) - {"compile_s"}
+    assert rb["device_s"] == rb["util"]["kernel_s"]
+    # the metrics plane keeps no run record of its own
+    assert "elle" not in _names(rt)
     # the closure's device window: the CPU's explicit marker
     assert b["cycle-util"]["hbm"]["stats_unavailable"] is True
+
+
+def test_preflight_ledger_record_matches_reference(tmp_path):
+    h = jsynth.cas_register_history(60, n_procs=3, seed=2)
+    lj, lt = jledger.Ledger(str(tmp_path / "j")), \
+        tledger.Ledger(str(tmp_path / "t"))
+    with jledger.use(lj):
+        jpreflight.gate_wgl(jmodels.cas_register(), h, where="t",
+                            ledger_name="pf")
+        jpreflight.gate_wgl(jmodels.cas_register(), h, where="t")
+        jpreflight.gate_elle(500, backend="trim", where="e",
+                             ledger_name="pf-elle")
+    with tledger.use(lt):
+        tpreflight.gate_wgl(tmodels.cas_register(), to_port(h), where="t",
+                            devices=["cpu"], ledger_name="pf")
+        tpreflight.gate_wgl(tmodels.cas_register(), to_port(h), where="t",
+                            devices=["cpu"])
+        tpreflight.gate_elle(500, backend="trim", where="e",
+                             devices=["cpu"], ledger_name="pf-elle")
+    ra, rb = lj.query(kind="preflight"), lt.query(kind="preflight")
+    # a gate without a ledger name banks nothing (the reference's rule)
+    assert [r["name"] for r in rb] == [r["name"] for r in ra] == \
+        ["pf", "pf-elle"]
+    for x, y in zip(ra, rb):
+        assert sorted(y) == sorted(x)
+        for k in ("kind", "verdict", "engine", "where", "rules"):
+            assert y[k] == x[k], k
+        # the compact report: the reference's keys (the port's byte
+        # bill is its own)
+        assert set(x["preflight"]) <= set(y["preflight"])
+        for k in ("kind", "engine", "verdict", "rules"):
+            assert y["preflight"].get(k) == x["preflight"].get(k), k
 
 
 def test_preflight_series_match_reference():

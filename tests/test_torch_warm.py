@@ -280,6 +280,48 @@ def test_service_plan_registers_one_entry(tmp_path, monkeypatch):
     assert rec["bucket"] == bucket and rec["mesh"] is None
 
 
+def test_service_plan_warms_the_callers_mesh(tmp_path, monkeypatch):
+    """`devices=` is the mesh half's list: a ["cpu"] * 2 service warms
+    its lane-group plan over those two shards (the first visible cards
+    would be none here) and registers `mesh` with n_devices 2."""
+    monkeypatch.setattr(fs_cache, "DIR", str(tmp_path))
+    key, bucket = service.bucket_for(_encs("narrow")[1])
+    seen = []
+    real = mesh.warm_plan
+
+    def spy(b, **kw):
+        seen.append([str(d) for d in resolve_devices(kw["devices"])])
+        return real(b, **kw)
+    with mock.patch.object(mesh, "warm_plan", spy):
+        out = aot.precompile_service_plan(
+            bucket, bucket_key=key, model_name="cas", device="cpu",
+            devices=["cpu"] * 2,
+            mesh_layout={"n_devices": 2, "lanes_per_device": 4,
+                         "chunk": 1024})
+    assert seen == [["cpu", "cpu"]] and out["mesh"]
+    rec = fs_cache.load_data(("service-plan", "cas",
+                              "-".join(str(k) for k in key)))
+    assert rec["mesh"] == {"n_devices": 2, "lanes_per_device": 4,
+                           "chunk": 1024, "axes": ["keys"]}
+    mesh.pool_settle()
+    mesh.pool_clear()
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu"]])
+def test_service_plan_mesh_needs_a_mesh(tmp_path, monkeypatch, devices):
+    """A mesh layout warms only the caller's list of 2 or more: with no
+    list, or a list of one, it raises instead of skipping the mesh."""
+    monkeypatch.setattr(fs_cache, "DIR", str(tmp_path))
+    key, bucket = service.bucket_for(_encs("narrow")[1])
+    with pytest.raises(ValueError, match="mesh"):
+        aot.precompile_service_plan(
+            bucket, bucket_key=key, model_name="cas", device="cpu",
+            devices=devices,
+            mesh_layout={"n_devices": 2, "lanes_per_device": 4,
+                         "chunk": 1024})
+    assert fs_cache.list_data(("service-plan",)) == []
+
+
 # --- Elle --------------------------------------------------------------------
 
 def _graph():

@@ -131,7 +131,15 @@ POSTed over HTTP and followed on its SSE stream, a warm same-bucket
 request under `CompileGuard(max_compiles=0)`, a held batch of 4 served
 as one mesh lane group, an Elle append 3k request, a preflight
 rejection that launches nothing, a fresh process that answers warm after
-`rewarm`, and the admission-to-verdict walls.
+`rewarm`, and the admission-to-verdict walls. Then the analysis path
+(`analyze_phases`): the headline and an invalid history stored through
+`store.Writer` in a temporary store and re-checked by `python -m
+jepsen_tpu_torch analyze` in two fresh processes at once (exit 0 and 1,
+each process's `kind="checker"` ledger record, `linear.svg` against the
+render of the host oracle's analysis), and `core.analyze` of
+`compose({indep: independent.cuda_checker over [card] * 2, stats,
+exceptions})` over the invalid 100 x 2k fan-out (failures == the host
+oracle's, one `kind="independent"` record, every key's results.json).
 
 It prints as its last lines the card, one JSON line of per-kernel
 numbers and
@@ -225,6 +233,8 @@ REPO = Path(__file__).resolve().parent
 # and the mesh fan-out's shared shape bucket (with its key count)
 MAIN_VERDICTS: dict = {}
 MAIN_BUCKETS: dict = {}
+# the invalid fan-out history, which the analysis phase re-checks
+MAIN_HISTORIES: dict = {}
 
 # the first check of a fresh process, timed from the checker call (the
 # CUDA context is made first and timed apart)
@@ -2206,6 +2216,8 @@ def fanout_phases(dev) -> list:
     if res["valid?"] is not False or sorted(res["failures"]) != want \
             or not want:
         raise AssertionError(f"fan-out invalid: {res['failures']} != {want}")
+    MAIN_VERDICTS["fan-out invalid failures"] = want
+    MAIN_HISTORIES["fan-out invalid"] = hb
 
     # ---- main path, wide --------------------------------------------------
     res, wall, counts, t, host, peak = drive(lambda: batched.check_batched(
@@ -3459,6 +3471,182 @@ def service_phases(dev) -> dict:
     return out["counts"]
 
 
+def analyze_phases(dev) -> None:
+    """The analysis path on the card, as a Jepsen user re-checks a stored
+    run: a history stored as run "demo" through `store.Writer` (`save_0`,
+    `save_1`) in a temporary store, re-checked by `python -m
+    jepsen_tpu_torch analyze --store-root <store>` in a fresh process
+    (`core.analyze` -> `Linearizable(algorithm="cuda-wgl")` ->
+    `wgl32_chunk`), the analysis written back as a new run.
+
+      (a) the headline: exit 0, `results.json` valid? True from
+          "cuda-wgl" on the card, one `kind="checker"` record under
+          <store>/ledger, the new run's test.jepsen read back True;
+      (b) `INVALID`: exit 1, `linear.svg` byte-identical to
+          `linear_report.render` of the host oracle's "wgl" analysis of
+          the same history, computed here (the title and the footer name
+          the device search: its algorithm, configs, rounds and wall,
+          from results.json; the swimlanes and the path are the
+          oracle's);
+      (c) in this process, `core.analyze` with `compose({"indep":
+          independent.cuda_checker(cas_register(), devices=[card] *
+          MESH_SHARDS), "stats": stats(), "exceptions":
+          unhandled_exceptions()})` over the 100 x 2k fan-out history
+          with `FANOUT_BAD`'s lying keys: failures == the host oracle's
+          (from `fanout_phases`), one `kind="independent"` record (keys
+          100, engine "device-mesh"), every key's results.json written;
+          every count set to 0 just before and read just after.
+
+    (a) and (b) run at once, each in its own fresh process; a fresh
+    process's launches are its chunks (`util.chunks` in results.json:
+    one `wgl32_chunk` launch a chunk)."""
+    import os
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import core, independent, ledger, store, synth
+    from jepsen_tpu_torch.checker import (compose, linear_report,
+                                          linearizable, stats,
+                                          unhandled_exceptions)
+    from jepsen_tpu_torch.history import History, strip_nemesis
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import mesh
+
+    print(f"analysis path ({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="analyze-", dir=str(REPO / "build" /
+                                                      "torch_kernels"))
+    # (a) and (b) run at once: most of a fresh process's wall is `import
+    # torch` on the host
+    cases = (("headline", HEADLINE, 0, True), ("invalid", INVALID, 1, False))
+    started = {}
+    for name, params, _, _ in cases:
+        root = os.path.join(tmp, name)
+        hist = synth.cas_register_history(**params)
+        test = {"name": "demo", "start_time": "20260101T000000",
+                "store_root": root, "history": hist}
+        w = store.Writer(test)
+        try:
+            w.save_0(test)
+            w.save_1(test)
+        finally:
+            w.close()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch", "analyze",
+             "--store-root", root], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        started[name] = (root, hist, w.dir, proc, time.monotonic())
+    try:
+        for name, params, want_rc, want_valid in cases:
+            root, hist, stored, proc, t0 = started[name]
+            _, err = proc.communicate(timeout=300)
+            rc, wall = proc.returncode, time.monotonic() - t0
+            run = store.latest(root)
+            if rc != want_rc or run == os.path.realpath(stored):
+                raise AssertionError(
+                    f"analyze {name}: exit {rc} (want {want_rc}), run "
+                    f"{run}:\n{err[-4000:]}")
+            with open(os.path.join(run, "results.json")) as fh:
+                res = json.load(fh)
+            recs = [(r["name"], r["verdict"], r.get("algorithm"))
+                    for r in ledger.Ledger(root).query(kind="checker")]
+            back = store.load_latest(root)["results"]["valid?"]
+            u = res.get("util") or {}
+            print(f"  {name} {params}: analyze exit {rc} in {wall:.4f} s "
+                  f"(a fresh process, both at once), valid? "
+                  f"{res['valid?']} algorithm {res.get('algorithm')} on "
+                  f"{res.get('device')}, search "
+                  f"{res.get('wall_s')} s, {u.get('chunks')} wgl32_chunk "
+                  f"launches (chunks), rounds {u.get('rounds')}, configs "
+                  f"{res.get('configs_explored')}; ledger checker records "
+                  f"{recs}; test.jepsen reads back {back}", flush=True)
+            if (res["valid?"] is not want_valid
+                    or res.get("algorithm") != "cuda-wgl"
+                    or res.get("platform") != "cuda"
+                    or not u.get("chunks") or back is not want_valid
+                    or recs != [("demo", want_valid, "cuda-wgl")]):
+                raise AssertionError(
+                    f"analyze {name}: {res}, {recs}, {back}")
+            if want_valid:
+                continue
+            svg = os.path.join(run, "linear.svg")
+            with open(svg) as fh:
+                got_svg = fh.read()
+            h = strip_nemesis(History(hist).index())
+            oracle = linearizable(cas_register(), algorithm="wgl",
+                                  device="cpu").check({}, h, {})
+            want_svg = linear_report.render(h, {
+                **oracle, **{k: res[k] for k in ("algorithm",
+                                                 "configs_explored", "util",
+                                                 "wall_s") if k in res}})
+            print(f"  {name}: linear.svg {len(got_svg)} B, == the render "
+                  f"of the host oracle's analysis ({oracle['valid?']}, "
+                  f"{len(oracle.get('final_paths') or [])} final paths): "
+                  f"{got_svg == want_svg}", flush=True)
+            if oracle["valid?"] is not False or got_svg != want_svg \
+                    or res.get("counterexample-svg") is None:
+                raise AssertionError(f"analyze {name}: linear.svg differs "
+                                     "from the oracle analysis's render")
+    finally:
+        for _, _, _, proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # (c) the composed fan-out, in this process
+    bad = FANOUT_BAD
+    hb = MAIN_HISTORIES.get("fan-out invalid") or multikey_history(
+        **FANOUT, lie_keys=bad["keys"], lie_p=bad["lie_p"])
+    root = os.path.join(tmp, "fanout")
+    test = {"name": "fanout", "start_time": "20260101T000000",
+            "store_root": root, "history": hb,
+            "checker": compose({
+                "indep": independent.cuda_checker(
+                    cas_register(), devices=[dev] * MESH_SHARDS),
+                "stats": stats(), "exceptions": unhandled_exceptions()})}
+    test["store_dir"] = store.path_bang(test)
+    led = ledger.Ledger(root)
+    mesh.pool_settle()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    with ledger.use(led):
+        out = core.analyze(test)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    res = out["results"]
+    ind = res["indep"]
+    recs = [(r["name"], r["keys"], r["failures"], r.get("engine"),
+             r.get("model")) for r in led.query(kind="independent")]
+    key_dir = os.path.join(test["store_dir"], independent.DIR)
+    written = sorted(int(k) for k in os.listdir(key_dir)
+                     if os.path.exists(os.path.join(key_dir, k,
+                                                    "results.json")))
+    want = MAIN_VERDICTS["fan-out invalid failures"]
+    print(f"  fan-out {FANOUT} with keys {bad['keys']} at lie_p "
+          f"{bad['lie_p']}, composed (indep over {MESH_SHARDS} shards, "
+          f"stats, exceptions): valid? {res['valid?']} (indep "
+          f"{ind['valid?']}, stats {res['stats']['valid?']}, exceptions "
+          f"{res['exceptions']['valid?']}), failures {ind['failures']} "
+          f"(host oracle {want}), wall {wall:.4f} s, launches {counts}; "
+          f"ledger independent records {recs}; per-key results.json "
+          f"{len(written)}", flush=True)
+    if (res["valid?"] is not False or sorted(ind["failures"]) != want
+            or not set(want) <= set(bad["keys"])
+            or recs != [("fanout", FANOUT["n_keys"], len(want),
+                          "device-mesh", "CASRegister")]
+            or written != list(range(FANOUT["n_keys"]))
+            or counts["wgl32_chunk_batched"] < 1
+            or counts["wgl_lane_reset"] < 1):
+        raise AssertionError(f"analyze fan-out: {ind['failures']}, {recs}, "
+                             f"{counts}, {len(written)} keys written")
+    mesh.pool_settle()
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  analysis phases: {time.monotonic() - t_all:.1f} s",
+          flush=True)
+
+
 def paths_main(root: str) -> int:
     """`--paths ROOT`: the main paths the redesigned kernels serve,
     driven through the package under ROOT (this checkout's, or an older
@@ -4039,6 +4227,7 @@ def run_phases(dev, host10) -> int:
     preflight_phases(dev)
     warm_phases(dev, lin, h)
     service_phases(dev)
+    analyze_phases(dev)
 
     print("card:", card_line())
     print(json.dumps({"kernels": [{

@@ -18,13 +18,49 @@ SSE at /events and /runs/<id>/events. The service runs on the card
 unless `--device cpu`; `--devices N` gives it N shards of that device,
 the mesh its coalesced batches run on. Cached bucket plans are
 re-warmed after the bind succeeds.
+
+    python -m jepsen_tpu_torch analyze [--store-root DIR] [--name NAME]
+        [--device DEV]
+
+re-checks the latest run stored under DIR (default: the port's store,
+`store/torch`; a run that the JAX package stored is read the same way)
+with the demo test's checker, `linearizable(cas_register(),
+algorithm="cuda-wgl")`, on the card unless `--device cpu`. The analysis
+is written as a new run of the same name under DIR (`results.json`, and
+`linear.svg` on a False verdict), and the checker's record goes to the
+run ledger under DIR. The exit code is the reference's (cli.clj:
+129-139): 0 valid, 1 invalid, 2 unknown, 254 bad arguments, 255 an
+internal error (no stored run, a name mismatch, no card).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import sys
+import time
+import traceback
 from typing import Optional, Sequence
+
+EXIT_OK = 0
+EXIT_INVALID = 1
+EXIT_UNKNOWN = 2
+EXIT_BAD_ARGS = 254
+EXIT_ERROR = 255
+
+
+class _BadArgs(Exception):
+    pass
+
+
+class _Parser(argparse.ArgumentParser):
+    """argparse with the reference's exit code for bad arguments (254,
+    cli.clj:129-139) in place of argparse's 2."""
+
+    def error(self, message):
+        self.print_usage(sys.stderr)
+        print(f"{self.prog}: error: {message}", file=sys.stderr)
+        raise _BadArgs(message)
 
 
 def _preflight(args) -> int:
@@ -76,11 +112,75 @@ def _serve(args) -> int:
     return 0
 
 
+def demo_test(name: str, store_root: str, device) -> dict:
+    """The demo test map that `analyze` merges with the stored run. Its
+    checker is the device search (the reference's demo runs the host
+    "wgl" oracle, `jepsen_tpu/__main__.py:54-55`); verdicts agree."""
+    from . import checker, models
+
+    return {"name": name, "store_root": store_root,
+            "checker": checker.linearizable(models.cas_register(),
+                                            algorithm="cuda-wgl",
+                                            device=device)}
+
+
+def _validity_code(test: dict) -> int:
+    v = (test.get("results") or {}).get("valid?")
+    if v is False:
+        return EXIT_INVALID
+    if v == "unknown":
+        return EXIT_UNKNOWN
+    return EXIT_OK
+
+
+def run_analyze(store_root: str, name: str = "demo", device=None) -> int:
+    """Re-analyze the latest stored history with a freshly built test map
+    (the reference's `run_analyze`, cli.clj:402-431): the stored results
+    are dropped, the test map merged over the demo's, `core.analyze`
+    run, and the analysis written through `store.Writer` as a new run
+    (a new start time) under `store_root`, its checker record banked in
+    the ledger there. Returns the exit code by validity."""
+    from . import core, ledger, store
+    from .util import resolve_device
+
+    cli_test = demo_test(name, store_root, resolve_device(device))
+    if store.latest(store_root) is None:
+        raise RuntimeError("Not sure what the last test was")
+    stored = store.load_latest(store_root)
+    if stored.get("name") != cli_test["name"]:
+        raise RuntimeError(
+            f"Stored test ({stored.get('name')}) and CLI test "
+            f"({cli_test['name']}) have different names; aborting")
+    stored.pop("results", None)
+    now = time.time()
+    test = {**cli_test, **stored, "store_root": store_root,
+            "start_time": time.strftime("%Y%m%dT%H%M%S",
+                                        time.localtime(now))
+            + f".{int(now * 1000) % 1000:03d}"}
+    with ledger.use(ledger.Ledger(store_root)):
+        test = core.analyze(test)
+    writer = store.Writer(test)
+    try:
+        test["store_dir"] = writer.dir
+        writer.save_0(test)
+        writer.save_1(test)
+        writer.save_2(test)
+    finally:
+        writer.close()
+    core.log_results(test)
+    return _validity_code(test)
+
+
+def _analyze(args) -> int:
+    return run_analyze(args.store_root, args.name, args.device)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     from .ledger import BASE_DIR
 
-    parser = argparse.ArgumentParser(prog="python -m jepsen_tpu_torch")
-    sub = parser.add_subparsers(dest="command", required=True)
+    parser = _Parser(prog="python -m jepsen_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True,
+                                parser_class=_Parser)
     pf = sub.add_parser("preflight", help="the static admission analyzer")
     pf.add_argument("--config", default="all",
                     help="headline | elle_append_8k | dense_100k | all")
@@ -122,8 +222,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="shards of that device: the mesh of the "
                          "coalesced batches")
     sv.set_defaults(run=_serve)
-    args = parser.parse_args(argv)
-    return args.run(args)
+    an = sub.add_parser("analyze", help="re-check the latest stored run")
+    an.add_argument("--store-root", default=BASE_DIR,
+                    help=f"store directory (default: {BASE_DIR})")
+    an.add_argument("--name", default="demo",
+                    help="the test's name; must be the stored run's")
+    an.add_argument("--device", default=None,
+                    help="where the check runs (default: the card)")
+    an.set_defaults(run=_analyze)
+    try:
+        args = parser.parse_args(argv)
+    except _BadArgs:
+        return EXIT_BAD_ARGS
+    if args.command != "analyze":
+        return args.run(args)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s [%(name)s] %(message)s")
+    try:
+        return args.run(args)
+    except BrokenPipeError:
+        return EXIT_OK
+    except Exception:  # noqa: BLE001
+        print("Oh jeez, I'm sorry, jepsen_tpu_torch broke. Here's why:",
+              file=sys.stderr)
+        traceback.print_exc()
+        return EXIT_ERROR
 
 
 if __name__ == "__main__":

@@ -462,6 +462,17 @@ class RunStatus:
             self._touch_locked()
         self._after()
 
+    def on_span(self, event: str, span) -> None:
+        """`trace.Tracer` listener: the phase follows the innermost
+        checker phase span (encode / compile / device-round / enrich
+        ...)."""
+        if not self.enabled:
+            return
+        if event == "start":
+            self.phase(span.name)
+        elif event == "end" and span.parent_id is None:
+            self.phase(None)
+
     def begin_keys(self, total: int) -> None:
         if not self.enabled:
             return

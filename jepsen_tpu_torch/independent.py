@@ -28,8 +28,9 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 from . import fleet as _fleet
+from . import ledger as _ledger
 from .analysis import history_lint
-from .checker import check_safe, merge_valid
+from .checker import Checker, check_safe, merge_valid
 from .history import History, strip_nemesis
 from .models.core import Model
 from .util import bounded_pmap, resolve_devices
@@ -116,7 +117,21 @@ def _merge(ks: list, results: dict, shards: list) -> dict:
             "util": {"fleet": _fleet.summarize(shards)}}
 
 
-class IndependentChecker:
+def _record_fanout_ledger(test, name, out, ks, model=None,
+                          engine=None) -> None:
+    """One run-ledger record per fan-out: the verdict, the key count, the
+    failures and the fleet summary's device and straggler columns
+    (`ledger.summarize_result` lifts util.fleet). A no-op without an
+    installed ledger; never raises."""
+    fleet_sum = (out.get("util") or {}).get("fleet") or {}
+    _ledger.record_result(
+        "independent", (test or {}).get("name") or name, out,
+        wall_s=fleet_sum.get("span_s"), model=model, engine=engine,
+        extra={"keys": len(ks),
+               "failures": len(out.get("failures") or [])})
+
+
+class IndependentChecker(Checker):
     """Host-parallel per-key checking (independent.clj:266-317)."""
 
     def __init__(self, checker):
@@ -152,8 +167,10 @@ class IndependentChecker:
             return k, res
 
         results = dict(bounded_pmap(check_key, ks))
-        return _merge(ks, results,
-                      [r.get("shard") for r in results.values()])
+        out = _merge(ks, results,
+                     [r.get("shard") for r in results.values()])
+        _record_fanout_ledger(test, "independent", out, ks)
+        return out
 
 
 def checker(c) -> IndependentChecker:
@@ -173,7 +190,7 @@ def _write_key_artifacts(test, subdir, h, res):
     h.to_jsonl(os.path.join(path, "history.jsonl"))
 
 
-class CUDALinearizableIndependent:
+class CUDALinearizableIndependent(Checker):
     """Per-key linearizability on the card (the reference's
     `TPULinearizableIndependent`): the history is split into per-key
     subhistories as `IndependentChecker` does, and the whole key set is
@@ -197,6 +214,7 @@ class CUDALinearizableIndependent:
         if bad is not None:
             return bad
         ks = history_keys(history)
+        _fleet.get_default().phase("independent-check")
         subs = subhistories(history, ks)
         res_list = check_batched(self.model, [strip_nemesis(s) for s in subs],
                                  time_limit=self.time_limit, devices=devs)
@@ -206,7 +224,11 @@ class CUDALinearizableIndependent:
                 res["shard"]["key"] = str(k)
             subdir = list(opts.get("subdirectory", [])) + [DIR, str(k)]
             _write_key_artifacts(test, subdir, h, res)
-        return _merge(ks, results, [r.get("shard") for r in res_list])
+        out = _merge(ks, results, [r.get("shard") for r in res_list])
+        _record_fanout_ledger(test, "independent", out, ks,
+                              model=type(self.model).__name__,
+                              engine="device-mesh")
+        return out
 
 
 def cuda_checker(model: Model, time_limit: Optional[float] = None,

@@ -1,5 +1,7 @@
-"""Device resolution for the port's entry points, shard streams, and
-`bounded_pmap`.
+"""Device resolution for the port's entry points, shard streams,
+`bounded_pmap`, and the jax-free helpers of `jepsen_tpu/util.py` that the
+checker compositions and reports use (`polysort_key`,
+`integer_interval_set_str`, `nemesis_intervals`, `Multiset`).
 
 Every entry point takes `device=None`, which means the CUDA card. There
 is no silent fallback: asking for CUDA where there is none raises, and
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import contextlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
 
@@ -121,3 +123,110 @@ def bounded_pmap(f: Callable, coll: Sequence, max_workers: int = 16) -> list:
         return []
     with ThreadPoolExecutor(max_workers=min(max_workers, len(coll))) as ex:
         return list(ex.map(f, coll))
+
+
+def polysort_key(x):
+    """Sort key tolerant of mixed types: ints first in numeric order,
+    everything else by string (jepsen.util/polysort parity)."""
+    if isinstance(x, int) and not isinstance(x, bool):
+        return (0, x, "")
+    return (1, 0, str(x))
+
+
+def integer_interval_set_str(xs: Iterable) -> str:
+    """A set of integers in compact interval notation, e.g. #{1-3 5 7-9}
+    (jepsen.util/integer-interval-set-str parity). Non-integer elements
+    are rendered plainly."""
+    xs = sorted(xs, key=polysort_key)
+    parts = []
+    i = 0
+    while i < len(xs):
+        x = xs[i]
+        if isinstance(x, int) and not isinstance(x, bool):
+            j = i
+            while (j + 1 < len(xs) and isinstance(xs[j + 1], int)
+                   and xs[j + 1] == xs[j] + 1):
+                j += 1
+            parts.append(f"{x}-{xs[j]}" if j > i else str(x))
+            i = j + 1
+        else:
+            parts.append(str(x))
+            i += 1
+    return "#{" + " ".join(parts) + "}"
+
+
+def nemesis_intervals(history, fs_start=("start",), fs_stop=("stop",)):
+    """Nemesis start/stop events paired into (start-op, stop-op-or-None)
+    intervals (jepsen.util/nemesis-intervals parity, util.clj:736): the
+    invocations and the completions are paired separately, so both the
+    [start-invoke stop-invoke] and the [start-complete stop-complete]
+    windows come out; a stop closes every start still open."""
+    intervals = []
+    open_invokes: list = []
+    open_completes: list = []
+    for op in history:
+        if op.process != "nemesis":
+            continue
+        if op.f in fs_start:
+            (open_invokes if op.is_invoke else open_completes).append(op)
+        elif op.f in fs_stop:
+            if op.is_invoke:
+                intervals.extend((s, op) for s in open_invokes)
+                open_invokes = []
+            else:
+                intervals.extend((s, op) for s in open_completes)
+                open_completes = []
+    intervals.extend((s, None) for s in open_invokes + open_completes)
+    return intervals
+
+
+class Multiset:
+    """A small multiset (the reference's total-queue accounting leans on
+    org.clojure/multiset, checker.clj:628-687)."""
+
+    def __init__(self, items: Iterable = ()):
+        self.counts: dict = {}
+        for x in items:
+            self.add(x)
+
+    def add(self, x, n: int = 1):
+        self.counts[x] = self.counts.get(x, 0) + n
+
+    def __len__(self):
+        return sum(self.counts.values())
+
+    def __contains__(self, x):
+        return self.counts.get(x, 0) > 0
+
+    def __iter__(self):
+        for x, c in self.counts.items():
+            for _ in range(c):
+                yield x
+
+    def __eq__(self, other):
+        return isinstance(other, Multiset) and self.counts == other.counts
+
+    def __repr__(self):
+        return f"Multiset({dict(self.counts)})"
+
+    def intersect(self, other: "Multiset") -> "Multiset":
+        m = Multiset()
+        for x, c in self.counts.items():
+            k = min(c, other.counts.get(x, 0))
+            if k > 0:
+                m.add(x, k)
+        return m
+
+    def minus(self, other: "Multiset") -> "Multiset":
+        m = Multiset()
+        for x, c in self.counts.items():
+            k = c - other.counts.get(x, 0)
+            if k > 0:
+                m.add(x, k)
+        return m
+
+    def to_sorted_list(self):
+        try:
+            return sorted(self)
+        except TypeError:
+            return list(self)

@@ -34,8 +34,10 @@ def _imports(src: str):
 
 
 def test_scan_covers_the_package():
-    names = {p.name for p in FILES}
-    assert {"wgl32.py", "wgl.py", "checker.py", "chip_smoke.py"} <= names
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"jepsen_tpu_torch/ops/wgl32.py", "jepsen_tpu_torch/ops/wgl.py",
+            "jepsen_tpu_torch/checker/__init__.py",
+            "jepsen_tpu_torch/store/format.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

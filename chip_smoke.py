@@ -140,6 +140,16 @@ render of the host oracle's analysis), and `core.analyze` of
 `compose({indep: independent.cuda_checker over [card] * 2, stats,
 exceptions})` over the invalid 100 x 2k fan-out (failures == the host
 oracle's, one `kind="independent"` record, every key's results.json).
+Then the test path (`test_phases`): `python -m jepsen_tpu_torch test
+--concurrency 2n --time-limit 10 --rate 1000` in a fresh process (~10k
+invocations made by the interpreter against the in-process register,
+checked by "cuda-wgl" on the card; the run dir, the ledger's run and
+checker records, the status mirror, the host oracle's verdict of the
+stored history), `core.run` of the demo with a lying client (False, as
+the oracle, `linear.svg`), `core.run` of 100 keys x 200 invocations
+through `independent.concurrent_generator` checked by
+`independent.cuda_checker` over 2 shards of the card (failing keys ==
+the oracle's), and `test-all --test-count 2` in a fresh process.
 
 It prints as its last lines the card, one JSON line of per-kernel
 numbers and
@@ -3647,6 +3657,254 @@ def analyze_phases(dev) -> None:
           flush=True)
 
 
+TEST_RUN = dict(concurrency="2n", time_limit=10, rate=1000)   # phase (a)
+TEST_INVALID = dict(concurrency=10, time_limit=2, rate=1000)   # phase (b)
+TEST_INDEP = dict(keys=100, ops_per_key=200, concurrency=20)   # phase (c)
+TEST_ALL = dict(test_count=2, time_limit=3, rate=500)          # phase (d)
+
+
+def log_wall(path: str, start: str, end: str) -> float:
+    """Seconds between the first log line of `path` (a run's jepsen.log)
+    that contains `start` and the first after it that contains `end`,
+    from the lines' millisecond timestamps."""
+    import datetime
+
+    def stamp(line):
+        return datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+
+    t0 = None
+    with open(path) as fh:
+        for line in fh:
+            if t0 is None and start in line:
+                t0 = stamp(line)
+            elif t0 is not None and end in line:
+                return (stamp(line) - t0).total_seconds()
+    raise AssertionError(f"{path}: no {start!r} .. {end!r} lines")
+
+
+def test_phases(dev) -> None:
+    """The test path on the card, as a Jepsen user runs a test: the
+    generator, the interpreter against in-process clients over the dummy
+    remote, `core.run`'s store and ledger, and the check on the card.
+
+      (a) `python -m jepsen_tpu_torch test --concurrency 2n --time-limit
+          10 --rate 1000` in a fresh process with the reference's 5
+          default nodes: `stagger`'s rate is the total, so ~10,000
+          invocations, the BASELINE's 10k-op cas-register made by the
+          interpreter; exit 0, valid? True from "cuda-wgl" on the card
+          with `wgl32_chunk` launches (its chunks, `util.chunks` in
+          results.json), `test.jepsen`, `results.json` and `jepsen.log`
+          in the run dir, one `kind="run"` and one `kind="checker"`
+          ledger record, a final `current-status.json` (active False)
+          whose op counts are the history's, and the stored history
+          re-checked here by the host oracle ("wgl"): True;
+      (b) in this process, `core.run` of the demo map with a client whose
+          reads answer a value never written, ~2000 invocations: False,
+          the host oracle's verdict, `linear.svg` in the run dir;
+      (c) in this process, `core.run` of 100 keys x 200 invocations
+          (`independent.concurrent_generator(2, range(100), ...)` at
+          concurrency 20) against `fakes.IndependentAtomClient` with
+          `FANOUT_BAD`'s lying keys, checked by
+          `independent.cuda_checker(cas_register(), devices=[card] *
+          MESH_SHARDS)`: the failing keys are the host oracle's per key,
+          each a lying key that was read; one `kind="independent"`
+          record;
+      (d) `python -m jepsen_tpu_torch test-all --test-count 2 --time-limit
+          3 --rate 500` in a fresh process: exit 0, "2 successes".
+
+    (b) and (c) set every launch counter to 0 just before and read them
+    just after; a fresh process's launches are its chunks."""
+    import os
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import checker, core, fakes, independent, ledger
+    from jepsen_tpu_torch import client as jclient
+    from jepsen_tpu_torch import fleet, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.__main__ import demo_test, demo_workload
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import mesh
+
+    print(f"test path ({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="test-", dir=str(REPO / "build" /
+                                                   "torch_kernels"))
+
+    def host_oracle(h):
+        return checker.linearizable(cas_register(), algorithm="wgl",
+                                    device="cpu").check({}, h, {})
+
+    # (a) the demo test at the headline's size, a fresh process
+    root = os.path.join(tmp, "a")
+    a = TEST_RUN
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch", "test", "--concurrency",
+         a["concurrency"], "--time-limit", str(a["time_limit"]), "--rate",
+         str(a["rate"]), "--store-root", root], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    proc_wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"test: exit {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    run = store.latest(root)
+    for f in ("test.jepsen", "results.json", "jepsen.log"):
+        if not os.path.exists(os.path.join(run, f)):
+            raise AssertionError(f"test: no {f} in {run}")
+    with open(os.path.join(run, "results.json")) as fh:
+        res = json.load(fh)
+    stored = store.load_latest(root)
+    h = History(stored["history"]).index()
+    invokes = sum(op.type == "invoke" for op in h)
+    clients = sum(op.type == "invoke" and op.process != "nemesis"
+                  for op in h)
+    oracle = host_oracle(h)
+    led = ledger.Ledger(root)
+    runs = led.query(kind="run")
+    checks = led.query(kind="checker")
+    snap = fleet.read_status_file(root)
+    log_path = os.path.join(run, "jepsen.log")
+    analysis_s = log_wall(log_path, "Analyzing...", "Analysis complete")
+    interp_s = (max(op.time for op in h) - min(op.time for op in h)) / 1e9
+    u = res.get("util") or {}
+    asked = a["rate"] * a["time_limit"]
+    print(f"  (a) test {a}: exit 0; {invokes} invocations recorded "
+          f"against ~{asked} asked ({invokes / asked:.4f}), {len(h)} ops; "
+          f"interpreter wall {interp_s:.4f} s (first to last op), analysis "
+          f"wall {analysis_s:.3f} s (jepsen.log), search wall "
+          f"{res.get('wall_s')} s, {u.get('chunks')} wgl32_chunk launches "
+          f"(chunks), configs {res.get('configs_explored')}, valid? "
+          f"{res['valid?']} ({res.get('algorithm')} on {res.get('device')}),"
+          f" host oracle {oracle['valid?']}; run record wall "
+          f"{runs[0]['wall_s'] if runs else None} s; process wall "
+          f"{proc_wall:.4f} s; status ops {snap and snap.get('ops')}",
+          flush=True)
+    if invokes < 0.8 * asked:
+        # `stagger` schedules each op a random interval (mean 1/rate)
+        # after the previous op's dispatch, so the scheduler's lateness
+        # in dispatching adds to every interval
+        inv_t = sorted(op.time for op in h if op.type == "invoke")
+        gap_ms = (inv_t[-1] - inv_t[0]) / (len(inv_t) - 1) / 1e6
+        print(f"  (a) the interpreter recorded {invokes} of ~{asked} "
+              f"invocations asked: the host loop bounds the rate; mean "
+              f"interval between invocations {gap_ms:.4f} ms against "
+              f"1/rate {1e3 / a['rate']:.4f} ms, {gap_ms - 1e3 / a['rate']:.4f}"
+              f" ms a dispatch added by the scheduler", flush=True)
+    if (res["valid?"] is not True or res.get("algorithm") != "cuda-wgl"
+            or res.get("platform") != "cuda" or not u.get("chunks")
+            or oracle["valid?"] is not True or clients != invokes
+            or [r["verdict"] for r in runs] != [True]
+            or [r["verdict"] for r in checks] != [True]
+            or snap is None or snap.get("active") is not False
+            or snap.get("ops") != {"invoked": invokes,
+                                   "completed": len(h) - invokes}):
+        raise AssertionError(f"test (a): {res}, oracle {oracle['valid?']}, "
+                             f"runs {runs}, checks {checks}, status {snap}")
+
+    # (b) a lying client, in this process
+    class LyingClient(jclient.Client):
+        def invoke(self, test, op):
+            if op["f"] == "read":
+                return {**op, "type": "ok", "value": 99}
+            return {**op, "type": "ok"}
+
+    b = TEST_INVALID
+    test = demo_test({"name": "liar", "store_root": os.path.join(tmp, "b"),
+                      "concurrency": b["concurrency"],
+                      "time_limit": b["time_limit"], "rate": b["rate"],
+                      "device": dev})
+    test["client"] = LyingClient()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    out = core.run(test)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    res = out["results"]
+    oracle = host_oracle(out["history"])
+    invokes = sum(op.type == "invoke" for op in out["history"])
+    svg = os.path.join(store.latest(test["store_root"]), "linear.svg")
+    print(f"  (b) lying client {b}: {invokes} invocations, valid? "
+          f"{res['valid?']} (host oracle {oracle['valid?']}), run wall "
+          f"{wall:.4f} s, search wall {res.get('wall_s')} s, linear.svg "
+          f"{os.path.exists(svg)}, launches {counts}", flush=True)
+    if (res["valid?"] is not False or oracle["valid?"] is not False
+            or not os.path.exists(svg) or counts["wgl32_chunk"] < 1):
+        raise AssertionError(f"test (b): {res}, {counts}")
+
+    # (c) the independent run, in this process
+    c = TEST_INDEP
+    bad = set(FANOUT_BAD["keys"])
+    root = os.path.join(tmp, "c")
+    test = {**fakes.noop_test(), "name": "indep", "store_root": root,
+            "concurrency": c["concurrency"], "ssh": {"dummy?": True},
+            "client": fakes.IndependentAtomClient(lie_keys=bad),
+            "generator": independent.concurrent_generator(
+                2, range(c["keys"]),
+                lambda k: gen.limit(c["ops_per_key"], demo_workload())),
+            "checker": independent.cuda_checker(
+                cas_register(), devices=[dev] * MESH_SHARDS)}
+    mesh.pool_settle()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    out = core.run(test)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    res = out["results"]
+    h = out["history"]
+    oracle = independent.checker(checker.linearizable(
+        cas_register(), algorithm="wgl", device="cpu")).check({}, h, {})
+    read = {op.value.k for op in h
+            if op.f == "read" and op.type == "ok"
+            and independent.is_tuple(op.value)}
+    recs = [(r["name"], r["keys"], r["failures"], r.get("engine"))
+            for r in ledger.Ledger(root).query(kind="independent")]
+    invokes = sum(op.type == "invoke" for op in h)
+    print(f"  (c) independent {c} with lying keys {sorted(bad)}: "
+          f"{invokes} invocations, valid? {res['valid?']}, failures "
+          f"{sorted(res['failures'])} (host oracle "
+          f"{sorted(oracle['failures'])}), run wall {wall:.4f} s, "
+          f"wgl32_chunk_batched {counts['wgl32_chunk_batched']}, "
+          f"wgl_lane_reset {counts['wgl_lane_reset']}, "
+          f"wgl_frontier_migrate {counts['wgl_frontier_migrate']} "
+          f"launches (all {counts}); ledger independent records {recs}",
+          flush=True)
+    if (sorted(res["failures"]) != sorted(oracle["failures"])
+            or set(res["failures"]) != bad & read
+            or len(independent.history_keys(h)) != c["keys"]
+            or recs != [("indep", c["keys"], len(res["failures"]),
+                         "device-mesh")]
+            or counts["wgl32_chunk_batched"] < 1
+            or counts["wgl_lane_reset"] < 1):
+        raise AssertionError(f"test (c): {res['failures']}, oracle "
+                             f"{oracle['failures']}, {recs}, {counts}")
+    mesh.pool_settle()
+
+    # (d) test-all, a fresh process
+    d = TEST_ALL
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch", "test-all",
+         "--test-count", str(d["test_count"]), "--time-limit",
+         str(d["time_limit"]), "--rate", str(d["rate"]), "--store-root",
+         os.path.join(tmp, "d")], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    print(f"  (d) test-all {d}: exit {proc.returncode} in "
+          f"{time.monotonic() - t0:.4f} s (a fresh process), "
+          f"{[ln for ln in proc.stdout.splitlines() if ln.endswith('successes')]}",
+          flush=True)
+    if proc.returncode != 0 or "2 successes" not in proc.stdout:
+        raise AssertionError(f"test-all: exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  test phases: {time.monotonic() - t_all:.1f} s", flush=True)
+
+
 def paths_main(root: str) -> int:
     """`--paths ROOT`: the main paths the redesigned kernels serve,
     driven through the package under ROOT (this checkout's, or an older
@@ -4228,6 +4486,7 @@ def run_phases(dev, host10) -> int:
     warm_phases(dev, lin, h)
     service_phases(dev)
     analyze_phases(dev)
+    test_phases(dev)
 
     print("card:", card_line())
     print(json.dumps({"kernels": [{

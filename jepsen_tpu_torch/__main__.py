@@ -1,5 +1,24 @@
 """`python -m jepsen_tpu_torch <command>`.
 
+    python -m jepsen_tpu_torch test [--time-limit S] [--concurrency N[n]]
+        [--rate HZ] [--nodes N1,N2,...] [--store-root DIR] [--name NAME]
+        [--device DEV] [--test-count N] ...
+    python -m jepsen_tpu_torch test-all [--test-count N] ...
+
+run the demo test end to end (the reference's `python -m jepsen_tpu
+test`, `jepsen_tpu/__main__.py:1-70`): `core.run` of `demo_test`, whose
+generator is the cas-register mix of reads, writes and cas ops at a total
+rate of `--rate` ops/s (`gen.stagger`) for `--time-limit` seconds, run by
+the interpreter against an in-process register (`fakes.AtomClient`) on
+`--concurrency` workers over the dummy remote, with a no-op nemesis; the
+history is checked by `linearizable(cas_register(), algorithm=
+"cuda-wgl")` on the card unless `--device cpu`, and the run is stored
+under DIR (default: `store/torch`). `test-all` runs `--test-count` such
+tests and prints the reference's summary ("N successes", ...). The
+options and exit codes are the reference's (`cli.py`): 0 valid, 1
+invalid, 2 unknown, 254 bad arguments, 255 an internal error (no card
+without `--device cpu`, a crashed run).
+
     python -m jepsen_tpu_torch preflight [--config NAME | --headline]
         [--ops N] [--txns N] [--execute] [--json] [--device DEV]
 
@@ -42,11 +61,9 @@ import time
 import traceback
 from typing import Optional, Sequence
 
-EXIT_OK = 0
-EXIT_INVALID = 1
-EXIT_UNKNOWN = 2
-EXIT_BAD_ARGS = 254
-EXIT_ERROR = 255
+from . import cli
+from .cli import EXIT_BAD_ARGS, EXIT_ERROR, EXIT_OK, Opt
+from .ledger import BASE_DIR
 
 
 class _BadArgs(Exception):
@@ -112,25 +129,84 @@ def _serve(args) -> int:
     return 0
 
 
-def demo_test(name: str, store_root: str, device) -> dict:
-    """The demo test map that `analyze` merges with the stored run. Its
-    checker is the device search (the reference's demo runs the host
-    "wgl" oracle, `jepsen_tpu/__main__.py:54-55`); verdicts agree."""
-    from . import checker, models
+def demo_workload():
+    """r/w/cas op mix over a small value alphabet
+    (tests/linearizable_register.clj:18-29)."""
+    from . import generator as gen
 
-    return {"name": name, "store_root": store_root,
-            "checker": checker.linearizable(models.cas_register(),
-                                            algorithm="cuda-wgl",
-                                            device=device)}
+    return gen.mix([
+        gen.repeat(lambda: {"f": "read"}),
+        gen.repeat(lambda: {"f": "write", "value": gen.RNG.randrange(5)}),
+        gen.repeat(lambda: {"f": "cas",
+                            "value": [gen.RNG.randrange(5),
+                                      gen.RNG.randrange(5)]}),
+    ])
 
 
-def _validity_code(test: dict) -> int:
-    v = (test.get("results") or {}).get("valid?")
-    if v is False:
-        return EXIT_INVALID
-    if v == "unknown":
-        return EXIT_UNKNOWN
-    return EXIT_OK
+def demo_test(options: dict) -> dict:
+    """The demo test map from parsed CLI options (the reference's
+    `demo_test`, `jepsen_tpu/__main__.py:37-62`). Its checker is the
+    device search on the card unless `options["device"]` names another
+    device (the reference's demo runs the host "wgl" oracle; verdicts
+    agree); a missing card raises here, before anything runs. `analyze`
+    merges the stored run over the same map."""
+    from . import checker, fakes, models
+    from . import generator as gen
+    from .util import resolve_device
+
+    device = resolve_device(options.get("device"))
+    nodes = options.get("nodes") or cli.DEFAULT_NODES
+    rate = options.get("rate") or 10.0
+    return {
+        "name": options.get("name") or "demo",
+        "store_root": options.get("store_root") or BASE_DIR,
+        "nodes": nodes,
+        "concurrency": options.get("concurrency") or len(nodes),
+        # the demo's "cluster" is in-process; always use the dummy remote
+        "ssh": {"dummy?": True},
+        "client": fakes.AtomClient(fakes.SharedRegister()),
+        "nemesis": fakes.NoopNemesis(),
+        "leave_db_running?": options.get("leave_db_running?", False),
+        # the reference register workload composes linearizable (+
+        # timeline) only — stats would fail any short run where some op
+        # type happens to record zero oks (checker.clj:166-183)
+        "checker": checker.linearizable(models.cas_register(),
+                                        algorithm="cuda-wgl",
+                                        device=device),
+        "generator": gen.time_limit(
+            options.get("time_limit") or 60,
+            gen.clients(gen.stagger(1.0 / rate, demo_workload()))),
+    }
+
+
+def demo_tests(options: dict):
+    """test-all: the demo test, `test_count` times."""
+    for i in range(options.get("test_count") or 1):
+        t = demo_test(options)
+        yield {**t, "name": f"{t['name']}-{i}"}
+
+
+# The demo's options over the reference's `TEST_OPT_SPEC`
+# (`jepsen_tpu/__main__.py:72-79`), with the port's `--device`.
+DEMO_OPTS = [
+    Opt("name", metavar="NAME", default="demo",
+        help="Name for this test run"),
+    Opt("store_root", metavar="DIR", default=BASE_DIR,
+        help="Where to write results"),
+    Opt("rate", metavar="HZ", default=10.0, parse=float,
+        help="Approximate ops/sec, all workers together"),
+    Opt("device", metavar="DEV", default=None,
+        help="Where the check runs (default: the card)"),
+]
+
+
+# `test` and `test-all` as `cli.run_cli` subcommands (the reference's
+# COMMANDS, `jepsen_tpu/__main__.py:210-218`, less the commands the port
+# keeps in argparse).
+COMMANDS = {**cli.single_test_cmd({"test_fn": demo_test,
+                                   "opt_spec": DEMO_OPTS}),
+            **cli.test_all_cmd({"tests_fn": demo_tests,
+                                "opt_spec": DEMO_OPTS})}
 
 
 def run_analyze(store_root: str, name: str = "demo", device=None) -> int:
@@ -141,9 +217,9 @@ def run_analyze(store_root: str, name: str = "demo", device=None) -> int:
     (a new start time) under `store_root`, its checker record banked in
     the ledger there. Returns the exit code by validity."""
     from . import core, ledger, store
-    from .util import resolve_device
 
-    cli_test = demo_test(name, store_root, resolve_device(device))
+    cli_test = demo_test({"name": name, "store_root": store_root,
+                          "device": device})
     if store.latest(store_root) is None:
         raise RuntimeError("Not sure what the last test was")
     stored = store.load_latest(store_root)
@@ -168,7 +244,7 @@ def run_analyze(store_root: str, name: str = "demo", device=None) -> int:
     finally:
         writer.close()
     core.log_results(test)
-    return _validity_code(test)
+    return cli._validity_code(test)
 
 
 def _analyze(args) -> int:
@@ -176,7 +252,12 @@ def _analyze(args) -> int:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    from .ledger import BASE_DIR
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in COMMANDS:
+        logging.basicConfig(
+            level=logging.INFO,
+            format="%(asctime)s %(levelname)s [%(name)s] %(message)s")
+        return cli.run_cli(COMMANDS, argv)
 
     parser = _Parser(prog="python -m jepsen_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True,

@@ -10,7 +10,11 @@ steal plans); `record_shard` and `record_fault`, which put a per-key
 shard block or a fault event into the ambient metrics registry
 (`fleet_shards`, `fleet_faults`) and the ambient `RunStatus`, the
 thread-safe live status of a run (phase, keys decided, per-device
-state, search progress, faults, watchdog stalls, occupancy).
+state, search progress, the nemesis window, ops invoked and completed,
+faults, watchdog stalls, occupancy). `core.run` installs one per named
+run and mirrors throttled snapshots to `<store_root>/current-status.json`
+(`STATUS_FILENAME`, read back by `read_status_file`), so that `serve` in
+another process can watch a live run.
 
 Zero-cost contract (as in `metrics`): the ambient default is a disabled
 `RunStatus` whose recording methods return at once; JEPSEN_TPU_STATUS=1
@@ -43,6 +47,24 @@ STATUS_FAULT_CAP = 32
 
 # Scheduler events kept in memory (`sched_events`), newest last.
 SCHED_EVENT_CAP = 1024
+
+STATUS_FILENAME = "current-status.json"
+
+
+# Nemesis op names that CLOSE a fault window, per the nemesis package
+# conventions (the reference's nemesis/combined.py): the kill/pause
+# package heals with f="start"/"resume", the partitioner closes with
+# f="stop-partition" (any "stop*"), and "heal"/"recover" are the generic
+# spellings. Everything else ("kill", "pause", "start-partition", clock
+# faults) opens or renames the window.
+NEMESIS_HEAL_FS = frozenset({"start", "heal", "resume", "recover"})
+
+
+def nemesis_opens_window(f) -> bool:
+    """Whether a nemesis op with this `f` opens (True) or closes
+    (False) the live fault window shown on /status."""
+    name = str(f)
+    return not (name.startswith("stop") or name in NEMESIS_HEAL_FS)
 
 
 def device_label(dev) -> str:
@@ -407,7 +429,8 @@ def summarize(shards: list) -> dict:
 
 class RunStatus:
     """Thread-safe live status of a run: phase, per-device state, key
-    frontier/backlog, search progress, faults, stalls, occupancy, ETA.
+    frontier/backlog, search progress, nemesis window, ops, faults,
+    stalls, occupancy, ETA.
 
     Writers call the small record methods (each takes the lock once);
     readers call `snapshot()` for a JSON-safe copy with derived
@@ -415,13 +438,16 @@ class RunStatus:
     immediately on a disabled instance."""
 
     def __init__(self, enabled: bool = True, test: Optional[str] = None,
+                 status_file: Optional[str] = None,
                  progress: Optional[bool] = None):
         self.enabled = enabled
+        self.status_file = status_file
         self.progress = (progress if progress is not None else
                          os.environ.get("JEPSEN_TPU_PROGRESS", "")
                          not in ("", "0"))
         self._lock = threading.Lock()
         self._t0 = time.monotonic()
+        self._last_write = 0.0
         self._last_tick = 0.0
         self._d: dict = {
             "schema": 1,
@@ -434,6 +460,8 @@ class RunStatus:
                      "failures": 0},
             "devices": {},
             "search": {},
+            "nemesis": {"active": False, "f": None, "since_s": None},
+            "ops": {"invoked": 0, "completed": 0},
             "faults": [],
             "watchdog": {"stalls": 0, "last_source": None},
             "occupancy": {"active": False, "mode": None,
@@ -448,8 +476,12 @@ class RunStatus:
         self._d["updated"] = time.time()
 
     def _after(self) -> None:
-        """The console progress line (outside the lock), throttled."""
+        """Post-update side channels (outside the lock): throttled
+        status-file mirror + console progress line."""
         now = time.monotonic()
+        if self.status_file and now - self._last_write > 1.0:
+            self._last_write = now
+            self._write_file()
         if self.progress and now - self._last_tick > 0.5:
             self._last_tick = now
             self._print_progress()
@@ -636,6 +668,26 @@ class RunStatus:
             self._touch_locked()
         self._after()
 
+    def nemesis_event(self, f, active: bool) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            n = self._d["nemesis"]
+            n["active"] = bool(active)
+            n["f"] = None if f is None else str(f)
+            n["since_s"] = round(time.monotonic() - self._t0, 3)
+            self._touch_locked()
+        self._after()
+
+    def op_event(self, invoked: bool) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._d["ops"]["invoked" if invoked else "completed"] += 1
+            self._touch_locked()
+        # no _after(): op events are the hottest writer; the next
+        # poll/key boundary refreshes the side channels
+
     def finish(self, valid=None) -> None:
         if not self.enabled:
             return
@@ -645,6 +697,8 @@ class RunStatus:
             if valid is not None:
                 self._d["valid?"] = valid
             self._touch_locked()
+        if self.status_file:
+            self._write_file()
         if self.progress:
             self._print_progress(final=True)
 
@@ -668,6 +722,20 @@ class RunStatus:
         return d
 
     # -- side channels ------------------------------------------------
+    def _write_file(self) -> None:
+        """Atomic throttled mirror for out-of-process `serve`."""
+        try:
+            snap = self.snapshot()
+            tmp = self.status_file + ".tmp"
+            parent = os.path.dirname(self.status_file)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            with open(tmp, "w") as fh:
+                json.dump(snap, fh)
+            os.replace(tmp, self.status_file)
+        except OSError:
+            pass  # a full disk must never fail the run
+
     def _print_progress(self, final: bool = False) -> None:
         try:
             s = self.snapshot()
@@ -686,6 +754,9 @@ class RunStatus:
                 parts.append(f"{sr['configs_per_s']} cfg/s")
             if s.get("eta_s") is not None:
                 parts.append(f"eta={s['eta_s']}s")
+            n = s.get("nemesis") or {}
+            if n.get("active"):
+                parts.append(f"nemesis={n.get('f')}")
             line = "[jepsen_tpu_torch] " + " ".join(parts)
             end = "\n" if final else ""
             sys.stderr.write("\r" + line.ljust(78)[:120] + end)
@@ -707,7 +778,8 @@ _default: RunStatus = (
 
 def get_default() -> RunStatus:
     """The ambient RunStatus — NULL_STATUS unless JEPSEN_TPU_STATUS=1
-    was set at import or a caller installed one."""
+    was set at import or a caller installed one (core.run does, for
+    every named run)."""
     return _default
 
 
@@ -726,3 +798,14 @@ def use(status: RunStatus) -> Iterator[RunStatus]:
         yield status
     finally:
         set_default(prev)
+
+
+def read_status_file(store_root: str) -> Optional[dict]:
+    """The throttled snapshot a (possibly other-process) run mirrors
+    into its store root, or None."""
+    path = os.path.join(store_root, STATUS_FILENAME)
+    try:
+        with open(path) as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return None

@@ -15,8 +15,10 @@ Two checker paths, as in `jepsen_tpu/independent.py`:
     `parallel.check_batched` (one lane-batched kernel launch per poll
     for 4 or more keys, one search per key below that).
 
-The generator half of the reference module (`tuple_gen`,
-`concurrent_generator`) is not ported yet.
+The generator half (`tuple_gen`, `sequential_generator`,
+`concurrent_generator`, independent.clj:31-238) lifts a single-key
+generator to `[k v]` tuple values, as in `jepsen_tpu/independent.py:
+62-225`.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import json
 import os
 import time as _time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Iterable, Optional
 
 from . import fleet as _fleet
+from . import generator as gen
 from . import ledger as _ledger
 from .analysis import history_lint
 from .checker import Checker, check_safe, merge_valid
@@ -58,6 +61,174 @@ def tuple_(k, v) -> KV:
 
 def is_tuple(value) -> bool:
     return isinstance(value, KV)
+
+
+# ---------------------------------------------------------------------------
+# Generator lifting (independent.clj:31-238)
+# ---------------------------------------------------------------------------
+
+def tuple_gen(k, g):
+    """Wrap a generator so its invocations carry [k v] tuple values
+    (independent.clj:96-103)."""
+    def wrap(op):
+        if op.get("type", "invoke") == "invoke":
+            return {**op, "value": tuple_(k, op.get("value"))}
+        return op
+    return gen.map_(wrap, g)
+
+
+def sequential_generator(keys: Iterable, fgen: Callable):
+    """One key at a time: exhaust fgen(k1), move to k2, ... — each op's
+    value wrapped as a [k v] tuple (independent.clj:31-47). fgen must be
+    pure."""
+    return [tuple_gen(k, fgen(k)) for k in keys]
+
+
+def group_threads(n: int, ctx) -> list:
+    """Partition the context's threads (sorted) into groups of n
+    (independent.clj:49-76); asserts divisibility the same way."""
+    threads = sorted(ctx.all_threads(), key=str)
+    count = len(threads)
+    assert n <= count, (
+        f"with {count} worker threads, a concurrent generator cannot run "
+        f"a key with {n} threads; raise concurrency to at least {n}")
+    assert count % n == 0, (
+        f"{count} worker threads cannot be evenly split into groups of "
+        f"{n}; set concurrency to a multiple of {n}")
+    return [frozenset(threads[i:i + n]) for i in range(0, count, n)]
+
+
+class _KeyStream:
+    """Memoized view over a (possibly infinite) key iterable. Cloned
+    ConcurrentGenerator states share one stream and index into it; the
+    buffer only grows, so `get(i)` is deterministic regardless of which
+    clone asks first — pure-value semantics preserved over a lazy
+    source (the reference's `(range)` infinite key seq,
+    independent.clj:228)."""
+
+    _EXHAUSTED = object()
+
+    def __init__(self, keys: Iterable):
+        self._it = iter(keys)
+        self._buf: list = []
+        self._done = False
+
+    def get(self, i: int):
+        """Key #i, or _EXHAUSTED if the source ran out."""
+        while len(self._buf) <= i and not self._done:
+            try:
+                self._buf.append(next(self._it))
+            except StopIteration:
+                self._done = True
+        return self._buf[i] if i < len(self._buf) else self._EXHAUSTED
+
+
+class ConcurrentGenerator(gen.Generator):
+    """Splits worker threads into groups of n per key; each group runs
+    fgen(k) until exhaustion, then takes the next key. Ops are chosen by
+    soonest-op selection across free groups; updates route to the
+    owning group's generator (independent.clj:103-211). Keys may be an
+    infinite iterable (wrap the whole thing in gen.time_limit/limit).
+
+    Use via `concurrent_generator(...)`, which excludes the nemesis."""
+
+    def __init__(self, n: int, keys, fgen: Callable,
+                 groups: Optional[list] = None,
+                 thread_group: Optional[dict] = None,
+                 gens: Optional[list] = None,
+                 pos: int = 0):
+        assert n > 0 and isinstance(n, int)
+        self.n = n
+        self.keys = keys if isinstance(keys, _KeyStream) \
+            else _KeyStream(keys)
+        self.fgen = fgen
+        self.groups = groups            # list of frozensets of threads
+        self.thread_group = thread_group  # thread -> group index
+        self.gens = gens                # per-group generator (or None)
+        self.pos = pos                  # next key index in the stream
+
+    def _next_key(self, pos: int):
+        k = self.keys.get(pos)
+        return (None, pos) if k is self.keys._EXHAUSTED else (k, pos + 1)
+
+    def _grouped(self, ctx):
+        groups = self.groups or group_threads(self.n, ctx)
+        tg = self.thread_group or {t: i for i, g in enumerate(groups)
+                                   for t in g}
+        pos = self.pos
+        if self.gens is None:
+            gens = []
+            for _ in groups:
+                k, pos2 = self._next_key(pos)
+                gens.append(tuple_gen(k, self.fgen(k))
+                            if pos2 != pos else None)
+                pos = pos2
+        else:
+            gens = list(self.gens)
+        return groups, tg, gens, pos
+
+    def op(self, test, ctx):
+        groups, tg, gens, pos = self._grouped(ctx)
+        free_groups = sorted({tg[t] for t in ctx.free_threads if t in tg})
+        soonest = None
+        for grp in free_groups:
+            while True:
+                g = gens[grp]
+                if g is None:
+                    break
+                members = groups[grp]
+                gctx = ctx.restrict(lambda t, s=members: t in s)
+                res = gen.op(g, test, gctx)
+                if res is None:
+                    # exhausted: take the next key, or retire the group
+                    k, pos2 = self._next_key(pos)
+                    if pos2 != pos:
+                        pos = pos2
+                        gens[grp] = tuple_gen(k, self.fgen(k))
+                        continue
+                    gens[grp] = None
+                    break
+                o, g2 = res
+                soonest = gen.soonest_op_map(
+                    soonest, {"op": o, "group": grp, "gen": g2,
+                              "weight": len(members)})
+                if o is gen.PENDING:
+                    gens[grp] = g2
+                break
+        if soonest is not None and soonest["op"] is not gen.PENDING:
+            gens2 = list(gens)
+            gens2[soonest["group"]] = soonest["gen"]
+            return (soonest["op"],
+                    ConcurrentGenerator(self.n, self.keys, self.fgen,
+                                        groups, tg, gens2, pos))
+        if any(g is not None for g in gens):
+            # busy groups may still produce ops
+            return (gen.PENDING,
+                    ConcurrentGenerator(self.n, self.keys, self.fgen,
+                                        groups, tg, gens, pos))
+        return None
+
+    def update(self, test, ctx, event):
+        if self.thread_group is None or self.gens is None:
+            return self
+        t = ctx.process_to_thread(event.get("process"))
+        grp = self.thread_group.get(t)
+        if grp is None or self.gens[grp] is None:
+            return self
+        members = self.groups[grp]
+        gctx = ctx.restrict(lambda th, s=members: th in s)
+        gens = list(self.gens)
+        gens[grp] = gen.update(gens[grp], test, gctx, event)
+        return ConcurrentGenerator(self.n, self.keys, self.fgen,
+                                   self.groups, self.thread_group, gens,
+                                   self.pos)
+
+
+def concurrent_generator(n: int, keys: Iterable, fgen: Callable):
+    """Thread groups of n per key, soonest-op scheduling, nemesis
+    excluded (independent.clj:213-238). keys may be infinite (e.g.
+    itertools.count()); bound the workload with gen.time_limit."""
+    return gen.clients(ConcurrentGenerator(n, keys, fgen))
 
 
 def history_keys(history: History) -> list:

@@ -1,0 +1,321 @@
+"""Fault injection: nemeses alter the cluster through the same
+invoke-shaped interface clients use.
+
+Capability parity with jepsen.nemesis (`jepsen/src/jepsen/nemesis.clj`):
+the `Nemesis` protocol (:11-16) and `Reflection.fs` (:18-21), `Noop`,
+`Validate` and `Timeout`, the grudge algebra (complete_grudge :120-132,
+invert_grudge, bridge :144-155, majorities_ring :202-275 in exact
+<=5-node and stochastic variants), and `f_map` (:285-327) and `compose`
+(:329-428) for building composite nemeses.
+
+The port's copy of the protocol half of `jepsen_tpu/nemesis/__init__.py`
+(:31-224, 283-398). The fault injectors (partitioners, the clock
+scrambler, the node start-stopper, SIGSTOP hammering, file truncation)
+and `nemesis/*.py` are not ported yet (ROADMAP.md Queue A item 6).
+"""
+
+from __future__ import annotations
+
+import logging
+import random as _random
+from typing import Callable, Iterable, Sequence
+
+from ..util import majority, timeout as util_timeout
+
+log = logging.getLogger("jepsen_tpu_torch.nemesis")
+
+RNG = _random.Random()
+
+
+class Nemesis:
+    """nemesis.clj:11-16."""
+
+    def setup(self, test: dict) -> "Nemesis":
+        return self
+
+    def invoke(self, test: dict, op: dict) -> dict:
+        raise NotImplementedError
+
+    def teardown(self, test: dict) -> None:
+        return None
+
+    def fs(self) -> set:
+        """Reflection: which :f values this nemesis handles
+        (nemesis.clj:18-21)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support Reflection/fs")
+
+
+class Noop(Nemesis):
+    """nemesis.clj:40-47."""
+
+    def invoke(self, test, op):
+        return op
+
+    def fs(self):
+        return set()
+
+
+noop = Noop
+
+
+class InvalidNemesisCompletion(Exception):
+    pass
+
+
+class Validate(Nemesis):
+    """Validates setup/invoke responses (nemesis.clj:49-90)."""
+
+    def __init__(self, nemesis: Nemesis):
+        self.nemesis = nemesis
+
+    def setup(self, test):
+        res = self.nemesis.setup(test)
+        if not isinstance(res, Nemesis):
+            raise TypeError(f"expected setup to return a Nemesis, "
+                            f"got {res!r}")
+        return Validate(res)
+
+    def invoke(self, test, op):
+        op2 = self.nemesis.invoke(test, op)
+        problems = []
+        if not isinstance(op2, dict):
+            problems.append("should be a dict")
+        else:
+            if op2.get("type") != "info":
+                problems.append("type should be info")
+            if op2.get("process") != op.get("process"):
+                problems.append("process should be the same")
+            if op2.get("f") != op.get("f"):
+                problems.append("f should be the same")
+        if problems:
+            raise InvalidNemesisCompletion(
+                f"nemesis completed {op!r} with {op2!r}: "
+                + "; ".join(problems))
+        return op2
+
+    def teardown(self, test):
+        self.nemesis.teardown(test)
+
+    def fs(self):
+        return self.nemesis.fs()
+
+
+def validate(nemesis: Nemesis) -> Validate:
+    return Validate(nemesis)
+
+
+class Timeout(Nemesis):
+    """Bound invoke time; timed-out ops get value "timeout"
+    (nemesis.clj:92-107)."""
+
+    def __init__(self, timeout_s: float, nemesis: Nemesis):
+        self.timeout_s = timeout_s
+        self.nemesis = nemesis
+
+    def setup(self, test):
+        return Timeout(self.timeout_s, self.nemesis.setup(test))
+
+    def invoke(self, test, op):
+        res = util_timeout(self.timeout_s,
+                           lambda: self.nemesis.invoke(test, op),
+                           default={**op, "value": "timeout"})
+        return res
+
+    def teardown(self, test):
+        self.nemesis.teardown(test)
+
+    def fs(self):
+        return self.nemesis.fs()
+
+
+# ---------------------------------------------------------------------------
+# Grudge algebra (nemesis.clj:109-275)
+# ---------------------------------------------------------------------------
+
+def bisect(coll: Sequence) -> list:
+    """Cut a sequence in half; smaller half first (nemesis.clj:109-112)."""
+    n = len(coll) // 2
+    return [list(coll[:n]), list(coll[n:])]
+
+
+def split_one(coll: Sequence, loner=None) -> list:
+    """Split one node from the rest (nemesis.clj:114-119)."""
+    if loner is None:
+        loner = RNG.choice(list(coll))
+    return [[loner], [x for x in coll if x != loner]]
+
+
+def complete_grudge(components: Iterable[Sequence]) -> dict:
+    """{node: set of nodes it cannot talk to}, isolating each component
+    (nemesis.clj:120-132)."""
+    comps = [set(comp) for comp in components]
+    universe = set().union(*comps) if comps else set()
+    grudge = {}
+    for comp in comps:
+        for node in comp:
+            grudge[node] = universe - comp
+    return grudge
+
+
+def invert_grudge(nodes: Iterable, conns: dict) -> dict:
+    """Connections -> non-connections (nemesis.clj:134-142)."""
+    ns = set(nodes)
+    return {a: ns - set(conns.get(a, set())) for a in sorted(ns, key=str)}
+
+
+def bridge(nodes: Sequence) -> dict:
+    """Cut the network in half, preserving one bridge node connected to
+    both sides (nemesis.clj:144-155)."""
+    comps = bisect(nodes)
+    br = comps[1][0]
+    grudge = complete_grudge(comps)
+    grudge.pop(br, None)
+    return {k: v - {br} for k, v in grudge.items()}
+
+
+def majorities_ring_perfect(nodes: Sequence) -> dict:
+    """Exact variant for <=5 nodes (nemesis.clj:202-218)."""
+    U = set(nodes)
+    n = len(nodes)
+    m = majority(n)
+    shuffled = list(nodes)
+    RNG.shuffle(shuffled)
+    ring = shuffled * 2
+    grudge = {}
+    for i in range(n):
+        maj = ring[i:i + m]
+        center = maj[len(maj) // 2]
+        grudge[center] = U - set(maj)
+    return grudge
+
+
+def majorities_ring_stochastic(nodes: Sequence) -> dict:
+    """Stochastic variant for larger clusters (nemesis.clj:220-258)."""
+    n = len(nodes)
+    m = majority(n)
+    conns = {x: {x} for x in nodes}
+    while True:
+        degrees = sorted(((len(v), k) for k, v in conns.items()),
+                         key=lambda dk: (dk[0], RNG.random()))
+        a_deg, a = degrees[0]
+        if a_deg >= m:
+            return invert_grudge(nodes, conns)
+        for b_deg, b in degrees[1:]:
+            if b not in conns[a]:
+                conns[a].add(b)
+                conns[b].add(a)
+                break
+        else:
+            return invert_grudge(nodes, conns)
+
+
+def majorities_ring(nodes: Sequence) -> dict:
+    """Every node sees a majority; no two see the same one
+    (nemesis.clj:260-275)."""
+    if len(nodes) <= 5:
+        return majorities_ring_perfect(nodes)
+    return majorities_ring_stochastic(nodes)
+
+
+# ---------------------------------------------------------------------------
+# Composition (nemesis.clj:283-428)
+# ---------------------------------------------------------------------------
+
+class FMap(Nemesis):
+    """Remap the :f values a nemesis accepts (nemesis.clj:285-327)."""
+
+    def __init__(self, lift: Callable, nemesis: Nemesis):
+        self.lift = lift
+        self.nemesis = nemesis
+        self.unlift = {lift(f): f for f in nemesis.fs()}
+
+    def setup(self, test):
+        return FMap(self.lift, self.nemesis.setup(test))
+
+    def invoke(self, test, op):
+        inner = {**op, "f": self.unlift[op["f"]]}
+        res = self.nemesis.invoke(test, inner)
+        return {**res, "f": self.lift(res["f"])}
+
+    def teardown(self, test):
+        self.nemesis.teardown(test)
+
+    def fs(self):
+        return {self.lift(f) for f in self.nemesis.fs()}
+
+
+def f_map(lift: Callable, nemesis: Nemesis) -> FMap:
+    return FMap(lift, nemesis)
+
+
+class Compose(Nemesis):
+    """Route ops to child nemeses by :f (nemesis.clj:329-428). Takes
+    either a dict {f-mapping: nemesis} — where f-mapping is a set of fs
+    or a dict renaming outer fs to inner fs — or a list of nemeses
+    supporting Reflection."""
+
+    def __init__(self, nemeses):
+        self.nemeses = nemeses
+        if isinstance(nemeses, dict):
+            self.routes = None
+        else:
+            routes: dict = {}
+            for i, n in enumerate(nemeses):
+                for f in n.fs():
+                    assert f not in routes, (
+                        f"nemeses {n!r} and {nemeses[routes[f]]!r} are "
+                        f"mutually incompatible; both use f {f!r}")
+                    routes[f] = i
+            self.routes = routes
+
+    def setup(self, test):
+        if isinstance(self.nemeses, dict):
+            return Compose({k: n.setup(test)
+                            for k, n in self.nemeses.items()})
+        return Compose([n.setup(test) for n in self.nemeses])
+
+    def invoke(self, test, op):
+        f = op.get("f")
+        if self.routes is not None:
+            i = self.routes.get(f)
+            if i is None:
+                raise ValueError(
+                    f"no nemesis can handle f {f!r} "
+                    f"(expected one of {sorted(self.routes, key=str)})")
+            return self.nemeses[i].invoke(test, op)
+        for fmapping, nem in self.nemeses.items():
+            if isinstance(fmapping, dict):
+                f2 = fmapping.get(f)
+            elif f in fmapping:
+                f2 = f
+            else:
+                f2 = None
+            if f2 is not None:
+                res = nem.invoke(test, {**op, "f": f2})
+                return {**res, "f": f}
+        raise ValueError(f"no nemesis can handle {f!r}")
+
+    def teardown(self, test):
+        ns = (self.nemeses.values() if isinstance(self.nemeses, dict)
+              else self.nemeses)
+        for n in ns:
+            n.teardown(test)
+
+    def fs(self):
+        if self.routes is not None:
+            return set(self.routes)
+        out: set = set()
+        for fmapping in self.nemeses:
+            if isinstance(fmapping, dict):
+                out |= set(fmapping.keys())
+            elif isinstance(fmapping, (set, frozenset)):
+                out |= set(fmapping)
+            else:
+                raise TypeError(
+                    "can only infer fs from dict- or set-keyed compose")
+        return out
+
+
+def compose(nemeses) -> Compose:
+    return Compose(nemeses if isinstance(nemeses, dict) else list(nemeses))

@@ -34,7 +34,10 @@ plane reads (`ops/wgl.py` when metrics are on, `parallel/mesh.py`):
     own count of a chunk (`search_bytes`, over `wgl_chunk_bytes`), not
     the reference's memo-stream model; `safe_device_kind` names the
     card; `per_shard_cost` scales a cost to one shard of the sharded
-    Elle closure.
+    Elle closure;
+  * `perfetto_counter_tracks` turns the series a run recorded into the
+    counter tracks that `core.run` embeds under the spans of its
+    `trace.perfetto.json`.
 """
 
 from __future__ import annotations
@@ -543,3 +546,56 @@ def trim_work(t: dict, device) -> int:
             break
         prev = c
     return ops
+
+
+def perfetto_counter_tracks(registry) -> dict:
+    """Counter tracks for `trace.Tracer.export_perfetto`'s `counters=`
+    input, from the series a run recorded under the port's names (the
+    reference's `perfetto_counter_tracks`, `jepsen_tpu/occupancy.py:304`):
+
+      wgl fill             — per-round frontier fill (`wgl_rounds`)
+      wgl frontier/backlog — per-poll beam and backlog (`wgl_chunks`)
+      batched live keys    — live lanes per poll (`wgl_batched_chunks`)
+      mesh sched actions   — cumulative steals and rebuckets of the mesh
+                             fan-out (`mesh_sched`)
+      hbm bytes <device>   — bytes in use per device (`hbm`), one lane
+                             per device
+
+    The reference's "elle gather bytes" lane reads a field that only its
+    collective closure records; the port's `elle_closure` points carry
+    none, so the lane never appears. Points ride their metrics `t`
+    wall-clock stamps, so the counter graphs line up with the spans."""
+    tracks: dict = {}
+
+    def add(series: str, field: str, track: str) -> None:
+        pts = registry.series(series).points
+        vals = [(p["t"], p[field]) for p in pts
+                if p.get("t") is not None
+                and isinstance(p.get(field), (int, float))]
+        if vals:
+            tracks[track] = vals
+
+    try:
+        add("wgl_rounds", "fill", "wgl fill")
+        add("wgl_chunks", "frontier", "wgl frontier")
+        add("wgl_chunks", "backlog", "wgl backlog")
+        add("wgl_batched_chunks", "live_keys", "batched live keys")
+        n_sched = 0
+        sched_vals = []
+        for p in registry.series("mesh_sched").points:
+            if p.get("t") is not None:
+                n_sched += 1
+                sched_vals.append((p["t"], n_sched))
+        if sched_vals:
+            tracks["mesh sched actions"] = sched_vals
+        by_dev: dict = {}
+        for p in registry.series("hbm").points:
+            if p.get("t") is not None and isinstance(
+                    p.get("bytes_in_use"), (int, float)):
+                by_dev.setdefault(str(p.get("device")), []).append(
+                    (p["t"], p["bytes_in_use"]))
+        for dev, vals in sorted(by_dev.items()):
+            tracks[f"hbm bytes {dev}"] = vals
+    except Exception:  # noqa: BLE001 — a torn registry never blocks
+        pass           # the trace export itself
+    return tracks

@@ -4,9 +4,10 @@
 Each run gets `<root>/<name>/<start-time>/` with a binary `test.jepsen`
 block file (crash-recoverable; see `.format`, byte-compatible with the
 JAX package's), plain-text `history.txt` / `history.jsonl` /
-`results.json` artifacts, and `latest` symlinks (store.clj:40-62,
-375-419). Saves happen in three phases: 0 (test map, before the run), 1
-(history, before analysis), 2 (results).
+`results.json` artifacts, a `jepsen.log` capturing the run's logging
+(`start_logging` / `stop_logging`), and `latest` symlinks
+(store.clj:40-62, 375-419, 436-464). Saves happen in three phases: 0
+(test map, before the run), 1 (history, before analysis), 2 (results).
 
 The root is the test map's `store_root`, else `BASE_DIR`: the port's own
 store (`ledger.BASE_DIR`, `store/torch`), where `serve` browses the
@@ -17,6 +18,7 @@ package stored is read by pointing `store_root` at its root.
 from __future__ import annotations
 
 import json
+import logging
 import os
 from typing import Optional
 
@@ -169,3 +171,27 @@ def latest(store_root: str = BASE_DIR) -> Optional[str]:
             if newest is None or t > newest[0]:
                 newest = (t, p)
     return newest[1] if newest else None
+
+
+_log_handler: Optional[logging.Handler] = None
+
+
+def start_logging(test: dict) -> None:
+    """Tee logging into <dir>/jepsen.log (store.clj:436-458): one root
+    `logging.FileHandler`, replacing any that an earlier call left."""
+    global _log_handler
+    stop_logging()
+    h = logging.FileHandler(os.path.join(path_bang(test), "jepsen.log"))
+    h.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s [%(name)s] %(message)s"))
+    logging.getLogger().addHandler(h)
+    _log_handler = h
+
+
+def stop_logging() -> None:
+    """Remove and close the handler `start_logging` added, if any."""
+    global _log_handler
+    if _log_handler is not None:
+        logging.getLogger().removeHandler(_log_handler)
+        _log_handler.close()
+        _log_handler = None

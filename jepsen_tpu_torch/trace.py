@@ -14,9 +14,8 @@ ingest) or as a Chrome/Perfetto `trace_event` document.
     tracer.export(os.path.join(root, "trace.jsonl"))
 
 A disabled tracer (`sampled=False`, `NULL_TRACER`) makes every call a
-no-op, so the instrumented search costs nothing. The reference's
-`TracedClient` (it wraps a database client of the test harness) is not
-copied: the port has no client layer yet.
+no-op, so the instrumented search costs nothing. `TracedClient` wraps a
+test's `client.Client` so that every op of a run gets its own span.
 """
 
 from __future__ import annotations
@@ -396,3 +395,40 @@ def tracing(endpoint: Optional[str] = None,
     sampler-by-endpoint semantics of trace.clj:9-14,34-38. `endpoint`
     here is the artifact path (or any truthy value for in-memory)."""
     return Tracer(sampled=bool(endpoint), service=service)
+
+
+from .client import Client as _Client  # noqa: E402
+
+
+class TracedClient(_Client):
+    """Client wrapper spanning every op (the dgraph suites wrap their
+    client bodies in with-trace; this does it generically): each
+    invoke gets an "invoke <f>" span, and the completed op carries
+    {"span": {"trace-id", "span-id"}}."""
+
+    def __init__(self, client, tracer: Tracer):
+        self.client = client
+        self.tracer = tracer
+
+    def open(self, test, node):
+        return TracedClient(self.client.open(test, node), self.tracer)
+
+    def setup(self, test):
+        with self.tracer.span("setup"):
+            return self.client.setup(test)
+
+    def invoke(self, test, op):
+        with self.tracer.span(f"invoke {op.get('f')}",
+                              attrs={"process": op.get("process")}):
+            ctx = self.tracer.context()
+            res = self.client.invoke(test, op)
+            if ctx is not None and isinstance(res, dict):
+                res = {**res, "span": ctx}
+            return res
+
+    def teardown(self, test):
+        with self.tracer.span("teardown"):
+            return self.client.teardown(test)
+
+    def close(self, test):
+        return self.client.close(test)

@@ -1,7 +1,10 @@
 """Device resolution for the port's entry points, shard streams,
-`bounded_pmap`, and the jax-free helpers of `jepsen_tpu/util.py` that the
+`bounded_pmap`, the jax-free helpers of `jepsen_tpu/util.py` that the
 checker compositions and reports use (`polysort_key`,
-`integer_interval_set_str`, `nemesis_intervals`, `Multiset`).
+`integer_interval_set_str`, `nemesis_intervals`, `Multiset`), and those
+the run orchestration uses (`majority`, `real_pmap`, the relative-time
+clock `with_relative_time` / `relative_time_nanos`, `timeout`,
+`await_fn`, `with_retry`, `rand_exp`).
 
 Every entry point takes `device=None`, which means the CUDA card. There
 is no silent fallback: asking for CUDA where there is none raises, and
@@ -15,7 +18,10 @@ named); an entry may repeat, and then several shards share one device.
 from __future__ import annotations
 
 import contextlib
+import threading
+import time as _time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
@@ -230,3 +236,151 @@ class Multiset:
             return sorted(self)
         except TypeError:
             return list(self)
+
+
+# -- the run orchestration's helpers (jepsen_tpu/util.py:14-30, 261-390,
+# 421-424): majority math, real_pmap, the relative-time clock, timeouts
+# and retries --
+
+def majority(n: int) -> int:
+    """Smallest integer strictly greater than half of n
+    (jepsen.util/majority parity: for 5 -> 3, for 0 -> 1)."""
+    return n // 2 + 1
+
+
+def minority(n: int) -> int:
+    """Largest number of nodes that is still a minority."""
+    return (n - 1) // 2
+
+
+def minority_third(n: int) -> int:
+    """Byzantine-fault threshold: largest f with 3f < n
+    (jepsen.util/minority-third parity)."""
+    return max(0, (n - 1) // 3)
+
+
+def real_pmap(f: Callable, coll: Sequence) -> list:
+    """Apply f to every element in its own thread; wait for all; raise the
+    most interesting exception if any failed (jepsen.util/real-pmap parity,
+    util.clj:65-77 — 'interesting' = prefer non-interrupt exceptions)."""
+    coll = list(coll)
+    if not coll:
+        return []
+    results: list = [None] * len(coll)
+    errors: list = [None] * len(coll)
+
+    def run(i, x):
+        try:
+            results[i] = f(x)
+        except BaseException as e:  # noqa: BLE001 — rethrown below
+            errors[i] = e
+
+    threads = [threading.Thread(target=run, args=(i, x), daemon=True)
+               for i, x in enumerate(coll)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    errs = [e for e in errors if e is not None]
+    if errs:
+        # Prefer "interesting" exceptions over interrupts/cancellations.
+        boring = (KeyboardInterrupt, SystemExit)
+        interesting = [e for e in errs if not isinstance(e, boring)]
+        raise (interesting[0] if interesting else errs[0])
+    return results
+
+
+# -- relative-time clock (jepsen.util/with-relative-time, util.clj:326-347).
+# Process-global, like the reference's dynamic var: all worker threads share
+# the test's time origin. --
+_global_origin: Optional[int] = None
+
+
+def linear_time_nanos() -> int:
+    return _time.monotonic_ns()
+
+
+@contextmanager
+def with_relative_time():
+    """Zero the test clock for the duration of the block."""
+    global _global_origin
+    prev = _global_origin
+    _global_origin = linear_time_nanos()
+    try:
+        yield
+    finally:
+        _global_origin = prev
+
+
+def relative_time_nanos() -> int:
+    origin = _global_origin
+    if origin is None:
+        raise RuntimeError("relative_time_nanos outside with_relative_time")
+    return linear_time_nanos() - origin
+
+
+def sleep_nanos(dt: int) -> None:
+    if dt > 0:
+        _time.sleep(dt / 1e9)
+
+
+class TimeoutError_(Exception):
+    pass
+
+
+def timeout(seconds: float, f: Callable, *args, default=TimeoutError_):
+    """Run f in a thread with a timeout (jepsen.util/timeout macro parity).
+    Returns default on timeout (or raises it if it's an exception class).
+    The worker thread is abandoned, not killed — f should be interruptible
+    or side-effect-safe."""
+    result: list = []
+    err: list = []
+
+    def run():
+        try:
+            result.append(f(*args))
+        except BaseException as e:  # noqa: BLE001
+            err.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        if isinstance(default, type) and issubclass(default, BaseException):
+            raise default(f"timed out after {seconds}s")
+        return default
+    if err:
+        raise err[0]
+    return result[0]
+
+
+def await_fn(f: Callable, retry_interval: float = 1.0,
+             timeout_s: float = 60.0, log_message: Optional[str] = None):
+    """Poll f until it returns non-exceptionally (jepsen.util/await-fn
+    parity, util.clj:383)."""
+    deadline = _time.monotonic() + timeout_s
+    last: Optional[BaseException] = None
+    while _time.monotonic() < deadline:
+        try:
+            return f()
+        except Exception as e:  # noqa: BLE001
+            last = e
+            _time.sleep(retry_interval)
+    raise TimeoutError_(log_message or f"await_fn timed out after {timeout_s}s") \
+        from last
+
+
+def with_retry(f: Callable, retries: int = 5, backoff: float = 0.1):
+    """Call f, retrying up to `retries` times with fixed backoff."""
+    for attempt in range(retries + 1):
+        try:
+            return f()
+        except Exception:
+            if attempt == retries:
+                raise
+            _time.sleep(backoff)
+
+
+def rand_exp(rng, mean: float) -> float:
+    """Exponentially distributed random value with the given mean."""
+    return rng.expovariate(1.0 / mean) if mean > 0 else 0.0

@@ -63,6 +63,7 @@ def _idle_status() -> dict:
             "eta_s": None,
             "keys": {"total": 0, "decided": 0, "live": 0, "failures": 0},
             "devices": {}, "search": {},
+            "nemesis": {"active": False, "f": None, "since_s": None},
             "ops": {"invoked": 0, "completed": 0}, "faults": [],
             "watchdog": {"stalls": 0, "last_source": None},
             "occupancy": {"active": False}}
@@ -70,12 +71,21 @@ def _idle_status() -> dict:
 
 def status_snapshot(store_root: str) -> dict:
     """The live status served at /status.json: the ambient
-    `fleet.RunStatus` when one is installed, else the idle schema; the
-    admission (`preflight`), device (`hbm`), mesh, service and SLO
+    `fleet.RunStatus` when one is installed (a run in this process),
+    else the throttled `current-status.json` mirror that a run in
+    another process writes under `store_root`, else the idle schema;
+    the admission (`preflight`), device (`hbm`), mesh, service and SLO
     blocks of this process; and the last ledger runs under
     `store_root`. Always returns the documented schema."""
     st = fleet.get_default()
-    snap = st.snapshot() if st.enabled else _idle_status()
+    if st.enabled:
+        snap = st.snapshot()
+    else:
+        snap = fleet.read_status_file(store_root)
+    if snap is None:
+        snap = _idle_status()
+    # pre-occupancy mirrors (an older run's current-status.json) still
+    # answer the documented schema
     snap.setdefault("occupancy", {"active": False})
     try:
         from .analysis import preflight

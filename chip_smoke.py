@@ -150,7 +150,25 @@ the oracle, `linear.svg`), `core.run` of 100 keys x 200 invocations
 through `independent.concurrent_generator` checked by
 `independent.cuda_checker` over 2 shards of the card (failing keys ==
 the oracle's), and `test-all --test-count 2` in a fresh process.
-Last, the bench round (`bench_phases`): `python -m
+Then the plot checkers (`plots_phases`): the headline through
+`compose({linear "cuda-wgl", perf(), clock_plot()})` under a metrics
+registry, its heatmap points (`occupancy.heatmap_points`) one per
+drained round and equal to the drained `wgl_rounds` series, and no PNG
+and no `*-png` key without matplotlib. Then the autopilot
+(`autopilot_phases`): the reference's three proofs on the card (a
+seeded compile storm fires D001, the warm-bucket actuator warms the
+headline's canonical bucket with one counted `wgl32_chunk` launch at
+each ladder K, a second warm counts 0 builds, loads and binds, the next
+pass verifies; an un-fixable finding is reverted, quarantined and
+suppressed with one actuator run; `autopilot.replay` names the live
+decisions), then the same storm over `Service(devices=[card] * 2,
+autopilot=True)`, whose own actuator warms its held requests' bucket
+before they serve as one mesh batch. Then the one command language
+(`cli_phases`) in fresh processes at once: `preflight --config headline
+--execute --json`, `autopilot latest --json` over the autopilot phase's
+store, `serve --service --autopilot --devices 2 -p 0` answering 4 POSTs
+and `/status.json`'s autopilot block, and `serve --bogus` and `fleet`
+(254). Last, the bench round (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
 verdict held against the host oracle or this script's own phase, then a
@@ -3890,6 +3908,520 @@ def test_phases(dev) -> None:
     print(f"  test phases: {time.monotonic() - t_all:.1f} s", flush=True)
 
 
+# ---- the plot checkers, the autopilot and the one CLI --------------------------
+
+class per_k_launches:
+    """While active, `mod.chunk` (`ops/wgl32` or `ops/wgln`) records each
+    call's K beside the launches counted during the call: `.per_k` maps
+    K to launches. A wrapper counts on its module's name for itself
+    (`_count_launch`), so the stand-in carries the count while active
+    and hands it back to the wrapper, restored, on exit."""
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.per_k: dict = {}
+
+    def __enter__(self):
+        real = self.real = self.mod.chunk
+
+        def shim(*a, **kw):
+            n0 = shim.launches
+            try:
+                return real(*a, **kw)
+            finally:
+                k = int(kw["K"])
+                self.per_k[k] = self.per_k.get(k, 0) + shim.launches - n0
+
+        shim.launches = real.launches
+        self.mod.chunk = shim
+        return self
+
+    def __exit__(self, *exc):
+        self.real.launches = self.mod.chunk.launches
+        self.mod.chunk = self.real
+        return False
+
+
+def plots_phases(dev) -> None:
+    """The plot checkers on the card: `checker.compose({"linear":
+    linearizable(cas_register(), algorithm="cuda-wgl"), "perf": perf(),
+    "clock": clock_plot()})` over the headline at full size, under an
+    installed metrics registry, every count set to 0 just before and
+    read just after. `occupancy.heatmap_points` of the result's drained
+    rounds must give one point per drained round (`rounds_seen` less
+    `rounds_truncated`), rounds strictly increasing, fill in [0, 1], and
+    equal the points of the `wgl_rounds` series the same launches
+    drained (at least one `wgl32_chunk`; the series holds every drained
+    round, the result the first `occupancy.MAX_RESULT_ROUNDS`). Without
+    matplotlib (`plots._plt` is None) no `*-png` key and no file may
+    appear; with it every file named must exist and be non-empty."""
+    import os
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import checker, metrics, occupancy, synth
+    from jepsen_tpu_torch.checker import plots
+    from jepsen_tpu_torch.models import cas_register
+
+    print(f"plot checkers ({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="plots-", dir=str(REPO / "build" /
+                                                    "torch_kernels"))
+    h = synth.cas_register_history(**HEADLINE)
+    test = {"name": "plots", "start_time": "20260101T000000",
+            "store_root": tmp}
+    have_mpl = plots._plt() is not None
+    reg = metrics.Registry()
+    composed = checker.compose({
+        "linear": checker.linearizable(cas_register(), algorithm="cuda-wgl"),
+        "perf": checker.perf(), "clock": checker.clock_plot()})
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    with metrics.use(reg):
+        res = composed.check(test, h, {})
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    lin = res["linear"]
+    occ = lin["occupancy"]
+    pts = occupancy.heatmap_points(occ["rounds"])
+    drained = occ["rounds_seen"] - occ["rounds_truncated"]
+    rounds = [p["round"] for p in pts]
+    series_pts = occupancy.heatmap_points(reg.series("wgl_rounds").points)
+
+    def png_keys(r):
+        out = []
+        for k, v in r.items():
+            if k.endswith("-png"):
+                out.append((k, v))
+            elif isinstance(v, dict):
+                out += png_keys(v)
+        return out
+
+    pngs = png_keys(res)
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(tmp)
+                   for f in fs)
+    print(f"  headline {HEADLINE} with perf() and clock_plot(): valid? "
+          f"{res['valid?']} in {wall:.4f} s, launches {counts}; "
+          f"matplotlib {'present' if have_mpl else 'absent'}; heatmap "
+          f"points {len(pts)} of {drained} drained rounds "
+          f"({occ['rounds_total']} run), rounds {rounds[:1]}..{rounds[-1:]}, "
+          f"fill {min(p['fill'] for p in pts):.3f}.."
+          f"{max(p['fill'] for p in pts):.3f}; png keys "
+          f"{[k for k, _ in pngs]}; files {[os.path.basename(f) for f in files]}",
+          flush=True)
+    if (res["valid?"] is not True or counts["wgl32_chunk"] < 1
+            or not pts or len(pts) != drained
+            or any(b <= a for a, b in zip(rounds, rounds[1:]))
+            or any(not 0.0 <= p["fill"] <= 1.0 for p in pts)
+            or len(series_pts) != occ["rounds_seen"]
+            or series_pts[:len(pts)] != pts):
+        raise AssertionError(f"plots: {res['valid?']}, {counts}, "
+                             f"{len(pts)} points of {drained}")
+    if not have_mpl and (pngs or files):
+        raise AssertionError(f"plots without matplotlib: {pngs} {files}")
+    if have_mpl and (not pngs or not files or any(
+            not os.path.isfile(p) or os.path.getsize(p) == 0
+            for _, p in pngs)):
+        raise AssertionError(f"plots with matplotlib: {pngs} {files}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  plots phase: {time.monotonic() - t_all:.1f} s", flush=True)
+
+
+AUTOPILOT_BATCH = dict(n_ops=500, n_procs=4, seed=21)   # 4 same-bucket
+
+
+def autopilot_phases(dev) -> tuple:
+    """The autopilot on the card: the reference's three proofs
+    (`scripts/autopilot_smoke.py`), then the same loop over a live
+    service.
+
+      (a) a compile-storm corpus (50 `independent` records of one
+          compile each and a one-bucket preflight plan) in a store's
+          ledger fires D001 (`doctor.diagnose`); the supervisor's
+          warm-bucket actuator runs `ops/aot.precompile_service_bucket`
+          over the headline's canonical bucket on the card, every count
+          set to 0 just before the step and read just after: one
+          `wgl32_chunk` launch at each ladder K (counted per K); a second
+          warm under `CompileGuard(max_compiles=0)` counts 0 builds,
+          loads and binds; the next pass past the deadline settles
+          `verdict="verified"`;
+      (b) a finding whose metric never improves (D003): the action is
+          reverted (the rollback runs), the rule quarantined, a re-fire
+          `suppressed`, the actuator run exactly once;
+      (c) `autopilot.replay` over the banked diagnosis names the rules
+          the live supervisor decided on;
+      (d) `Service(devices=[card] * MESH_SHARDS, autopilot=True)` with 4
+          held same-bucket requests: the storm seeded in the service's
+          ledger, the supervisor's own `ServiceHost` warms the held
+          requests' bucket (the serial ladder and the mesh lane-group
+          plan), the next pass verifies; released, the 4 requests serve
+          as one mesh batch (counted), each True.
+
+    Returns (the store of (a)-(c), with a storm record banked last for
+    the CLI's replay, and the 4 request bodies)."""
+    import os
+    import tempfile
+
+    from jepsen_tpu_torch import (autopilot, doctor, fs_cache, ledger,
+                                  metrics, service, synth)
+    from jepsen_tpu_torch.analysis import guards
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import aot, encode, wgl32
+
+    print(f"autopilot ({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="autopilot-", dir=str(REPO / "build" /
+                                                        "torch_kernels"))
+    head = synth.cas_register_history(**HEADLINE)
+    _, bucket = service.bucket_for(encode.encode(cas_register(), head))
+    store = os.path.join(tmp, "store")
+    led = ledger.Ledger(store)
+    reg = metrics.Registry()
+
+    def storm(target):
+        for i in range(50):
+            target.record({"kind": "independent", "name": f"key-{i}",
+                           "compiles": 1, "shapes": {"K": 16, "W_pad": 7}})
+        target.record({"kind": "preflight", "name": "indep",
+                       "verdict": "feasible", "rules": [],
+                       "preflight": {"verdict": "feasible",
+                                     "buckets": [16]}})
+
+    class StoreHost(autopilot.Host):
+        """Diagnose the store's banked records; warm through the real
+        warm path on the card; probe compiles from the same ledger."""
+
+        def __init__(self):
+            self.warms: list = []
+
+        def diagnose(self):
+            # name order: records banked within a millisecond come back
+            # from a query in the order of their random ids
+            return doctor.diagnose(doctor.TelemetryView(
+                target="storm", platform="gpu",
+                records=sorted(led.query(), key=lambda r: r["name"])))
+
+        def probe(self, metric, since=None):
+            if metric != "recent_compiles":
+                return None
+            return float(sum(r["compiles"] for r in led.query(since=since)
+                             if isinstance(r.get("compiles"), int)))
+
+        def actuate(self, entry, finding):
+            with per_k_launches(wgl32) as pk:
+                walls = aot.precompile_service_bucket(bucket, device=dev)
+            self.warms.append((walls, pk.per_k))
+            return {"bucket": finding.get("subject"),
+                    "ladder": sorted(walls)}, None
+
+    # (a) storm -> warm -> verified
+    storm(led)
+    time.sleep(0.05)  # the storm stays strictly before the action
+    host = StoreHost()
+    sup = autopilot.Supervisor(host, every_s=60.0, verify_after_s=0.05,
+                               where="smoke", mx=reg, ledger=led)
+    report = host.diagnose()
+    top = (report.get("findings") or [{}])[0]
+    torch.cuda.synchronize()
+    zero_counts()
+    t_apply = time.monotonic()
+    out1 = sup.step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    walls, per_k = host.warms[0] if host.warms else ({}, {})
+    with guards.CompileGuard(max_compiles=0, name="autopilot-rewarm") as g:
+        aot.precompile_service_bucket(bucket, device=dev)
+    rewarm = g.report()
+    time.sleep(0.1)  # past the verify deadline
+    out2 = sup.step()
+    t_verify = time.monotonic() - t_apply
+    snap = sup.snapshot()
+    print(f"  (a) storm: top {top.get('rule')} ({top.get('summary')}); "
+          f"step applied {out1['applied']}, warm of bucket {bucket} s per "
+          f"K {({k: round(v, 4) for k, v in walls.items()})}, wgl32_chunk "
+          f"launches per K {per_k} (all {counts}); second warm guard "
+          f"{ {k: rewarm[k] for k in ('builds', 'loads', 'binds')} }; next "
+          f"pass verified {out2['verified']}, {t_verify:.4f} s from the "
+          f"apply; counts {snap['counts']}, quarantined "
+          f"{sorted(snap['quarantined'])}", flush=True)
+    if (top.get("rule") != "D001" or out1["applied"] != ["D001"]
+            or len(host.warms) < 1 or sorted(per_k) != sorted(walls)
+            or any(v < 1 for v in per_k.values())
+            or counts["wgl32_chunk"] != sum(per_k.values())
+            or any(rewarm[k] for k in ("builds", "loads", "binds"))
+            or "D001" not in out2["verified"]
+            or snap["counts"].get("verify") != 1 or snap["quarantined"]):
+        raise AssertionError(f"autopilot storm: {out1} {out2} {per_k} "
+                             f"{counts} {rewarm} {snap['counts']}")
+
+    # (c) offline replay parity
+    decided = autopilot.replay(report)
+    print(f"  (c) replay: {[d['rule'] for d in decided]} == live "
+          f"decisions {out1['decisions']}", flush=True)
+    if [d["rule"] for d in decided] != out1["decisions"]:
+        raise AssertionError(f"replay {decided} != {out1['decisions']}")
+
+    # (b) an un-fixable finding -> revert + quarantine -> suppressed
+    class BadHost(autopilot.Host):
+        def __init__(self):
+            self.applied = 0
+            self.rolled = 0
+
+        def diagnose(self):
+            return {"findings": [{
+                "rule": "D003", "name": "ladder-thrash", "severity": "warn",
+                "summary": "seeded un-fixable thrash", "subject": "ladder",
+                "score": 5.0, "evidence": [{
+                    "series": "wgl_adapt", "field": "to_K",
+                    "indices": [0, 1], "values": [2, 512]}]}]}
+
+        def probe(self, metric, since=None):
+            return 10.0  # never improves
+
+        def actuate(self, entry, finding):
+            self.applied += 1
+
+            def rollback():
+                self.rolled += 1
+
+            return {"k": 512}, rollback
+
+    bad = BadHost()
+    bsup = autopilot.Supervisor(bad, every_s=60.0, verify_after_s=0.0,
+                                where="smoke", mx=reg, ledger=led)
+    bsup.step(now=1000.0)
+    b2 = bsup.step(now=1001.0)
+    b3 = bsup.step(now=1002.0)
+    print(f"  (b) un-fixable D003: reverted {b2['reverted']} (rollbacks "
+          f"{bad.rolled}), quarantined {sorted(bsup.quarantined())}, "
+          f"re-fire suppressed {b3['suppressed']}, actuator runs "
+          f"{bad.applied}", flush=True)
+    inst = sup.perfetto_instants()
+    if (b2["reverted"] != ["D003"] or bad.rolled != 1
+            or "D003" not in bsup.quarantined()
+            or b3["suppressed"] != ["D003"] or bad.applied != 1
+            or not inst or any(i["lane"] != autopilot.PERFETTO_LANE
+                               for i in inst)):
+        raise AssertionError(f"autopilot revert: {b2} {b3} {bad.applied}")
+
+    # (d) the same loop over a live service on the card
+    key, first = None, None
+    bodies = []
+    seed = AUTOPILOT_BATCH["seed"]
+    while len(bodies) < 4:
+        h = synth.cas_register_history(AUTOPILOT_BATCH["n_ops"],
+                                       n_procs=AUTOPILOT_BATCH["n_procs"],
+                                       seed=seed)
+        k = service.bucket_for(encode.encode(cas_register(), h))[0]
+        if key is None:
+            key = k
+        if k == key:
+            bodies.append({"model": "cas-register",
+                           "history": [op.to_dict() for op in h]})
+        seed += 1
+    prev_cache = fs_cache.DIR
+    fs_cache.DIR = os.path.join(tmp, "fs_cache")
+    svc = service.Service(os.path.join(tmp, "svc"),
+                          devices=[dev] * MESH_SHARDS, workers=1,
+                          slo_every_s=3600.0, autopilot=True,
+                          autopilot_every_s=3600.0, heartbeat_every_s=0)
+    try:
+        svc.start()
+        live = svc._autopilot
+        svc.hold(True)
+        rids = [svc.submit(b)["id"] for b in bodies]
+        storm(svc.ledger)
+        time.sleep(0.05)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.monotonic()
+        s1 = live.step()
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        warm_counts = read_counts()
+        s2 = live.step(now=time.time() + live.verify_after_s + 1.0)
+        zero_counts()
+        t0 = time.monotonic()
+        svc.hold(False)
+        deadline = time.monotonic() + 300
+        while any(svc.get(r)["state"] not in ("done", "rejected")
+                  for r in rids):
+            if time.monotonic() > deadline:
+                raise AssertionError("autopilot service: requests stuck")
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        batch_s = time.monotonic() - t0
+        batch_counts = read_counts()
+        infos = [svc.get(r) for r in rids]
+        ssnap = svc.snapshot()
+        print(f"  (d) service over [card] * {MESH_SHARDS}, autopilot on: "
+              f"step applied {s1['applied']} in {warm_s:.4f} s (launches "
+              f"{warm_counts}), next pass verified {s2['verified']}; the 4 "
+              f"held requests released: verdicts "
+              f"{[i['verdict'] for i in infos]}, warm hits "
+              f"{[i['warm_hit'] for i in infos]}, mesh batches "
+              f"{ssnap['mesh_batches']}, {batch_s:.4f} s, launches "
+              f"{batch_counts}", flush=True)
+        if (s1["applied"][:1] != ["D001"] or "D001" not in s2["verified"]
+                or warm_counts["wgl32_chunk"] < 1
+                or any(i["verdict"] is not True for i in infos)
+                or ssnap["mesh_batches"] < 1
+                or batch_counts["wgl32_chunk_batched"] < 1):
+            raise AssertionError(f"autopilot service: {s1} {s2} {infos} "
+                                 f"{warm_counts} {batch_counts}")
+    finally:
+        svc.close()
+        fs_cache.DIR = prev_cache
+        autopilot.set_default(None)
+        service.set_default(None)
+    # the newest record of the store carries a storm of its own: what
+    # `autopilot latest` replays in the CLI phase
+    led.record({"kind": "independent", "name": "storm-keys",
+                "compiles": 50, "shapes": {"K": 16, "W_pad": 7}})
+    print(f"  autopilot phase: {time.monotonic() - t_all:.1f} s", flush=True)
+    return store, bodies
+
+
+def cli_phases(dev, ap_store: str, bodies: list) -> None:
+    """The one command language in fresh processes, all started at once:
+    `preflight --config headline --execute --json` (exit 0, the check
+    True on the card with its kernel and buckets as planned);
+    `autopilot latest --json --store <the autopilot phase's store>` (exit
+    0, its decisions == `autopilot.replay` of the same diagnosis here);
+    `serve --service --autopilot --devices MESH_SHARDS -p 0` (binds;
+    `bodies`, 4 same-bucket histories, POSTed to /check reach True;
+    /status.json carries `"autopilot": {"active": true, ...}`; then the
+    process is terminated); `serve --bogus` and `fleet` exit 254."""
+    import os
+    import queue
+    import tempfile
+    import threading
+    import urllib.request
+
+    from jepsen_tpu_torch import autopilot, doctor, slo
+
+    print(f"one CLI ({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="cli-", dir=str(REPO / "build" /
+                                                  "torch_kernels"))
+    env = {**os.environ, "JEPSEN_TPU_HEARTBEAT_S": "0"}
+
+    def start(*args, **kw):
+        return subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch", *args], cwd=REPO,
+            env=env, text=True, stdout=subprocess.PIPE,
+            stderr=kw.get("stderr", subprocess.PIPE))
+
+    t0 = time.monotonic()
+    serve = start("serve", "--service", "--autopilot", "--devices",
+                  str(MESH_SHARDS), "-b", "127.0.0.1", "-p", "0",
+                  "--store-root", os.path.join(tmp, "serve"),
+                  stderr=subprocess.STDOUT)
+    procs = {"preflight": start("preflight", "--config", "headline",
+                                "--execute", "--json"),
+             "autopilot": start("autopilot", "latest", "--json", "--store",
+                                ap_store),
+             "bad option": start("serve", "--bogus"),
+             "fleet": start("fleet")}
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in serve.stdout],
+                     daemon=True).start()
+    try:
+        seen = []
+        deadline = time.monotonic() + 180
+        while not any(ln.startswith("Checker service:") for ln in seen):
+            if time.monotonic() > deadline or serve.poll() is not None:
+                raise AssertionError(f"serve: exit {serve.poll()}:\n"
+                                     + "".join(seen)[-4000:])
+            try:
+                seen.append(lines.get(timeout=1.0))
+            except queue.Empty:
+                pass
+        bind_s = time.monotonic() - t0
+        base = next(ln for ln in seen if ln.startswith("Listening")
+                    ).split()[2].rstrip("/")
+        rids = []
+        for b in bodies:
+            req = urllib.request.Request(
+                base + "/check", data=json.dumps(b).encode(),
+                headers={"Content-Type": "application/json"})
+            rids.append(json.loads(urllib.request.urlopen(
+                req, timeout=60).read())["id"])
+        verdicts = []
+        for rid in rids:
+            urllib.request.urlopen(f"{base}/runs/{rid}/events?wait=300",
+                                   timeout=360).read()
+            rec = json.loads(urllib.request.urlopen(
+                f"{base}/runs/{rid}.json", timeout=60).read())
+            verdicts.append(rec.get("verdict"))
+        status = json.loads(urllib.request.urlopen(
+            base + "/status.json", timeout=60).read())
+        apt = status.get("autopilot") or {}
+        served_s = time.monotonic() - t0
+        print(f"  serve --service --autopilot --devices {MESH_SHARDS} -p 0: "
+              f"bound in {bind_s:.4f} s ({[ln.strip() for ln in seen if ln.startswith(('Listening', 'Checker'))]}); "
+              f"4 POSTs -> verdicts {verdicts} at {served_s:.4f} s; "
+              f"/status.json autopilot active {apt.get('active')} "
+              f"(steps {apt.get('steps')}, every_s {apt.get('every_s')}, "
+              f"quarantined {sorted(apt.get('quarantined') or {})}), "
+              f"service mesh_batches "
+              f"{(status.get('service') or {}).get('mesh_batches')}",
+              flush=True)
+        if (verdicts != [True] * len(bodies) or apt.get("active") is not True
+                or "autopilot ON" not in "".join(seen)):
+            raise AssertionError(f"serve: {verdicts} {apt}")
+    finally:
+        serve.terminate()
+        try:
+            serve.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            serve.kill()
+            serve.wait()
+    outs = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        outs[name] = (proc.returncode, out, err)
+    print(f"  serve terminated (exit {serve.returncode}); the others' exit "
+          f"codes {({n: o[0] for n, o in outs.items()})}, all in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    rc, out, err = outs["preflight"]
+    par = json.loads(out)["headline"]["executed"] if rc == 0 else {}
+    print(f"  preflight --config headline --execute --json: exit {rc}, "
+          f"executed {json.dumps(par)}", flush=True)
+    if (rc != 0 or par.get("verdict") is not True or not par["kernel_match"]
+            or not par["buckets_subset"]):
+        raise AssertionError(f"preflight CLI: exit {rc}:\n{err[-3000:]}")
+    rc, out, err = outs["autopilot"]
+    got = json.loads(out) if rc == 0 else {}
+    try:  # what the command reads beside the diagnosis
+        slo_rep = slo.evaluate_store(ap_store)
+    except Exception:  # noqa: BLE001 — no service traffic recorded
+        slo_rep = None
+    want = autopilot.replay(doctor.diagnose(doctor.run_view(ap_store,
+                                                            "latest")),
+                            slo_rep)
+    print(f"  autopilot latest --json: exit {rc}, target "
+          f"{got.get('target')}, rules fired {got.get('rules_fired')}, "
+          f"decisions {[(d['rule'], d['action']) for d in got.get('decisions') or []]}",
+          flush=True)
+    if (rc != 0 or not got.get("decisions")
+            or got["decisions"] != json.loads(json.dumps(want, default=str))):
+        raise AssertionError(f"autopilot CLI: exit {rc}: {got}\n{err[-3000:]}")
+    for name in ("bad option", "fleet"):
+        rc, out, err = outs[name]
+        print(f"  {name}: exit {rc} ({(err or out).strip().splitlines()[:1]})",
+              flush=True)
+        if rc != 254:
+            raise AssertionError(f"{name}: exit {rc}\n{out}{err}")
+    print(f"  CLI phase: {time.monotonic() - t_all:.1f} s", flush=True)
+
+
 # ---- the bench round ---------------------------------------------------------
 
 SMOKE_LIMIT_S = 1200          # the time limit this script runs under
@@ -4698,6 +5230,9 @@ def run_phases(dev, host10, background) -> int:
     service_phases(dev)
     analyze_phases(dev)
     test_phases(dev)
+    plots_phases(dev)
+    ap_store, ap_bodies = autopilot_phases(dev)
+    cli_phases(dev, ap_store, ap_bodies)
     bench_phases(background)
 
     print("card:", card_line())

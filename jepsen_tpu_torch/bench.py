@@ -32,7 +32,10 @@ writes the full result, the telemetry and the reports under the root
     artifacts/torch/telemetry/              metrics JSONL and Prometheus,
                                             trace JSONL and Perfetto,
                                             regressions.json,
-                                            occupancy.json, doctor.json
+                                            occupancy.json, doctor.json,
+                                            bench-trajectory.png and
+                                            occupancy-heatmap.png (with
+                                            matplotlib)
     artifacts/torch/bench-profile/          the profiled check
     store/torch/ledger/                     the run ledger
 
@@ -1023,7 +1026,8 @@ def compute_regressions(rounds: list, current=None,
 
 def _export_regressions(out: dict) -> None:
     """Compare this round with the banked rounds, bank it as a
-    `bench-round` record, write regressions.json and put the flagged
+    `bench-round` record, write regressions.json (and, with matplotlib
+    and two rounds or more, bench-trajectory.png) and put the flagged
     names on the line. Never raises: the line outranks the report."""
     try:
         rounds = load_bench_rounds(_ROOT)
@@ -1069,12 +1073,16 @@ def _export_regressions(out: dict) -> None:
         os.makedirs(art, exist_ok=True)
         with open(os.path.join(art, "regressions.json"), "w") as fh:
             json.dump(report, fh, indent=1)
+        files = [_rel(TELEMETRY_DIR, "regressions.json")]
+        from .checker import plots
+        if plots.bench_trajectory_graph(
+                report, os.path.join(art, "bench-trajectory.png")):
+            files.append(_rel(TELEMETRY_DIR, "bench-trajectory.png"))
         out["regressions"] = {"flagged": report.get("regressions"),
                               "threshold_x": threshold,
                               "compared_rounds":
                                   report.get("compared_rounds"),
-                              "files": [_rel(TELEMETRY_DIR,
-                                             "regressions.json")]}
+                              "files": files}
         if report.get("regressions"):
             print(f"REGRESSION flagged (> {threshold}x best prior "
                   f"wall): {report['regressions']}", file=sys.stderr)
@@ -1086,8 +1094,9 @@ def _export_occupancy(out: dict) -> None:
     """The per-config utilization report: frontier fill, memo hit rate
     and roofline per config into occupancy.json, fill regressions
     flagged against the best same-platform prior read back from the
-    ledger (kind="bench-occupancy"; this round banks one). Never
-    raises."""
+    ledger (kind="bench-occupancy"; this round banks one), and with
+    matplotlib the batched fan-out's round x lane fill heatmap
+    (occupancy-heatmap.png). Never raises."""
     try:
         from . import drift, occupancy
         target = float(os.environ.get("JEPSEN_TPU_BENCH_FILL_TARGET",
@@ -1151,11 +1160,24 @@ def _export_occupancy(out: dict) -> None:
         os.makedirs(art, exist_ok=True)
         with open(os.path.join(art, "occupancy.json"), "w") as fh:
             json.dump(report, fh, indent=1)
+        files = [_rel(TELEMETRY_DIR, "occupancy.json")]
+        # round x lane heatmap of the batched fan-out, when the round
+        # recorded one (the independent config's straggler view)
+        if _REGISTRY is not None:
+            pts = _REGISTRY.series("wgl_batched_rounds").points
+            if pts:
+                from .checker import plots
+                if plots.occupancy_heatmap(
+                        {"name": "bench batched"}, pts,
+                        out_path=os.path.join(art,
+                                              "occupancy-heatmap.png")):
+                    files.append(_rel(TELEMETRY_DIR,
+                                      "occupancy-heatmap.png"))
         out["occupancy_report"] = {
             "target_fill": target,
             "below_target": report["below_target"],
             "fill_regressions": report["fill_regressions"],
-            "files": [_rel(TELEMETRY_DIR, "occupancy.json")]}
+            "files": files}
         if report["fill_regressions"]:
             print(f"FILL REGRESSION flagged (< 0.9x best prior): "
                   f"{report['fill_regressions']}", file=sys.stderr)

@@ -7,8 +7,10 @@ The port of `jepsen_tpu.checker` (reference:
 false > unknown > true (:29-50), the built-in checkers (stats :166,
 linearizable :185, queue :218, set :240, total-queue :628, unique-ids
 :689, counter :737, set-full :294, unhandled-exceptions :124,
-log-file-pattern :839), the counterexample SVG (`linear_report`) and
-the HTML timeline (`timeline`).
+log-file-pattern :839), the plot checkers (latency-graph, rate-graph,
+perf, clock-plot :797-837, drawn by `plots` and `clock`), the
+counterexample SVG (`linear_report`) and the HTML timeline
+(`timeline`).
 
 `Linearizable` is where the card plugs in. Its default algorithm is the
 reference's `"competition"`: FIFO-queue models go to the polynomial
@@ -23,9 +25,12 @@ behind the oracle's verdict:
     `check` once both lanes have ended (the reference turns it into an
     "engine-error" lane result).
 
-The plot checkers (`latency_graph`, `rate_graph`, `perf`, `clock_plot`)
-and the search-progress and occupancy PNGs are not ported: they need
-matplotlib.
+A device check with telemetry on (a metrics registry installed) and a
+named test also writes the search's progress panel and its frontier-fill
+heatmap (`search-progress.png`, `occupancy-heatmap.png`). Every PNG
+needs matplotlib; without it (as on the card's machine) the plot
+checkers still answer `{"valid?": True}` and no file or `*-png` key
+appears.
 """
 
 from __future__ import annotations
@@ -345,6 +350,26 @@ class Linearizable(Checker):
             p = linear_report.render_analysis(test, h, res, opts)
             if p:
                 res["counterexample-svg"] = p
+        if (res.get("telemetry") or {}).get("chunks") \
+                and (test or {}).get("name"):
+            # telemetry-enabled device runs get a search-progress panel
+            # (with the per-round fill overlay) next to the latency/rate
+            # plots, plus the occupancy heatmap of the rounds drained
+            # from the chunk kernels' occupancy ring
+            from . import plots
+            occ = res.get("occupancy") or {}
+            p = plots.search_progress_graph(
+                test, res["telemetry"]["chunks"], opts,
+                rounds=occ.get("rounds"))
+            if p:
+                res["search-progress-png"] = p
+            if occ.get("rounds"):
+                from .. import occupancy as occupancy_mod
+                hp = plots.occupancy_heatmap(
+                    test, occupancy_mod.heatmap_points(occ["rounds"]),
+                    opts)
+                if hp:
+                    res["occupancy-heatmap-png"] = hp
         return res
 
 
@@ -887,3 +912,59 @@ class LogFilePattern(Checker):
 
 def log_file_pattern(pattern: str, filename: str) -> Checker:
     return LogFilePattern(pattern, filename)
+
+
+# -- plot checkers (checker.clj:797-837) ------------------------------------
+
+class LatencyGraph(Checker):
+    """latency-raw.png + latency-quantiles.png (checker.clj:797-809)."""
+
+    def __init__(self, opts: Optional[dict] = None):
+        self.opts = opts or {}
+
+    def check(self, test, history, opts=None):
+        from . import plots as perf_mod
+        o = {**self.opts, **(opts or {})}
+        pts = perf_mod.latency_points(history)  # pair history once
+        perf_mod.point_graph(test, history, o, pts=pts)
+        perf_mod.quantiles_graph(test, history, o, pts=pts)
+        return {"valid?": True}
+
+
+def latency_graph(opts: Optional[dict] = None) -> Checker:
+    return LatencyGraph(opts)
+
+
+class RateGraph(Checker):
+    """rate.png (checker.clj:811-821)."""
+
+    def __init__(self, opts: Optional[dict] = None):
+        self.opts = opts or {}
+
+    def check(self, test, history, opts=None):
+        from . import plots as perf_mod
+        perf_mod.rate_graph(test, history, {**self.opts, **(opts or {})})
+        return {"valid?": True}
+
+
+def rate_graph(opts: Optional[dict] = None) -> Checker:
+    return RateGraph(opts)
+
+
+def perf(opts: Optional[dict] = None) -> Checker:
+    """Latency + rate graphs composed (checker.clj:823-831)."""
+    return compose({"latency-graph": latency_graph(opts),
+                    "rate-graph": rate_graph(opts)})
+
+
+class ClockPlot(Checker):
+    """clock-skew.png (checker.clj:831-837)."""
+
+    def check(self, test, history, opts=None):
+        from . import clock as clock_mod
+        clock_mod.plot(test, history, opts or {})
+        return {"valid?": True}
+
+
+def clock_plot() -> Checker:
+    return ClockPlot()

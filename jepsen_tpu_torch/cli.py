@@ -1,7 +1,7 @@
-"""Command-line interface framework for the port's `test` and
-`test-all` commands.
+"""Command-line interface framework: the one option language of every
+`python -m jepsen_tpu_torch` command.
 
-The port's copy of `jepsen_tpu/cli.py:1-508` (jepsen.cli,
+The port's copy of `jepsen_tpu/cli.py` (jepsen.cli,
 `jepsen/src/jepsen/cli.clj`): a declarative option-spec language that
 suites can extend and merge (cli.clj:52-59), the standard test option
 set (cli.clj:64-111), node-list merging from `-n`/`--nodes`/
@@ -17,20 +17,28 @@ exit-code contract (cli.clj:129-139):
 
 Commands are plain dicts `{"name": {"opt_spec", "opt_fn", "usage",
 "run"}}` so suites compose them with `dict`-merge, as the reference
-composes `single-test-cmd`/`test-all-cmd` (cli.clj:355,491). `run`
-returns an exit code (or None for 0); `run_cli` returns the code rather
-than exiting. The port's other commands (`preflight`, `serve`,
-`analyze`) stay argparse commands in `__main__.py`.
+composes `single-test-cmd`/`test-all-cmd`/`serve-cmd` (cli.clj:355,491,
+336). `run` returns an exit code (or None for 0); `run_cli` and `main`
+return the code rather than exiting (`python -m jepsen_tpu_torch` exits
+with it).
+
+The port's own options: `--device` (where a check or the service runs;
+default the card) and `serve --devices N` (N shards of that device, the
+mesh of the service's coalesced batches). `serve -p 0` binds a free
+port, which the reference's `pos_int` refuses.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import re
 import sys
 import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
+
+from .ledger import BASE_DIR
 
 log = logging.getLogger("jepsen_tpu_torch.cli")
 
@@ -96,6 +104,14 @@ def pos_int(s: str) -> int:
     v = int(s)
     if v <= 0:
         raise ValueError(f"{v} must be positive")
+    return v
+
+
+def port_number(s: str) -> int:
+    """A TCP port to bind, 0 for a free one."""
+    v = int(s)
+    if not 0 <= v <= 65535:
+        raise ValueError(f"{v} is not a port number (0-65535)")
     return v
 
 
@@ -372,15 +388,14 @@ def _validity_code(test: dict) -> int:
 
 
 def single_test_cmd(opts: dict) -> dict:
-    """Build the `test` command around a test_fn (cli.clj:355-400).
+    """Build `test` and `analyze` commands around a test_fn
+    (cli.clj:355-431).
 
     opts: {"test_fn": options-map -> test-map,
            "opt_spec": extra Opts (merged into TEST_OPT_SPEC),
            "opt_fn": extra post-processing composed after test_opt_fn,
            "usage": usage string}
-
-    The reference's command map also holds `analyze`; the port's
-    `analyze` is its own argparse command (`__main__.run_analyze`)."""
+    """
     opt_spec = merge_opt_specs(TEST_OPT_SPEC, opts.get("opt_spec") or [])
     extra = opts.get("opt_fn")
     opt_fn = (lambda p: extra(test_opt_fn(p))) if extra else test_opt_fn
@@ -398,8 +413,52 @@ def single_test_cmd(opts: dict) -> dict:
                 return rc
         return EXIT_OK
 
-    return {"test": {"opt_spec": opt_spec, "opt_fn": opt_fn,
-                     "usage": usage, "run": run_test}}
+    def run_analyze(parsed: Parsed):
+        """Re-analyze the latest stored history with a freshly built
+        test map (cli.clj:402-431): the stored results are dropped, the
+        test map merged over the CLI's, `core.analyze` run, and the
+        analysis written through `store.Writer`. Unlike the reference,
+        which rewrites the stored run's own directory, the analysis is
+        a new run (a new start time, to the millisecond) under the
+        store root, and its records go to the run ledger there."""
+        import time
+
+        from . import core, ledger, store
+        options = parsed.options
+        cli_test = test_fn(options)
+        root = options.get("store_root") or BASE_DIR
+        if store.latest(root) is None:
+            raise RuntimeError("Not sure what the last test was")
+        stored = store.load_latest(root)
+        if stored.get("name") != cli_test.get("name"):
+            raise RuntimeError(
+                f"Stored test ({stored.get('name')}) and CLI test "
+                f"({cli_test.get('name')}) have different names; aborting")
+        stored.pop("results", None)
+        now = time.time()
+        test = {**cli_test, **stored, "store_root": root,
+                "start_time": time.strftime("%Y%m%dT%H%M%S",
+                                            time.localtime(now))
+                + f".{int(now * 1000) % 1000:03d}"}
+        with ledger.use(ledger.Ledger(root)):
+            test = core.analyze(test)
+        writer = store.Writer(test)
+        try:
+            test["store_dir"] = writer.dir
+            writer.save_0(test)
+            writer.save_1(test)
+            writer.save_2(test)
+        finally:
+            writer.close()
+        core.log_results(test)
+        return _validity_code(test)
+
+    return {
+        "test": {"opt_spec": opt_spec, "opt_fn": opt_fn, "usage": usage,
+                 "run": run_test},
+        "analyze": {"opt_spec": opt_spec, "opt_fn": opt_fn, "usage": usage,
+                    "run": run_analyze},
+    }
 
 
 def test_all_run_tests(tests) -> dict:
@@ -468,3 +527,106 @@ def test_all_cmd(opts: dict) -> dict:
 
     return {"test-all": {"opt_spec": opt_spec, "opt_fn": opt_fn,
                          "usage": "Runs all tests", "run": run}}
+
+
+def serve_cmd() -> dict:
+    """Build the results web-server command (cli.clj:334-354). With
+    --service it also fronts the checker service (`service.py`): POST
+    /check, SSE at /events and /runs/<id>/events; with --autopilot the
+    verify-or-revert control loop (`autopilot.py`) runs over it."""
+    spec = [
+        Opt("help", short="-h", help="Print out this message and exit"),
+        Opt("host", short="-b", metavar="HOST", default="0.0.0.0",
+            help="Hostname to bind to"),
+        Opt("port", short="-p", metavar="NUMBER", default=8080,
+            parse=port_number, help="Port number to bind to (0: a free "
+                                    "one)"),
+        Opt("store_root", metavar="DIR", default=BASE_DIR,
+            help="Store directory to serve"),
+        Opt("service", default=False,
+            help="Attach the checker service (POST /check + SSE + "
+                 "warm worker pool; re-warms cached bucket plans)"),
+        Opt("workers", metavar="N", default=1, parse=pos_int,
+            help="Service worker threads (with --service)"),
+        Opt("quota_device_s", metavar="SECONDS", parse=float,
+            help="Per-tenant device-seconds quota over the rolling "
+                 "window (with --service; default: unlimited)"),
+        Opt("autopilot", default=False,
+            help="Run the verify-or-revert control loop "
+                 "(jepsen_tpu_torch/autopilot.py) over the service: "
+                 "doctor/SLO findings execute their remedies, every "
+                 "action banked and verified (with --service)"),
+        Opt("clear_quarantine", default=False,
+            help="Discard the autopilot quarantine persisted in "
+                 "this store's ledger instead of rehydrating it "
+                 "(with --service --autopilot; the clear itself is "
+                 "banked)"),
+        Opt("replica_id", metavar="ID",
+            help="Fleet replica identity banked on heartbeats "
+                 "(with --service; default: env "
+                 "JEPSEN_TPU_REPLICA_ID, else host-pid)"),
+        Opt("device", metavar="DEV",
+            help="Where the service runs (with --service; default: the "
+                 "card)"),
+        Opt("devices", metavar="N", default=1, parse=pos_int,
+            help="Shards of that device: the mesh of the service's "
+                 "coalesced batches (with --service)"),
+    ]
+
+    def run(parsed: Parsed):
+        from . import web
+        o = parsed.options
+        svc = None
+        if o.get("service"):
+            from .autopilot import CLEAR_QUARANTINE_ENV
+            from .service import Service
+            from .util import resolve_device
+            if o.get("clear_quarantine"):
+                # env, not a kwarg: the Supervisor is constructed inside
+                # Service.start(), wherever rehydration happens
+                os.environ[CLEAR_QUARANTINE_ENV] = "1"
+            dev = resolve_device(o.get("device"))
+            svc = Service(o["store_root"], workers=o.get("workers") or 1,
+                          quota_device_s=o.get("quota_device_s"),
+                          autopilot=bool(o.get("autopilot")),
+                          replica_id=o.get("replica_id"),
+                          devices=[dev] * o["devices"])
+        server = web.serve(host=o["host"], port=o["port"],
+                           store_root=o["store_root"], service=svc)
+        if svc is not None:
+            # re-warm the cached bucket plans only after the bind
+            # succeeded: kernel builds must not precede an EADDRINUSE
+            warmed = svc.rewarm()
+            if warmed:
+                print(f"Re-warmed {len(warmed)} cached bucket plan(s) "
+                      "from fs_cache", flush=True)
+        base = f"http://{o['host']}:{server.server_port}"
+        print(f"Listening on {base}/ (status: {base}/status.json, runs: "
+              f"{base}/runs.json)", flush=True)
+        if svc is not None:
+            print(f"Checker service: POST {base}/check · events: "
+                  f"{base}/events ({svc.workers} worker(s) on "
+                  f"{[str(d) for d in svc.devices]})"
+                  + (" · autopilot ON" if svc.autopilot_enabled else ""),
+                  flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
+            if svc is not None:
+                svc.close()
+        return EXIT_OK
+
+    return {"serve": {"opt_spec": spec, "run": run}}
+
+
+def main(subcommands: dict, argv: Optional[Sequence[str]] = None) -> int:
+    """run_cli over argv (default `sys.argv[1:]`) with INFO logging, the
+    -main analog (cli.clj:521). Returns the exit code, where the
+    reference's calls `sys.exit` with it."""
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s [%(name)s] %(message)s")
+    return run_cli(subcommands, sys.argv[1:] if argv is None else argv)

@@ -34,7 +34,8 @@ plane reads (`ops/wgl.py` when metrics are on, `parallel/mesh.py`):
     own count of a chunk (`search_bytes`, over `wgl_chunk_bytes`), not
     the reference's memo-stream model; `safe_device_kind` names the
     card; `per_shard_cost` scales a cost to one shard of the sharded
-    Elle closure;
+    Elle closure; `heatmap_points` lays drained rounds out for the
+    occupancy heatmap (`checker/plots.py`);
   * `perfetto_counter_tracks` turns the series a run recorded into the
     counter tracks that `core.run` embeds under the spans of its
     `trace.perfetto.json`.
@@ -264,6 +265,16 @@ def safe_device_kind() -> Optional[str]:
     if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
         return None
     return torch.cuda.get_device_name(torch.cuda.current_device())
+
+
+def heatmap_points(rounds: Sequence[dict], lane: int = 0) -> list:
+    """`{round, lane, fill}` triples for `checker/plots.occupancy_heatmap`
+    (the reference's `heatmap_points`): the single-search view is a
+    1-lane strip; the batched fan-out emits one lane per key
+    (`parallel/batched.py`, the `wgl_batched_rounds` series)."""
+    return [{"round": int(r["round"]), "lane": int(lane),
+             "fill": float(r.get("fill") or 0.0)}
+            for r in rounds if r.get("round") is not None]
 
 
 def per_shard_cost(cost: Optional[dict], n_shards: int

@@ -47,9 +47,12 @@ feeds (`events_since` / `run_events`, streamed by web.py at `/events`
 and `/runs/<id>/events`), a `service` block on `/status.json`, and the
 periodic `kind="replica-heartbeat"` ledger record.
 
-Not ported yet: the reference's autopilot (`autopilot=`, its
-verify-or-revert control loop) and its lock-order instrumentation (the
-service lock is a plain `threading.RLock`).
+`autopilot=True` runs the verify-or-revert supervisor (`autopilot.py`)
+over the service from `start` to `close`: doctor and SLO findings
+execute their remedies through the service's own controls (the bucket
+warm, the ladder pin, the pool resize, the shed window), every action
+banked and verified. The service lock is a plain `threading.RLock`:
+the reference's lock-order instrumentation is not ported yet.
 """
 
 from __future__ import annotations
@@ -252,6 +255,8 @@ class Service:
                  mesh_serving: bool = True,
                  mesh_min_batch: int = 2,
                  shed_hold_s: float = 30.0,
+                 autopilot: bool = False,
+                 autopilot_every_s: float = 5.0,
                  replica_id: Optional[str] = None,
                  heartbeat_every_s: Optional[float] = None,
                  device=None, devices=None):
@@ -287,6 +292,11 @@ class Service:
         self.shed_hold_s = float(shed_hold_s)
         self._shed_until = 0.0
         self._shed_info: Optional[dict] = None
+        # autopilot: the verify-or-revert control loop (autopilot.py)
+        # — opt-in; start() spawns the supervisor thread
+        self.autopilot_enabled = bool(autopilot)
+        self.autopilot_every_s = float(autopilot_every_s)
+        self._autopilot = None
         # fleet identity + heartbeat: periodic kind="replica-heartbeat"
         # ledger records are the replica's liveness/inventory feed
         self.replica_id = str(replica_id) if replica_id \
@@ -323,9 +333,11 @@ class Service:
 
     # -- lifecycle ----------------------------------------------------
     def start(self) -> "Service":
-        # the worker spawn AND the heartbeat claim happen in ONE locked
-        # section: two concurrent start() calls must not both spawn
-        # a pool or a heartbeat thread
+        # the worker spawn AND the supervisor/heartbeat claims happen in
+        # ONE locked section: two concurrent start() calls must not both
+        # spawn a pool, a supervisor or a heartbeat thread. The claim is
+        # atomic; the (slow) Supervisor construction runs after, outside
+        # the lock.
         with self._lock:
             if self._threads:
                 return self
@@ -336,8 +348,19 @@ class Service:
                                      daemon=True)
                 t.start()
                 self._threads.append(t)
+            start_ap = self.autopilot_enabled \
+                and self._autopilot is None
             start_hb = self.heartbeat_every_s > 0 \
                 and self._hb_thread is None
+        if start_ap:
+            from . import autopilot as autopilot_mod
+            sup = autopilot_mod.Supervisor(
+                autopilot_mod.ServiceHost(self),
+                every_s=self.autopilot_every_s, where="service",
+                mx=self.mx, ledger=self.ledger).start()
+            with self._lock:
+                self._autopilot = sup
+            autopilot_mod.set_default(sup)
         if start_hb:
             self._hb_stop.clear()
             hb = threading.Thread(target=self._heartbeat_loop,
@@ -350,12 +373,15 @@ class Service:
         return self
 
     def close(self, timeout: float = 5.0) -> None:
-        # detach under the lock, join OUTSIDE it: the heartbeat thread
-        # takes the service lock on its way out, so joining it while
-        # holding the lock would deadlock, and two concurrent close()
-        # calls must not both join
+        # detach under the lock, join OUTSIDE it: the supervisor and
+        # heartbeat threads take the service lock on their way out, so
+        # joining them while holding the lock would deadlock, and two
+        # concurrent close() calls must not both join
         with self._lock:
+            sup, self._autopilot = self._autopilot, None
             hb, self._hb_thread = self._hb_thread, None
+        if sup is not None:
+            sup.close(timeout=timeout)
         if hb is not None:
             self._hb_stop.set()
             hb.join(timeout=timeout)
@@ -421,7 +447,7 @@ class Service:
                   source: str = "operator") -> dict:
         """Open the admission shed window explicitly: brake BEFORE
         `_note_slo`'s multi-window alert would force the same brake
-        harder and later (the reference's autopilot calls this)."""
+        harder and later (the autopilot's pre-shed actuator calls this)."""
         hold = float(hold_s if hold_s is not None
                      else self.shed_hold_s)
         names = [str(b) for b in burning]
@@ -1432,8 +1458,8 @@ class Service:
 
     def _heartbeat_once(self) -> Optional[str]:
         """Bank ONE `kind="replica-heartbeat"` ledger record (identity,
-        liveness cadence, queue/served counters, warm-bucket inventory)
-        and mirror the in-memory span/series windows under
+        liveness cadence, queue/served counters, warm-bucket inventory,
+        autopilot state) and mirror the in-memory span/series windows under
         `<root>/service/`, so that another process can read this
         replica without touching it.
 
@@ -1451,6 +1477,14 @@ class Service:
             warm = sorted(_key_str(k) for k in self._warm)
             workers = self.workers
             shedding = now < self._shed_until
+        apt = None
+        sup = self._autopilot
+        if sup is not None:
+            try:
+                apt = {"active": True,
+                       "quarantined": sorted(sup.quarantined())}
+            except Exception:  # noqa: BLE001
+                apt = {"active": True, "quarantined": []}
         served = stats["served"]
         rec = {"kind": "replica-heartbeat", "t": round(now, 3),
                "name": f"replica:{self.replica_id}",
@@ -1469,6 +1503,8 @@ class Service:
                              if served else None),
                "warm_buckets": warm,
                "shedding": bool(shedding)}
+        if apt is not None:
+            rec["autopilot"] = apt
         rid = None
         try:
             rid = self.ledger.record(rec)

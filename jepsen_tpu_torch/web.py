@@ -12,9 +12,10 @@ optional `service.Service`.
                                  Server-Sent Events
     GET  /runs/<id>/events       one request's lifecycle as SSE
                                  (snapshot, queued, serving, done, end)
-    GET  /status.json            the live status: the service and SLO
-                                 blocks, the preflight, device, mesh and
-                                 doctor blocks, and the last ledger runs
+    GET  /status.json            the live status: the service, SLO and
+                                 autopilot blocks, the preflight, device,
+                                 mesh and doctor blocks, and the last
+                                 ledger runs
     GET  /runs.json              the run ledger, newest first
     GET  /runs/<id>.json         one ledger record, with the doctor's
                                  compact diagnosis of it
@@ -75,9 +76,9 @@ def status_snapshot(store_root: str) -> dict:
     `fleet.RunStatus` when one is installed (a run in this process),
     else the throttled `current-status.json` mirror that a run in
     another process writes under `store_root`, else the idle schema;
-    the admission (`preflight`), device (`hbm`), mesh, doctor, service
-    and SLO blocks of this process; and the last ledger runs under
-    `store_root`. Always returns the documented schema."""
+    the admission (`preflight`), device (`hbm`), mesh, doctor, service,
+    SLO and autopilot blocks of this process; and the last ledger runs
+    under `store_root`. Always returns the documented schema."""
     st = fleet.get_default()
     if st.enabled:
         snap = st.snapshot()
@@ -129,6 +130,18 @@ def status_snapshot(store_root: str) -> dict:
     except Exception:  # noqa: BLE001
         snap["slo"] = {"checked": 0, "alerts_total": 0, "burning": [],
                        "last": None}
+    # autopilot plane (autopilot.py): the serving process's supervisor
+    # wins; a mirror from another process keeps its own block, and the
+    # idle stub keeps the documented schema answerable
+    try:
+        from . import autopilot as autopilot_mod
+        apt = autopilot_mod.snapshot()
+        if apt.get("active") or apt.get("steps") \
+                or "autopilot" not in snap:
+            snap["autopilot"] = apt
+    except Exception:  # noqa: BLE001 — the status answer must not
+        snap.setdefault("autopilot",  # depend on the autopilot plane
+                        {"active": False})
     try:
         snap["last_runs"] = _last_runs(store_root)
     except Exception:  # noqa: BLE001 — a torn ledger never breaks

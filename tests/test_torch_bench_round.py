@@ -139,3 +139,23 @@ def test_doctor_bench_over_the_round(rounds, capsys):
          "D008", "D009", "D010", "D011", "D012", "D016"])
     led = tledger.Ledger(os.path.join(root, tbench.STORE_DIR))
     assert led.query(kind="doctor", name="doctor-bench")
+
+
+def test_the_rounds_write_the_reference_pngs(rounds):
+    """With matplotlib, a round writes `occupancy-heatmap.png` from the
+    batched fan-out's `wgl_batched_rounds` series beside occupancy.json,
+    and the second round `bench-trajectory.png` (two rounds to draw)
+    beside regressions.json; each is listed in `files` only when
+    written."""
+    root, lines = rounds
+    first, second = (json.loads(ln[1][0]) for ln in lines)
+    tel = os.path.join(root, tbench.TELEMETRY_DIR)
+    traj = "artifacts/torch/telemetry/bench-trajectory.png"
+    heat = "artifacts/torch/telemetry/occupancy-heatmap.png"
+    assert traj not in first["regressions"]["files"]
+    assert traj in second["regressions"]["files"]
+    assert heat in first["occupancy_report"]["files"]
+    # the headline-only round ran no fan-out: no heatmap listed
+    assert heat not in second["occupancy_report"]["files"]
+    for f in ("bench-trajectory.png", "occupancy-heatmap.png"):
+        assert os.path.getsize(os.path.join(tel, f)) > 0

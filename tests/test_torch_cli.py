@@ -10,6 +10,8 @@ arguments, 255 without a card when `--device cpu` is not given
 2` prints "2 successes".
 """
 
+import os
+
 import pytest
 import torch
 
@@ -175,3 +177,246 @@ def test_analyze_still_uses_the_demo_checker(tmp_path, monkeypatch):
                            "--device", "cpu"]) == 0
     runs = store.tests(root)["demo"]
     assert len(runs) == 2
+
+
+# --- the one command language ----------------------------------------------------
+
+from jepsen_tpu import __main__ as ref_main  # noqa: E402
+
+# the port's own options, which the reference's commands do not have
+PORT_ONLY = {"device", "devices", "headline"}
+COMMAND_NAMES = ["test", "test-all", "analyze", "serve", "preflight",
+                 "doctor", "autopilot"]
+
+
+def _spec_rows(spec, port: bool):
+    rows = []
+    for o in spec:
+        if port and o.name in PORT_ONLY:
+            continue
+        default = o.default
+        if not port and o.name == "store_root" and default == "store":
+            # the one deliberate divergence of the defaults: the port's
+            # store is its own
+            default = ledger.BASE_DIR
+        rows.append((o.name, o.short, o.long, o.metavar is None,
+                     o.repeated, default))
+    return rows
+
+
+def test_commands_are_the_references_less_fleet():
+    assert sorted(port_main.COMMANDS) == sorted(COMMAND_NAMES)
+    assert set(ref_main.COMMANDS) - set(port_main.COMMANDS) == {"fleet"}
+    import inspect
+    assert "argparse" not in inspect.getsource(port_main)
+
+
+@pytest.mark.parametrize("command", COMMAND_NAMES)
+def test_option_names_short_forms_and_defaults_match(command):
+    want = _spec_rows(ref_main.COMMANDS[command]["opt_spec"], port=False)
+    got = _spec_rows(port_main.COMMANDS[command]["opt_spec"], port=True)
+    assert got == want
+    names = {o.name for o in port_main.COMMANDS[command]["opt_spec"]}
+    assert names - {r[0] for r in got} <= PORT_ONLY
+
+
+@pytest.mark.parametrize("command", COMMAND_NAMES)
+def test_help_exits_0(command, capsys):
+    for flag in ("--help", "-h"):
+        assert port_cli.run_cli(port_main.COMMANDS, [command, flag]) == 0
+        assert ref_cli.run_cli(ref_main.COMMANDS, [command, flag]) == 0
+    out = capsys.readouterr().out
+    assert "-h, --help" in out and "Traceback" not in out
+
+
+@pytest.mark.parametrize("argv", [["fleet"], ["fleet", "--json"], ["nope"],
+                                  [], ["--help"]])
+def test_unknown_commands_and_fleet_exit_254(argv, capsys):
+    assert port_main.main(argv) == port_cli.EXIT_BAD_ARGS
+    out = capsys.readouterr().out
+    assert "Commands: analyze, autopilot, doctor, preflight, serve, " \
+           "test, test-all" in out
+
+
+def _store_run(root, history, name="demo"):
+    test = {"name": name, "start_time": "20260101T000000",
+            "store_root": str(root), "history": history}
+    w = store.Writer(test)
+    try:
+        w.save_0(test)
+        w.save_1(test)
+    finally:
+        w.close()
+
+
+def _history(lie_p=0.0):
+    from jepsen_tpu import synth as jsynth
+    return [o.to_dict() for o in jsynth.cas_register_history(
+        200, n_procs=4, seed=8 if lie_p else 3, crash_p=0.0, lie_p=lie_p)]
+
+
+MALFORMED = [{"type": "invoke", "f": "read", "process": 0, "value": None},
+             {"type": "invoke", "f": "read", "process": 0, "value": None},
+             {"type": "ok", "f": "read", "process": 0, "value": 1}]
+
+
+def _storm(root):
+    """One record whose compiles storm past its one shape bucket (D001,
+    critical)."""
+    ledger.Ledger(str(root)).record({
+        "kind": "independent", "name": "keys", "compiles": 50,
+        "shapes": {"K": 16, "W_pad": 7}})
+
+
+def _scenario(name, root):
+    """(argv without the command's device option, want code, needs the
+    port's --device cpu): one exit-code scenario, its store made under
+    `root`."""
+    s = str(root)
+    busy = os.path.join(s, "a-file")
+    if name.endswith("store-is-a-file"):
+        os.makedirs(s, exist_ok=True)
+        open(busy, "w").close()
+    table = {
+        "test valid": (["test", "--time-limit", "1", "--rate", "40",
+                        "--store-root", s], 0, True),
+        "test bad-option": (["test", "--bogus"], 254, False),
+        "test bad-value": (["test", "--time-limit", "0"], 254, False),
+        "test store-is-a-file": (["test", "--time-limit", "1",
+                                  "--store-root", busy], 255, True),
+        "test-all store-is-a-file": (["test-all", "--time-limit", "1",
+                                      "--store-root", busy], 255, True),
+        "test-all bad-option": (["test-all", "--bogus"], 254, False),
+        "analyze valid": (["analyze", "--store-root", s], 0, True),
+        "analyze invalid": (["analyze", "--store-root", s], 1, True),
+        "analyze malformed": (["analyze", "--store-root", s], 2, True),
+        "analyze empty-store": (["analyze", "--store-root", s], 255, True),
+        "analyze name-mismatch": (["analyze", "--store-root", s, "--name",
+                                   "x"], 255, True),
+        "analyze bad-option": (["analyze", "--bogus"], 254, False),
+        "serve bad-port": (["serve", "-p", "x"], 254, False),
+        "serve bad-option": (["serve", "--bogus"], 254, False),
+        "serve port-in-use": (["serve", "-b", "127.0.0.1", "-p", "PORT",
+                               "--store-root", s], 255, False),
+        "preflight plans": (["preflight", "--config", "dense_100k"], 0,
+                            True),
+        "preflight unknown-config": (["preflight", "--config", "nope"], 254,
+                                     False),
+        "preflight bad-value": (["preflight", "--ops", "x"], 254, False),
+        "doctor healthy": (["doctor", "--store", s, "--no-record",
+                            "latest"], 0, False),
+        "doctor strict": (["doctor", "--store", s, "--no-record", "--strict",
+                           "latest"], 1, False),
+        "doctor missing": (["doctor", "--store", s, "nope"], 254, False),
+        "autopilot storm": (["autopilot", "--store", s, "latest"], 0, False),
+        "autopilot missing": (["autopilot", "--store", s, "nope"], 254,
+                              False),
+        "autopilot bad-option": (["autopilot", "--bogus"], 254, False),
+    }
+    if name in ("analyze valid", "analyze name-mismatch"):
+        _store_run(root, _history())
+    elif name == "analyze invalid":
+        _store_run(root, _history(lie_p=0.02))
+    elif name == "analyze malformed":
+        _store_run(root, MALFORMED)
+    elif name in ("doctor strict", "autopilot storm"):
+        _storm(root)
+    elif name == "doctor healthy":
+        ledger.Ledger(s).record({"kind": "checker", "name": "run-x",
+                                 "platform": "cpu", "compiles": 0})
+    return table[name]
+
+
+SCENARIOS = ["test valid", "test bad-option", "test bad-value",
+             "test store-is-a-file", "test-all store-is-a-file",
+             "test-all bad-option", "analyze valid", "analyze invalid",
+             "analyze malformed", "analyze empty-store",
+             "analyze name-mismatch", "analyze bad-option",
+             "serve bad-port", "serve bad-option", "serve port-in-use",
+             "preflight plans", "preflight unknown-config",
+             "preflight bad-value", "doctor healthy", "doctor strict",
+             "doctor missing", "autopilot storm", "autopilot missing",
+             "autopilot bad-option"]
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_exit_codes_match_the_reference(scenario, tmp_path, monkeypatch,
+                                        capsys):
+    """Each command's exit code in the same situation, in both packages:
+    0/1/2 by validity, 254 bad arguments, 255 an internal error. The port
+    runs its checks with `--device cpu`; the reference's demo runs the
+    host oracle."""
+    import socket
+    monkeypatch.setattr("logging.basicConfig", lambda **kw: None)
+    sock = None
+    codes = {}
+    try:
+        for pkg in ("ref", "port"):
+            root = tmp_path / pkg
+            argv, want, device = _scenario(scenario, root)
+            if "PORT" in argv:
+                sock = socket.socket()
+                sock.bind(("127.0.0.1", 0))
+                sock.listen(1)
+                argv = [str(sock.getsockname()[1]) if a == "PORT" else a
+                        for a in argv]
+            if pkg == "ref":
+                codes[pkg] = ref_cli.run_cli(ref_main.COMMANDS, argv)
+            else:
+                codes[pkg] = port_main.main(
+                    argv + (["--device", "cpu"] if device else []))
+    finally:
+        if sock is not None:
+            sock.close()
+    assert codes == {"ref": want, "port": want}
+
+
+def test_serve_on_a_thread_answers_status_with_the_autopilot_block(
+        tmp_path, monkeypatch):
+    """`serve -p 0`, run by `main` on a thread, binds a free port and
+    answers /status.json with the idle autopilot block; the
+    `/autopilot` page answers 404."""
+    import json
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    from jepsen_tpu_torch import web
+    monkeypatch.setattr("logging.basicConfig", lambda **kw: None)
+    made = []
+    real_serve = web.serve
+
+    def capture(**kw):
+        made.append(real_serve(**kw))
+        return made[-1]
+
+    monkeypatch.setattr(web, "serve", capture)
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(port_main.main(
+        ["serve", "-b", "127.0.0.1", "-p", "0", "--store-root",
+         str(tmp_path / "store")])), daemon=True)
+    t.start()
+    deadline = time.monotonic() + 30
+    while not made:
+        assert time.monotonic() < deadline and t.is_alive()
+        time.sleep(0.02)
+    try:
+        port = made[0].server_port
+        assert port > 0
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/status.json", timeout=30) as r:
+            snap = json.loads(r.read())
+        assert snap["autopilot"] == {
+            "active": False, "steps": 0, "counts": {}, "quarantined": {},
+            "pending": [], "actions": []}
+        assert snap["service"]["active"] is False
+        # the reference's /autopilot page comes with the port's pages
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/autopilot",
+                                   timeout=30)
+        assert e.value.code == 404
+    finally:
+        made[0].shutdown()
+        t.join(timeout=30)
+    assert rc == [0]

@@ -71,8 +71,17 @@ diagnosis: which remedies the supervisor would execute (the decide step
 only; no actuator runs and nothing is banked). A record that is not
 there exits 254.
 
-The reference's `fleet` command is not ported yet: it answers as an
-unknown command (254).
+    python -m jepsen_tpu_torch fleet [ROOT ...] [--discover DIR]
+        [--journey RUN_ID] [--perfetto PATH] [--json]
+
+federates N replicas' store ledgers (`observatory.py`) into one
+snapshot: the heartbeat liveness map, the request-weighted fleet SLO
+beside each replica's, and the D013-D015 findings. With no roots it
+takes `JEPSEN_TPU_FLEET_ROOTS` (path-separated), else discovers the
+stores in and around `store/torch`. `--journey` prints one request's
+cross-process path (exit 1 when not found), `--perfetto` writes the
+merged trace, one process track a replica. No store root found exits 2.
+Read-only over every store.
 """
 
 from __future__ import annotations
@@ -264,8 +273,37 @@ def autopilot_cmd() -> dict:
                                    "[OPTIONS ...]"}}
 
 
-# The reference's COMMANDS (`jepsen_tpu/__main__.py:210-218`) less
-# `fleet`, which comes with the observatory.
+def fleet_cmd() -> dict:
+    """`python -m jepsen_tpu_torch fleet <roots...>`: the fleet
+    observatory (`observatory.cli_main`), the reference's `fleet_cmd`.
+    Federates N replicas' store ledgers into one snapshot, reassembles a
+    request's cross-process journey, or writes a merged Perfetto trace
+    with one process track per replica. Strictly read-only over every
+    store."""
+    spec = [
+        Opt("help", short="-h", help="Print out this message and exit"),
+        Opt("discover", metavar="DIR",
+            help="Discover store roots in/around this directory "
+                 f"(used when no roots are given; default: {BASE_DIR})"),
+        Opt("journey", metavar="RUN_ID",
+            help="Reassemble one request's cross-process journey "
+                 "and print it as JSON (exit 1 when not found)"),
+        Opt("perfetto", metavar="PATH",
+            help="Write the merged fleet Perfetto trace here"),
+        Opt("json", default=False,
+            help="Emit the full fleet snapshot as JSON"),
+    ]
+
+    def run(parsed):
+        from . import observatory as observatory_mod
+        return observatory_mod.cli_main(parsed.options, parsed.arguments)
+
+    return {"fleet": {"opt_spec": spec, "run": run,
+                      "usage": "Usage: python -m jepsen_tpu_torch fleet "
+                               "[store_roots ...] [OPTIONS ...]"}}
+
+
+# The reference's COMMANDS (`jepsen_tpu/__main__.py:210-218`).
 COMMANDS = {
     **cli.single_test_cmd({"test_fn": demo_test, "opt_spec": DEMO_OPTS}),
     **cli.test_all_cmd({"tests_fn": demo_tests, "opt_spec": DEMO_OPTS}),
@@ -273,6 +311,7 @@ COMMANDS = {
     **preflight_cmd(),
     **doctor_cmd(),
     **autopilot_cmd(),
+    **fleet_cmd(),
 }
 
 

@@ -601,8 +601,15 @@ def serve_cmd() -> dict:
                 print(f"Re-warmed {len(warmed)} cached bucket plan(s) "
                       "from fs_cache", flush=True)
         base = f"http://{o['host']}:{server.server_port}"
-        print(f"Listening on {base}/ (status: {base}/status.json, runs: "
-              f"{base}/runs.json)", flush=True)
+        print(f"Listening on {base}/", flush=True)
+        print(f"Live run status: {base}/status "
+              f"(JSON: {base}/status.json)", flush=True)
+        print(f"Device observatory: {base}/devices "
+              f"· occupancy: {base}/occupancy "
+              f"· doctor: {base}/doctor "
+              f"· slo: {base}/slo "
+              f"· autopilot: {base}/autopilot "
+              f"· fleet: {base}/fleet", flush=True)
         if svc is not None:
             print(f"Checker service: POST {base}/check · events: "
                   f"{base}/events ({svc.workers} worker(s) on "

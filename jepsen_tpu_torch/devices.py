@@ -390,6 +390,52 @@ def measured_bytes_limit() -> Optional[int]:
     return min(limits) if limits else None
 
 
+def multichip_record(name: str, n_devices: int, results: list,
+                     wall_s: float, hbm: Optional[dict] = None,
+                     platform: Optional[str] = None,
+                     extra: Optional[dict] = None) -> dict:
+    """A `kind="multichip"` ledger record from one mesh fan-out: n_devices,
+    the verdict roll-up, per-device key counts / wall from the shard
+    blocks the batched path already stamps, and the measured HBM block.
+    Pure dict construction (testable without a mesh), so `/runs`
+    aggregates and `regressions()` cover mesh rounds, not just bench."""
+    per_device: dict = {}
+    verdicts: dict = {}
+    for r in results or []:
+        if not isinstance(r, dict):
+            continue
+        v = r.get("valid?")
+        key = ("true" if v is True else "false" if v is False
+               else str(v))
+        verdicts[key] = verdicts.get(key, 0) + 1
+        shard = r.get("shard") or {}
+        dev = str(shard.get("device", "host"))
+        d = per_device.setdefault(dev, {"keys": 0, "wall_s": 0.0})
+        d["keys"] += 1
+        d["wall_s"] = round(d["wall_s"]
+                            + float(shard.get("wall_s") or 0.0), 4)
+    rec = {"kind": "multichip", "name": str(name),
+           "n_devices": int(n_devices),
+           # empty sections verified nothing: "unknown", never a
+           # vacuous pass in /runs aggregates
+           "verdict": (True if verdicts and set(verdicts) <= {"true"}
+                       else False if "false" in verdicts
+                       else "unknown"),
+           "verdicts": verdicts,
+           "wall_s": round(float(wall_s), 4),
+           "per_device": per_device}
+    if platform is not None:
+        rec["platform"] = str(platform)
+    if hbm is not None:
+        rec["hbm"] = {k: hbm.get(k) for k in
+                      ("peak_measured", "stats_available",
+                       "stats_unavailable", "devices")
+                      if hbm.get(k) is not None}
+    if extra:
+        rec.update(extra)
+    return rec
+
+
 NULL_MONITOR = DeviceMonitor(enabled=False)
 
 

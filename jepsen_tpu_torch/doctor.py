@@ -52,7 +52,7 @@ which names the shared-bucket fix by what it does):
   D013 replica-down            \
   D014 replica-skew             > fleet rules over N replicas' ledgers:
   D015 warm-divergence         /  registered here, evaluated by the
-                                  fleet observatory (not ported yet)
+                                  fleet observatory (`observatory.py`)
   D016 lock-contention         a witnessed lock's acquire-wait p95
                                (the `lockwatch` series) past the gate;
                                silent when the series is absent

@@ -186,7 +186,7 @@ from jepsen_tpu import __main__ as ref_main  # noqa: E402
 # the port's own options, which the reference's commands do not have
 PORT_ONLY = {"device", "devices", "headline"}
 COMMAND_NAMES = ["test", "test-all", "analyze", "serve", "preflight",
-                 "doctor", "autopilot"]
+                 "doctor", "autopilot", "fleet"]
 
 
 def _spec_rows(spec, port: bool):
@@ -205,8 +205,9 @@ def _spec_rows(spec, port: bool):
 
 
 def test_commands_are_the_references_less_fleet():
+    # the name is kept from when `fleet` was missing: the sets are equal
     assert sorted(port_main.COMMANDS) == sorted(COMMAND_NAMES)
-    assert set(ref_main.COMMANDS) - set(port_main.COMMANDS) == {"fleet"}
+    assert sorted(port_main.COMMANDS) == sorted(ref_main.COMMANDS)
     import inspect
     assert "argparse" not in inspect.getsource(port_main)
 
@@ -229,13 +230,16 @@ def test_help_exits_0(command, capsys):
     assert "-h, --help" in out and "Traceback" not in out
 
 
-@pytest.mark.parametrize("argv", [["fleet"], ["fleet", "--json"], ["nope"],
+@pytest.mark.parametrize("argv", [["fleets"], ["nope", "--json"], ["nope"],
                                   [], ["--help"]])
 def test_unknown_commands_and_fleet_exit_254(argv, capsys):
+    """An unknown command exits 254 with the command list, which names
+    `fleet` now; `fleet`'s own codes are in the exit-code scenarios."""
     assert port_main.main(argv) == port_cli.EXIT_BAD_ARGS
+    assert ref_cli.run_cli(ref_main.COMMANDS, argv) == ref_cli.EXIT_BAD_ARGS
     out = capsys.readouterr().out
-    assert "Commands: analyze, autopilot, doctor, preflight, serve, " \
-           "test, test-all" in out
+    assert "Commands: analyze, autopilot, doctor, fleet, preflight, " \
+           "serve, test, test-all" in out
 
 
 def _store_run(root, history, name="demo"):
@@ -312,6 +316,13 @@ def _scenario(name, root):
         "autopilot missing": (["autopilot", "--store", s, "nope"], 254,
                               False),
         "autopilot bad-option": (["autopilot", "--bogus"], 254, False),
+        "fleet roots": (["fleet", os.path.join(s, "r1"), "--json"], 0,
+                        False),
+        "fleet missing-journey": (["fleet", os.path.join(s, "r1"),
+                                   "--journey", "nope"], 1, False),
+        "fleet none-found": (["fleet", "--discover",
+                              os.path.join(s, "none", "empty")], 2, False),
+        "fleet bad-option": (["fleet", "--bogus"], 254, False),
     }
     if name in ("analyze valid", "analyze name-mismatch"):
         _store_run(root, _history())
@@ -321,6 +332,12 @@ def _scenario(name, root):
         _store_run(root, MALFORMED)
     elif name in ("doctor strict", "autopilot storm"):
         _storm(root)
+    elif name in ("fleet roots", "fleet missing-journey"):
+        ledger.Ledger(os.path.join(s, "r1")).record({
+            "kind": "replica-heartbeat", "name": "replica:r1",
+            "replica": "r1", "every_s": 2.0, "served": 0})
+    elif name == "fleet none-found":
+        os.makedirs(os.path.join(s, "none", "empty"))
     elif name == "doctor healthy":
         ledger.Ledger(s).record({"kind": "checker", "name": "run-x",
                                  "platform": "cpu", "compiles": 0})
@@ -336,7 +353,8 @@ SCENARIOS = ["test valid", "test bad-option", "test bad-value",
              "preflight plans", "preflight unknown-config",
              "preflight bad-value", "doctor healthy", "doctor strict",
              "doctor missing", "autopilot storm", "autopilot missing",
-             "autopilot bad-option"]
+             "autopilot bad-option", "fleet roots", "fleet missing-journey",
+             "fleet none-found", "fleet bad-option"]
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS)
@@ -374,12 +392,11 @@ def test_exit_codes_match_the_reference(scenario, tmp_path, monkeypatch,
 def test_serve_on_a_thread_answers_status_with_the_autopilot_block(
         tmp_path, monkeypatch):
     """`serve -p 0`, run by `main` on a thread, binds a free port and
-    answers /status.json with the idle autopilot block; the
-    `/autopilot` page answers 404."""
+    answers /status.json with the idle autopilot block, and the
+    `/autopilot` page with the reference's panel."""
     import json
     import threading
     import time
-    import urllib.error
     import urllib.request
 
     from jepsen_tpu_torch import web
@@ -411,11 +428,17 @@ def test_serve_on_a_thread_answers_status_with_the_autopilot_block(
             "active": False, "steps": 0, "counts": {}, "quarantined": {},
             "pending": [], "actions": []}
         assert snap["service"]["active"] is False
-        # the reference's /autopilot page comes with the port's pages
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(f"http://127.0.0.1:{port}/autopilot",
-                                   timeout=30)
-        assert e.value.code == 404
+        # the reference's /autopilot panel, byte for byte but for the
+        # package named in its command hint
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/autopilot",
+                                    timeout=30) as r:
+            assert r.status == 200
+            page = r.read()
+        from jepsen_tpu import web as ref_web
+        want = ref_web.render_autopilot(str(tmp_path / "store"))
+        assert page.replace(b"python -m jepsen_tpu_torch ",
+                            b"python -m jepsen_tpu ") == want
+        assert b"autopilot &middot; idle" in page
     finally:
         made[0].shutdown()
         t.join(timeout=30)

@@ -12,8 +12,8 @@ against the reference on its 8 JAX CPU devices, both on mode `mesh`,
 verdicts equal); the `single-device` and `mesh-declined` degrades. Over
 HTTP (`web.serve(port=0)`): POST /check 202, the SSE framing of
 /runs/<id>/events and /events, /status.json's service and SLO blocks, a
-shed's 503 with Retry-After, /runs.json and /runs/<id>.json, and 404 on
-the pages not ported. `Service()` with no device raises where there is
+shed's 503 with Retry-After, /runs.json and /runs/<id>.json, the HTML
+pages' 200, and a missing file's 404. `Service()` with no device raises where there is
 no card. Histories are small and ladder warming is off
 (`warm_ladder=False`) except where the warm is the subject.
 
@@ -656,9 +656,10 @@ def test_bad_bodies_and_unported_pages(http_service, tmp_path):
     assert "error" in json.loads(body)
     _http(base, "/check", raw=b"not json", expect=400)
     _http(base, "/elsewhere", {"x": 1}, expect=404)
-    for page in ("/", "/status", "/doctor", "/slo", "/devices", "/fleet",
-                 "/files/x"):
-        _http(base, page, expect=404)
+    # the reference's pages are served (byte parity: test_torch_web.py)
+    for page in ("/", "/status", "/doctor", "/slo", "/devices", "/fleet"):
+        _http(base, page, expect=200)
+    _http(base, "/files/x", expect=404)
     server = tweb.serve(host="127.0.0.1", port=0, store_root=str(tmp_path))
     th_ = threading.Thread(target=server.serve_forever, daemon=True)
     th_.start()

@@ -174,7 +174,15 @@ in fresh processes, a mixed WGL and Elle load to each against the host
 oracle, a `kind="multichip"` record of an 8-key fan-out over `[card] *
 2`, every page of r1, `python -m jepsen_tpu_torch fleet` over both
 stores, then r2 killed: D013, and r2's store untouched by the
-observatory. Last, the bench round (`bench_phases`): `python -m
+observatory. Then the lints and the lock-order witness (`lint_phases`):
+both lints' CLIs in this process (0 over the port's tree, 1 on a
+fixture), then with `JEPSEN_TPU_LOCKWATCH=1` a `Service(devices=[card] *
+2)` serving a warm request, 4 held requests as one mesh batch and the 3k
+Elle request, and `check_streamed` over 8 keys, every verdict the
+oracle's; the witness sees no cycle, `close()` banks one lintable
+`kind="lockwatch"` record, the doctor raises no D016, a seeded inversion
+raises; unset, a new service holds a plain lock and serves the same 4
+requests (both p50 walls printed). Last, the bench round (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
 verdict held against the host oracle or this script's own phase, then a
@@ -4860,6 +4868,311 @@ def fleet_phases(dev, background) -> None:
           flush=True)
 
 
+# ---- the lints and the lock-order witness ------------------------------------
+
+LINT_WARM = dict(n_ops=480, n_procs=4, seed=20)      # warms the bucket
+LINT_HELD = dict(n_ops=500, n_procs=4)               # the held batch of 4
+LINT_SEEDS = (21, 22, 24, 25)                        # one bucket with seed 20
+LINT_STREAM = dict(n_keys=8, n_ops=600, n_procs=5, crash_p=0.002)
+LINT_LIMIT_S = 25.0           # the phase's share of SMOKE_LIMIT_S
+# the held load's turns after the witnessed one: witness off, on, off
+LINT_TURNS = (False, True, False)
+# the kernels the witnessed service and fan-out must launch
+LINT_KERNELS = ("wgl32_chunk", "wgl32_chunk_batched", "wgl_lane_reset",
+                "elle_closure")
+# a poll loop that reads its summary each iteration: K007
+K007_FIXTURE = '''def poll(step, carry):
+    while True:
+        carry, summary = step(carry)
+        s = summary.cpu().numpy()
+        if s[0]:
+            return s
+'''
+
+
+def lint_phases(dev, background) -> None:
+    """The static lints and the runtime lock-order witness on the card:
+
+      1. `python -m jepsen_tpu_torch.analysis.threadlint` and
+         `.kernellint` run in this process (`main([])`): 0 over the
+         port's tree, 1 on `tests/threadlint_fixtures/fixture_t002.py`
+         and on a K007 fixture written to a temporary file;
+      2. the witness armed (`JEPSEN_TPU_LOCKWATCH=1`, `lockwatch.reset()`,
+         a metrics registry and a watchdog installed after it): an
+         in-process `Service(devices=[card] * MESH_SHARDS,
+         mesh_serving=True)` warms its bucket with one LINT_WARM request,
+         serves 4 held LINT_HELD histories (LINT_SEEDS) as one mesh batch
+         and one 3k Elle append request, and `check_streamed` decides
+         LINT_STREAM keys over `[card] * MESH_SHARDS`, every verdict equal
+         to the host oracle's and LINT_KERNELS each launched;
+      3. the witness's results: the snapshot's `lockwatch` block without
+         a cycle, the service, watchdog and fan-out queue locks among
+         those witnessed, one `kind="lockwatch"` record banked by
+         `close()`, it and the `lockwatch` series points lint clean under
+         scripts/telemetry_lint.py, no D016 from `doctor.diagnose` over
+         the ledger and the series; a seeded B->A acquire after A->B
+         raises `LockOrderViolation` naming both, and both locks are
+         taken again after it;
+      4. the witness unset: a Service built afterwards holds a plain
+         RLock and serves the same warm and 4 held requests; then in
+         turns (LINT_TURNS) a new service with the witness on and off
+         again; the held walls' p50 printed witness on and off.
+
+    Takes at most LINT_LIMIT_S; any miss raises."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch import doctor, fs_cache, metrics, service, synth
+    from jepsen_tpu_torch import watchdog
+    from jepsen_tpu_torch.analysis import kernellint, lockwatch, threadlint
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import wgl_ref
+    from jepsen_tpu_torch.parallel import batched, mesh
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import telemetry_lint
+
+    print(f"lints and the lock-order witness ({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    # the service checks Elle without the realtime graph
+    elle_want = background.submit(elle_host_verdict, ELLE_3K, ())
+    tmp = tempfile.mkdtemp(prefix="lint-", dir=str(REPO / "build" /
+                                                    "torch_kernels"))
+
+    # 1. the lints, in this process
+    t0 = time.monotonic()
+    k007 = os.path.join(tmp, "k007.py")
+    with open(k007, "w") as fh:
+        fh.write(K007_FIXTURE)
+    codes = {
+        "threadlint tree": threadlint.main([]),
+        "kernellint tree": kernellint.main([]),
+        "threadlint T002 fixture": threadlint.main([str(
+            REPO / "tests" / "threadlint_fixtures" / "fixture_t002.py")]),
+        "kernellint K007 fixture": kernellint.main([k007])}
+    print(f"  lints ({time.monotonic() - t0:.2f} s): exit codes {codes}",
+          flush=True)
+    if list(codes.values()) != [0, 0, 1, 1]:
+        raise AssertionError(f"lint exit codes: {codes}")
+
+    # the load and its oracle
+    def hist(shape, seed):
+        return synth.cas_register_history(
+            shape["n_ops"], n_procs=shape["n_procs"], seed=seed,
+            crash_p=shape.get("crash_p", 0.0))
+
+    warm_h = hist(LINT_WARM, LINT_WARM["seed"])
+    held = [hist(LINT_HELD, s) for s in LINT_SEEDS]
+    keys = [hist(LINT_STREAM, k) for k in range(LINT_STREAM["n_keys"])]
+    elle_h = [op.to_dict() for op in synth.list_append_history(**ELLE_3K)]
+    want_held = [wgl_ref.check(cas_register(), h)["valid?"] for h in held]
+    want_keys = [wgl_ref.check(cas_register(), h)["valid?"] for h in keys]
+    want_warm = wgl_ref.check(cas_register(), warm_h)["valid?"]
+
+    def body(h):
+        return {"model": "cas-register", "tenant": "lint",
+                "history": [op.to_dict() for op in h]}
+
+    def wait(svc, rid) -> dict:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            info = svc.get(rid)
+            if info and info["state"] in ("done", "rejected"):
+                if str(info.get("cause") or "").startswith("service-error"):
+                    raise AssertionError(f"service error: {info}")
+                return info
+            time.sleep(0.005)
+        raise AssertionError(f"run {rid} never finished")
+
+    def new_service(store):
+        return service.Service(store, devices=[dev] * MESH_SHARDS,
+                               workers=1, rewarm=False, slo_every_s=3600.0,
+                               max_batch=4, mesh_serving=True,
+                               heartbeat_every_s=0)
+
+    def serve_held(svc) -> tuple:
+        """The warm request, then the 4 held ones as one batch: their
+        infos and the batch point."""
+        warm = wait(svc, svc.submit(body(warm_h))["id"])
+        svc.hold(True)
+        rids = [svc.submit(body(h))["id"] for h in held]
+        svc.hold(False)
+        infos = [wait(svc, r) for r in rids]
+        bp = svc.mx.series("service_batch").points[-1]
+        if (warm["verdict"] != want_warm
+                or [i["verdict"] for i in infos] != want_held
+                or bp["mode"] != "mesh" or bp["batch_n"] != len(held)):
+            raise AssertionError(f"held load: warm {warm}, {infos} (oracle "
+                                 f"{want_warm}, {want_held}), batch {bp}")
+        return infos, bp
+
+    prev_cache = fs_cache.DIR
+    prev_env = {k: os.environ.get(k)
+                for k in (lockwatch.ENV, lockwatch.STRICT_ENV)}
+    fs_cache.DIR = os.path.join(tmp, "fs_cache")
+    wd = None
+    try:
+        # 2. the witness armed, then the service and the fan-out
+        os.environ[lockwatch.ENV] = "1"
+        os.environ[lockwatch.STRICT_ENV] = "1"
+        lockwatch.reset()
+        reg = metrics.Registry()
+        wd = watchdog.Watchdog()
+        zero_counts()
+        t_on = time.monotonic()
+        with metrics.use(reg), watchdog.use(wd):
+            svc = new_service(os.path.join(tmp, "store-on"))
+            if not isinstance(svc._lock, lockwatch.WatchedLock):
+                raise AssertionError(f"armed service lock: {svc._lock!r}")
+            try:
+                infos_on, bp_on = serve_held(svc)
+                ei = wait(svc, svc.submit({"checker": "elle-append",
+                                           "tenant": "lint",
+                                           "history": elle_h})["id"])
+                t_s = time.monotonic()
+                res = batched.check_streamed(cas_register(), keys,
+                                             devices=[dev] * MESH_SHARDS)
+                torch.cuda.synchronize()
+                stream_s = time.monotonic() - t_s
+                snap = svc.snapshot()
+            finally:
+                svc.close()
+            counts = read_counts()
+            on_s = time.monotonic() - t_on
+        ew = elle_want.result(timeout=120)
+        got_keys = [r["valid?"] for r in res]
+        print(f"  witnessed load ({on_s:.2f} s): warm request, held batch "
+              f"of {bp_on['batch_n']} mode {bp_on['mode']} verdicts "
+              f"{[i['verdict'] for i in infos_on]} (oracle {want_held}); "
+              f"elle append {ELLE_3K}: {ei['verdict']} (oracle "
+              f"{ew['valid?']} {ew['anomaly-types']}); check_streamed "
+              f"{LINT_STREAM['n_keys']} keys x {LINT_STREAM['n_ops']} over "
+              f"[card] * {MESH_SHARDS} in {stream_s:.4f} s: {got_keys} "
+              f"(oracle {want_keys})", flush=True)
+        print(f"  launches of the witnessed load: {counts}", flush=True)
+        if ei["verdict"] != ew["valid?"] or got_keys != want_keys:
+            raise AssertionError(f"witnessed verdicts: elle {ei}, keys "
+                                 f"{got_keys}")
+        if any(counts[k] < 1 for k in LINT_KERNELS):
+            raise AssertionError(f"witnessed load launched too little: "
+                                 f"{counts}")
+
+        # 3. the witness's results
+        block = snap.get("lockwatch") or {}
+        rep = lockwatch.report()
+        locks = rep["locks"]
+        print(f"  witness: cycle {block.get('cycle')}, edges "
+              f"{rep['edges']}, locks "
+              + json.dumps({k: [v["acquires"], v["contended"],
+                                v["wait_max_s"], v["hold_max_s"]]
+                            for k, v in locks.items()})
+              + " [acquires, contended, wait_max_s, hold_max_s]",
+              flush=True)
+        if block.get("cycle") is not False or rep["cycle"] \
+                or not {"service", "watchdog", "batched.queue"} <= set(locks):
+            raise AssertionError(f"witness: {block}, {rep}")
+        recs = svc.ledger.query(kind="lockwatch")
+        pts = reg.series("lockwatch").points
+        errs = [e for r in recs for e in telemetry_lint.lint_ledger_file(
+            svc.ledger.record_path(r["id"]))]
+        errs += [e for p in pts for e in telemetry_lint.lint_line(
+            {"type": "sample", "series": "lockwatch", **p}, "lockwatch")]
+        diag = doctor.diagnose(doctor.TelemetryView(
+            target="service", records=svc.ledger.query(),
+            series={"lockwatch": pts}))
+        rules = sorted({f["rule"] for f in diag["findings"]})
+        print(f"  banked {len(recs)} lockwatch record(s), {len(pts)} "
+              f"series point(s), lint errors {errs}; doctor rules {rules}",
+              flush=True)
+        if len(recs) != 1 or recs[0]["cycle"] is not False or errs \
+                or "D016" in rules:
+            raise AssertionError(f"lockwatch record: {recs}, {errs}, "
+                                 f"{rules}")
+        a, b = lockwatch.lock("smoke.A"), lockwatch.lock("smoke.B")
+        with a:
+            with b:
+                pass
+        raised = None
+        try:
+            with b:
+                with a:
+                    pass
+        except lockwatch.LockOrderViolation as e:
+            raised = str(e)
+        again = a.acquire(timeout=1) and b.acquire(timeout=1)
+        a.release()
+        b.release()
+        print(f"  seeded inversion: raised {raised is not None}, locks "
+              f"taken again {again}", flush=True)
+        if raised is None or "'smoke.A'" not in raised \
+                or "'smoke.B'" not in raised or not again:
+            raise AssertionError(f"seeded inversion: {raised}, {again}")
+    finally:
+        if wd is not None:
+            wd.stop()
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        lockwatch.reset()
+
+    # 4. the witness unset: a plain lock, and the same held load timed,
+    # off and on in turns after the witnessed turn above
+    def held_turn(n: int, witness: bool) -> list:
+        if witness:
+            os.environ[lockwatch.ENV] = "1"
+            lockwatch.reset()
+        try:
+            svc = new_service(os.path.join(tmp, f"store-{n}"))
+            try:
+                plain = type(svc._lock) is type(threading.RLock())
+                if plain is witness:
+                    raise AssertionError(f"turn {n} (witness {witness}): "
+                                         f"service lock {svc._lock!r}")
+                infos, _ = serve_held(svc)
+            finally:
+                svc.close()
+            if witness and lockwatch.report()["cycle"]:
+                raise AssertionError(f"turn {n}: {lockwatch.report()}")
+            if not witness and lockwatch.events():
+                raise AssertionError(f"{lockwatch.events()} witness events "
+                                     "with the witness off")
+        finally:
+            os.environ.pop(lockwatch.ENV, None)
+            lockwatch.reset()
+        return sorted(i["wall_s"] for i in infos)
+
+    turns = [(True, sorted(i["wall_s"] for i in infos_on))]
+    try:
+        if lockwatch.enabled():
+            raise AssertionError("the witness is still armed")
+        for n, witness in enumerate(LINT_TURNS, 1):
+            turns.append((witness, held_turn(n, witness)))
+    finally:
+        for k, v in prev_env.items():
+            if v is not None:
+                os.environ[k] = v
+        mesh.pool_settle()
+        mesh.pool_clear()
+        fs_cache.DIR = prev_cache
+    shutil.rmtree(tmp, ignore_errors=True)
+    for witness in (True, False):
+        walls = [w for on, ws in turns if on is witness for w in ws]
+        print(f"  held batch walls (s), witness {'on' if witness else 'off'}"
+              f": p50 {statistics.median(walls)} over {len(walls)}; turns "
+              + "; ".join(f"p50 {statistics.median(ws)} {ws}"
+                          for on, ws in turns if on is witness), flush=True)
+    took = time.monotonic() - t_all
+    print(f"  lint phase: {took:.1f} s", flush=True)
+    if took > LINT_LIMIT_S:
+        raise AssertionError(f"lint phase took {took:.1f} s (limit "
+                             f"{LINT_LIMIT_S} s)")
+
+
 # ---- the bench round ---------------------------------------------------------
 
 SMOKE_LIMIT_S = 1200          # the time limit this script runs under
@@ -5673,6 +5986,7 @@ def run_phases(dev, host10, background) -> int:
     ap_store, ap_bodies = autopilot_phases(dev)
     cli_phases(dev, ap_store, ap_bodies)
     fleet_phases(dev, background)
+    lint_phases(dev, background)
     bench_phases(background)
 
     print("card:", card_line())

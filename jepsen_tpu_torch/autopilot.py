@@ -52,8 +52,9 @@ Architecture: the `Supervisor` talks to a `Host` adapter — diagnose /
 slo_report / probe(metric) / actuate(rule, finding) — so the policy
 lifecycle is unit-testable against fabricated hosts, while
 `ServiceHost` binds it to a live `service.Service`. The supervisor's
-lock is a plain `threading.Lock` (the reference's is a lock-order
-witness's, which the port does not have yet), as the service's is.
+lock is `lockwatch.lock("autopilot")`: a plain `threading.Lock` unless
+JEPSEN_TPU_LOCKWATCH is set, then the lock-order witness
+(`analysis/lockwatch.py`), as the service's is.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from typing import Callable, Optional
 from . import fleet
 from . import ledger as ledger_mod
 from . import metrics as metrics_mod
+from .analysis import lockwatch
 
 SCHEMA = 1
 
@@ -555,7 +557,7 @@ class Supervisor:
         self.where = str(where)
         self._mx = mx
         self._ledger = ledger
-        self._lock = threading.Lock()
+        self._lock = lockwatch.lock("autopilot")
         self._pending: dict = {}      # rule -> in-flight action
         self._quarantine: dict = {}   # rule -> {t, reason, action_id}
         self._history: deque = deque(maxlen=HISTORY_CAP)

@@ -19,8 +19,9 @@ another process can watch a live run.
 Zero-cost contract (as in `metrics`): the ambient default is a disabled
 `RunStatus` whose recording methods return at once; JEPSEN_TPU_STATUS=1
 (the reference's switch) or `set_default` / `use` install a real one.
-The reference's status lock comes from its lock-order instrumentation;
-the port's is a plain `threading.Lock`. `record_sched_event` also keeps
+The status lock is `lockwatch.lock("fleet.status")`: a plain
+`threading.Lock` unless JEPSEN_TPU_LOCKWATCH is set, then the lock-order
+witness (`analysis/lockwatch.py`). `record_sched_event` also keeps
 the scheduler's actions in a bounded list in memory (`sched_events`),
 whether or not metrics are on.
 """
@@ -38,6 +39,7 @@ from collections import deque
 from typing import Iterator, Optional
 
 from . import metrics as _metrics
+from .analysis import lockwatch
 
 # Bound on a fault event's traceback text.
 FAULT_TB_LIMIT = 4000
@@ -445,7 +447,7 @@ class RunStatus:
         self.progress = (progress if progress is not None else
                          os.environ.get("JEPSEN_TPU_PROGRESS", "")
                          not in ("", "0"))
-        self._lock = threading.Lock()
+        self._lock = lockwatch.lock("fleet.status")
         self._t0 = time.monotonic()
         self._last_write = 0.0
         self._last_tick = 0.0

@@ -17,8 +17,9 @@ The planes, fleet-ified:
     one-root federation is record-for-record identical to the local
     read, and `query_with_replica` threads per-replica provenance
     alongside without polluting the records themselves. The cache
-    lock is a plain `threading.Lock`, as in the port's service and
-    autopilot (the reference's is a `lockwatch` witness).
+    lock is `lockwatch.lock("observatory.cache")`, as in the service
+    and the autopilot: a plain `threading.Lock` unless
+    JEPSEN_TPU_LOCKWATCH is set, then the lock-order witness.
   * **heartbeats** — every serving process banks periodic
     `kind="replica-heartbeat"` records (`service.Service`: identity,
     cadence, queue depth, served/warm counters, warm-bucket
@@ -55,7 +56,6 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from typing import Any, Optional
 
@@ -63,6 +63,7 @@ from . import doctor as doctor_mod
 from . import ledger as ledger_mod
 from . import slo as slo_mod
 from . import trace as trace_mod
+from .analysis import lockwatch
 
 SCHEMA = 1
 
@@ -179,7 +180,7 @@ class FederatedLedger:
         # a plain dict, so its read-check-store must be serialized —
         # a torn (sig, records) pair would alias one root's stale
         # records under another's fresh signature
-        self._cache_lock = threading.Lock()
+        self._cache_lock = lockwatch.lock("observatory.cache")
 
     def signature(self) -> tuple:
         """The fleet-wide change key: per-root index signatures in

@@ -217,6 +217,7 @@ def precompile_elle_closure(shape_bucket: dict,
     def sync(devs):
         for d in dict.fromkeys(devs):
             if d.type == "cuda":
+                # kernellint: ok(K007) — a warm's one wait a card
                 torch.cuda.synchronize(d)
 
     out: dict = {}

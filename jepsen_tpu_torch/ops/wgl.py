@@ -459,11 +459,13 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
             if instrumented and dev.type == "cuda":
                 # wait for the chunk, so that the copy below is timed
                 # apart from the device's compute
+                # kernellint: ok(K007) — the instrumented poll's one split
                 torch.cuda.current_stream(dev).synchronize()
             with tracer.span("host-poll"):
                 t_xfer = _time.monotonic()
                 # the one device->host copy per chunk: the packed
                 # summary, its occupancy ring included
+                # kernellint: ok(K007) — the ONE designed per-chunk poll
                 s = summary.cpu().numpy()
                 xfer_s = _time.monotonic() - t_xfer
                 _guards.note_transfer("d2h", s.nbytes, what="wgl-poll")

@@ -56,7 +56,7 @@ from .. import fleet as _fleet
 from .. import metrics as _metrics
 from .. import occupancy as _occ
 from .. import watchdog as _watchdog
-from ..analysis import preflight
+from ..analysis import lockwatch, preflight
 from ..history import History
 from ..models.core import Model
 from ..ops import adapt as _adapt
@@ -355,7 +355,7 @@ def check_streamed(model: Model, histories: Sequence[History],
         d = load.index(min(load))
         queues[d].append(i)
         load[d] += est[i]
-    qlock = threading.Lock()
+    qlock = lockwatch.lock("batched.queue")
     results: list[Optional[dict]] = [None] * len(histories)
     errors: list = []
 
@@ -694,6 +694,7 @@ def _check_vmap(model: Model, histories: Sequence[History],
             parts = []
             for d, summary in enumerate(summaries):
                 with on_stream(streams[d]):
+                    # kernellint: ok(K007) — each device's one poll read
                     parts.append(summary.cpu().numpy())
             s = np.concatenate(parts)
             n_polls += 1

@@ -555,6 +555,7 @@ def warm_plan(bucket: dict, *, n_devices: Optional[int] = None,
 def _sync_streams(streams) -> None:
     for st in streams:
         if st is not None:
+            # kernellint: ok(K007) — a warm's one wait a stream
             st.synchronize()
 
 
@@ -1073,6 +1074,7 @@ def _run_group(gr: _GroupRun, t0_all: float, planes: tuple) -> int:
             parts = []
             for d in range(nd):
                 with on_stream(streams[d]):
+                    # kernellint: ok(K007) — each shard's one poll read
                     parts.append(summaries[d].cpu().numpy())
             s = np.concatenate(parts)
             gr.polls += 1

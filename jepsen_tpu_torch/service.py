@@ -51,8 +51,11 @@ periodic `kind="replica-heartbeat"` ledger record.
 over the service from `start` to `close`: doctor and SLO findings
 execute their remedies through the service's own controls (the bucket
 warm, the ladder pin, the pool resize, the shed window), every action
-banked and verified. The service lock is a plain `threading.RLock`:
-the reference's lock-order instrumentation is not ported yet.
+banked and verified. The service lock is `lockwatch.rlock("service")`
+(`analysis/lockwatch.py`): a plain `threading.RLock` unless
+JEPSEN_TPU_LOCKWATCH is set when the service is built, then the
+lock-order witness, whose report is the snapshot's `lockwatch` block and
+whose `kind="lockwatch"` record `close()` banks.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ from . import ledger as ledger_mod
 from . import metrics as metrics_mod
 from . import slo as slo_mod
 from . import trace as trace_mod
+from .analysis import lockwatch
 from .util import resolve_device, resolve_devices
 
 SCHEMA = 1
@@ -310,7 +314,10 @@ class Service:
             else slo_mod.Engine(ledger=self.ledger)
         self.slo_every_s = float(slo_every_s)
         self._last_slo = 0.0
-        self._lock = threading.RLock()
+        # lockwatch.rlock is a plain threading.RLock unless
+        # JEPSEN_TPU_LOCKWATCH is set; then it is the lock-order witness
+        # (both Conditions below share it, so they are one lock to it)
+        self._lock = lockwatch.rlock("service")
         self._cv = threading.Condition(self._lock)     # workers
         self._ev_cv = threading.Condition(self._lock)  # SSE readers
         self._queues: dict = {}   # bucket key -> deque[_Request]
@@ -393,6 +400,8 @@ class Service:
             t.join(timeout=timeout)
         with self._lock:
             self._threads = []
+        if lockwatch.enabled():
+            lockwatch.bank(self.ledger)
 
     @property
     def closed(self) -> bool:
@@ -1565,6 +1574,8 @@ class Service:
                               if served else None),
                 "shedding": self.shedding() is not None,
                 "recent": recent}
+        if lockwatch.enabled():
+            snap["lockwatch"] = lockwatch.report()
         return snap
 
 

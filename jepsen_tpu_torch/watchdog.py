@@ -20,8 +20,9 @@ than `stall_s` **stalled**:
 Knobs: `stall_s` (default 30 s, env JEPSEN_TPU_WATCHDOG_STALL_S),
 `poll_s` (monitor scan interval, default stall_s/4), `escalation`
 ("record", the default, or "cancel", env JEPSEN_TPU_WATCHDOG_ESCALATION).
-The reference's lock comes from its lock-order instrumentation
-(`analysis/lockwatch.py`); the port's is a plain `threading.Lock`.
+The lock is `lockwatch.lock("watchdog")` (`analysis/lockwatch.py`): a
+plain `threading.Lock` unless JEPSEN_TPU_LOCKWATCH is set when the
+watchdog is built, then the lock-order witness.
 
 Zero-cost contract: the module default is a disabled `NULL_WATCHDOG`;
 `register()` hands back an inert source and `beat()` returns at once.
@@ -37,6 +38,8 @@ import os
 import threading
 import time
 from typing import Iterator, Optional
+
+from .analysis import lockwatch
 
 DEFAULT_STALL_S = 30.0
 
@@ -103,7 +106,7 @@ class Watchdog:
         self.escalation = esc
         self.stalls: list = []
         self._sources: list = []
-        self._lock = threading.Lock()
+        self._lock = lockwatch.lock("watchdog")
         self._cancel_all = False
         self._cancel_reason: Optional[str] = None
         self._seq = 0

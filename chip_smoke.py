@@ -182,7 +182,22 @@ Elle request, and `check_streamed` over 8 keys, every verdict the
 oracle's; the witness sees no cycle, `close()` banks one lintable
 `kind="lockwatch"` record, the doctor raises no D016, a seeded inversion
 raises; unset, a new service holds a plain lock and serves the same 4
-requests (both p50 walls printed). Last, the bench round (`bench_phases`): `python -m
+requests (both p50 walls printed). Then the harness for real nodes and
+the first live suite (`cluster_phases`): the node tools probed
+(`start-stop-daemon`, `ps`, `xargs`, `awk`, `/usr/bin/python3`, ...), the
+native SSH stack against the port's loopback `MiniSshd` through
+`control.with_ssh({"remote": "native"})` (exec, stderr, stdin, upload
+and download byte for byte, a daemon started, watched and stopped, a
+wrong password and a wrong host-key pin refused), a durable toykv
+register run in this process (3 live server processes over the
+localexec remote, 6 workers for 10 s, the kill/restart nemesis sending
+real `kill -9`s, logs snarfed, each key decided by the competition race
+whose device lane runs `wgl32_chunk` on the card), its stored history
+re-checked by `independent.cuda_checker` over `[card] * 2`
+(`wgl32_chunk_batched`) and by the host oracle, both equal to the
+suite's verdict on every key, a volatile set run that loses
+acknowledged adds (False), and `python -m jepsen_tpu_torch.dbs.toykv
+test` in a fresh process (exit 0). Last, the bench round (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
 verdict held against the host oracle or this script's own phase, then a
@@ -5173,6 +5188,341 @@ def lint_phases(dev, background) -> None:
                              f"{LINT_LIMIT_S} s)")
 
 
+# ---- the harness for real nodes and toykv ------------------------------------
+
+# the node tools the phase runs (`nodeutil`, toykv), and those it only probes
+CLUSTER_TOOLS = ("start-stop-daemon", "ps", "xargs", "awk", "grep", "bash")
+CLUSTER_PROBED = ("killall", "pkill")
+NODE_PYTHON = "/usr/bin/python3"          # toykv's daemon (`ToyKVDB._start`)
+CLUSTER_SSH_NODES = ("127.0.0.1", "localhost")   # both the loopback sshd
+CLUSTER_NODES = ["a", "b", "c"]
+CLUSTER_RUN = dict(concurrency=6, time_limit=10, nemesis_interval=2.5)
+CLUSTER_CLI = dict(nodes="a,b", concurrency=4, time_limit=5,
+                   nemesis_interval=2)
+CLUSTER_LIMIT_S = 240.0       # the phase's share of SMOKE_LIMIT_S
+# the kernels of the phase's path: the race's device lane, and the
+# re-check's mesh fan-out over [card] * MESH_SHARDS
+CLUSTER_KERNELS = ("wgl32_chunk", "wgl32_chunk_batched")
+
+
+def free_ports(n: int) -> list:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def kv_of(value):
+    """A stored `[k v]` tuple value (the store writes its repr) as a
+    `KV` again; any other value unchanged."""
+    import ast
+
+    from jepsen_tpu_torch.independent import tuple_
+    if not (isinstance(value, str) and value.startswith("[")
+            and value.endswith("]") and " " in value):
+        return value
+    k, v = value[1:-1].split(" ", 1)
+    return tuple_(ast.literal_eval(k), ast.literal_eval(v))
+
+
+def cluster_phases(dev) -> dict:
+    """The harness for real nodes and the first live suite, on the card's
+    machine, each step's wall printed:
+
+      1. the node tools: CLUSTER_TOOLS and NODE_PYTHON must be there
+         (the package runs the reference's commands; nothing is emulated),
+         CLUSTER_PROBED are printed (no step of this phase runs them), and
+         `cryptography`'s version;
+      2. native SSH: the port's `MiniSshd` on loopback, reached through
+         `control.with_ssh({"remote": "native", ...})` on the two
+         CLUSTER_SSH_NODES, each: `exec_` with stdout, stderr and exit
+         codes, stdin, an upload and a download checked byte for byte,
+         `nodeutil.start_daemon` of `sleep`, `daemon_running` True,
+         `stop_daemon`, the process gone and `daemon_running` None; then
+         a wrong password and a wrong host-key pin each raise `SshError`;
+      3. a durable toykv register run in this process: CLUSTER_NODES,
+         CLUSTER_RUN, free ports through `toykv_ports`, the suite's
+         checker on the card (the default device): True, one `server.log`
+         snarfed per node, more than 3 serving banners, each key's winning
+         engine, the launches of the run; then the stored history, read
+         back from the store, re-checked by `independent.cuda_checker`
+         over `[card] * MESH_SHARDS` (at least one `wgl32_chunk_batched`
+         launch) and by the host oracle per key, both equal to the
+         suite's own verdict on every key;
+      4. a volatile set run (kill -9, restart, read back): False with
+         `lost-count` > 0;
+      5. `python -m jepsen_tpu_torch.dbs.toykv test` (CLUSTER_CLI) in a
+         fresh process: exit 0.
+
+    Returns the launches of steps 3 and 4 by kernel. Takes at most
+    CLUSTER_LIMIT_S; any miss raises."""
+    import collections
+    import hashlib
+    import os
+    import shutil
+    import tempfile
+
+    import cryptography
+
+    from jepsen_tpu_torch import checker, control, core, independent, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.control import minisshd, nodeutil, sshnative
+    from jepsen_tpu_torch.control import sshwire
+    from jepsen_tpu_torch.dbs import toykv
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.util import integer_interval_set_str
+
+    print(f"the harness for real nodes and toykv ({card_line()}):",
+          flush=True)
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="cluster-", dir=str(REPO / "build" /
+                                                      "torch_kernels"))
+
+    # 1. the node tools
+    t0 = time.monotonic()
+    found = {t: shutil.which(t) for t in CLUSTER_TOOLS + CLUSTER_PROBED}
+    py = (subprocess.run([NODE_PYTHON, "-c", "import sys; print(sys.version"
+                          ".split()[0])"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+          if os.path.exists(NODE_PYTHON) else None)
+    print(f"  node tools ({time.monotonic() - t0:.2f} s): "
+          + ", ".join(f"{t} {p or 'MISSING'}" for t, p in found.items())
+          + f"; {NODE_PYTHON} {py or 'MISSING'}; cryptography "
+          f"{cryptography.__version__} (not run by this phase: "
+          f"{', '.join(CLUSTER_PROBED)})", flush=True)
+    missing = [t for t in CLUSTER_TOOLS if not found[t]] + (
+        [] if py else [NODE_PYTHON])
+    if missing:
+        raise AssertionError(f"node tools missing: {missing}")
+
+    # 2. native SSH over the loopback sshd
+    t0 = time.monotonic()
+    ssh_dir = os.path.join(tmp, "sshd")
+    os.makedirs(ssh_dir)
+    srv = minisshd.MiniSshd(cwd=ssh_dir).start()
+    sleep_bin = os.path.realpath(shutil.which("sleep"))
+    payload = bytes(range(256)) * 4096 + b"\xff\xfe\x80 not utf-8"
+    local = os.path.join(tmp, "payload.bin")
+    with open(local, "wb") as fh:
+        fh.write(payload)
+
+    def ssh_node():
+        host = control.state.host
+        out = {"echo": control.exec_("echo", "over", "native", host)}
+        sess = control.state.session
+        res = sess.execute({}, {"cmd": "echo oops >&2; exit 3"})
+        out["stderr"] = (res["exit"], res["out"], res["err"])
+        try:
+            control.exec_("bash", "-c", "echo gone >&2; exit 7")
+            out["raised"] = None
+        except control.NonzeroExit as e:
+            out["raised"] = (e.result["exit"], e.result["err"])
+        res = sess.execute({}, {"cmd": "wc -c", "in": "x" * 100_000})
+        out["stdin"] = (res["exit"], res["out"].strip())
+        remote = os.path.join(ssh_dir, f"up-{host}.bin")
+        control.upload(local, remote)
+        back = os.path.join(tmp, f"down-{host}.bin")
+        control.download(remote, back)
+        with open(back, "rb") as fh:
+            out["bytes"] = fh.read() == payload
+        out["sha"] = control.exec_("sha256sum", remote).split()[0] == \
+            hashlib.sha256(payload).hexdigest()
+        pidfile = os.path.join(ssh_dir, f"sleep-{host}.pid")
+        opts = {"logfile": os.path.join(ssh_dir, f"sleep-{host}.log"),
+                "pidfile": pidfile, "chdir": ssh_dir}
+        out["start"] = nodeutil.start_daemon(opts, sleep_bin, "300")
+        deadline = time.monotonic() + 10
+        while not nodeutil.file_exists(pidfile):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{host}: no {pidfile}")
+            time.sleep(0.02)
+        out["running"] = nodeutil.daemon_running(pidfile)
+        pid = control.exec_("cat", pidfile).strip()
+        nodeutil.stop_daemon(pidfile)
+        deadline = time.monotonic() + 10
+        while True:     # gone, or a zombie not yet reaped
+            stat = nodeutil.meh(control.exec_, "ps", "-o", "stat=", "-p",
+                                pid)
+            if not stat or stat.startswith("Z"):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{host}: sleep {pid} still {stat}")
+            time.sleep(0.02)
+        out["stopped"] = nodeutil.daemon_running(pidfile)
+        return out
+
+    ssh = {"remote": "native", "username": srv.user,
+           "password": srv.password, "port": srv.port}
+    try:
+        with control.with_ssh(ssh):
+            got = control.on_many(list(CLUSTER_SSH_NODES), ssh_node)
+        refused = {}
+        for what, spec in (("password", {"password": "wrong"}),
+                           ("host key", {"hostkey": b"\x00" * 32})):
+            try:
+                sshnative.NativeSSHRemote().connect({
+                    "host": "127.0.0.1", "port": srv.port,
+                    "username": srv.user, "password": srv.password,
+                    "hostkey": srv.host_key_raw, **spec})
+                refused[what] = None
+            except sshwire.SshError as e:
+                refused[what] = str(e)
+    finally:
+        srv.stop()
+    print(f"  native SSH ({time.monotonic() - t0:.2f} s) over the loopback "
+          f"sshd on {list(CLUSTER_SSH_NODES)}: "
+          + "; ".join(f"{h}: {o}" for h, o in got.items())
+          + f"; refused: {refused}", flush=True)
+    for h, o in got.items():
+        if (o["echo"] != f"over native {h}"
+                or o["stderr"] != (3, "", "oops\n")
+                or o["raised"] != (7, "gone\n") or o["stdin"] != (0, "100000")
+                or not o["bytes"] or not o["sha"] or o["start"] != "started"
+                or o["running"] is not True or o["stopped"] is not None):
+            raise AssertionError(f"native SSH on {h}: {o}")
+    if not (refused["password"] and "password rejected" in refused["password"]
+            and refused["host key"] and "MISMATCH" in refused["host key"]):
+        raise AssertionError(f"native SSH refusals: {refused}")
+
+    # 3. a durable register run, then its stored history three ways
+    t0 = time.monotonic()
+    root = os.path.join(tmp, "store")
+    test = toykv.toykv_test({
+        "name": "cluster-register", "nodes": CLUSTER_NODES,
+        "store_root": root, "sandbox": os.path.join(tmp, "nodes"),
+        **CLUSTER_RUN})
+    test["toykv_ports"] = dict(zip(CLUSTER_NODES,
+                                   free_ports(len(CLUSTER_NODES))))
+    before = read_counts()
+    zero_counts()
+    t = core.run(test)
+    counts = read_counts()
+    run_wall = time.monotonic() - t0
+    res = t["results"]
+    keys = res["register"]["results"]
+    by_engine: dict = collections.defaultdict(list)
+    for k, r in keys.items():
+        by_engine[r["linear"].get("engine")].append(k)
+    banners = {n: open(os.path.join(t["store_dir"], n, "server.log")).read()
+               .count("toykv serving on") for n in CLUSTER_NODES}
+    n_ops = len(t["history"])
+    print(f"  register run ({run_wall:.2f} s; {CLUSTER_RUN}, ports "
+          f"{test['toykv_ports']}): valid? {res['valid?']}, {len(keys)} keys, "
+          f"{n_ops} ops; serving banners {banners}; the launches before "
+          f"{ {k: v for k, v in before.items() if v} } and of the run "
+          f"{counts}", flush=True)
+    print("  winning engine by key: " + "; ".join(
+        f"{e} ({len(ks)}) {integer_interval_set_str(ks)}"
+        for e, ks in sorted(by_engine.items(), key=str)), flush=True)
+    if (res["valid?"] is not True or sum(banners.values()) <= 3
+            or counts["wgl32_chunk"] < 1 or not keys
+            or set(by_engine) - {"device", "oracle"}):
+        raise AssertionError(f"register run: {res['valid?']}, banners "
+                             f"{banners}, launches {counts}, engines "
+                             f"{sorted(by_engine, key=str)}")
+
+    t0 = time.monotonic()
+    stored = store.load_latest(root)
+    hist = History([{**op, "value": kv_of(op.get("value"))}
+                    for op in stored["history"]]).index()
+    if [o.to_dict() for o in hist] != [o.to_dict() for o in t["history"]]:
+        raise AssertionError("the stored history differs from the run's")
+    zero_counts()
+    t_c = time.monotonic()
+    mesh_res = independent.cuda_checker(
+        cas_register(), devices=[dev] * MESH_SHARDS).check(
+            {"name": "cluster-recheck"}, hist, {})
+    torch.cuda.synchronize()
+    mesh_s = time.monotonic() - t_c
+    recheck = read_counts()
+    t_c = time.monotonic()
+    host_res = independent.checker(checker.linearizable(
+        cas_register(), algorithm="wgl", device="cpu")).check(
+            {"name": "cluster-oracle"}, hist, {})
+    host_s = time.monotonic() - t_c
+    suite = {k: r["valid?"] for k, r in keys.items()}
+    on_card = {k: r["valid?"] for k, r in mesh_res["results"].items()}
+    oracle = {k: r["valid?"] for k, r in host_res["results"].items()}
+    engines = collections.Counter(
+        str((r.get("shard") or {}).get("engine"))
+        for r in mesh_res["results"].values())
+    print(f"  re-check of the stored history ({time.monotonic() - t0:.2f} s):"
+          f" cuda_checker over [card] * {MESH_SHARDS} {mesh_res['valid?']} "
+          f"in {mesh_s:.3f} s (engines {dict(engines)}, launches {recheck}), "
+          f"host oracle {host_res['valid?']} in {host_s:.3f} s, the suite "
+          f"{res['register']['valid?']}; keys agreeing "
+          f"{sum(on_card[k] == oracle[k] == suite[k] for k in suite)} of "
+          f"{len(suite)}", flush=True)
+    if not (on_card == oracle == suite) or recheck["wgl32_chunk_batched"] < 1:
+        raise AssertionError(f"re-check: {len(on_card)} / {len(oracle)} / "
+                             f"{len(suite)} keys, launches {recheck}")
+    for k, v in recheck.items():
+        counts[k] += v
+
+    # 4. the volatile set run: acknowledged adds lost under kill -9
+    t0 = time.monotonic()
+    db = toykv.ToyKVDB(volatile=True)
+    vt = toykv.toykv_test({
+        "name": "cluster-volatile", "nodes": ["a"], "concurrency": 2,
+        "store_root": root, "sandbox": os.path.join(tmp, "volatile"),
+        "time_limit": 30})
+    vt.update(toykv_ports={"a": free_ports(1)[0]}, db=db,
+              client=toykv.ToyKVSetClient(),
+              nemesis=toykv.kill_restart_nemesis(db),
+              checker=checker.set_checker())
+    counter = iter(range(1000))
+    vt["generator"] = gen.phases(
+        gen.clients([gen.limit(10, lambda t_, c: {
+            "f": "add", "value": next(counter)})]),
+        gen.nemesis([
+            gen.once({"type": "info", "f": "start", "value": ["a"]}),
+            gen.once({"type": "info", "f": "stop", "value": ["a"]})]),
+        gen.clients([gen.limit(3, lambda t_, c: {
+            "f": "read", "value": None})]))
+    vres = core.run(vt)["results"]
+    print(f"  volatile set run ({time.monotonic() - t0:.2f} s): valid? "
+          f"{vres['valid?']}, lost-count {vres.get('lost-count')}, "
+          f"ok-count {vres.get('ok-count')}", flush=True)
+    if vres["valid?"] is not False or not vres.get("lost-count"):
+        raise AssertionError(f"volatile set run: {vres}")
+
+    # 5. the suite's CLI in a fresh process
+    t0 = time.monotonic()
+    c = CLUSTER_CLI
+    proc = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch.dbs.toykv", "test",
+         "--nodes", c["nodes"], "--concurrency", str(c["concurrency"]),
+         "--time-limit", str(c["time_limit"]), "--nemesis-interval",
+         str(c["nemesis_interval"]), "--store-root",
+         os.path.join(tmp, "cli-store"), "--sandbox",
+         os.path.join(tmp, "cli-nodes")], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    print(f"  CLI in a fresh process ({time.monotonic() - t0:.2f} s, "
+          f"{CLUSTER_CLI}): exit {proc.returncode}; "
+          + (proc.stderr.strip().splitlines() or [""])[-1][-200:],
+          flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"toykv CLI: exit {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    took = time.monotonic() - t_all
+    print(f"  launches of the phase: {counts}", flush=True)
+    print(f"  cluster phase: {took:.1f} s", flush=True)
+    if any(counts[k] < 1 for k in CLUSTER_KERNELS):
+        raise AssertionError(f"cluster phase launched too little: {counts}")
+    if took > CLUSTER_LIMIT_S:
+        raise AssertionError(f"cluster phase took {took:.1f} s (limit "
+                             f"{CLUSTER_LIMIT_S} s)")
+    return counts
+
+
 # ---- the bench round ---------------------------------------------------------
 
 SMOKE_LIMIT_S = 1200          # the time limit this script runs under
@@ -5987,10 +6337,11 @@ def run_phases(dev, host10, background) -> int:
     cli_phases(dev, ap_store, ap_bodies)
     fleet_phases(dev, background)
     lint_phases(dev, background)
+    cluster = cluster_phases(dev)
     bench_phases(background)
 
     print("card:", card_line())
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "wgl32_chunk", "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/wgl32_chunk.cu",
         "replaces": "jepsen_tpu/ops/wgl32.py:725",
@@ -6002,8 +6353,13 @@ def run_phases(dev, host10, background) -> int:
         "replaces": "jepsen_tpu/ops/wgln.py:322",
         "launches": wlaunches, "max_abs_err": wide_err,
         "ms": wkernel_ms, "plain_ms": wplain_ms, "bound_ms": wbound_ms,
-        "bound_by": "bytes", "library_ms": None}] + fanout + elle
-        + [bool_entry]}))
+        "bound_by": "bytes", "library_ms": None}] + fanout + elle + [
+            bool_entry]
+    # the cluster phase's launches join each kernel's main-path count
+    for entry in kernels:
+        entry["launches"] = (entry["launches"] or 0) + cluster.get(
+            entry["name"], 0)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,7 @@ The default remote is the OpenSSH subprocess transport wrapped in
 retries; `{"dummy?": True}` in the test's ssh map swaps in the no-op
 remote exactly as the reference's `:dummy?` flag does (control.clj:40).
 
-The port's copy of `jepsen_tpu/control/__init__.py`, without the
-reference's "native" SSH stack (`named_remote("native")` raises).
+The port's copy of `jepsen_tpu/control/__init__.py`.
 """
 
 from __future__ import annotations
@@ -235,16 +234,13 @@ def with_remote(remote: Remote):
 
 
 def named_remote(name: str) -> Remote:
-    """A Remote by name: "cli" (OpenSSH binary, the default stack),
-    selected via the ssh map's "remote" key the way the reference's
-    :remote option picks a stack. The reference's "native" stack (its
-    from-scratch SSH-2 implementation) is not ported yet: asking for it
-    raises ValueError (ROADMAP.md, Queue A item 6)."""
+    """A Remote by name: "cli" (OpenSSH binary, the default stack) or
+    "native" (the from-scratch SSH-2 implementation, sshnative.py) —
+    the reference's clj-ssh/sshj duality, selected via the ssh map's
+    "remote" key the way its :remote option picks a stack."""
     if name == "native":
-        raise ValueError(
-            "remote 'native' is not ported to jepsen_tpu_torch yet "
-            "(ROADMAP.md Queue A item 6: control's other remotes); use "
-            "'cli'")
+        from . import sshnative
+        return retry_mod.remote(sshnative.remote())
     if name in ("cli", "ssh"):
         return default_remote()
     raise ValueError(f"unknown remote {name!r} (want cli or native)")

@@ -81,17 +81,6 @@ class _Sessions:
         self.close()
 
 
-def _file_exists(path: str) -> bool:
-    """exists? on the bound node (control/util.clj:38-43; the
-    reference's `control/nodeutil.file_exists`, which the port has not
-    ported whole)."""
-    try:
-        control.exec_("test", "-e", path)
-        return True
-    except control.NonzeroExit:
-        return False
-
-
 def snarf_logs(test: dict) -> None:
     """Download DB log files into the store directory (core.clj:102-136)."""
     db = test.get("db")
@@ -100,8 +89,9 @@ def snarf_logs(test: dict) -> None:
         return
 
     def snarf(t, node):
+        from .control import nodeutil as cu
         for remote in db.log_files(t, node):
-            if _file_exists(remote):
+            if cu.file_exists(remote):
                 local = os.path.join(store_dir, str(node),
                                      remote.lstrip("/"))
                 os.makedirs(os.path.dirname(local), exist_ok=True)

@@ -1,20 +1,21 @@
 """Database lifecycle protocols (parity with jepsen.db,
 `jepsen/src/jepsen/db.clj`): `DB` setup/teardown (db.clj:11-13), optional
 `Process` start/kill (:18-24), `Pause` (:26-29), `Primary` (:31-38),
-`LogFiles` (:40-41), and `cycle` (teardown -> setup on all nodes with 3
-retries on SetupFailed, :117-158).
+`LogFiles` (:40-41), a tcpdump capture DB (:49-115), and `cycle`
+(teardown -> setup on all nodes with 3 retries on SetupFailed,
+:117-158).
 
-The port's copy of `jepsen_tpu/db.py:1-72, 133-158`. The tcpdump capture
-DB (`Tcpdump`, :74-130) needs `control.nodeutil` and is not ported yet
-(ROADMAP.md Queue A item 6).
+The port's copy of `jepsen_tpu/db.py`.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Sequence
+import time as _time
+from typing import Optional, Sequence
 
 from . import control as c
+from .control import nodeutil as cu
 
 log = logging.getLogger("jepsen_tpu_torch.db")
 
@@ -71,6 +72,66 @@ noop = Noop
 
 class SetupFailed(Exception):
     """Throw from DB.setup to request a teardown+retry (db.clj:117-120)."""
+
+
+class Tcpdump(DB, LogFiles):
+    """Captures packets from setup to teardown (db.clj:49-115). Options:
+    ports (list), clients_only (bool), filter (str)."""
+
+    DIR = "/tmp/jepsen/tcpdump"
+
+    def __init__(self, opts: Optional[dict] = None):
+        self.opts = opts or {}
+
+    @property
+    def log_file(self):
+        return f"{self.DIR}/log"
+
+    @property
+    def cap_file(self):
+        return f"{self.DIR}/tcpdump"
+
+    @property
+    def pid_file(self):
+        return f"{self.DIR}/pid"
+
+    def setup(self, test, node):
+        with c.su():
+            c.exec_("mkdir", "-p", self.DIR)
+            filters = []
+            if self.opts.get("ports"):
+                filters.append(" and ".join(
+                    f"port {p}" for p in self.opts["ports"]))
+            if self.opts.get("clients_only"):
+                from .control import netinfo
+                filters.append(f"host {netinfo.control_ip()}")
+            if self.opts.get("filter"):
+                filters.append(self.opts["filter"])
+            cu.start_daemon(
+                {"logfile": self.log_file, "pidfile": self.pid_file,
+                 "chdir": self.DIR},
+                "/usr/sbin/tcpdump",
+                "-w", self.cap_file, "-s", "65535", "-B", "16384", "-U",
+                " and ".join(filters))
+
+    def teardown(self, test, node):
+        with c.su():
+            pid = cu.meh(c.exec_, "cat", self.pid_file)
+            if pid:
+                cu.meh(c.exec_, "kill", "-s", "INT", pid.strip())
+                for _ in range(100):
+                    if cu.meh(c.exec_, "ps", "-p", pid.strip()) is None:
+                        break
+                    _time.sleep(0.05)
+            cu.stop_daemon("tcpdump", self.pid_file)
+            c.exec_("rm", "-rf", self.DIR)
+
+    def log_files(self, test, node):
+        return [self.log_file, self.cap_file]
+
+
+def tcpdump(opts: Optional[dict] = None) -> Tcpdump:
+    return Tcpdump(opts)
 
 
 CYCLE_TRIES = 3  # db.clj:117-120

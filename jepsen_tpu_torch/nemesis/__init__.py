@@ -2,24 +2,29 @@
 invoke-shaped interface clients use.
 
 Capability parity with jepsen.nemesis (`jepsen/src/jepsen/nemesis.clj`):
-the `Nemesis` protocol (:11-16) and `Reflection.fs` (:18-21), `Noop`,
-`Validate` and `Timeout`, the grudge algebra (complete_grudge :120-132,
-invert_grudge, bridge :144-155, majorities_ring :202-275 in exact
-<=5-node and stochastic variants), and `f_map` (:285-327) and `compose`
-(:329-428) for building composite nemeses.
+the `Nemesis` protocol (:11-16) and `Reflection.fs` (:18-21), grudge
+algebra (complete_grudge :120-132, invert_grudge, bridge :144-155,
+majorities_ring :202-275 in exact ≤5-node and stochastic variants),
+partitioners (:157-200), `f_map` (:285-327) and `compose` (:329-428)
+for building composite nemeses, clock scrambling (:435-450),
+node start/stoppers and SIGSTOP hammering (:452-511), and file
+truncation (:513-539).
 
-The port's copy of the protocol half of `jepsen_tpu/nemesis/__init__.py`
-(:31-224, 283-398). The fault injectors (partitioners, the clock
-scrambler, the node start-stopper, SIGSTOP hammering, file truncation)
-and `nemesis/*.py` are not ported yet (ROADMAP.md Queue A item 6).
+The port's copy of `jepsen_tpu/nemesis/__init__.py`. The composite
+nemesis packages (`nemesis/combined.py`, `faultfs.py`, `membership.py`,
+`timefaults.py`) are not ported yet (ROADMAP.md Queue A item 6.4).
 """
 
 from __future__ import annotations
 
 import logging
 import random as _random
-from typing import Callable, Iterable, Sequence
+import threading
+import time as _time
+from typing import Any, Callable, Iterable, Optional, Sequence
 
+from .. import control as c
+from .. import net as jnet
 from ..util import majority, timeout as util_timeout
 
 log = logging.getLogger("jepsen_tpu_torch.nemesis")
@@ -219,6 +224,76 @@ def majorities_ring(nodes: Sequence) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Partitioners (nemesis.clj:157-200, 277-281)
+# ---------------------------------------------------------------------------
+
+class Partitioner(Nemesis):
+    """start -> apply a grudge; stop -> heal (nemesis.clj:157-183). The
+    grudge comes from the op's value, or from grudge_fn(test nodes)."""
+
+    def __init__(self, grudge_fn: Optional[Callable] = None):
+        self.grudge_fn = grudge_fn
+
+    def setup(self, test):
+        test["net"].heal(test)
+        return self
+
+    def invoke(self, test, op):
+        f = op.get("f")
+        if f == "start":
+            grudge = op.get("value")
+            if grudge is None:
+                if self.grudge_fn is None:
+                    raise ValueError(
+                        f"expected op {op!r} to have a grudge for a value")
+                grudge = self.grudge_fn(list(test["nodes"]))
+            jnet.drop_all(test, grudge)
+            log.info("Cut off %r", grudge)
+            return {**op, "type": "info",
+                    "value": ["isolated", {k: sorted(v, key=str)
+                                           for k, v in grudge.items()}]}
+        if f == "stop":
+            test["net"].heal(test)
+            log.info("Network healed")
+            return {**op, "type": "info", "value": "network-healed"}
+        raise ValueError(f"partitioner can't handle {f!r}")
+
+    def teardown(self, test):
+        test["net"].heal(test)
+
+    def fs(self):
+        return {"start", "stop"}
+
+
+def partitioner(grudge_fn: Optional[Callable] = None) -> Partitioner:
+    return Partitioner(grudge_fn)
+
+
+def partition_halves() -> Partitioner:
+    """First half vs second half (nemesis.clj:185-190)."""
+    return Partitioner(lambda nodes: complete_grudge(bisect(nodes)))
+
+
+def partition_random_halves() -> Partitioner:
+    """Random halves (nemesis.clj:192-195)."""
+    def f(nodes):
+        nodes = list(nodes)
+        RNG.shuffle(nodes)
+        return complete_grudge(bisect(nodes))
+    return Partitioner(f)
+
+
+def partition_random_node() -> Partitioner:
+    """Isolate one random node (nemesis.clj:197-200)."""
+    return Partitioner(lambda nodes: complete_grudge(split_one(nodes)))
+
+
+def partition_majorities_ring() -> Partitioner:
+    """nemesis.clj:277-281."""
+    return Partitioner(majorities_ring)
+
+
+# ---------------------------------------------------------------------------
 # Composition (nemesis.clj:283-428)
 # ---------------------------------------------------------------------------
 
@@ -319,3 +394,133 @@ class Compose(Nemesis):
 
 def compose(nemeses) -> Compose:
     return Compose(nemeses if isinstance(nemeses, dict) else list(nemeses))
+
+
+# ---------------------------------------------------------------------------
+# Clock + process faults (nemesis.clj:430-539)
+# ---------------------------------------------------------------------------
+
+def set_time(t: float) -> None:
+    """Set node time in POSIX seconds (nemesis.clj:430-433)."""
+    with c.su():
+        c.exec_("date", "+%s", "-s", f"@{int(t)}")
+
+
+class ClockScrambler(Nemesis):
+    """Randomize node clocks within a dt-second window
+    (nemesis.clj:435-450)."""
+
+    def __init__(self, dt: float):
+        self.dt = dt
+
+    def invoke(self, test, op):
+        def f(t, node):
+            set_time(_time.time() + RNG.uniform(-self.dt, self.dt))
+        value = c.on_nodes(test, f)
+        return {**op, "type": "info", "value": value}
+
+    def teardown(self, test):
+        def f(t, node):
+            set_time(_time.time())
+        c.on_nodes(test, f)
+
+    def fs(self):
+        return {"scramble-clock"}
+
+
+def clock_scrambler(dt: float) -> ClockScrambler:
+    return ClockScrambler(dt)
+
+
+class NodeStartStopper(Nemesis):
+    """start -> run start_fn on targeted nodes; stop -> stop_fn
+    (nemesis.clj:452-495)."""
+
+    def __init__(self, targeter: Callable, start_fn: Callable,
+                 stop_fn: Callable):
+        self.targeter = targeter
+        self.start_fn = start_fn
+        self.stop_fn = stop_fn
+        self.nodes: Optional[list] = None
+        self.lock = threading.Lock()
+
+    def invoke(self, test, op):
+        with self.lock:
+            f = op.get("f")
+            if f == "start":
+                try:
+                    ns = self.targeter(test, list(test["nodes"]))
+                except TypeError:
+                    ns = self.targeter(list(test["nodes"]))
+                if ns is None:
+                    value = "no-target"
+                elif self.nodes is not None:
+                    value = f"nemesis already disrupting {self.nodes!r}"
+                else:
+                    if not isinstance(ns, (list, tuple, set)):
+                        ns = [ns]
+                    ns = list(ns)
+                    value = c.on_many(
+                        ns, lambda: self.start_fn(test, c.state.host))
+                    self.nodes = ns
+            elif f == "stop":
+                if self.nodes is None:
+                    value = "not-started"
+                else:
+                    value = c.on_many(
+                        self.nodes,
+                        lambda: self.stop_fn(test, c.state.host))
+                    self.nodes = None
+            else:
+                raise ValueError(f"can't handle {f!r}")
+            return {**op, "type": "info", "value": value}
+
+    def fs(self):
+        return {"start", "stop"}
+
+
+def node_start_stopper(targeter, start_fn, stop_fn) -> NodeStartStopper:
+    return NodeStartStopper(targeter, start_fn, stop_fn)
+
+
+def hammer_time(process: str, targeter: Optional[Callable] = None
+                ) -> NodeStartStopper:
+    """SIGSTOP/SIGCONT a process on targeted nodes (nemesis.clj:497-511)."""
+    if targeter is None:
+        targeter = lambda nodes: RNG.choice(nodes)  # noqa: E731
+
+    def start(test, node):
+        with c.su():
+            c.exec_("killall", "-s", "STOP", process)
+        return ["paused", process]
+
+    def stop(test, node):
+        with c.su():
+            c.exec_("killall", "-s", "CONT", process)
+        return ["resumed", process]
+
+    return NodeStartStopper(targeter, start, stop)
+
+
+class TruncateFile(Nemesis):
+    """Drop the last bytes of files on nodes (nemesis.clj:513-539); op
+    value is {node: {"file": path, "drop": bytes}}."""
+
+    def invoke(self, test, op):
+        assert op.get("f") == "truncate"
+        plan = op["value"]
+
+        def f(t, node):
+            spec = plan[node]
+            with c.su():
+                c.exec_("truncate", "-c", "-s", f"-{spec['drop']}",
+                        spec["file"])
+        c.on_nodes(test, f, list(plan.keys()))
+        return {**op, "type": "info"}
+
+    def fs(self):
+        return {"truncate"}
+
+
+def truncate_file() -> TruncateFile:
+    return TruncateFile()

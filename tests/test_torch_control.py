@@ -2,8 +2,8 @@
 algebra, the dummy remote's log for the same actions, `bound_fn`
 carrying the calling thread's bindings into worker threads, `on_nodes` /
 `on_many`, `RetryRemote` over a scripted remote, the reconnect wrapper,
-`with_ssh({"dummy?": True})`, and the port's one divergence:
-`named_remote("native")` raises.
+`with_ssh({"dummy?": True})`, and `named_remote`: "cli" and "native"
+as the reference's, each a retry remote over its stack.
 """
 
 import threading
@@ -193,10 +193,15 @@ def test_reconnect_wrapper_matches_reference():
 
 def test_named_remote():
     assert isinstance(port_c.named_remote("cli"), port_retry.RetryRemote)
-    with pytest.raises(ValueError, match="Queue A"):
-        port_c.named_remote("native")
+    from jepsen_tpu_torch.control import sshnative as port_sshnative
+    native = port_c.named_remote("native")
+    assert isinstance(native, port_retry.RetryRemote)
+    assert isinstance(native.inner, port_sshnative.NativeSSHRemote)
+    assert type(ref_c.named_remote("native").inner).__name__ == \
+        type(native.inner).__name__
     with pytest.raises(ValueError, match="unknown remote"):
         port_c.named_remote("telnet")
-    with pytest.raises(ValueError, match="not ported"):
-        with port_c.with_ssh({"remote": "native"}):
-            pass
+    with port_c.with_ssh({"remote": "native"}):
+        assert isinstance(port_c.state.remote, port_retry.RetryRemote)
+        assert isinstance(port_c.state.remote.inner,
+                          port_sshnative.NativeSSHRemote)

@@ -190,14 +190,23 @@ native SSH stack against the port's loopback `MiniSshd` through
 and download byte for byte, a daemon started, watched and stopped, a
 wrong password and a wrong host-key pin refused), a durable toykv
 register run in this process (3 live server processes over the
-localexec remote, 6 workers for 10 s, the kill/restart nemesis sending
+localexec remote, 6 workers for 5 s, the kill/restart nemesis (every 2 s) sending
 real `kill -9`s, logs snarfed, each key decided by the competition race
 whose device lane runs `wgl32_chunk` on the card), its stored history
 re-checked by `independent.cuda_checker` over `[card] * 2`
 (`wgl32_chunk_batched`) and by the host oracle, both equal to the
 suite's verdict on every key, a volatile set run that loses
 acknowledged adds (False), and `python -m jepsen_tpu_torch.dbs.toykv
-test` in a fresh process (exit 0). Last, the bench round (`bench_phases`): `python -m
+test` in a fresh process (exit 0). Then the first live SQL suite
+(`suites_phases`): sqlite `append` and `wr` runs against a live minisql
+primary under kill -9 (4 workers for 5 s, paced to ~1000 transactions),
+each checked on the card by the suite and its stored history re-checked
+three ways (the routed "auto", a forced "device" that launches
+`elle_closure`, each launch held against `closure_ref`, and the host
+oracle), all equal; a bank run (valid, no PNG); and the faultlib
+LD_PRELOAD nemesis against a toykv node (faultlib built with g++ there,
+EIO injected, the set checker's verdict). Last, the bench round
+(`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
 verdict held against the host oracle or this script's own phase, then a
@@ -3070,7 +3079,7 @@ def preflight_phases(dev) -> None:
         raise AssertionError(f"preflight CLI parity: {par}")
 
 
-WARM_TURNS = 3                          # fresh processes per mode
+WARM_TURNS = 2          # fresh processes per mode: one turn in each order
 
 
 def zero_round_checks(dev) -> None:
@@ -5196,7 +5205,9 @@ CLUSTER_PROBED = ("killall", "pkill")
 NODE_PYTHON = "/usr/bin/python3"          # toykv's daemon (`ToyKVDB._start`)
 CLUSTER_SSH_NODES = ("127.0.0.1", "localhost")   # both the loopback sshd
 CLUSTER_NODES = ["a", "b", "c"]
-CLUSTER_RUN = dict(concurrency=6, time_limit=10, nemesis_interval=2.5)
+# 5 s: a kill at 2 s and its restart at 4 s, inside the run (the banners'
+# gate needs the restart), leaving the bench round its budget
+CLUSTER_RUN = dict(concurrency=6, time_limit=5, nemesis_interval=2)
 CLUSTER_CLI = dict(nodes="a,b", concurrency=4, time_limit=5,
                    nemesis_interval=2)
 CLUSTER_LIMIT_S = 240.0       # the phase's share of SMOKE_LIMIT_S
@@ -5523,14 +5534,301 @@ def cluster_phases(dev) -> dict:
     return counts
 
 
+# ---- the first live SQL suite -------------------------------------------------
+
+SUITES_LIMIT_S = 60.0         # the phase's share of SMOKE_LIMIT_S
+# the reference test's options (`tests/test_sqlite.py`: one node, 4 workers,
+# a kill/restart of the primary every 2 s), for 5 s
+SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
+                 nemesis_interval=2.0)
+# the mean gap between the runs' transactions: about a thousand complete in
+# a run, some 550 in the graph, so that it passes the route's `min_n` (384)
+# and stays inside the dense closure's capacity (8192); an unpaced run
+# completes ~24k, whose graph goes to the packed closure
+SUITE_STAGGER_S = 0.005
+SUITE_KERNELS = ("elle_closure",)
+
+
+class HeldClosures:
+    """Inside the block, the inputs (`closure_inputs`) and the outputs (the
+    `_watched` call around the kernel) of every dense closure the Elle
+    checks ran; `errs(dev)` holds each output against `closure_ref` on the
+    same inputs on the card."""
+
+    def __enter__(self):
+        from jepsen_tpu_torch.elle import tpu as etpu
+        self.etpu, self.ins, self.outs = etpu, [], []
+        self.orig = (etpu.closure_inputs, etpu._watched)
+
+        def inputs(*a, **kw):
+            got = self.orig[0](*a, **kw)
+            self.ins.append(None if kw.get("packed") else got)
+            return got
+
+        def watched(fn, devices, **progress):
+            got = self.orig[1](fn, devices, **progress)
+            if progress.get("kernel") != "trim":
+                self.outs.append(got[0])
+            return got
+
+        etpu.closure_inputs, etpu._watched = inputs, watched
+        return self
+
+    def __exit__(self, *exc):
+        self.etpu.closure_inputs, self.etpu._watched = self.orig
+
+    def errs(self, dev) -> list:
+        if len(self.ins) != len(self.outs):
+            raise AssertionError(f"{len(self.ins)} closure inputs for "
+                                 f"{len(self.outs)} closure outputs")
+        out = []
+        for a, got in zip(self.ins, self.outs):
+            if a is None:
+                continue
+            ref = self.etpu.closure_ref(*on_card(a["args"], dev),
+                                        n_pad=a["n_pad"], iters=a["iters"])
+            out.append(outputs_err(got, ref))
+        return out
+
+
+def suites_phases(dev) -> dict:
+    """The first live SQL suite, sqlite, and the faultlib nemesis, on the
+    card's machine, each step's wall printed:
+
+      1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
+         in this process: a minisql primary (stdlib sqlite3 behind RESP,
+         WAL + synchronous=FULL) over the localexec remote, SUITE_RUN with
+         the workload paced by SUITE_STAGGER_S, the kill/restart nemesis
+         sending real `kill -9`s, the suite's checker on the card (the
+         default device): True with no anomaly. Then its stored history,
+         read back from the store, re-checked with the suite's options
+         three ways: the routed "auto" on the card, a forced
+         `cycle_backend="device"` on the card, which must launch
+         `elle_closure` (each dense closure held against `closure_ref` on
+         the same inputs, error 0), and the "host" oracle; the three
+         `valid?` and `anomaly-types` and the suite's must be equal. The
+         transaction count, the route's reason and the launches are
+         printed;
+      2. sqlite `bank` for 5 s: True, and no `bank.png` written;
+      3. `FaultLibNemesis` against one toykv node (the shape of the
+         reference's `test_faultlib_nemesis_against_toykv`): faultlib
+         built on the node with g++ (`make`), the server under its
+         LD_PRELOAD, EIO switched on for the recovery log between two
+         batches of adds and off again: at least one add crashed, the
+         server logged the I/O error, and the `set` checker's verdict is
+         printed (True: nothing acknowledged was lost).
+
+    The servers listen on their suites' own ports, below Linux's ephemeral
+    range: a client retrying a down server's ephemeral port can connect to
+    itself and hold it. Returns the launches of the runs and the re-checks
+    by kernel (the comparisons with `closure_ref` launch nothing). Takes at
+    most SUITES_LIMIT_S; any miss raises."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import checker, control, core, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.dbs import sqlite as sq
+    from jepsen_tpu_torch.dbs import toykv
+    from jepsen_tpu_torch.elle import append, wr
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.nemesis import faultfs
+
+    print(f"the first live SQL suite, sqlite, and the faultlib nemesis "
+          f"({card_line()}):", flush=True)
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
+                                                     "torch_kernels"))
+    counts: collections.Counter = collections.Counter()
+    worst = 0
+
+    def sqlite_run(which: str, paced: bool = True):
+        """A live sqlite run of `which` (its generator paced when `paced`):
+        (test map, what `core.run` returned, the run's launches)."""
+        opts = {**SUITE_RUN, "workload": which,
+                "name": f"suites-{which}",
+                "store_root": os.path.join(tmp, which, "store"),
+                "sandbox": os.path.join(tmp, which, "nodes")}
+        test = sq.sqlite_test(opts)
+        if paced:
+            i = opts["nemesis_interval"]
+            test["generator"] = gen.time_limit(opts["time_limit"], gen.nemesis(
+                gen.cycle([gen.sleep(i), {"type": "info", "f": "start"},
+                           gen.sleep(i), {"type": "info", "f": "stop"}]),
+                gen.stagger(SUITE_STAGGER_S,
+                            sq.WORKLOADS[which](opts)["generator"])))
+        zero_counts()
+        done = core.run(test)
+        torch.cuda.synchronize()
+        return test, done, read_counts()
+
+    # 1. append and wr: the suite, then its stored history three ways
+    for which, check in (("append", append.check), ("wr", wr.check)):
+        t0 = time.monotonic()
+        test, done, run_counts = sqlite_run(which)
+        res = done["results"][which]
+        hist = done["history"]
+        stored = History(store.load_latest(
+            os.path.join(tmp, which, "store"))["history"]).index()
+        if [o.to_dict() for o in stored] != [o.to_dict() for o in hist]:
+            raise AssertionError(f"{which}: the stored history differs "
+                                 "from the run's")
+        txns = sum(1 for o in hist if o.f == "txn" and o.type != "invoke")
+        banners = open(os.path.join(done["store_dir"], "p1", sq.LOGFILE)) \
+            .read().count("minisql serving on")
+        print(f"  {which} run ({time.monotonic() - t0:.2f} s; {SUITE_RUN}, "
+              f"paced {SUITE_STAGGER_S} s): valid? {done['results']['valid?']}"
+              f" ({which} {res['valid?']}, anomalies {res['anomaly-types']}),"
+              f" {txns} txns completed, serving banners {banners}, engine "
+              f"{res.get('cycle-engine')}, route "
+              f"{res.get('cycle-route-reason')!r}, launches "
+              f"{ {k: v for k, v in run_counts.items() if v} }", flush=True)
+        if (done["results"]["valid?"] is not True or res["valid?"] is not True
+                or res["anomaly-types"] or banners < 2):
+            raise AssertionError(f"sqlite {which}: {done['results']}, "
+                                 f"banners {banners}")
+        counts.update(run_counts)
+
+        chk = test["checker"].checker_map[which]
+        kw = dict(anomalies=chk.anomalies,
+                  additional_graphs=chk.additional_graphs)
+        if which == "wr":
+            kw.update(sequential_keys=chk.sequential_keys,
+                      linearizable_keys=chk.linearizable_keys,
+                      wfr_keys=chk.wfr_keys)
+        verdicts, walls = {"suite": res}, {}
+        for how, backend, where in (("auto", "auto", dev),
+                                    ("device", "device", dev),
+                                    ("host", "host", None)):
+            zero_counts()
+            t_c = time.monotonic()
+            with HeldClosures() as held:
+                verdicts[how] = check(stored, cycle_backend=backend,
+                                      device=where, **kw)
+                torch.cuda.synchronize()
+            walls[how] = time.monotonic() - t_c
+            launched = read_counts()
+            errs = held.errs(dev)
+            worst = max([worst] + errs)
+            counts.update(launched)
+            print(f"    {how}: valid? {verdicts[how]['valid?']}, anomalies "
+                  f"{verdicts[how]['anomaly-types']}, engine "
+                  f"{verdicts[how].get('cycle-engine')}, route "
+                  f"{verdicts[how].get('cycle-route-reason')!r}, "
+                  f"{walls[how]:.3f} s, launches "
+                  f"{ {k: v for k, v in launched.items() if v} }, dense "
+                  f"closures held against closure_ref: max abs err by "
+                  f"closure {errs}", flush=True)
+            if any(errs):
+                raise AssertionError(f"sqlite {which} {how}: elle_closure "
+                                     f"differs from closure_ref: {errs}")
+            if how == "device" and (launched["elle_closure"] < 1
+                                    or not errs):
+                raise AssertionError(f"sqlite {which}: the forced device "
+                                     f"check launched {launched}")
+        for how, v in verdicts.items():
+            same_verdict(f"sqlite {which} {how} vs host", v,
+                         verdicts["host"])
+
+    # 2. bank
+    t0 = time.monotonic()
+    _, done, bank_counts = sqlite_run("bank", paced=False)
+    pngs = [os.path.join(d, f) for d, _, fs in os.walk(done["store_dir"])
+            for f in fs if f.endswith(".png")]
+    try:
+        import matplotlib  # noqa: F401
+        have_plt = True
+    except ImportError:
+        have_plt = False
+    bank = done["results"]["bank"]
+    print(f"  bank run ({time.monotonic() - t0:.2f} s): valid? "
+          f"{done['results']['valid?']} (SI {bank['SI']['valid?']}, "
+          f"{bank['SI']['read-count']} reads, "
+          f"{bank['SI']['error-count']} errors), PNGs written {pngs} "
+          f"(matplotlib {'installed' if have_plt else 'absent'})",
+          flush=True)
+    if done["results"]["valid?"] is not True or (pngs and not have_plt) \
+            or bank["SI"]["read-count"] < 1:
+        raise AssertionError(f"sqlite bank: {done['results']}, {pngs}")
+    counts.update(bank_counts)
+
+    # 3. the faultlib nemesis against a toykv node
+    t0 = time.monotonic()
+    ft = toykv.toykv_test({
+        "name": "suites-faultlib", "nodes": ["a"], "concurrency": 2,
+        "store_root": os.path.join(tmp, "faultlib", "store"),
+        "sandbox": os.path.join(tmp, "faultlib", "nodes"), "time_limit": 6,
+        "per_key_limit": 10, "nemesis_interval": 99})
+    with control.with_remote(ft["remote"]):
+        with control.with_ssh({}):
+            with control.on("a"):
+                so = faultfs.install_faultlib()
+    build_s = time.monotonic() - t0
+    ft.update(db=toykv.ToyKVDB(env=faultfs.preload_env(
+        so, conf_path=faultfs.CONF_NAME, path_substr="state.log")),
+        client=toykv.ToyKVSetClient(), nemesis=faultfs.FaultLibNemesis(),
+        checker=checker.compose({"set": checker.set_checker(),
+                                 "crashes": checker.unhandled_exceptions()}))
+    counter = iter(range(10_000))
+
+    def adds(n):
+        return gen.clients([gen.limit(n, lambda t_, c: {
+            "f": "add", "value": next(counter)})])
+
+    ft["generator"] = gen.phases(
+        adds(5),
+        gen.nemesis([gen.once({"type": "info", "f": "start",
+                               "value": {"eio_p": 1.0,
+                                         "path": "state.log"}})]),
+        adds(6),
+        gen.nemesis([gen.once({"type": "info", "f": "stop"})]),
+        adds(5),
+        gen.clients([gen.limit(2, lambda t_, c: {"f": "read",
+                                                 "value": None})]))
+    zero_counts()
+    t = core.run(ft)
+    counts.update(read_counts())
+    hist = t["history"]
+    crashed = sum(1 for op in hist if op.is_info and op.f == "add"
+                  and isinstance(op.process, int))
+    log_text = open(os.path.join(t["store_dir"], "a", "server.log")).read()
+    eio = log_text.count("Input/output error")
+    s = t["results"]["set"]
+    print(f"  faultlib nemesis against toykv ({time.monotonic() - t0:.2f} s, "
+          f"faultlib built in {build_s:.2f} s): {crashed} adds crashed, "
+          f"{eio} EIO in the server log, set checker valid? {s['valid?']} "
+          f"(ok-count {s.get('ok-count')}, lost-count {s.get('lost-count')})",
+          flush=True)
+    if not crashed or not (eio or "OSError" in log_text) or \
+            s["valid?"] is not True or s.get("lost-count"):
+        raise AssertionError(f"faultlib nemesis: {crashed} crashed adds, "
+                             f"{eio} EIO, set {s}")
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    took = time.monotonic() - t_all
+    counts = {k: v for k, v in counts.items() if v}
+    print(f"  launches of the phase: {counts}; dense closures' max abs err "
+          f"against closure_ref {worst}", flush=True)
+    print(f"  suites phase: {took:.1f} s", flush=True)
+    if any(counts.get(k, 0) < 1 for k in SUITE_KERNELS):
+        raise AssertionError(f"suites phase launched too little: {counts}")
+    if took > SUITES_LIMIT_S:
+        raise AssertionError(f"suites phase took {took:.1f} s (limit "
+                             f"{SUITES_LIMIT_S} s)")
+    return {"launches": counts, "max_abs_err": worst}
+
+
 # ---- the bench round ---------------------------------------------------------
 
 SMOKE_LIMIT_S = 1200          # the time limit this script runs under
 # what the phase needs after the first round's budget: the first round's
 # own start and last config's overrun, the second round, the doctor, the
 # last lines, and a margin (the part after the first round took 30-37 s
-# on an H100)
-BENCH_AFTER_S = 180
+# on an H100; the round's configs run only while a config's `need`, up to
+# 150 s, is left of its budget, so that it skips none below ~255 s)
+BENCH_AFTER_S = 90
 BENCH_MAX_TOTAL_S = 930       # the bench's own default round budget
 BENCH_MIN_TOTAL_S = 60
 
@@ -6323,22 +6621,38 @@ def run_phases(dev, host10, background) -> int:
     if res["valid?"] is not True or res.get("engine") != "queue-poly":
         raise AssertionError(f"fifo queue: {res}")
 
-    fanout = fanout_phases(dev)
+    # each phase's wall, and how far into SMOKE_LIMIT_S it ended: what the
+    # bench round's budget is left from
+    walls = {"up to the fan-out": round(time.monotonic() - T_START, 1)}
+
+    def phase(fn, *a):
+        t0 = time.monotonic()
+        try:
+            return fn(*a)
+        finally:
+            walls[fn.__name__] = round(time.monotonic() - t0, 1)
+            print(f"[{fn.__name__}: {walls[fn.__name__]} s, ended "
+                  f"{time.monotonic() - T_START:.1f} s into the smoke]",
+                  flush=True)
+
+    fanout = phase(fanout_phases, dev)
     step_us = barrier_step_us(dev)
-    elle = elle_phases(dev, host10, step_us)
-    bool_entry = bool_chunk_phases(dev, step_us)
-    preflight_phases(dev)
-    warm_phases(dev, lin, h)
-    service_phases(dev)
-    analyze_phases(dev)
-    test_phases(dev)
-    plots_phases(dev)
-    ap_store, ap_bodies = autopilot_phases(dev)
-    cli_phases(dev, ap_store, ap_bodies)
-    fleet_phases(dev, background)
-    lint_phases(dev, background)
-    cluster = cluster_phases(dev)
-    bench_phases(background)
+    elle = phase(elle_phases, dev, host10, step_us)
+    bool_entry = phase(bool_chunk_phases, dev, step_us)
+    phase(preflight_phases, dev)
+    phase(warm_phases, dev, lin, h)
+    phase(service_phases, dev)
+    phase(analyze_phases, dev)
+    phase(test_phases, dev)
+    phase(plots_phases, dev)
+    ap_store, ap_bodies = phase(autopilot_phases, dev)
+    phase(cli_phases, dev, ap_store, ap_bodies)
+    phase(fleet_phases, dev, background)
+    phase(lint_phases, dev, background)
+    cluster = phase(cluster_phases, dev)
+    suites = phase(suites_phases, dev)
+    phase(bench_phases, background)
+    print(f"phase walls (s): {json.dumps(walls)}", flush=True)
 
     print("card:", card_line())
     kernels = [{
@@ -6355,10 +6669,14 @@ def run_phases(dev, host10, background) -> int:
         "ms": wkernel_ms, "plain_ms": wplain_ms, "bound_ms": wbound_ms,
         "bound_by": "bytes", "library_ms": None}] + fanout + elle + [
             bool_entry]
-    # the cluster phase's launches join each kernel's main-path count
+    # the cluster and suites phases' launches join each kernel's main-path
+    # count, and the suites phase's closures its error
     for entry in kernels:
         entry["launches"] = (entry["launches"] or 0) + cluster.get(
-            entry["name"], 0)
+            entry["name"], 0) + suites["launches"].get(entry["name"], 0)
+        if entry["name"] in SUITE_KERNELS:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       suites["max_abs_err"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

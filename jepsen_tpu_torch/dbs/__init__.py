@@ -8,13 +8,28 @@ the shared framework. The suites ported so far:
 - `toykv` — a real networked key-value store driven end to end over
   the localexec remote, proving the whole stack against live
   processes, down to the per-key linearizability check on the card.
+- `redis` — the redis-protocol family (the reference's disque): a
+  from-scratch RESP2 codec and CAS as an atomic server-side Lua
+  script, with two server modes — `source` builds real redis from the
+  release tarball; `mini` (default) runs LIVE in-repo RESP servers
+  with fsync'd AOFs as subprocesses over the localexec remote, so CI
+  exercises install -> real-TCP workload -> kill -9 -> AOF replay ->
+  checker against live processes.
+- `sqlite` — the SQL/ACID family exemplar: a LIVE server wrapping stdlib
+  sqlite3 behind the shared RESP wire — micro-op txns in one
+  serializable BEGIN IMMEDIATE, WAL + synchronous=FULL crash safety —
+  driven by elle append/wr and bank workloads under a primary-kill
+  nemesis, all CI-run against live processes; the elle checks' cycle
+  search runs on the card.
+
+`miniserver` holds the mini servers' shared RESP codec and daemon
+lifecycle, `retryclient` the shared connect-with-retry client.
 
 Run one with `python -m jepsen_tpu_torch.dbs.<suite> test --nodes ...`;
 sweep a suite's matrix with `... test-all`.
 
 The port's copy of `jepsen_tpu/dbs/__init__.py`. The reference's other
-suites, `miniserver.py` and `retryclient.py` are not ported yet
-(ROADMAP.md Queue A item 6.6).
+suites are not ported yet (ROADMAP.md Queue A item 6.6).
 """
 
 from __future__ import annotations

@@ -11,8 +11,10 @@ node start/stoppers and SIGSTOP hammering (:452-511), and file
 truncation (:513-539).
 
 The port's copy of `jepsen_tpu/nemesis/__init__.py`. The composite
-nemesis packages (`nemesis/combined.py`, `faultfs.py`, `membership.py`,
-`timefaults.py`) are not ported yet (ROADMAP.md Queue A item 6.4).
+nemesis packages are ported beside it, as in the reference:
+`nemesis/combined.py` (kill/pause, partition and clock packages),
+`timefaults.py` (clock skew), `faultfs.py` (filesystem faults) and
+`membership.py` (cluster growth and shrinkage).
 """
 
 from __future__ import annotations

@@ -8,6 +8,10 @@ Mirrors the reference's `jepsen.tests.*` namespaces (renamed to
     ------------------------------------------   -----------------------
     jepsen.tests (noop-test, fakes)              jepsen_tpu_torch.fakes
     jepsen.tests.linearizable-register           .linearizable_register
+    jepsen.tests.bank                            .bank
+    jepsen.tests.cycle                           .cycle
+    jepsen.tests.cycle.append                    .cycle_append
+    jepsen.tests.cycle.wr                        .cycle_wr
     tidb.sequential / cockroachdb sequential     .sequential
 
 Each module exposes a `workload(**opts) -> dict` returning at least
@@ -15,11 +19,12 @@ Each module exposes a `workload(**opts) -> dict` returning at least
 map and add a client.
 
 The port's copy of `jepsen_tpu/workloads/__init__.py`. The reference's
-other ten workloads (`adya`, `bank`, `causal`, `causal_reverse`,
-`cycle`, `cycle_append`, `cycle_wr`, `long_fork`, `monotonic`, `sets`)
-are not ported yet (ROADMAP.md Queue A item 6.5).
+other six workloads (`adya`, `causal`, `causal_reverse`, `long_fork`,
+`monotonic`, `sets`) are not ported yet (ROADMAP.md Queue A item 6.5).
 """
 
-from . import linearizable_register, sequential
+from . import (bank, cycle, cycle_append, cycle_wr, linearizable_register,
+               sequential)
 
-__all__ = ["linearizable_register", "sequential"]
+__all__ = ["bank", "cycle", "cycle_append", "cycle_wr",
+           "linearizable_register", "sequential"]

@@ -205,7 +205,11 @@ three ways (the routed "auto", a forced "device" that launches
 `elle_closure`, each launch held against `closure_ref`, and the host
 oracle), all equal; a bank run (valid, no PNG); and the faultlib
 LD_PRELOAD nemesis against a toykv node (faultlib built with g++ there,
-EIO injected, the set checker's verdict). Last, the bench round
+EIO injected, the set checker's verdict); then etcd's `register` (a live
+mini-etcd server under kill -9, 4 workers for 5 s, each key decided by
+the competition race whose device lane runs `wgl32_chunk`, each verdict
+equal to the host oracle's) and `append` (paced, 7.5 s, re-checked the
+same three ways). Last, the bench round
 (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
@@ -3079,7 +3083,9 @@ def preflight_phases(dev) -> None:
         raise AssertionError(f"preflight CLI parity: {par}")
 
 
-WARM_TURNS = 2          # fresh processes per mode: one turn in each order
+# fresh processes per mode, in turns (cold, bind, warm; then the reverse
+# order): one turn, whose wall the suites phase's etcd runs take
+WARM_TURNS = 1
 
 
 def zero_round_checks(dev) -> None:
@@ -3165,7 +3171,7 @@ def warm_phases(dev, lin, hist) -> None:
     """The warm plane and the compile guard on the card. In this process,
     two steady re-checks of the headline inside `CompileGuard(
     max_compiles=0)` (one const upload and one poll a chunk each). Then
-    fresh processes (`WARM`), in turns: the headline's first check
+    fresh processes (`WARM`), in WARM_TURNS turns: the headline's first check
     unwarmed ("cold", whose guard must count a load and a bind), with
     only its entry point bound ("bind": bound but never launched) and
     after `aot.precompile_service_bucket` ("warm", guard budget 0: h2d
@@ -5216,18 +5222,6 @@ CLUSTER_LIMIT_S = 240.0       # the phase's share of SMOKE_LIMIT_S
 CLUSTER_KERNELS = ("wgl32_chunk", "wgl32_chunk_batched")
 
 
-def free_ports(n: int) -> list:
-    import socket
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
-
-
 def kv_of(value):
     """A stored `[k v]` tuple value (the store writes its repr) as a
     `KV` again; any other value unchanged."""
@@ -5257,7 +5251,9 @@ def cluster_phases(dev) -> dict:
          `stop_daemon`, the process gone and `daemon_running` None; then
          a wrong password and a wrong host-key pin each raise `SshError`;
       3. a durable toykv register run in this process: CLUSTER_NODES,
-         CLUSTER_RUN, free ports through `toykv_ports`, the suite's
+         CLUSTER_RUN, toykv's own ports (from `toykv.BASE_PORT` 31850,
+         below Linux's ephemeral range: a client retrying a down server's
+         ephemeral port can connect to itself and hold it), the suite's
          checker on the card (the default device): True, one `server.log`
          snarfed per node, more than 3 serving banners, each key's winning
          engine, the launches of the run; then the stored history, read
@@ -5408,8 +5404,6 @@ def cluster_phases(dev) -> dict:
         "name": "cluster-register", "nodes": CLUSTER_NODES,
         "store_root": root, "sandbox": os.path.join(tmp, "nodes"),
         **CLUSTER_RUN})
-    test["toykv_ports"] = dict(zip(CLUSTER_NODES,
-                                   free_ports(len(CLUSTER_NODES))))
     before = read_counts()
     zero_counts()
     t = core.run(test)
@@ -5423,8 +5417,9 @@ def cluster_phases(dev) -> dict:
     banners = {n: open(os.path.join(t["store_dir"], n, "server.log")).read()
                .count("toykv serving on") for n in CLUSTER_NODES}
     n_ops = len(t["history"])
+    ports = {n: toykv.node_port(test, n) for n in CLUSTER_NODES}
     print(f"  register run ({run_wall:.2f} s; {CLUSTER_RUN}, ports "
-          f"{test['toykv_ports']}): valid? {res['valid?']}, {len(keys)} keys, "
+          f"{ports}): valid? {res['valid?']}, {len(keys)} keys, "
           f"{n_ops} ops; serving banners {banners}; the launches before "
           f"{ {k: v for k, v in before.items() if v} } and of the run "
           f"{counts}", flush=True)
@@ -5483,7 +5478,7 @@ def cluster_phases(dev) -> dict:
         "name": "cluster-volatile", "nodes": ["a"], "concurrency": 2,
         "store_root": root, "sandbox": os.path.join(tmp, "volatile"),
         "time_limit": 30})
-    vt.update(toykv_ports={"a": free_ports(1)[0]}, db=db,
+    vt.update(db=db,
               client=toykv.ToyKVSetClient(),
               nemesis=toykv.kill_restart_nemesis(db),
               checker=checker.set_checker())
@@ -5536,7 +5531,7 @@ def cluster_phases(dev) -> dict:
 
 # ---- the first live SQL suite -------------------------------------------------
 
-SUITES_LIMIT_S = 60.0         # the phase's share of SMOKE_LIMIT_S
+SUITES_LIMIT_S = 85.0         # the phase's share of SMOKE_LIMIT_S
 # the reference test's options (`tests/test_sqlite.py`: one node, 4 workers,
 # a kill/restart of the primary every 2 s), for 5 s
 SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
@@ -5546,7 +5541,23 @@ SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
 # and stays inside the dense closure's capacity (8192); an unpaced run
 # completes ~24k, whose graph goes to the packed closure
 SUITE_STAGGER_S = 0.005
-SUITE_KERNELS = ("elle_closure",)
+# etcd's live runs: `register` with the reference test's options
+# (`tests/test_etcd.py::test_full_suite_live_mini`: one node, 4 workers, 40
+# ops a key), for 5 s with the kill/restart every 2 s (2.5) so that the
+# restart falls inside the run; `append` paced as sqlite's, ETCD_STAGGER_S
+# apart, for 7.5 s with the reference test's kill/restart every 2.5 s (up
+# 2.5 s, down 2.5, up 2.5), so that its graph lands between the route's
+# `min_n` (384) and the dense closure's capacity (8192): each transaction
+# is two HTTP requests and an fsync a key written, and on an H100's
+# machine 358 of 782 completed transactions reached the graph at
+# SUITE_STAGGER_S for 5 s (the rest crashed while the server was down),
+# 384-465 at 2 ms for 6 s with the kill/restart every 2 s
+ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=5,
+                nemesis_interval=2.0, server="mini", per_key_limit=40)
+ETCD_APPEND = dict(time_limit=7.5, nemesis_interval=2.5)
+ETCD_STAGGER_S = 0.002
+ETCD_LIMIT_S = 25.0           # the two etcd runs' share of SUITES_LIMIT_S
+SUITE_KERNELS = ("elle_closure", "wgl32_chunk")
 
 
 class HeldClosures:
@@ -5591,8 +5602,189 @@ class HeldClosures:
         return out
 
 
+def paced(opts: dict, workload_gen, stagger_s: float):
+    """A live suite's generator with its workload paced `stagger_s`
+    apart: the kill/restart cycle every `nemesis_interval` seconds and
+    the whole under the run's `time_limit` (the suites' own shape)."""
+    from jepsen_tpu_torch import generator as gen
+    i = opts["nemesis_interval"]
+    return gen.time_limit(opts["time_limit"], gen.nemesis(
+        gen.cycle([gen.sleep(i), {"type": "info", "f": "start"},
+                   gen.sleep(i), {"type": "info", "f": "stop"}]),
+        gen.stagger(stagger_s, workload_gen)))
+
+
+def elle_rechecks(what: str, check, stored, chk, suite: dict, dev) -> tuple:
+    """A live Elle run's stored history re-checked with the suite's
+    options (`chk`: the suite's append or wr checker) three ways: the
+    routed "auto" on the card, a forced `cycle_backend="device"` on the
+    card, which must launch `elle_closure` (each dense closure held
+    against `closure_ref` on the same inputs, error 0), and the "host"
+    oracle; the three and the suite's own result `suite` must agree on
+    `valid?` and `anomaly-types`. Returns (the launches by kernel, the
+    closures' largest error)."""
+    import collections
+
+    kw = dict(anomalies=chk.anomalies,
+              additional_graphs=chk.additional_graphs)
+    if hasattr(chk, "linearizable_keys"):
+        kw.update(sequential_keys=chk.sequential_keys,
+                  linearizable_keys=chk.linearizable_keys,
+                  wfr_keys=chk.wfr_keys)
+    counts: collections.Counter = collections.Counter()
+    worst = 0
+    verdicts = {"suite": suite}
+    for how, backend, where in (("auto", "auto", dev),
+                                ("device", "device", dev),
+                                ("host", "host", None)):
+        zero_counts()
+        t_c = time.monotonic()
+        with HeldClosures() as held:
+            verdicts[how] = check(stored, cycle_backend=backend,
+                                  device=where, **kw)
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t_c
+        launched = read_counts()
+        errs = held.errs(dev)
+        worst = max([worst] + errs)
+        counts.update(launched)
+        print(f"    {how}: valid? {verdicts[how]['valid?']}, anomalies "
+              f"{verdicts[how]['anomaly-types']}, engine "
+              f"{verdicts[how].get('cycle-engine')}, route "
+              f"{verdicts[how].get('cycle-route-reason')!r}, "
+              f"{wall:.3f} s, launches "
+              f"{ {k: v for k, v in launched.items() if v} }, dense "
+              f"closures held against closure_ref: max abs err by "
+              f"closure {errs}", flush=True)
+        if any(errs):
+            raise AssertionError(f"{what} {how}: elle_closure differs "
+                                 f"from closure_ref: {errs}")
+        if how == "device" and (launched["elle_closure"] < 1 or not errs):
+            raise AssertionError(f"{what}: the forced device check "
+                                 f"launched {launched}")
+    for how, v in verdicts.items():
+        same_verdict(f"{what} {how} vs host", v, verdicts["host"])
+    return counts, worst
+
+
+def etcd_runs(dev, tmp: str) -> tuple:
+    """etcd's two live runs on the card (ETCD_RUN, a mini-etcd server over
+    the localexec remote, its kill/restart nemesis sending real `kill
+    -9`s, the port's stdlib HTTP client): `register`, its checker's
+    competition race a key (the device lane `wgl32_chunk`), True with at
+    least one launch, each key's verdict equal to the host "wgl"
+    oracle's on the stored history; then `append` (ETCD_APPEND), paced by
+    ETCD_STAGGER_S, True with no anomaly, its stored history re-checked
+    by `elle_rechecks`. Returns (the launches by kernel, the closures'
+    largest error); takes at most ETCD_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch import checker, core, independent, store
+    from jepsen_tpu_torch.dbs import etcd
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import cas_register
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+
+    def run(which: str, pace: bool):
+        opts = {**ETCD_RUN, **(ETCD_APPEND if pace else {}),
+                "workload": which, "name": f"suites-etcd-{which}",
+                "store_root": os.path.join(tmp, "etcd", which, "store"),
+                "sandbox": os.path.join(tmp, "etcd", which, "nodes")}
+        test = etcd.etcd_test(opts)
+        if pace:
+            test["generator"] = paced(
+                opts, etcd.WORKLOADS[which](opts)["generator"],
+                ETCD_STAGGER_S)
+        zero_counts()
+        t0 = time.monotonic()
+        done = core.run(test)
+        torch.cuda.synchronize()
+        launched = read_counts()
+        counts.update(launched)
+        banners = open(os.path.join(done["store_dir"], "t1",
+                                    etcd.MiniEtcdDB.logfile)
+                       ).read().count("minietcd serving on")
+        return (test, done, {k: v for k, v in launched.items() if v},
+                time.monotonic() - t0, banners)
+
+    # register: the suite, then each key against the host oracle
+    test, done, launched, wall, banners = run("register", pace=False)
+    res = done["results"]["register"]
+    keys = res["results"]
+    engines = collections.Counter(str(r["linear"].get("engine"))
+                                  for r in keys.values())
+    n_ops = sum(1 for o in done["history"] if o.process != "nemesis"
+                and o.type != "invoke")
+    print(f"  etcd register run ({wall:.2f} s; {ETCD_RUN}): valid? "
+          f"{done['results']['valid?']}, {len(keys)} keys decided, {n_ops} "
+          f"ops completed, serving banners {banners}, winning engines "
+          f"{dict(engines)}, launches {launched}", flush=True)
+    if (done["results"]["valid?"] is not True or not keys or banners < 2
+            or launched.get("wgl32_chunk", 0) < 1):
+        raise AssertionError(f"etcd register: {done['results']['valid?']}, "
+                             f"{len(keys)} keys, banners {banners}, "
+                             f"launches {launched}")
+    t0 = time.monotonic()
+    stored = store.load_latest(os.path.join(tmp, "etcd", "register",
+                                            "store"))
+    hist = History([{**op, "value": kv_of(op.get("value"))}
+                    for op in stored["history"]]).index()
+    if [o.to_dict() for o in hist] != [o.to_dict() for o in done["history"]]:
+        raise AssertionError("etcd register: the stored history differs "
+                             "from the run's")
+    oracle = independent.checker(checker.linearizable(
+        cas_register(), algorithm="wgl", device="cpu")).check(
+            {"name": "etcd-oracle"}, hist, {})
+    suite = {k: r["valid?"] for k, r in keys.items()}
+    host = {k: r["valid?"] for k, r in oracle["results"].items()}
+    print(f"    host oracle on the stored history "
+          f"({time.monotonic() - t0:.2f} s): {oracle['valid?']}; keys "
+          f"agreeing {sum(host.get(k) == v for k, v in suite.items())} of "
+          f"{len(suite)}", flush=True)
+    if host != suite:
+        raise AssertionError(f"etcd register: {len(host)} oracle verdicts "
+                             f"against {len(suite)} of the suite's differ")
+
+    # append: the suite, then its stored history three ways
+    test, done, launched, wall, banners = run("append", pace=True)
+    res = done["results"]["append"]
+    hist = done["history"]
+    stored = History(store.load_latest(os.path.join(
+        tmp, "etcd", "append", "store"))["history"]).index()
+    if [o.to_dict() for o in stored] != [o.to_dict() for o in hist]:
+        raise AssertionError("etcd append: the stored history differs from "
+                             "the run's")
+    txns = sum(1 for o in hist if o.f == "txn" and o.type != "invoke")
+    oks = sum(1 for o in hist if o.f == "txn" and o.type == "ok")
+    print(f"  etcd append run ({wall:.2f} s; {ETCD_RUN}, {ETCD_APPEND}, "
+          f"paced {ETCD_STAGGER_S} s): valid? {done['results']['valid?']} "
+          f"(append {res['valid?']}, anomalies {res['anomaly-types']}), "
+          f"{txns} txns completed ({oks} ok), serving banners {banners}, "
+          f"engine {res.get('cycle-engine')}, route "
+          f"{res.get('cycle-route-reason')!r}, launches {launched}",
+          flush=True)
+    if (done["results"]["valid?"] is not True or res["valid?"] is not True
+            or res["anomaly-types"] or banners < 2):
+        raise AssertionError(f"etcd append: {done['results']}, banners "
+                             f"{banners}")
+    rechecked, worst = elle_rechecks(
+        "etcd append", append.check, stored,
+        test["checker"].checker_map["append"], res, dev)
+    counts.update(rechecked)
+    took = time.monotonic() - t_all
+    print(f"  etcd runs: {took:.1f} s", flush=True)
+    if took > ETCD_LIMIT_S:
+        raise AssertionError(f"etcd runs took {took:.1f} s (limit "
+                             f"{ETCD_LIMIT_S} s)")
+    return counts, worst
+
+
 def suites_phases(dev) -> dict:
-    """The first live SQL suite, sqlite, and the faultlib nemesis, on the
+    """The live suites, sqlite and etcd, and the faultlib nemesis, on the
     card's machine, each step's wall printed:
 
       1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
@@ -5616,7 +5808,11 @@ def suites_phases(dev) -> dict:
          LD_PRELOAD, EIO switched on for the recovery log between two
          batches of adds and off again: at least one add crashed, the
          server logged the I/O error, and the `set` checker's verdict is
-         printed (True: nothing acknowledged was lost).
+         printed (True: nothing acknowledged was lost);
+      4. etcd `register` and `append` (`etcd_runs`): the register run's
+         keys each decided by the competition race (`wgl32_chunk`) and
+         each equal to the host oracle's verdict; the append run re-checked
+         three ways as in step 1.
 
     The servers listen on their suites' own ports, below Linux's ephemeral
     range: a client retrying a down server's ephemeral port can connect to
@@ -5636,7 +5832,7 @@ def suites_phases(dev) -> dict:
     from jepsen_tpu_torch.history import History
     from jepsen_tpu_torch.nemesis import faultfs
 
-    print(f"the first live SQL suite, sqlite, and the faultlib nemesis "
+    print(f"the live suites, sqlite and etcd, and the faultlib nemesis "
           f"({card_line()}):", flush=True)
     t_all = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
@@ -5644,21 +5840,18 @@ def suites_phases(dev) -> dict:
     counts: collections.Counter = collections.Counter()
     worst = 0
 
-    def sqlite_run(which: str, paced: bool = True):
-        """A live sqlite run of `which` (its generator paced when `paced`):
+    def sqlite_run(which: str, pace: bool = True):
+        """A live sqlite run of `which` (its generator paced when `pace`):
         (test map, what `core.run` returned, the run's launches)."""
         opts = {**SUITE_RUN, "workload": which,
                 "name": f"suites-{which}",
                 "store_root": os.path.join(tmp, which, "store"),
                 "sandbox": os.path.join(tmp, which, "nodes")}
         test = sq.sqlite_test(opts)
-        if paced:
-            i = opts["nemesis_interval"]
-            test["generator"] = gen.time_limit(opts["time_limit"], gen.nemesis(
-                gen.cycle([gen.sleep(i), {"type": "info", "f": "start"},
-                           gen.sleep(i), {"type": "info", "f": "stop"}]),
-                gen.stagger(SUITE_STAGGER_S,
-                            sq.WORKLOADS[which](opts)["generator"])))
+        if pace:
+            test["generator"] = paced(
+                opts, sq.WORKLOADS[which](opts)["generator"],
+                SUITE_STAGGER_S)
         zero_counts()
         done = core.run(test)
         torch.cuda.synchronize()
@@ -5691,50 +5884,15 @@ def suites_phases(dev) -> dict:
                                  f"banners {banners}")
         counts.update(run_counts)
 
-        chk = test["checker"].checker_map[which]
-        kw = dict(anomalies=chk.anomalies,
-                  additional_graphs=chk.additional_graphs)
-        if which == "wr":
-            kw.update(sequential_keys=chk.sequential_keys,
-                      linearizable_keys=chk.linearizable_keys,
-                      wfr_keys=chk.wfr_keys)
-        verdicts, walls = {"suite": res}, {}
-        for how, backend, where in (("auto", "auto", dev),
-                                    ("device", "device", dev),
-                                    ("host", "host", None)):
-            zero_counts()
-            t_c = time.monotonic()
-            with HeldClosures() as held:
-                verdicts[how] = check(stored, cycle_backend=backend,
-                                      device=where, **kw)
-                torch.cuda.synchronize()
-            walls[how] = time.monotonic() - t_c
-            launched = read_counts()
-            errs = held.errs(dev)
-            worst = max([worst] + errs)
-            counts.update(launched)
-            print(f"    {how}: valid? {verdicts[how]['valid?']}, anomalies "
-                  f"{verdicts[how]['anomaly-types']}, engine "
-                  f"{verdicts[how].get('cycle-engine')}, route "
-                  f"{verdicts[how].get('cycle-route-reason')!r}, "
-                  f"{walls[how]:.3f} s, launches "
-                  f"{ {k: v for k, v in launched.items() if v} }, dense "
-                  f"closures held against closure_ref: max abs err by "
-                  f"closure {errs}", flush=True)
-            if any(errs):
-                raise AssertionError(f"sqlite {which} {how}: elle_closure "
-                                     f"differs from closure_ref: {errs}")
-            if how == "device" and (launched["elle_closure"] < 1
-                                    or not errs):
-                raise AssertionError(f"sqlite {which}: the forced device "
-                                     f"check launched {launched}")
-        for how, v in verdicts.items():
-            same_verdict(f"sqlite {which} {how} vs host", v,
-                         verdicts["host"])
+        rechecked, err = elle_rechecks(
+            f"sqlite {which}", check, stored,
+            test["checker"].checker_map[which], res, dev)
+        counts.update(rechecked)
+        worst = max(worst, err)
 
     # 2. bank
     t0 = time.monotonic()
-    _, done, bank_counts = sqlite_run("bank", paced=False)
+    _, done, bank_counts = sqlite_run("bank", pace=False)
     pngs = [os.path.join(d, f) for d, _, fs in os.walk(done["store_dir"])
             for f in fs if f.endswith(".png")]
     try:
@@ -5805,6 +5963,11 @@ def suites_phases(dev) -> dict:
             s["valid?"] is not True or s.get("lost-count"):
         raise AssertionError(f"faultlib nemesis: {crashed} crashed adds, "
                              f"{eio} EIO, set {s}")
+
+    # 4. etcd
+    etcd_counts, err = etcd_runs(dev, tmp)
+    counts.update(etcd_counts)
+    worst = max(worst, err)
 
     shutil.rmtree(tmp, ignore_errors=True)
     took = time.monotonic() - t_all

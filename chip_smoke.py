@@ -190,7 +190,7 @@ native SSH stack against the port's loopback `MiniSshd` through
 and download byte for byte, a daemon started, watched and stopped, a
 wrong password and a wrong host-key pin refused), a durable toykv
 register run in this process (3 live server processes over the
-localexec remote, 6 workers for 5 s, the kill/restart nemesis (every 2 s) sending
+localexec remote, 6 workers for 3 s, the kill/restart nemesis (every 1 s) sending
 real `kill -9`s, logs snarfed, each key decided by the competition race
 whose device lane runs `wgl32_chunk` on the card), its stored history
 re-checked by `independent.cuda_checker` over `[card] * 2`
@@ -209,7 +209,18 @@ EIO injected, the set checker's verdict); then etcd's `register` (a live
 mini-etcd server under kill -9, 4 workers for 5 s, each key decided by
 the competition race whose device lane runs `wgl32_chunk`, each verdict
 equal to the host oracle's) and `append` (paced, 7.5 s, re-checked the
-same three ways). Last, the bench round
+same three ways); then rabbitmq's `semaphore` (a live mini AMQP broker,
+3 workers for 5 s, the mutex checked by the suite, then re-checked by a
+forced "cuda-wgl" that launches `wgl32_chunk` on the mutex history and
+by the host oracle in a worker process, all equal), mongodb's
+`register` (a live mini OP_MSG server under kill -9, 4 workers for 5 s,
+each key decided by the competition race, its stored history re-checked
+key by key by "cuda-wgl" on the card and by the host oracle, all
+equal), and EDN ingest (the
+headline written as a store.clj-shaped history.edn, read back by
+`History.from_edn` and decided by "cuda-wgl" as the native history is,
+launch for launch; a list-append history.edn with 600 transactions
+checked by Elle on the card and on the host, equal). Last, the bench round
 (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
@@ -1128,28 +1139,45 @@ def same_verdict(what, got, want, cycles_too=False) -> None:
                              f"{cycles(want)}")
 
 
-def elle_host_verdict(params: dict, graphs: tuple = RT) -> dict:
-    """The host oracle's verdict on a list-append history with the
-    `graphs` beside its own (in a worker process): valid? and
-    anomaly-types."""
+def elle_host_verdict(params: dict, graphs: tuple = RT,
+                      kind: str = "append") -> dict:
+    """The host oracle's verdict on a list-append history ("append",
+    `synth.list_append_history(**params)`) or a wr history ("wr",
+    `synth.wr_register_history(**params)`, its keys linearizable) with
+    the `graphs` beside its own (in a worker process): valid?,
+    anomaly-types, the cycle anomalies' cycles (`cycles`) and seconds."""
     from jepsen_tpu_torch import synth
-    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.elle import append, wr
     t0 = time.monotonic()
-    res = append.check(synth.list_append_history(**params),
-                       additional_graphs=graphs, cycle_backend="host")
+    if kind == "append":
+        res = append.check(synth.list_append_history(**params),
+                           additional_graphs=graphs, cycle_backend="host")
+    else:
+        res = wr.check(synth.wr_register_history(**params),
+                       linearizable_keys=True, additional_graphs=graphs,
+                       cycle_backend="host")
     return {"valid?": res["valid?"], "anomaly-types": res["anomaly-types"],
+            "anomalies": {k: [{"cycle": c} for c in v]
+                          for k, v in cycles(res).items()},
             "seconds": time.monotonic() - t0}
 
 
-def elle_phases(dev, host10, step_us: float) -> list:
+def elle_phases(dev, host10, step_us: float, background) -> list:
     """Elle on the card: the small corpora, the 3k cells (dense closure
     and trim), the invalid histories, the 10k cell (packed closure), and
     the sharded closure over shards of the card (its verdict against
-    `host10`, the future of `elle_host_verdict(ELLE_10K)`). Returns the
-    four kernels' entries of the kernels line."""
+    `host10`, the future of `elle_host_verdict(ELLE_10K)`). The host
+    oracle's verdicts on the 3k and invalid histories are taken in
+    `background` while the card works. Returns the four kernels' entries
+    of the kernels line."""
     from jepsen_tpu_torch import occupancy, synth
     from jepsen_tpu_torch.elle import append, build, wr
     from jepsen_tpu_torch.elle import tpu as etpu
+
+    host_of = {(kind, params is ELLE_3K): background.submit(
+        elle_host_verdict, params, RT, kind) for kind, params in (
+        ("append", ELLE_3K), ("wr", ELLE_3K), ("wr", ELLE_STALE),
+        ("append", ELLE_CORRUPT))}
 
     S = len(etpu.SUBSETS)
     int_ops_per_s = card_peak("int32_ops")
@@ -1200,9 +1228,8 @@ def elle_phases(dev, host10, step_us: float) -> list:
                                  f"{res.get('cycle-engine')} {u}")
         MAIN_VERDICTS[f"elle {kind} 3k"] = [res["valid?"],
                                             res["anomaly-types"]]
-        t0 = time.monotonic()
-        host = check(hist, additional_graphs=RT, cycle_backend="host", **kw)
-        host_s = time.monotonic() - t0
+        host = host_of[kind, True].result()
+        host_s = host["seconds"]
         same_verdict(f"elle {kind} 3k auto vs host", res, host)
         gt = builder(hist)
         Peaks.add(f"elle {kind} 3k bf16", t.gates, t.peak,
@@ -1211,7 +1238,7 @@ def elle_phases(dev, host10, step_us: float) -> list:
         print(f"  wall split: build {t.build_s:.4f} s, kernels {dev_s:.4f} "
               f"s, the rest (lint, direct anomalies, host prep, copies) "
               f"{wall - t.build_s - dev_s:.4f} s; host oracle {host_s:.2f} "
-              f"s, same verdict")
+              f"s (in the background), same verdict")
 
         got, err, perr, pderr, plain_s, ins, a = run_closures(gt, dev)
         if err or perr or pderr:
@@ -1268,7 +1295,7 @@ def elle_phases(dev, host10, step_us: float) -> list:
         check, kw, _ = builders[kind]
         res, wall, counts, t = elle_drive(check, hist, cycle_backend="auto",
                                           **kw)
-        host = check(hist, additional_graphs=RT, cycle_backend="host", **kw)
+        host = host_of[kind, False].result()
         print(f"elle invalid {kind}: device {res['valid?']} "
               f"{res['anomaly-types']} cycles {cycles(res)} (engine "
               f"{res.get('cycle-engine')}, kernel "
@@ -3731,9 +3758,9 @@ def analyze_phases(dev) -> None:
 
 
 TEST_RUN = dict(concurrency="2n", time_limit=10, rate=1000)   # phase (a)
-TEST_INVALID = dict(concurrency=10, time_limit=2, rate=1000)   # phase (b)
+TEST_INVALID = dict(concurrency=10, time_limit=1, rate=1000)   # phase (b)
 TEST_INDEP = dict(keys=100, ops_per_key=200, concurrency=20)   # phase (c)
-TEST_ALL = dict(test_count=2, time_limit=3, rate=500)          # phase (d)
+TEST_ALL = dict(test_count=2, time_limit=1, rate=500)          # phase (d)
 
 
 def log_wall(path: str, start: str, end: str) -> float:
@@ -3772,7 +3799,7 @@ def test_phases(dev) -> None:
           whose op counts are the history's, and the stored history
           re-checked here by the host oracle ("wgl"): True;
       (b) in this process, `core.run` of the demo map with a client whose
-          reads answer a value never written, ~2000 invocations: False,
+          reads answer a value never written, ~1000 invocations: False,
           the host oracle's verdict, `linear.svg` in the run dir;
       (c) in this process, `core.run` of 100 keys x 200 invocations
           (`independent.concurrent_generator(2, range(100), ...)` at
@@ -3783,7 +3810,7 @@ def test_phases(dev) -> None:
           each a lying key that was read; one `kind="independent"`
           record;
       (d) `python -m jepsen_tpu_torch test-all --test-count 2 --time-limit
-          3 --rate 500` in a fresh process: exit 0, "2 successes".
+          1 --rate 500` in a fresh process: exit 0, "2 successes".
 
     (b) and (c) set every launch counter to 0 just before and read them
     just after; a fresh process's launches are its chunks."""
@@ -5211,11 +5238,13 @@ CLUSTER_PROBED = ("killall", "pkill")
 NODE_PYTHON = "/usr/bin/python3"          # toykv's daemon (`ToyKVDB._start`)
 CLUSTER_SSH_NODES = ("127.0.0.1", "localhost")   # both the loopback sshd
 CLUSTER_NODES = ["a", "b", "c"]
-# 5 s: a kill at 2 s and its restart at 4 s, inside the run (the banners'
-# gate needs the restart), leaving the bench round its budget
-CLUSTER_RUN = dict(concurrency=6, time_limit=5, nemesis_interval=2)
-CLUSTER_CLI = dict(nodes="a,b", concurrency=4, time_limit=5,
-                   nemesis_interval=2)
+# 3 s: a kill at 1 s and its restart at 2 s, inside the run (the banners'
+# gate needs the restart), leaving the bench round its budget (5 s with
+# the kill/restart every 2 s until the mongodb and rabbitmq runs joined the
+# suites phase)
+CLUSTER_RUN = dict(concurrency=6, time_limit=3, nemesis_interval=1)
+CLUSTER_CLI = dict(nodes="a,b", concurrency=4, time_limit=3,
+                   nemesis_interval=1)
 CLUSTER_LIMIT_S = 240.0       # the phase's share of SMOKE_LIMIT_S
 # the kernels of the phase's path: the race's device lane, and the
 # re-check's mesh fan-out over [card] * MESH_SHARDS
@@ -5541,6 +5570,9 @@ SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
 # and stays inside the dense closure's capacity (8192); an unpaced run
 # completes ~24k, whose graph goes to the packed closure
 SUITE_STAGGER_S = 0.005
+# the bank run, unpaced: 3 s (5 s until the mongodb and rabbitmq runs
+# joined the phase)
+SUITE_BANK = dict(time_limit=3)
 # etcd's live runs: `register` with the reference test's options
 # (`tests/test_etcd.py::test_full_suite_live_mini`: one node, 4 workers, 40
 # ops a key), for 5 s with the kill/restart every 2 s (2.5) so that the
@@ -5557,6 +5589,23 @@ ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=5,
 ETCD_APPEND = dict(time_limit=7.5, nemesis_interval=2.5)
 ETCD_STAGGER_S = 0.002
 ETCD_LIMIT_S = 25.0           # the two etcd runs' share of SUITES_LIMIT_S
+# mongodb's live register run: the reference test's one node and 4 workers
+# (`tests/test_mongodb.py::test_full_suite_live`) and the suite's 100 ops a
+# key, for 5 s with the kill/restart every 2 s so that the restart falls
+# inside the run
+MONGO_RUN = dict(nodes=["m1"], concurrency=4, time_limit=5,
+                 nemesis_interval=2.0, server="mini", workload="register")
+# rabbitmq's semaphore run, the reference test's
+# (`tests/test_rabbitmq.py::test_full_semaphore_suite_live_mini`: one
+# broker, 3 workers, 5 s)
+RABBIT_SEM = dict(nodes=["r1"], concurrency=3, time_limit=5,
+                  nemesis_interval=2.0, server="mini", workload="semaphore")
+# the list-append history.edn: this many copies of `tests/test_edn.py`'s
+# three-transaction G-single (`ELLE_EDN`), each on keys of its own, 600
+# transactions in all: past the route's `min_n` (384), inside the dense
+# closure's capacity (8192)
+EDN_APPEND_COPIES = 200
+DOCS_LIMIT_S = 35.0           # rabbitmq's, mongodb's and EDN's share of it
 SUITE_KERNELS = ("elle_closure", "wgl32_chunk")
 
 
@@ -5783,9 +5832,283 @@ def etcd_runs(dev, tmp: str) -> tuple:
     return counts, worst
 
 
-def suites_phases(dev) -> dict:
-    """The live suites, sqlite and etcd, and the faultlib nemesis, on the
-    card's machine, each step's wall printed:
+def edn_form(v) -> str:
+    """`v` as the Clojure Jepsen prints it in a history.edn: None as nil,
+    a list or tuple as a vector, an int or a bool as itself, a string as
+    a keyword."""
+    if v is None:
+        return "nil"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (list, tuple)):
+        return "[" + " ".join(edn_form(x) for x in v) + "]"
+    if isinstance(v, str):
+        return ":" + v
+    return repr(v)
+
+
+def edn_line(op: dict) -> str:
+    """One op map as store.clj's `write-history!` prints a line."""
+    return "{" + ", ".join(f":{k} {edn_form(v)}" for k, v in op.items()) + "}"
+
+
+def elle_edn(copies: int) -> str:
+    """`tests/test_edn.py`'s list-append G-single (`ELLE_EDN`), `copies`
+    times, copy i on keys 2i and 2i + 1, one op map a line."""
+    lines, t = [], 0
+    for i in range(copies):
+        x, y = 2 * i, 2 * i + 1
+        for p, inv, done in (
+                (0, [["append", x, 1]], [["append", x, 1]]),
+                (1, [["r", x, None], ["append", y, 1]],
+                 [["r", x, [1]], ["append", y, 1]]),
+                (2, [["r", y, None], ["r", x, None]],
+                 [["r", y, [1]], ["r", x, []]])):
+            for typ, value in (("invoke", inv), ("ok", done)):
+                lines.append(edn_line({"process": p, "type": typ,
+                                       "f": "txn", "value": value,
+                                       "time": t}))
+                t += 1
+    return "\n".join(lines) + "\n"
+
+
+def mutex_oracle(root: str) -> dict:
+    """The host oracle's verdict on the latest mutex history stored under
+    `root`, with the rabbitmq suite's time limit (in a worker process):
+    valid?, its cause, the configs it explored and its seconds."""
+    from jepsen_tpu_torch import checker, store
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import mutex
+    t0 = time.monotonic()
+    h = History(store.load_latest(root)["history"]).index()
+    res = checker.linearizable(mutex(), algorithm="wgl", time_limit=60,
+                               device="cpu").check({}, h, {})
+    return {"valid?": res["valid?"], "cause": res.get("cause"),
+            "configs": res.get("configs_explored"),
+            "seconds": time.monotonic() - t0}
+
+
+def doc_queue_runs(dev, tmp: str, background) -> dict:
+    """rabbitmq's and mongodb's live runs and EDN ingest on the card:
+
+      1. rabbitmq `semaphore` (RABBIT_SEM: a mini AMQP broker, the token a
+         held delivery), the suite's mutex check on the card: True; its
+         stored history re-checked by a forced "cuda-wgl" on the card,
+         which must launch `wgl32_chunk` where the history encodes, and
+         by the host oracle (`mutex_oracle`, in `background` while the
+         steps below run), with the suite's time limit: the three
+         verdicts equal. The ops, the crashed ones and the encoded window
+         (or the encoder's refusal) are printed;
+      2. mongodb `register` (MONGO_RUN: a mini OP_MSG server over the
+         localexec remote, its kill/restart nemesis sending real `kill
+         -9`s), each key decided by the suite's competition race (the
+         device lane `wgl32_chunk`): True, at least one launch, at least
+         two serving banners; its stored history read back and re-checked
+         key by key by "cuda-wgl" on the card (at least one `wgl32_chunk`
+         launch) and by the host oracle, each key's three verdicts equal;
+      3. EDN ingest: the headline history written as a store.clj-shaped
+         history.edn (`edn_line`), read back by `History.from_edn` into
+         the same ops, and decided by "cuda-wgl" on the card as the
+         native history is, verdict and `wgl32_chunk` launches equal;
+         then `elle_edn(EDN_APPEND_COPIES)` read back and checked by
+         `elle.append.check` with `cycle_backend="cuda"` on the card (at
+         least one `elle_closure` launch) and "host": `valid?` and
+         `anomaly-types` equal.
+
+    Returns the launches of the runs and the re-checks by kernel; takes at
+    most DOCS_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch import checker, core, independent, store, synth
+    from jepsen_tpu_torch.dbs import mongodb, rabbitmq
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import cas_register, mutex
+    from jepsen_tpu_torch.ops import encode
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+
+    def run(make, name, opts, node, log, banner):
+        root = os.path.join(tmp, name, "store")
+        opts = {**opts, "name": f"suites-{name}", "store_root": root,
+                "sandbox": os.path.join(tmp, name, "nodes")}
+        zero_counts()
+        t0 = time.monotonic()
+        done = core.run(make(opts))
+        torch.cuda.synchronize()
+        launched = read_counts()
+        counts.update(launched)
+        banners = open(os.path.join(done["store_dir"], node, log)
+                       ).read().count(banner)
+        return (done, {k: v for k, v in launched.items() if v},
+                time.monotonic() - t0, banners, store.load_latest(root))
+
+    def rechecked(fn):
+        zero_counts()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        launched = read_counts()
+        counts.update(launched)
+        return res, launched, time.monotonic() - t0
+
+    # 1. rabbitmq semaphore: the suite, a forced device check, and the host
+    # oracle in the background
+    done, launched, wall, banners, stored = run(
+        rabbitmq.rabbitmq_test, "rabbitmq", RABBIT_SEM, "r1",
+        rabbitmq.MiniRabbitDB.logfile, "minirabbit serving on")
+    m = done["results"]["mutex"]
+    hist = History(stored["history"]).index()
+    if [o.to_dict() for o in hist] != [o.to_dict() for o in done["history"]]:
+        raise AssertionError("rabbitmq semaphore: the stored history "
+                             "differs from the run's")
+    oracle = background.submit(mutex_oracle,
+                               os.path.join(tmp, "rabbitmq", "store"))
+    ops = [o for o in hist if o.process != "nemesis" and o.type != "invoke"]
+    crashed = collections.Counter(o.f for o in ops if o.type == "info")
+    try:
+        window = encode.encode(mutex(), hist.client_ops).window
+    except encode.EncodingUnsupported as e:
+        window = f"refused ({e})"
+    print(f"  rabbitmq semaphore run ({wall:.2f} s; {RABBIT_SEM}): valid? "
+          f"{done['results']['valid?']} (mutex {m['valid?']}, engine "
+          f"{m.get('engine')}), {len(ops)} ops completed "
+          f"({sum(o.type == 'ok' for o in ops)} ok), crashed "
+          f"{dict(crashed)}, encoded window {window}, serving banners "
+          f"{banners}, launches {launched}", flush=True)
+    if done["results"]["valid?"] is not True or m["valid?"] is not True \
+            or banners < 1:
+        raise AssertionError(f"rabbitmq semaphore: {done['results']}, "
+                             f"banners {banners}")
+    refused = isinstance(window, str)
+    res, got, took = rechecked(lambda: checker.linearizable(
+        mutex(), algorithm="cuda-wgl", time_limit=60, device=dev).check(
+            {}, hist, {}))
+    print(f"    cuda-wgl on the stored history ({took:.3f} s): "
+          f"{res['valid?']}, cause {res.get('cause')}, configs "
+          f"{res.get('configs_explored')}, launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    if not refused and (res["valid?"] != m["valid?"]
+                        or got["wgl32_chunk"] < 1):
+        raise AssertionError(f"rabbitmq semaphore cuda-wgl: "
+                             f"{res['valid?']} against the suite's "
+                             f"{m['valid?']}, launches {got}")
+
+    # 2. mongodb register: the suite, then each key two ways
+    done, launched, wall, banners, stored = run(
+        mongodb.mongodb_test, "mongodb", MONGO_RUN, "m1",
+        mongodb.MiniMongoDB.logfile, "minimongo serving on")
+    keys = done["results"]["register"]["results"]
+    engines = collections.Counter(str(r["linear"].get("engine"))
+                                  for r in keys.values())
+    n_ops = sum(1 for o in done["history"] if o.process != "nemesis"
+                and o.type != "invoke")
+    print(f"  mongodb register run ({wall:.2f} s; {MONGO_RUN}): valid? "
+          f"{done['results']['valid?']}, {len(keys)} keys decided, {n_ops} "
+          f"ops completed, serving banners {banners}, winning engines "
+          f"{dict(engines)}, launches {launched}", flush=True)
+    if (done["results"]["valid?"] is not True or not keys or banners < 2
+            or launched.get("wgl32_chunk", 0) < 1):
+        raise AssertionError(f"mongodb register: {done['results']['valid?']}"
+                             f", {len(keys)} keys, banners {banners}, "
+                             f"launches {launched}")
+    hist = History([{**op, "value": kv_of(op.get("value"))}
+                    for op in stored["history"]]).index()
+    if [o.to_dict() for o in hist] != [o.to_dict() for o in done["history"]]:
+        raise AssertionError("mongodb register: the stored history differs "
+                             "from the run's")
+    suite = {k: r["valid?"] for k, r in keys.items()}
+    for how, where in (("cuda-wgl", dev), ("wgl", "cpu")):
+        res, got, took = rechecked(lambda: independent.checker(
+            checker.linearizable(cas_register(), algorithm=how,
+                                 device=where)).check({}, hist, {}))
+        verdicts = {k: r["valid?"] for k, r in res["results"].items()}
+        print(f"    {how} on the stored history ({took:.2f} s): "
+              f"{res['valid?']}; keys agreeing with the suite "
+              f"{sum(verdicts.get(k) == v for k, v in suite.items())} of "
+              f"{len(suite)}; launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if verdicts != suite or (how == "cuda-wgl"
+                                 and got["wgl32_chunk"] < 1):
+            raise AssertionError(f"mongodb register {how}: {len(verdicts)} "
+                                 f"verdicts against the suite's "
+                                 f"{len(suite)} differ, or launches {got}")
+
+    # 3. EDN ingest: the headline, then a list-append history
+    os.makedirs(os.path.join(tmp, "edn"), exist_ok=True)
+    native = synth.cas_register_history(**HEADLINE).index()
+    path = os.path.join(tmp, "edn", "history.edn")
+    t0 = time.monotonic()
+    with open(path, "w") as fh:
+        for op in native:
+            d = op.to_dict()
+            fh.write(edn_line({k: d[k] for k in ("index", "time", "type",
+                                                 "process", "f", "value")})
+                     + "\n")
+    write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    replay = History.from_edn(path).index()
+    load_s = time.monotonic() - t0
+    if [o.to_dict() for o in replay] != [o.to_dict() for o in native]:
+        raise AssertionError("EDN: the headline read back differs")
+    lin = checker.linearizable(cas_register(), algorithm="cuda-wgl",
+                               device=dev)
+    verdicts = {}
+    for name, h in (("native", native), ("edn", replay)):
+        res, got, took = rechecked(lambda: lin.check({}, h, {}))
+        verdicts[name] = (res["valid?"], got["wgl32_chunk"])
+        print(f"  EDN headline, {name} ({took:.3f} s): {res['valid?']}, "
+              f"{got['wgl32_chunk']} wgl32_chunk launches", flush=True)
+    print(f"    written in {write_s:.3f} s ({os.path.getsize(path)} B, "
+          f"{len(native)} ops), read by History.from_edn in {load_s:.3f} s",
+          flush=True)
+    if verdicts["edn"] != verdicts["native"] or verdicts["edn"][1] < 1:
+        raise AssertionError(f"EDN headline: {verdicts}")
+    path = os.path.join(tmp, "edn", "append.edn")
+    with open(path, "w") as fh:
+        fh.write(elle_edn(EDN_APPEND_COPIES))
+    h = History.from_edn(path).index()
+    out = {}
+    for backend, where in (("cuda", dev), ("host", None)):
+        res, got, took = rechecked(lambda: append.check(
+            h, additional_graphs=RT, cycle_backend=backend, device=where))
+        out[backend] = res
+        print(f"  EDN list-append, {backend} ({took:.3f} s; {len(h)} ops): "
+              f"valid? {res['valid?']}, anomalies {res['anomaly-types']}, "
+              f"engine {res.get('cycle-engine')}, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if backend == "cuda" and got["elle_closure"] < 1:
+            raise AssertionError(f"EDN list-append: launches {got}")
+    same_verdict("EDN list-append cuda vs host", out["cuda"], out["host"])
+    if out["host"]["valid?"] is not False:
+        raise AssertionError(f"EDN list-append: {out['host']['valid?']}")
+
+    # the semaphore's host oracle, begun after step 1
+    t0 = time.monotonic()
+    want = oracle.result(timeout=DOCS_LIMIT_S)
+    print(f"  rabbitmq semaphore, host oracle on the stored history "
+          f"({want['seconds']:.2f} s in the background, "
+          f"{time.monotonic() - t0:.2f} s waited for): {want['valid?']}, "
+          f"cause {want['cause']}, configs {want['configs']}", flush=True)
+    if want["valid?"] != m["valid?"]:
+        raise AssertionError(f"rabbitmq semaphore host oracle: "
+                             f"{want['valid?']} against the suite's "
+                             f"{m['valid?']}")
+
+    took = time.monotonic() - t_all
+    print(f"  rabbitmq, mongodb and EDN: {took:.1f} s", flush=True)
+    if took > DOCS_LIMIT_S:
+        raise AssertionError(f"rabbitmq, mongodb and EDN took {took:.1f} s "
+                             f"(limit {DOCS_LIMIT_S} s)")
+    return counts
+
+
+def suites_phases(dev, background) -> dict:
+    """The live suites, sqlite, etcd, mongodb and rabbitmq, the faultlib
+    nemesis and EDN ingest, on the card's machine, each step's wall
+    printed:
 
       1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
          in this process: a minisql primary (stdlib sqlite3 behind RESP,
@@ -5801,7 +6124,7 @@ def suites_phases(dev) -> dict:
          `valid?` and `anomaly-types` and the suite's must be equal. The
          transaction count, the route's reason and the launches are
          printed;
-      2. sqlite `bank` for 5 s: True, and no `bank.png` written;
+      2. sqlite `bank` (SUITE_BANK): True, and no `bank.png` written;
       3. `FaultLibNemesis` against one toykv node (the shape of the
          reference's `test_faultlib_nemesis_against_toykv`): faultlib
          built on the node with g++ (`make`), the server under its
@@ -5812,7 +6135,16 @@ def suites_phases(dev) -> dict:
       4. etcd `register` and `append` (`etcd_runs`): the register run's
          keys each decided by the competition race (`wgl32_chunk`) and
          each equal to the host oracle's verdict; the append run re-checked
-         three ways as in step 1.
+         three ways as in step 1;
+      5. rabbitmq `semaphore`, mongodb `register` and EDN ingest
+         (`doc_queue_runs`, the host oracles in `background`): the
+         semaphore's mutex history decided by the suite, a forced
+         "cuda-wgl" (`wgl32_chunk`) and the host oracle, all equal; each
+         mongodb key decided by the race and re-checked by "cuda-wgl" and
+         the host oracle, all equal; the headline read from a history.edn
+         decided as the native history, launch for launch; a list-append
+         history.edn checked by Elle on the card (`elle_closure`) and on
+         the host, equal.
 
     The servers listen on their suites' own ports, below Linux's ephemeral
     range: a client retrying a down server's ephemeral port can connect to
@@ -5832,8 +6164,8 @@ def suites_phases(dev) -> dict:
     from jepsen_tpu_torch.history import History
     from jepsen_tpu_torch.nemesis import faultfs
 
-    print(f"the live suites, sqlite and etcd, and the faultlib nemesis "
-          f"({card_line()}):", flush=True)
+    print(f"the live suites, sqlite, etcd, mongodb and rabbitmq, the "
+          f"faultlib nemesis and EDN ingest ({card_line()}):", flush=True)
     t_all = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
                                                      "torch_kernels"))
@@ -5843,8 +6175,8 @@ def suites_phases(dev) -> dict:
     def sqlite_run(which: str, pace: bool = True):
         """A live sqlite run of `which` (its generator paced when `pace`):
         (test map, what `core.run` returned, the run's launches)."""
-        opts = {**SUITE_RUN, "workload": which,
-                "name": f"suites-{which}",
+        opts = {**SUITE_RUN, **(SUITE_BANK if which == "bank" else {}),
+                "workload": which, "name": f"suites-{which}",
                 "store_root": os.path.join(tmp, which, "store"),
                 "sandbox": os.path.join(tmp, which, "nodes")}
         test = sq.sqlite_test(opts)
@@ -5901,8 +6233,8 @@ def suites_phases(dev) -> dict:
     except ImportError:
         have_plt = False
     bank = done["results"]["bank"]
-    print(f"  bank run ({time.monotonic() - t0:.2f} s): valid? "
-          f"{done['results']['valid?']} (SI {bank['SI']['valid?']}, "
+    print(f"  bank run ({time.monotonic() - t0:.2f} s; {SUITE_BANK}): "
+          f"valid? {done['results']['valid?']} (SI {bank['SI']['valid?']}, "
           f"{bank['SI']['read-count']} reads, "
           f"{bank['SI']['error-count']} errors), PNGs written {pngs} "
           f"(matplotlib {'installed' if have_plt else 'absent'})",
@@ -5968,6 +6300,9 @@ def suites_phases(dev) -> dict:
     etcd_counts, err = etcd_runs(dev, tmp)
     counts.update(etcd_counts)
     worst = max(worst, err)
+
+    # 5. mongodb, rabbitmq and EDN ingest
+    counts.update(doc_queue_runs(dev, tmp, background))
 
     shutil.rmtree(tmp, ignore_errors=True)
     took = time.monotonic() - t_all
@@ -6800,7 +7135,7 @@ def run_phases(dev, host10, background) -> int:
 
     fanout = phase(fanout_phases, dev)
     step_us = barrier_step_us(dev)
-    elle = phase(elle_phases, dev, host10, step_us)
+    elle = phase(elle_phases, dev, host10, step_us, background)
     bool_entry = phase(bool_chunk_phases, dev, step_us)
     phase(preflight_phases, dev)
     phase(warm_phases, dev, lin, h)
@@ -6813,7 +7148,7 @@ def run_phases(dev, host10, background) -> int:
     phase(fleet_phases, dev, background)
     phase(lint_phases, dev, background)
     cluster = phase(cluster_phases, dev)
-    suites = phase(suites_phases, dev)
+    suites = phase(suites_phases, dev, background)
     phase(bench_phases, background)
     print(f"phase walls (s): {json.dumps(walls)}", flush=True)
 

@@ -25,12 +25,30 @@ the shared framework. The suites ported so far:
   with fsync'd AOFs as subprocesses over the localexec remote, so CI
   exercises install -> real-TCP workload -> kill -9 -> AOF replay ->
   checker against live processes.
+- `disque` — the reference's queue-safety exemplar
+  (`disque/src/jepsen/disque.clj`): enqueue/dequeue/drain with
+  total-queue multiset accounting. `mini` mode (default) runs a LIVE
+  in-repo RESP job-queue server per node — at-least-once redelivery,
+  fsync'd AOF, kill -9 recovery — over localexec; `source` mode
+  clone-and-makes real disque. CI drives the live path, including a
+  deterministic volatile-loss counterexample. Its check runs on the
+  host.
 - `sqlite` — the SQL/ACID family exemplar: a LIVE server wrapping stdlib
   sqlite3 behind the shared RESP wire — micro-op txns in one
   serializable BEGIN IMMEDIATE, WAL + synchronous=FULL crash safety —
   driven by elle append/wr and bank workloads under a primary-kill
   nemesis, all CI-run against live processes; the elle checks' cycle
   search runs on the card.
+- `mongodb` — the document-store family (mongodb-rocks /
+  mongodb-smartos): a from-scratch BSON subset codec + OP_MSG wire
+  framing, document-CAS via conditional updates (nModified decides),
+  write-concern knobs, deb install + replica-set initiation issued
+  over the suite's own wire client. `mini` mode (default) runs LIVE
+  in-repo OP_MSG servers (fsync'd mutation log) under a kill nemesis
+  in CI; the mongodb-rocks `storage_engine` axis + logger queue and
+  the mongodb-smartos `os=smartos` (SmartOS + ipfilter) path ride the
+  deb mode. The register check's device lane runs on the card; the
+  logger's latency checker on the host.
 - `elasticsearch` — the search-engine family
   (elasticsearch/src/jepsen/elasticsearch/sets.clj): set workload
   over the document REST API with the refresh-before-read visibility
@@ -51,6 +69,23 @@ the shared framework. The suites ported so far:
   over zkCli; `mini` mode runs LIVE znode servers plus an uploaded
   zkCli-shaped CLI in CI, so the unchanged control-plane client
   drives real processes; the CAS register's check runs on the card.
+- `rabbitmq` — the queue-workload exemplar
+  (`rabbitmq/src/jepsen/rabbitmq.clj`): a from-scratch AMQP 0-9-1
+  subset codec (method/header/body frames, publisher confirms,
+  basic.get/ack/reject), a LIVE mini broker whose confirms land only
+  after an fsync (--volatile demonstrates the confirmed-then-lost
+  anomaly), and the distributed-semaphore mutex workload checked
+  linearizable. CI-run against live subprocess brokers. The
+  semaphore's mutex check races its device lane on the card; the
+  queue's total-queue check runs on the host.
+- `chronos` — the scheduler-family exemplar
+  (`chronos/src/jepsen/chronos{,/checker}.clj`): periodic jobs whose
+  target execution windows must each be satisfied by a distinct
+  completed run (greedy-EDF matching replaces the reference's
+  constraint solver, exactly on the same disjoint-window structure),
+  plus set-full over job names; a LIVE mini scheduler actually fires
+  runs, and kill -9 leaves incomplete runs / missed windows for the
+  checker to report. CI-run. Its checks run on the host.
 
 `miniserver` holds the mini servers' shared RESP codec and daemon
 lifecycle, `retryclient` the shared connect-with-retry client.
@@ -60,7 +95,7 @@ sweep a suite's matrix with `... test-all`.
 
 The port's copy of `jepsen_tpu/dbs/__init__.py`. The reference's other
 suites are not ported yet (ROADMAP.md Queue A item 6.6). The suites
-that speak HTTP (etcd, consul, elasticsearch) do so through
+that speak HTTP (etcd, consul, elasticsearch, chronos) do so through
 `httpclient`, on the standard library.
 """
 

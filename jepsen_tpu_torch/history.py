@@ -162,12 +162,6 @@ class History:
     def __repr__(self) -> str:
         return f"History({len(self.ops)} ops)"
 
-    def to_jsonl(self, path: str) -> None:
-        """One JSON op map per line (the JAX package's format)."""
-        with open(path, "w") as fh:
-            for op in self.ops:
-                fh.write(json.dumps(op.to_dict(), default=str) + "\n")
-
     # -- transforms --
     def index(self) -> "History":
         """Assign sequential :index to every op (knossos history/index
@@ -177,6 +171,21 @@ class History:
 
     def filter(self, pred: Callable[[Op], bool]) -> "History":
         return History(op for op in self.ops if pred(op))
+
+    def map(self, f: Callable[[Op], Op]) -> "History":
+        return History(f(op) for op in self.ops)
+
+    @property
+    def invocations(self) -> "History":
+        return self.filter(lambda o: o.is_invoke)
+
+    @property
+    def oks(self) -> "History":
+        return self.filter(lambda o: o.is_ok)
+
+    @property
+    def client_ops(self) -> "History":
+        return self.filter(lambda o: o.process != "nemesis")
 
     def pairs(self) -> list[tuple[Op, Optional[Op]]]:
         """Pair each invocation with its completion (or None if it never
@@ -201,6 +210,27 @@ class History:
                     out[slot] = (inv, op)
         return out
 
+    def complete(self) -> "History":
+        """Knossos `history/complete` parity: fill each invocation's value
+        from its :ok completion (reads invoke with value=None and complete
+        with the observed value), and mark invocations whose op completed
+        :fail with extra {"fails?": True} so downstream passes can drop
+        both halves. Returns a new indexed history."""
+        comp: dict[int, Op] = {}
+        for inv, c in self.pairs():
+            if inv.is_invoke and c is not None:
+                comp[id(inv)] = c
+        new = []
+        for op in self.ops:
+            c = comp.get(id(op))
+            if c is not None:
+                if c.is_ok and op.value is None:
+                    op = op.with_(value=c.value)
+                elif c.is_fail:
+                    op = op.with_(extra={**op.extra, "fails?": True})
+            new.append(op)
+        return History(new).index()
+
     # -- struct-of-arrays columns --
     def columns(self):
         """Return (type_codes, f_objs, process_objs, times, indexes) as numpy
@@ -218,6 +248,32 @@ class History:
             fs[i] = op.f
             procs[i] = op.process
         return types, fs, procs, times, idxs
+
+    # -- serialization --
+    def to_jsonl(self, path: str) -> None:
+        """One JSON op map per line (the JAX package's format)."""
+        with open(path, "w") as fh:
+            for op in self.ops:
+                fh.write(json.dumps(op.to_dict(), default=str) + "\n")
+
+    @staticmethod
+    def from_jsonl(path: str) -> "History":
+        h = History()
+        with open(path) as fh:
+            for line in fh:
+                line = line.strip()
+                if line:
+                    h.append(json.loads(line))
+        return h
+
+    @staticmethod
+    def from_edn(path: str) -> "History":
+        """Replay a history.edn written by the Clojure Jepsen (one op map
+        per prn line, store.clj:338-346) or a checker_test.clj-style
+        vector of op maps. See `edn` for the reader's scope."""
+        from . import edn
+        with open(path) as fh:
+            return edn.load_history(fh.read())
 
 
 def strip_nemesis(history: History) -> History:

@@ -50,6 +50,10 @@ SUITE_FILES = {f"jepsen_tpu_torch/{f}.py" for f in (
     "workloads/causal", "workloads/causal_reverse", "workloads/monotonic",
     "dbs/httpclient", "dbs/etcd", "dbs/consul", "dbs/zookeeper",
     "dbs/elasticsearch")}
+# EDN ingest, the small utilities and the suites on the mini servers alone
+DOC_FILES = {f"jepsen_tpu_torch/{f}.py" for f in (
+    "history", "edn", "codec", "repl", "report", "dbs/disque",
+    "dbs/chronos", "dbs/mongodb", "dbs/rabbitmq")}
 # `-m jepsen_tpu...` in a command line, and the module `-m` is given
 RUN_REFERENCE = re.compile(r"-m\s+jepsen_tpu(?!_torch)\b")
 REFERENCE_MODULE = re.compile(r"^jepsen_tpu(?!_torch)(\.\w+)*$")
@@ -82,6 +86,7 @@ def test_scan_covers_the_package():
             "jepsen_tpu_torch/store/format.py", "chip_smoke.py"} <= names
     assert CLUSTER_FILES <= names
     assert SUITE_FILES <= names
+    assert DOC_FILES <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -141,7 +141,7 @@ render of the host oracle's analysis), and `core.analyze` of
 exceptions})` over the invalid 100 x 2k fan-out (failures == the host
 oracle's, one `kind="independent"` record, every key's results.json).
 Then the test path (`test_phases`): `python -m jepsen_tpu_torch test
---concurrency 2n --time-limit 10 --rate 1000` in a fresh process (~10k
+--concurrency 2n --time-limit 5 --rate 1000` in a fresh process (~5k
 invocations made by the interpreter against the in-process register,
 checked by "cuda-wgl" on the card; the run dir, the ledger's run and
 checker records, the status mirror, the host oracle's verdict of the
@@ -206,21 +206,27 @@ three ways (the routed "auto", a forced "device" that launches
 oracle), all equal; a bank run (valid, no PNG); and the faultlib
 LD_PRELOAD nemesis against a toykv node (faultlib built with g++ there,
 EIO injected, the set checker's verdict); then etcd's `register` (a live
-mini-etcd server under kill -9, 4 workers for 5 s, each key decided by
+mini-etcd server under kill -9, 4 workers for 3 s, each key decided by
 the competition race whose device lane runs `wgl32_chunk`, each verdict
 equal to the host oracle's) and `append` (paced, 7.5 s, re-checked the
 same three ways); then rabbitmq's `semaphore` (a live mini AMQP broker,
-3 workers for 5 s, the mutex checked by the suite, then re-checked by a
+3 workers for 3 s, the mutex checked by the suite, then re-checked by a
 forced "cuda-wgl" that launches `wgl32_chunk` on the mutex history and
 by the host oracle in a worker process, all equal), mongodb's
-`register` (a live mini OP_MSG server under kill -9, 4 workers for 5 s,
+`register` (a live mini OP_MSG server under kill -9, 4 workers for 3 s,
 each key decided by the competition race, its stored history re-checked
 key by key by "cuda-wgl" on the card and by the host oracle, all
 equal), and EDN ingest (the
 headline written as a store.clj-shaped history.edn, read back by
 `History.from_edn` and decided by "cuda-wgl" as the native history is,
 launch for launch; a list-append history.edn with 600 transactions
-checked by Elle on the card and on the host, equal). Last, the bench round
+checked by Elle on the card and on the host, equal); then the MySQL-wire
+family on galera's embedded server (`mysql_runs`): mysql_cluster's
+`register` (a live mini server under kill -9, 4 workers for 5 s, each
+key decided by the competition race, its stored history re-checked key
+by key by "cuda-wgl" on the card and by the host oracle in a worker
+process, all equal) and tidb's `append` (paced, 7.5 s, re-checked the
+same three ways as sqlite's). Last, the bench round
 (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
@@ -3757,7 +3763,9 @@ def analyze_phases(dev) -> None:
           flush=True)
 
 
-TEST_RUN = dict(concurrency="2n", time_limit=10, rate=1000)   # phase (a)
+# phase (a): 5 s (10 s, the BASELINE's 10k ops, until the MySQL-wire runs
+# joined the suites phase)
+TEST_RUN = dict(concurrency="2n", time_limit=5, rate=1000)    # phase (a)
 TEST_INVALID = dict(concurrency=10, time_limit=1, rate=1000)   # phase (b)
 TEST_INDEP = dict(keys=100, ops_per_key=200, concurrency=20)   # phase (c)
 TEST_ALL = dict(test_count=2, time_limit=1, rate=500)          # phase (d)
@@ -3788,10 +3796,10 @@ def test_phases(dev) -> None:
     remote, `core.run`'s store and ledger, and the check on the card.
 
       (a) `python -m jepsen_tpu_torch test --concurrency 2n --time-limit
-          10 --rate 1000` in a fresh process with the reference's 5
-          default nodes: `stagger`'s rate is the total, so ~10,000
-          invocations, the BASELINE's 10k-op cas-register made by the
-          interpreter; exit 0, valid? True from "cuda-wgl" on the card
+          5 --rate 1000` (TEST_RUN) in a fresh process with the
+          reference's 5 default nodes: `stagger`'s rate is the total, so
+          ~5,000 invocations of a cas-register made by the interpreter;
+          exit 0, valid? True from "cuda-wgl" on the card
           with `wgl32_chunk` launches (its chunks, `util.chunks` in
           results.json), `test.jepsen`, `results.json` and `jepsen.log`
           in the run dir, one `kind="run"` and one `kind="checker"`
@@ -5560,7 +5568,7 @@ def cluster_phases(dev) -> dict:
 
 # ---- the first live SQL suite -------------------------------------------------
 
-SUITES_LIMIT_S = 85.0         # the phase's share of SMOKE_LIMIT_S
+SUITES_LIMIT_S = 110.0        # the phase's share of SMOKE_LIMIT_S
 # the reference test's options (`tests/test_sqlite.py`: one node, 4 workers,
 # a kill/restart of the primary every 2 s), for 5 s
 SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
@@ -5570,13 +5578,14 @@ SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
 # and stays inside the dense closure's capacity (8192); an unpaced run
 # completes ~24k, whose graph goes to the packed closure
 SUITE_STAGGER_S = 0.005
-# the bank run, unpaced: 3 s (5 s until the mongodb and rabbitmq runs
-# joined the phase)
-SUITE_BANK = dict(time_limit=3)
+# the bank run, unpaced: 2 s (5 s until the mongodb and rabbitmq runs
+# joined the phase, 3 s until the MySQL-wire runs did)
+SUITE_BANK = dict(time_limit=2)
 # etcd's live runs: `register` with the reference test's options
 # (`tests/test_etcd.py::test_full_suite_live_mini`: one node, 4 workers, 40
-# ops a key), for 5 s with the kill/restart every 2 s (2.5) so that the
-# restart falls inside the run; `append` paced as sqlite's, ETCD_STAGGER_S
+# ops a key), for 3 s (5 s until the MySQL-wire runs joined the phase) with
+# the kill/restart every 1 s so that the restart falls inside the run;
+# `append` paced as sqlite's, ETCD_STAGGER_S
 # apart, for 7.5 s with the reference test's kill/restart every 2.5 s (up
 # 2.5 s, down 2.5, up 2.5), so that its graph lands between the route's
 # `min_n` (384) and the dense closure's capacity (8192): each transaction
@@ -5584,21 +5593,22 @@ SUITE_BANK = dict(time_limit=3)
 # machine 358 of 782 completed transactions reached the graph at
 # SUITE_STAGGER_S for 5 s (the rest crashed while the server was down),
 # 384-465 at 2 ms for 6 s with the kill/restart every 2 s
-ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=5,
-                nemesis_interval=2.0, server="mini", per_key_limit=40)
+ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=3,
+                nemesis_interval=1.0, server="mini", per_key_limit=40)
 ETCD_APPEND = dict(time_limit=7.5, nemesis_interval=2.5)
 ETCD_STAGGER_S = 0.002
 ETCD_LIMIT_S = 25.0           # the two etcd runs' share of SUITES_LIMIT_S
 # mongodb's live register run: the reference test's one node and 4 workers
 # (`tests/test_mongodb.py::test_full_suite_live`) and the suite's 100 ops a
-# key, for 5 s with the kill/restart every 2 s so that the restart falls
-# inside the run
-MONGO_RUN = dict(nodes=["m1"], concurrency=4, time_limit=5,
-                 nemesis_interval=2.0, server="mini", workload="register")
+# key, for 3 s (5 s until the MySQL-wire runs joined the phase) with the
+# kill/restart every 1 s so that the restart falls inside the run
+MONGO_RUN = dict(nodes=["m1"], concurrency=4, time_limit=3,
+                 nemesis_interval=1.0, server="mini", workload="register")
 # rabbitmq's semaphore run, the reference test's
 # (`tests/test_rabbitmq.py::test_full_semaphore_suite_live_mini`: one
-# broker, 3 workers, 5 s)
-RABBIT_SEM = dict(nodes=["r1"], concurrency=3, time_limit=5,
+# broker, 3 workers), for 3 s (the reference test's 5 s until the MySQL-wire
+# runs joined the phase)
+RABBIT_SEM = dict(nodes=["r1"], concurrency=3, time_limit=3,
                   nemesis_interval=2.0, server="mini", workload="semaphore")
 # the list-append history.edn: this many copies of `tests/test_edn.py`'s
 # three-transaction G-single (`ELLE_EDN`), each on keys of its own, 600
@@ -5606,6 +5616,29 @@ RABBIT_SEM = dict(nodes=["r1"], concurrency=3, time_limit=5,
 # closure's capacity (8192)
 EDN_APPEND_COPIES = 200
 DOCS_LIMIT_S = 35.0           # rabbitmq's, mongodb's and EDN's share of it
+# the MySQL-wire family's live runs, on galera's embedded server (stdlib
+# sqlite3 behind the MySQL wire, WAL + synchronous=FULL, one BEGIN
+# IMMEDIATE writer at a time): mysql_cluster `register` with the reference
+# test's one mini node and 4 workers
+# (`tests/test_mysql_cluster.py::test_register_live`) and the suite's 100
+# ops a key, for 5 s with the kill/restart every 2 s so that the restart
+# falls inside the run
+NDB_RUN = dict(nodes=["m1"], concurrency=4, time_limit=5,
+               nemesis_interval=2.0, server="mini", workload="register")
+# tidb `append`, one mini node and 4 workers under the kill nemesis, paced
+# TIDB_STAGGER_S apart, for 7.5 s with the kill/restart every 2.5 s (up
+# 2.5 s, down 2.5, up 2.5, as etcd's append) so that its graph lands
+# between the route's `min_n` (384) and the dense closure's capacity
+# (8192): each transaction is a BEGIN .. COMMIT of a statement or two a
+# micro-op over the wire, one writer at a time, and the server bounds the
+# rate: on an H100's machine, for 5 s with the kill/restart every 2 s, 403
+# transactions completed unpaced, 354-388 at 5 ms, 283-350 at 2-3 ms and
+# 140 at 10 ms, each all in the graph but those crashed
+TIDB_APPEND = dict(nodes=["t1"], concurrency=4, time_limit=7.5,
+                   nemesis_interval=2.5, server="mini", workload="append",
+                   nemesis="kill")
+TIDB_STAGGER_S = 0.005
+MYSQL_LIMIT_S = 25.0          # the MySQL-wire runs' share of SUITES_LIMIT_S
 SUITE_KERNELS = ("elle_closure", "wgl32_chunk")
 
 
@@ -5872,6 +5905,31 @@ def elle_edn(copies: int) -> str:
     return "\n".join(lines) + "\n"
 
 
+def live_run(make, name: str, opts: dict, node: str, log: str, banner: str,
+             tmp: str, counts) -> tuple:
+    """A live suite run on the card: the test map `make(opts)` with the
+    run's name, store root and sandbox under `tmp/name`, every launch
+    counter set to 0 just before `core.run` and read just after (added to
+    `counts`). Returns (what `core.run` returned, the launches, the wall,
+    the serving `banner`s in `node`'s `log`, the stored run)."""
+    import os
+
+    from jepsen_tpu_torch import core, store
+    root = os.path.join(tmp, name, "store")
+    opts = {**opts, "name": f"suites-{name}", "store_root": root,
+            "sandbox": os.path.join(tmp, name, "nodes")}
+    zero_counts()
+    t0 = time.monotonic()
+    done = core.run(make(opts))
+    torch.cuda.synchronize()
+    launched = read_counts()
+    counts.update(launched)
+    banners = open(os.path.join(done["store_dir"], node, log)
+                   ).read().count(banner)
+    return (done, {k: v for k, v in launched.items() if v},
+            time.monotonic() - t0, banners, store.load_latest(root))
+
+
 def mutex_oracle(root: str) -> dict:
     """The host oracle's verdict on the latest mutex history stored under
     `root`, with the rabbitmq suite's time limit (in a worker process):
@@ -5920,7 +5978,7 @@ def doc_queue_runs(dev, tmp: str, background) -> dict:
     import collections
     import os
 
-    from jepsen_tpu_torch import checker, core, independent, store, synth
+    from jepsen_tpu_torch import checker, independent, synth
     from jepsen_tpu_torch.dbs import mongodb, rabbitmq
     from jepsen_tpu_torch.elle import append
     from jepsen_tpu_torch.history import History
@@ -5929,21 +5987,6 @@ def doc_queue_runs(dev, tmp: str, background) -> dict:
 
     t_all = time.monotonic()
     counts: collections.Counter = collections.Counter()
-
-    def run(make, name, opts, node, log, banner):
-        root = os.path.join(tmp, name, "store")
-        opts = {**opts, "name": f"suites-{name}", "store_root": root,
-                "sandbox": os.path.join(tmp, name, "nodes")}
-        zero_counts()
-        t0 = time.monotonic()
-        done = core.run(make(opts))
-        torch.cuda.synchronize()
-        launched = read_counts()
-        counts.update(launched)
-        banners = open(os.path.join(done["store_dir"], node, log)
-                       ).read().count(banner)
-        return (done, {k: v for k, v in launched.items() if v},
-                time.monotonic() - t0, banners, store.load_latest(root))
 
     def rechecked(fn):
         zero_counts()
@@ -5956,9 +5999,9 @@ def doc_queue_runs(dev, tmp: str, background) -> dict:
 
     # 1. rabbitmq semaphore: the suite, a forced device check, and the host
     # oracle in the background
-    done, launched, wall, banners, stored = run(
+    done, launched, wall, banners, stored = live_run(
         rabbitmq.rabbitmq_test, "rabbitmq", RABBIT_SEM, "r1",
-        rabbitmq.MiniRabbitDB.logfile, "minirabbit serving on")
+        rabbitmq.MiniRabbitDB.logfile, "minirabbit serving on", tmp, counts)
     m = done["results"]["mutex"]
     hist = History(stored["history"]).index()
     if [o.to_dict() for o in hist] != [o.to_dict() for o in done["history"]]:
@@ -5997,9 +6040,9 @@ def doc_queue_runs(dev, tmp: str, background) -> dict:
                              f"{m['valid?']}, launches {got}")
 
     # 2. mongodb register: the suite, then each key two ways
-    done, launched, wall, banners, stored = run(
+    done, launched, wall, banners, stored = live_run(
         mongodb.mongodb_test, "mongodb", MONGO_RUN, "m1",
-        mongodb.MiniMongoDB.logfile, "minimongo serving on")
+        mongodb.MiniMongoDB.logfile, "minimongo serving on", tmp, counts)
     keys = done["results"]["register"]["results"]
     engines = collections.Counter(str(r["linear"].get("engine"))
                                   for r in keys.values())
@@ -6105,10 +6148,170 @@ def doc_queue_runs(dev, tmp: str, background) -> dict:
     return counts
 
 
+def register_oracle(root: str) -> dict:
+    """The host oracle's verdict on each key of the latest register history
+    stored under `root` (in a worker process): {key: valid?} and its
+    seconds."""
+    from jepsen_tpu_torch import checker, independent, store
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import cas_register
+    t0 = time.monotonic()
+    hist = History([{**op, "value": kv_of(op.get("value"))}
+                    for op in store.load_latest(root)["history"]]).index()
+    res = independent.checker(checker.linearizable(
+        cas_register(), algorithm="wgl", device="cpu")).check({}, hist, {})
+    return {"verdicts": {k: r["valid?"] for k, r in res["results"].items()},
+            "seconds": time.monotonic() - t0}
+
+
+def graph_txns(res: dict):
+    """The transactions in an Elle check's graph, from its route's reason
+    (`n N, ...`), or None where the reason names none."""
+    import re
+    m = re.search(r"\bn (\d+)", str(res.get("cycle-route-reason")))
+    return int(m.group(1)) if m else None
+
+
+def mysql_runs(dev, tmp: str, background) -> dict:
+    """The MySQL-wire family's live runs on the card, each on its suite's
+    own ports over the localexec remote, its kill/restart nemesis sending
+    real `kill -9`s to galera's embedded server:
+
+      1. mysql_cluster `register` (NDB_RUN), each key decided by the
+         suite's competition race (the device lane `wgl32_chunk`): True,
+         at least one launch, at least two serving banners; its stored
+         history read back and re-checked key by key by a forced
+         "cuda-wgl" on the card (at least one `wgl32_chunk` launch) and by
+         the host oracle (`register_oracle`, in `background` while step 2
+         runs), each key's three verdicts equal;
+      2. tidb `append` (TIDB_APPEND, paced by TIDB_STAGGER_S), the suite's
+         check on the card: True with no anomaly; its stored history
+         re-checked by `elle_rechecks` (auto and forced device on the
+         card, each dense closure held against `closure_ref`, error 0,
+         and the host), all equal. The transactions completed and in the
+         graph, the route's reason and the launches are printed.
+
+    Returns (the launches of the runs and the re-checks by kernel, the
+    closures' largest error); takes at most MYSQL_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch import checker, independent
+    from jepsen_tpu_torch.dbs import mysql_cluster, tidb
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import cas_register
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+    banner = "minimysql serving on"
+
+    # 1. mysql_cluster register: the suite, "cuda-wgl", the host oracle in
+    # the background
+    done, launched, wall, banners, stored = live_run(
+        mysql_cluster.ndb_test, "ndb", NDB_RUN, "m1",
+        mysql_cluster.MiniNdbDB.logfile, banner, tmp, counts)
+    keys = done["results"]["register"]["results"]
+    engines = collections.Counter(str(r["linear"].get("engine"))
+                                  for r in keys.values())
+    n_ops = sum(1 for o in done["history"] if o.process != "nemesis"
+                and o.type != "invoke")
+    print(f"  mysql_cluster register run ({wall:.2f} s; {NDB_RUN}, ports "
+          f"from {mysql_cluster.MINI_BASE_PORT}): valid? "
+          f"{done['results']['valid?']}, {len(keys)} keys decided, {n_ops} "
+          f"ops completed, serving banners {banners}, winning engines "
+          f"{dict(engines)}, launches {launched}", flush=True)
+    if (done["results"]["valid?"] is not True or not keys or banners < 2
+            or launched.get("wgl32_chunk", 0) < 1):
+        raise AssertionError(f"mysql_cluster register: "
+                             f"{done['results']['valid?']}, {len(keys)} "
+                             f"keys, banners {banners}, launches {launched}")
+    hist = History([{**op, "value": kv_of(op.get("value"))}
+                    for op in stored["history"]]).index()
+    if [o.to_dict() for o in hist] != [o.to_dict() for o in done["history"]]:
+        raise AssertionError("mysql_cluster register: the stored history "
+                             "differs from the run's")
+    oracle = background.submit(register_oracle,
+                               os.path.join(tmp, "ndb", "store"))
+    suite = {k: r["valid?"] for k, r in keys.items()}
+    zero_counts()
+    t0 = time.monotonic()
+    res = independent.checker(checker.linearizable(
+        cas_register(), algorithm="cuda-wgl", device=dev)).check(
+            {}, hist, {})
+    torch.cuda.synchronize()
+    got = read_counts()
+    counts.update(got)
+    verdicts = {k: r["valid?"] for k, r in res["results"].items()}
+    print(f"    cuda-wgl on the stored history ({time.monotonic() - t0:.2f} "
+          f"s): {res['valid?']}; keys agreeing with the suite "
+          f"{sum(verdicts.get(k) == v for k, v in suite.items())} of "
+          f"{len(suite)}; launches {({k: v for k, v in got.items() if v})}",
+          flush=True)
+    if verdicts != suite or got["wgl32_chunk"] < 1:
+        raise AssertionError(f"mysql_cluster register cuda-wgl: "
+                             f"{len(verdicts)} verdicts against the suite's "
+                             f"{len(suite)} differ, or launches {got}")
+
+    # 2. tidb append: the suite, then its stored history three ways
+    def paced_append(opts):
+        test = tidb.tidb_test(opts)
+        test["generator"] = paced(opts, tidb.WORKLOADS["append"](opts)
+                                  ["generator"], TIDB_STAGGER_S)
+        return test
+
+    done, launched, wall, banners, stored = live_run(
+        paced_append, "tidb", TIDB_APPEND, "t1", tidb.MiniTidbDB.logfile,
+        banner, tmp, counts)
+    res = done["results"]["append"]
+    hist = done["history"]
+    stored = History(stored["history"]).index()
+    if [o.to_dict() for o in stored] != [o.to_dict() for o in hist]:
+        raise AssertionError("tidb append: the stored history differs from "
+                             "the run's")
+    txns = sum(1 for o in hist if o.f == "txn" and o.type != "invoke")
+    oks = sum(1 for o in hist if o.f == "txn" and o.type == "ok")
+    print(f"  tidb append run ({wall:.2f} s; {TIDB_APPEND}, paced "
+          f"{TIDB_STAGGER_S} s, ports from {tidb.MINI_BASE_PORT}): valid? "
+          f"{done['results']['valid?']} (append {res['valid?']}, anomalies "
+          f"{res['anomaly-types']}), {txns} txns completed ({oks} ok), "
+          f"{graph_txns(res)} in the graph, serving banners {banners}, "
+          f"engine {res.get('cycle-engine')}, route "
+          f"{res.get('cycle-route-reason')!r}, launches {launched}",
+          flush=True)
+    if (done["results"]["valid?"] is not True or res["valid?"] is not True
+            or res["anomaly-types"] or banners < 2):
+        raise AssertionError(f"tidb append: {done['results']}, banners "
+                             f"{banners}")
+    rechecked, worst = elle_rechecks(
+        "tidb append", append.check, stored,
+        done["checker"].checker_map["append"], res, dev)
+    counts.update(rechecked)
+
+    # the register's host oracle, begun after step 1
+    t0 = time.monotonic()
+    want = oracle.result(timeout=MYSQL_LIMIT_S)
+    print(f"  mysql_cluster register, host oracle on the stored history "
+          f"({want['seconds']:.2f} s in the background, "
+          f"{time.monotonic() - t0:.2f} s waited for): keys agreeing with "
+          f"the suite {sum(want['verdicts'].get(k) == v for k, v in suite.items())}"
+          f" of {len(suite)}", flush=True)
+    if want["verdicts"] != suite:
+        raise AssertionError(f"mysql_cluster register host oracle: "
+                             f"{len(want['verdicts'])} verdicts against the "
+                             f"suite's {len(suite)} differ")
+    took = time.monotonic() - t_all
+    print(f"  mysql_cluster and tidb: {took:.1f} s", flush=True)
+    if took > MYSQL_LIMIT_S:
+        raise AssertionError(f"mysql_cluster and tidb took {took:.1f} s "
+                             f"(limit {MYSQL_LIMIT_S} s)")
+    return counts, worst
+
+
 def suites_phases(dev, background) -> dict:
-    """The live suites, sqlite, etcd, mongodb and rabbitmq, the faultlib
-    nemesis and EDN ingest, on the card's machine, each step's wall
-    printed:
+    """The live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster and
+    tidb, the faultlib nemesis and EDN ingest, on the card's machine, each
+    step's wall printed:
 
       1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
          in this process: a minisql primary (stdlib sqlite3 behind RESP,
@@ -6144,7 +6347,12 @@ def suites_phases(dev, background) -> dict:
          the host oracle, all equal; the headline read from a history.edn
          decided as the native history, launch for launch; a list-append
          history.edn checked by Elle on the card (`elle_closure`) and on
-         the host, equal.
+         the host, equal;
+      6. mysql_cluster `register` and tidb `append` (`mysql_runs`, the
+         register's host oracle in `background`): each mysql_cluster key
+         decided by the race and re-checked by "cuda-wgl" and the host
+         oracle, all equal; the tidb append run re-checked three ways as
+         in step 1.
 
     The servers listen on their suites' own ports, below Linux's ephemeral
     range: a client retrying a down server's ephemeral port can connect to
@@ -6164,8 +6372,9 @@ def suites_phases(dev, background) -> dict:
     from jepsen_tpu_torch.history import History
     from jepsen_tpu_torch.nemesis import faultfs
 
-    print(f"the live suites, sqlite, etcd, mongodb and rabbitmq, the "
-          f"faultlib nemesis and EDN ingest ({card_line()}):", flush=True)
+    print(f"the live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster "
+          f"and tidb, the faultlib nemesis and EDN ingest ({card_line()}):",
+          flush=True)
     t_all = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
                                                      "torch_kernels"))
@@ -6303,6 +6512,11 @@ def suites_phases(dev, background) -> dict:
 
     # 5. mongodb, rabbitmq and EDN ingest
     counts.update(doc_queue_runs(dev, tmp, background))
+
+    # 6. the MySQL-wire family: mysql_cluster and tidb
+    mysql_counts, err = mysql_runs(dev, tmp, background)
+    counts.update(mysql_counts)
+    worst = max(worst, err)
 
     shutil.rmtree(tmp, ignore_errors=True)
     took = time.monotonic() - t_all

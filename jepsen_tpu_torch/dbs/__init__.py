@@ -86,6 +86,35 @@ the shared framework. The suites ported so far:
   plus set-full over job names; a LIVE mini scheduler actually fires
   runs, and kill -9 leaves incomplete runs / missed windows for the
   checker to report. CI-run. Its checks run on the host.
+- `tidb` — the reference's deep-dive exemplar
+  (`tidb/src/tidb/core.clj:32-151`): 11 workloads (bank +
+  multitable, long-fork, monotonic, txn-cycle, append, register,
+  set, set-cas, sequential, table DDL races) over the shared
+  MySQL-wire codec, with the reference's four option axes
+  (auto-retry session vars, FOR UPDATE read locks, use-index,
+  update-in-place) expanded combinatorially by test-all
+  (all-combos / expected-to-pass / quick), and pd -> tikv -> tidb
+  three-daemon automation in tarball mode. CI-run live on the
+  MySQL-wire mini servers. The register check's device lane and the
+  append / txn-cycle checks' cycle search run on the card.
+- `galera` — the MySQL-replication family
+  (`galera/src/jepsen/galera.clj`): a from-scratch MySQL wire codec
+  (packet framing, mysql_native_password scrambling, COM_QUERY
+  resultsets) over LIVE mini servers; set inserts, explicit-txn bank
+  transfers, and the famous dirty-reads workload. Its checks run on
+  the host.
+- `percona` — the MySQL-transaction exemplar
+  (`percona/src/jepsen/percona.clj`): the bank's lock_type (none /
+  FOR UPDATE / LOCK IN SHARE MODE) and in-place axes swept by
+  test-all, deadlock-abort retries, debconf-preseed + stock-datadir
+  cluster automation. CI-run live on the shared MySQL wire. Its
+  checks run on the host.
+- `mysql_cluster` — NDB's three-role automation
+  (`mysql-cluster/src/jepsen/mysql_cluster.clj`): ndb_mgmd / ndbd /
+  mysqld with node-id blocks 1/11/21 and one shared config.ini, plus
+  a linearizable register over ENGINE=NDBCLUSTER row CAS. CI-run
+  live on the shared MySQL wire; the register check's device lane
+  runs on the card.
 
 `miniserver` holds the mini servers' shared RESP codec and daemon
 lifecycle, `retryclient` the shared connect-with-retry client.
@@ -94,9 +123,11 @@ Run one with `python -m jepsen_tpu_torch.dbs.<suite> test --nodes ...`;
 sweep a suite's matrix with `... test-all`.
 
 The port's copy of `jepsen_tpu/dbs/__init__.py`. The reference's other
-suites are not ported yet (ROADMAP.md Queue A item 6.6). The suites
-that speak HTTP (etcd, consul, elasticsearch, chronos) do so through
-`httpclient`, on the standard library.
+suites (postgres and the suites on it, raftis, yuga, and the eight on
+`miniserver` and `retryclient` alone) are not ported yet (ROADMAP.md
+Queue A item 6.6). The suites that speak HTTP (etcd, consul,
+elasticsearch, chronos) do so through `httpclient`, on the standard
+library.
 """
 
 from __future__ import annotations

@@ -54,6 +54,9 @@ SUITE_FILES = {f"jepsen_tpu_torch/{f}.py" for f in (
 DOC_FILES = {f"jepsen_tpu_torch/{f}.py" for f in (
     "history", "edn", "codec", "repl", "report", "dbs/disque",
     "dbs/chronos", "dbs/mongodb", "dbs/rabbitmq")}
+# the MySQL-wire family: galera's codec and server, and the suites on it
+MYSQL_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
+    "galera", "percona", "mysql_cluster", "tidb")}
 # `-m jepsen_tpu...` in a command line, and the module `-m` is given
 RUN_REFERENCE = re.compile(r"-m\s+jepsen_tpu(?!_torch)\b")
 REFERENCE_MODULE = re.compile(r"^jepsen_tpu(?!_torch)(\.\w+)*$")
@@ -87,6 +90,7 @@ def test_scan_covers_the_package():
     assert CLUSTER_FILES <= names
     assert SUITE_FILES <= names
     assert DOC_FILES <= names
+    assert MYSQL_FILES <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -141,7 +141,7 @@ render of the host oracle's analysis), and `core.analyze` of
 exceptions})` over the invalid 100 x 2k fan-out (failures == the host
 oracle's, one `kind="independent"` record, every key's results.json).
 Then the test path (`test_phases`): `python -m jepsen_tpu_torch test
---concurrency 2n --time-limit 5 --rate 1000` in a fresh process (~5k
+--concurrency 2n --time-limit 3 --rate 1000` in a fresh process (~3k
 invocations made by the interpreter against the in-process register,
 checked by "cuda-wgl" on the card; the run dir, the ledger's run and
 checker records, the status mirror, the host oracle's verdict of the
@@ -222,11 +222,17 @@ headline written as a store.clj-shaped history.edn, read back by
 launch for launch; a list-append history.edn with 600 transactions
 checked by Elle on the card and on the host, equal); then the MySQL-wire
 family on galera's embedded server (`mysql_runs`): mysql_cluster's
-`register` (a live mini server under kill -9, 4 workers for 5 s, each
+`register` (a live mini server under kill -9, 4 workers for 3 s, each
 key decided by the competition race, its stored history re-checked key
 by key by "cuda-wgl" on the card and by the host oracle in a worker
 process, all equal) and tidb's `append` (paced, 7.5 s, re-checked the
-same three ways as sqlite's). Last, the bench round
+same three ways as sqlite's); then the pgwire family on stolon's
+embedded server (`pg_runs`): postgres's `register` against one minipg
+node (4 workers for 3 s, re-checked key by key by "cuda-wgl" and the host
+oracle, all equal) and stolon's `append` (paced, 7.5 s, under kill -9,
+re-checked the same three ways). A live step whose server never opens
+its port prints the server log's tail and the port's holders (from
+/proc/net/tcp) before it fails. Last, the bench round
 (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
@@ -252,6 +258,7 @@ walls, kernel times, µs a round and µs a peel: run it on both trees in
 turns in one call to time a change against its parent.
 """
 
+import contextlib
 import json
 import multiprocessing
 import subprocess
@@ -3763,9 +3770,9 @@ def analyze_phases(dev) -> None:
           flush=True)
 
 
-# phase (a): 5 s (10 s, the BASELINE's 10k ops, until the MySQL-wire runs
-# joined the suites phase)
-TEST_RUN = dict(concurrency="2n", time_limit=5, rate=1000)    # phase (a)
+# phase (a): 3 s (10 s, the BASELINE's 10k ops, until the MySQL-wire runs
+# joined the suites phase; 5 s until the pgwire runs did)
+TEST_RUN = dict(concurrency="2n", time_limit=3, rate=1000)    # phase (a)
 TEST_INVALID = dict(concurrency=10, time_limit=1, rate=1000)   # phase (b)
 TEST_INDEP = dict(keys=100, ops_per_key=200, concurrency=20)   # phase (c)
 TEST_ALL = dict(test_count=2, time_limit=1, rate=500)          # phase (d)
@@ -3796,9 +3803,9 @@ def test_phases(dev) -> None:
     remote, `core.run`'s store and ledger, and the check on the card.
 
       (a) `python -m jepsen_tpu_torch test --concurrency 2n --time-limit
-          5 --rate 1000` (TEST_RUN) in a fresh process with the
+          3 --rate 1000` (TEST_RUN) in a fresh process with the
           reference's 5 default nodes: `stagger`'s rate is the total, so
-          ~5,000 invocations of a cas-register made by the interpreter;
+          ~3,000 invocations of a cas-register made by the interpreter;
           exit 0, valid? True from "cuda-wgl" on the card
           with `wgl32_chunk` launches (its chunks, `util.chunks` in
           results.json), `test.jepsen`, `results.json` and `jepsen.log`
@@ -5251,7 +5258,9 @@ CLUSTER_NODES = ["a", "b", "c"]
 # the kill/restart every 2 s until the mongodb and rabbitmq runs joined the
 # suites phase)
 CLUSTER_RUN = dict(concurrency=6, time_limit=3, nemesis_interval=1)
-CLUSTER_CLI = dict(nodes="a,b", concurrency=4, time_limit=3,
+# the CLI's run: 2 s (3 s until the pgwire runs joined the suites phase;
+# the step gates on the exit code alone)
+CLUSTER_CLI = dict(nodes="a,b", concurrency=4, time_limit=2,
                    nemesis_interval=1)
 CLUSTER_LIMIT_S = 240.0       # the phase's share of SMOKE_LIMIT_S
 # the kernels of the phase's path: the race's device lane, and the
@@ -5621,10 +5630,11 @@ DOCS_LIMIT_S = 35.0           # rabbitmq's, mongodb's and EDN's share of it
 # IMMEDIATE writer at a time): mysql_cluster `register` with the reference
 # test's one mini node and 4 workers
 # (`tests/test_mysql_cluster.py::test_register_live`) and the suite's 100
-# ops a key, for 5 s with the kill/restart every 2 s so that the restart
-# falls inside the run
-NDB_RUN = dict(nodes=["m1"], concurrency=4, time_limit=5,
-               nemesis_interval=2.0, server="mini", workload="register")
+# ops a key, for 3 s with the kill/restart every 1 s so that the restart
+# falls inside the run (5 s, every 2 s, until the pgwire runs joined the
+# phase)
+NDB_RUN = dict(nodes=["m1"], concurrency=4, time_limit=3,
+               nemesis_interval=1.0, server="mini", workload="register")
 # tidb `append`, one mini node and 4 workers under the kill nemesis, paced
 # TIDB_STAGGER_S apart, for 7.5 s with the kill/restart every 2.5 s (up
 # 2.5 s, down 2.5, up 2.5, as etcd's append) so that its graph lands
@@ -5639,6 +5649,22 @@ TIDB_APPEND = dict(nodes=["t1"], concurrency=4, time_limit=7.5,
                    nemesis="kill")
 TIDB_STAGGER_S = 0.005
 MYSQL_LIMIT_S = 25.0          # the MySQL-wire runs' share of SUITES_LIMIT_S
+# the pgwire family's live runs, on stolon's embedded server (stdlib sqlite3
+# behind pgwire, WAL + synchronous=FULL, every BEGIN a BEGIN IMMEDIATE: one
+# writer at a time): postgres `register` against one minipg node on
+# stolon's ports (the suite drives an existing endpoint and has no nemesis),
+# the reference test's 4 workers (`tests/test_postgres.py::
+# test_register_suite`) and the suite's 100 ops a key, for 3 s
+PG_REGISTER = dict(nodes=["s1"], concurrency=4, time_limit=3,
+                   workload="register")
+# stolon `append`, one mini node and 4 workers under the kill nemesis, paced
+# and timed as tidb's append (the same one-writer engine behind another
+# wire) so that its graph lands between the route's `min_n` (384) and the
+# dense closure's capacity (8192)
+STOLON_APPEND = dict(nodes=["s1"], concurrency=4, time_limit=7.5,
+                     nemesis_interval=2.5, server="mini", workload="append")
+STOLON_STAGGER_S = 0.005
+PG_LIMIT_S = 25.0             # the pgwire runs' share of SUITES_LIMIT_S
 SUITE_KERNELS = ("elle_closure", "wgl32_chunk")
 
 
@@ -5762,7 +5788,7 @@ def etcd_runs(dev, tmp: str) -> tuple:
     import collections
     import os
 
-    from jepsen_tpu_torch import checker, core, independent, store
+    from jepsen_tpu_torch import checker, independent, store
     from jepsen_tpu_torch.dbs import etcd
     from jepsen_tpu_torch.elle import append
     from jepsen_tpu_torch.history import History
@@ -5783,7 +5809,8 @@ def etcd_runs(dev, tmp: str) -> tuple:
                 ETCD_STAGGER_S)
         zero_counts()
         t0 = time.monotonic()
-        done = core.run(test)
+        done = diagnosed_run(test, f"the etcd {which} run", opts["sandbox"],
+                             "t1", etcd.MiniEtcdDB.logfile)
         torch.cuda.synchronize()
         launched = read_counts()
         counts.update(launched)
@@ -5905,27 +5932,110 @@ def elle_edn(copies: int) -> str:
     return "\n".join(lines) + "\n"
 
 
+TCP_STATES = {"01": "ESTABLISHED", "02": "SYN_SENT", "03": "SYN_RECV",
+              "04": "FIN_WAIT1", "05": "FIN_WAIT2", "06": "TIME_WAIT",
+              "07": "CLOSE", "08": "CLOSE_WAIT", "09": "LAST_ACK",
+              "0A": "LISTEN", "0B": "CLOSING"}
+
+
+def port_holders(port: int) -> list:
+    """Every TCP socket on this host with `port` at either end, read from
+    /proc/net/tcp and tcp6: its state, both ports and the process that
+    holds it (pid and command line, found by the socket's inode under
+    /proc/<pid>/fd), or its inode where no process of ours holds it."""
+    import os
+    socks = []
+    for table in ("tcp", "tcp6"):
+        try:
+            with open(f"/proc/net/{table}") as fh:
+                lines = fh.read().splitlines()[1:]
+        except OSError:
+            continue
+        for line in lines:
+            f = line.split()
+            local, remote = (int(x.rsplit(":", 1)[1], 16) for x in f[1:3])
+            if port in (local, remote):
+                socks.append((table, TCP_STATES.get(f[3], f[3]), local,
+                              remote, f[9]))
+    owners = {}
+    want = {s[4] for s in socks if s[4] != "0"}
+    for pid in (os.listdir("/proc") if want else ()):
+        if not pid.isdigit():
+            continue
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                link = os.readlink(f"/proc/{pid}/fd/{fd}")
+                if link.startswith("socket:[") and link[8:-1] in want:
+                    with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                        cmd = fh.read().replace(b"\0", b" ").decode(
+                            errors="replace").strip()
+                    owners[link[8:-1]] = f"pid {pid}: {cmd[:160]}"
+        except OSError:
+            continue
+    return [f"{t} {st} {lp} -> {rp}, {owners.get(ino, f'inode {ino}')}"
+            for t, st, lp, rp, ino in socks]
+
+
+@contextlib.contextmanager
+def server_diagnosis(what: str, port, log_path: str):
+    """Around a live run or a server's start: if the block raises (a server
+    that never opened its port, a run that failed), print the last 30
+    lines of the server's log at `log_path` and who holds its `port`
+    (`port_holders`), then let the exception go on. No retry."""
+    try:
+        yield
+    except Exception as exc:
+        try:
+            with open(log_path, errors="replace") as fh:
+                tail = fh.read().splitlines()[-30:]
+        except OSError as e:
+            tail = [f"(unreadable: {e})"]
+        print(f"  {what} failed ({type(exc).__name__}: {exc}); the last "
+              f"{len(tail)} lines of {log_path}:", flush=True)
+        for line in tail:
+            print(f"    | {line}", flush=True)
+        holders = port_holders(port) if port is not None else []
+        print(f"  sockets on port {port} (/proc/net/tcp, tcp6): "
+              f"{holders or 'none'}", flush=True)
+        raise
+
+
+def diagnosed_run(test: dict, what: str, sandbox: str, node: str, log: str):
+    """`core.run(test)` inside a `server_diagnosis` of `node`'s server: its
+    log in the node's sandbox directory, its port from the test's DB."""
+    import os
+
+    from jepsen_tpu_torch import core
+    db = test["db"]
+    port = db.port(test, node) if hasattr(db, "port") else None
+    with server_diagnosis(what, port, os.path.join(sandbox, node, log)):
+        return core.run(test)
+
+
 def live_run(make, name: str, opts: dict, node: str, log: str, banner: str,
              tmp: str, counts) -> tuple:
     """A live suite run on the card: the test map `make(opts)` with the
     run's name, store root and sandbox under `tmp/name`, every launch
     counter set to 0 just before `core.run` and read just after (added to
-    `counts`). Returns (what `core.run` returned, the launches, the wall,
-    the serving `banner`s in `node`'s `log`, the stored run)."""
+    `counts`); a failed run prints its server's log tail and its port's
+    holders (`diagnosed_run`). Returns (what `core.run` returned, the
+    launches, the wall, the serving `banner`s in `node`'s `log`, None where
+    `banner` is None, the stored run)."""
     import os
 
-    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch import store
     root = os.path.join(tmp, name, "store")
     opts = {**opts, "name": f"suites-{name}", "store_root": root,
             "sandbox": os.path.join(tmp, name, "nodes")}
+    test = make(opts)
     zero_counts()
     t0 = time.monotonic()
-    done = core.run(make(opts))
+    done = diagnosed_run(test, f"the {name} run", opts["sandbox"], node, log)
     torch.cuda.synchronize()
     launched = read_counts()
     counts.update(launched)
-    banners = open(os.path.join(done["store_dir"], node, log)
-                   ).read().count(banner)
+    banners = None if banner is None else open(
+        os.path.join(done["store_dir"], node, log)).read().count(banner)
     return (done, {k: v for k, v in launched.items() if v},
             time.monotonic() - t0, banners, store.load_latest(root))
 
@@ -6172,68 +6282,27 @@ def graph_txns(res: dict):
     return int(m.group(1)) if m else None
 
 
-def mysql_runs(dev, tmp: str, background) -> dict:
-    """The MySQL-wire family's live runs on the card, each on its suite's
-    own ports over the localexec remote, its kill/restart nemesis sending
-    real `kill -9`s to galera's embedded server:
-
-      1. mysql_cluster `register` (NDB_RUN), each key decided by the
-         suite's competition race (the device lane `wgl32_chunk`): True,
-         at least one launch, at least two serving banners; its stored
-         history read back and re-checked key by key by a forced
-         "cuda-wgl" on the card (at least one `wgl32_chunk` launch) and by
-         the host oracle (`register_oracle`, in `background` while step 2
-         runs), each key's three verdicts equal;
-      2. tidb `append` (TIDB_APPEND, paced by TIDB_STAGGER_S), the suite's
-         check on the card: True with no anomaly; its stored history
-         re-checked by `elle_rechecks` (auto and forced device on the
-         card, each dense closure held against `closure_ref`, error 0,
-         and the host), all equal. The transactions completed and in the
-         graph, the route's reason and the launches are printed.
-
-    Returns (the launches of the runs and the re-checks by kernel, the
-    closures' largest error); takes at most MYSQL_LIMIT_S."""
-    import collections
-    import os
-
+def register_rechecks(what: str, done: dict, stored: dict, root: str, dev,
+                      background, counts) -> tuple:
+    """A live register run's stored history (`stored`, the latest run under
+    the store `root`), read back equal to the run's, re-checked key by key:
+    the host oracle (`register_oracle`) begun in `background`, and a forced
+    "cuda-wgl" on the card, which must launch `wgl32_chunk` and agree with
+    the suite's race (`done`'s results) on every key. Its launches are
+    added to `counts`. Returns (the suite's verdicts by key, the oracle's
+    future, for `await_oracle`)."""
     from jepsen_tpu_torch import checker, independent
-    from jepsen_tpu_torch.dbs import mysql_cluster, tidb
-    from jepsen_tpu_torch.elle import append
     from jepsen_tpu_torch.history import History
     from jepsen_tpu_torch.models import cas_register
 
-    t_all = time.monotonic()
-    counts: collections.Counter = collections.Counter()
-    banner = "minimysql serving on"
-
-    # 1. mysql_cluster register: the suite, "cuda-wgl", the host oracle in
-    # the background
-    done, launched, wall, banners, stored = live_run(
-        mysql_cluster.ndb_test, "ndb", NDB_RUN, "m1",
-        mysql_cluster.MiniNdbDB.logfile, banner, tmp, counts)
-    keys = done["results"]["register"]["results"]
-    engines = collections.Counter(str(r["linear"].get("engine"))
-                                  for r in keys.values())
-    n_ops = sum(1 for o in done["history"] if o.process != "nemesis"
-                and o.type != "invoke")
-    print(f"  mysql_cluster register run ({wall:.2f} s; {NDB_RUN}, ports "
-          f"from {mysql_cluster.MINI_BASE_PORT}): valid? "
-          f"{done['results']['valid?']}, {len(keys)} keys decided, {n_ops} "
-          f"ops completed, serving banners {banners}, winning engines "
-          f"{dict(engines)}, launches {launched}", flush=True)
-    if (done["results"]["valid?"] is not True or not keys or banners < 2
-            or launched.get("wgl32_chunk", 0) < 1):
-        raise AssertionError(f"mysql_cluster register: "
-                             f"{done['results']['valid?']}, {len(keys)} "
-                             f"keys, banners {banners}, launches {launched}")
     hist = History([{**op, "value": kv_of(op.get("value"))}
                     for op in stored["history"]]).index()
     if [o.to_dict() for o in hist] != [o.to_dict() for o in done["history"]]:
-        raise AssertionError("mysql_cluster register: the stored history "
-                             "differs from the run's")
-    oracle = background.submit(register_oracle,
-                               os.path.join(tmp, "ndb", "store"))
-    suite = {k: r["valid?"] for k, r in keys.items()}
+        raise AssertionError(f"{what}: the stored history differs from the "
+                             "run's")
+    oracle = background.submit(register_oracle, root)
+    suite = {k: r["valid?"]
+             for k, r in done["results"]["register"]["results"].items()}
     zero_counts()
     t0 = time.monotonic()
     res = independent.checker(checker.linearizable(
@@ -6249,57 +6318,138 @@ def mysql_runs(dev, tmp: str, background) -> dict:
           f"{len(suite)}; launches {({k: v for k, v in got.items() if v})}",
           flush=True)
     if verdicts != suite or got["wgl32_chunk"] < 1:
-        raise AssertionError(f"mysql_cluster register cuda-wgl: "
-                             f"{len(verdicts)} verdicts against the suite's "
-                             f"{len(suite)} differ, or launches {got}")
+        raise AssertionError(f"{what} cuda-wgl: {len(verdicts)} verdicts "
+                             f"against the suite's {len(suite)} differ, or "
+                             f"launches {got}")
+    return suite, oracle
 
-    # 2. tidb append: the suite, then its stored history three ways
-    def paced_append(opts):
-        test = tidb.tidb_test(opts)
-        test["generator"] = paced(opts, tidb.WORKLOADS["append"](opts)
-                                  ["generator"], TIDB_STAGGER_S)
-        return test
 
-    done, launched, wall, banners, stored = live_run(
-        paced_append, "tidb", TIDB_APPEND, "t1", tidb.MiniTidbDB.logfile,
-        banner, tmp, counts)
-    res = done["results"]["append"]
-    hist = done["history"]
-    stored = History(stored["history"]).index()
-    if [o.to_dict() for o in stored] != [o.to_dict() for o in hist]:
-        raise AssertionError("tidb append: the stored history differs from "
-                             "the run's")
-    txns = sum(1 for o in hist if o.f == "txn" and o.type != "invoke")
-    oks = sum(1 for o in hist if o.f == "txn" and o.type == "ok")
-    print(f"  tidb append run ({wall:.2f} s; {TIDB_APPEND}, paced "
-          f"{TIDB_STAGGER_S} s, ports from {tidb.MINI_BASE_PORT}): valid? "
-          f"{done['results']['valid?']} (append {res['valid?']}, anomalies "
-          f"{res['anomaly-types']}), {txns} txns completed ({oks} ok), "
-          f"{graph_txns(res)} in the graph, serving banners {banners}, "
-          f"engine {res.get('cycle-engine')}, route "
-          f"{res.get('cycle-route-reason')!r}, launches {launched}",
-          flush=True)
-    if (done["results"]["valid?"] is not True or res["valid?"] is not True
-            or res["anomaly-types"] or banners < 2):
-        raise AssertionError(f"tidb append: {done['results']}, banners "
-                             f"{banners}")
-    rechecked, worst = elle_rechecks(
-        "tidb append", append.check, stored,
-        done["checker"].checker_map["append"], res, dev)
-    counts.update(rechecked)
-
-    # the register's host oracle, begun after step 1
+def await_oracle(what: str, oracle, suite: dict, limit_s: float) -> None:
+    """The host oracle's verdicts (`register_rechecks`' future), each equal
+    to the suite's."""
     t0 = time.monotonic()
-    want = oracle.result(timeout=MYSQL_LIMIT_S)
-    print(f"  mysql_cluster register, host oracle on the stored history "
+    want = oracle.result(timeout=limit_s)
+    print(f"  {what}, host oracle on the stored history "
           f"({want['seconds']:.2f} s in the background, "
           f"{time.monotonic() - t0:.2f} s waited for): keys agreeing with "
           f"the suite {sum(want['verdicts'].get(k) == v for k, v in suite.items())}"
           f" of {len(suite)}", flush=True)
     if want["verdicts"] != suite:
-        raise AssertionError(f"mysql_cluster register host oracle: "
-                             f"{len(want['verdicts'])} verdicts against the "
-                             f"suite's {len(suite)} differ")
+        raise AssertionError(f"{what} host oracle: {len(want['verdicts'])} "
+                             f"verdicts against the suite's {len(suite)} "
+                             "differ")
+
+
+def append_run(what: str, mod, make, name: str, opts: dict, stagger_s: float,
+               db, tmp: str, counts, dev) -> int:
+    """A live `append` run of the suite module `mod` (its test map from
+    `make(opts)`, its workload paced `stagger_s` apart), under its
+    kill/restart nemesis, the suite's check on the card: True with no
+    anomaly, at least two serving banners of `db`'s server, its graph
+    between the route's `min_n` (384) and the dense closure's capacity
+    (8192), at least one `elle_closure` launch; its stored history
+    re-checked by `elle_rechecks`. The transactions completed and in the
+    graph, the route's reason and the launches are printed. Returns the
+    closures' largest error."""
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.history import History
+
+    def paced_append(o):
+        test = make(o)
+        test["generator"] = paced(o, mod.WORKLOADS["append"](o)["generator"],
+                                  stagger_s)
+        return test
+
+    node = opts["nodes"][0]
+    done, launched, wall, banners, stored = live_run(
+        paced_append, name, opts, node, db.logfile,
+        db.script.split(".")[0] + " serving on", tmp, counts)
+    res = done["results"]["append"]
+    hist = done["history"]
+    stored = History(stored["history"]).index()
+    if [o.to_dict() for o in stored] != [o.to_dict() for o in hist]:
+        raise AssertionError(f"{what}: the stored history differs from the "
+                             "run's")
+    txns = sum(1 for o in hist if o.f == "txn" and o.type != "invoke")
+    oks = sum(1 for o in hist if o.f == "txn" and o.type == "ok")
+    in_graph = graph_txns(res)
+    print(f"  {what} run ({wall:.2f} s; {opts}, paced {stagger_s} s, ports "
+          f"from {mod.MINI_BASE_PORT}): valid? {done['results']['valid?']} "
+          f"(append {res['valid?']}, anomalies {res['anomaly-types']}), "
+          f"{txns} txns completed ({oks} ok), {in_graph} in the graph, "
+          f"serving banners {banners}, engine {res.get('cycle-engine')}, "
+          f"route {res.get('cycle-route-reason')!r}, launches {launched}",
+          flush=True)
+    if (done["results"]["valid?"] is not True or res["valid?"] is not True
+            or res["anomaly-types"] or banners < 2
+            or not 384 <= (in_graph or 0) <= 8192
+            or launched.get("elle_closure", 0) < 1):
+        raise AssertionError(f"{what}: {done['results']}, banners {banners}, "
+                             f"{in_graph} txns in the graph, launches "
+                             f"{launched}")
+    rechecked, worst = elle_rechecks(
+        what, append.check, stored, done["checker"].checker_map["append"],
+        res, dev)
+    counts.update(rechecked)
+    return worst
+
+
+def mysql_runs(dev, tmp: str, background) -> tuple:
+    """The MySQL-wire family's live runs on the card, each on its suite's
+    own ports over the localexec remote, its kill/restart nemesis sending
+    real `kill -9`s to galera's embedded server:
+
+      1. mysql_cluster `register` (NDB_RUN), each key decided by the
+         suite's competition race (the device lane `wgl32_chunk`): True,
+         at least one launch, at least two serving banners; its stored
+         history re-checked key by key by a forced "cuda-wgl" on the card
+         and by the host oracle, in `background` while step 2 runs
+         (`register_rechecks`), each key's three verdicts equal;
+      2. tidb `append` (TIDB_APPEND, paced by TIDB_STAGGER_S; `append_run`):
+         the suite's check on the card True with no anomaly, its graph
+         between `min_n` and the dense closure's capacity, its stored
+         history re-checked by `elle_rechecks`, all equal.
+
+    Returns (the launches of the runs and the re-checks by kernel, the
+    closures' largest error); takes at most MYSQL_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch.dbs import mysql_cluster, tidb
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+
+    # 1. mysql_cluster register: the suite, "cuda-wgl", the host oracle in
+    # the background
+    done, launched, wall, banners, stored = live_run(
+        mysql_cluster.ndb_test, "ndb", NDB_RUN, "m1",
+        mysql_cluster.MiniNdbDB.logfile, "minimysql serving on", tmp, counts)
+    keys = done["results"]["register"]["results"]
+    engines = collections.Counter(str(r["linear"].get("engine"))
+                                  for r in keys.values())
+    n_ops = sum(1 for o in done["history"] if o.process != "nemesis"
+                and o.type != "invoke")
+    print(f"  mysql_cluster register run ({wall:.2f} s; {NDB_RUN}, ports "
+          f"from {mysql_cluster.MINI_BASE_PORT}): valid? "
+          f"{done['results']['valid?']}, {len(keys)} keys decided, {n_ops} "
+          f"ops completed, serving banners {banners}, winning engines "
+          f"{dict(engines)}, launches {launched}", flush=True)
+    if (done["results"]["valid?"] is not True or not keys or banners < 2
+            or launched.get("wgl32_chunk", 0) < 1):
+        raise AssertionError(f"mysql_cluster register: "
+                             f"{done['results']['valid?']}, {len(keys)} "
+                             f"keys, banners {banners}, launches {launched}")
+    suite, oracle = register_rechecks(
+        "mysql_cluster register", done, stored,
+        os.path.join(tmp, "ndb", "store"), dev, background, counts)
+
+    # 2. tidb append: the suite, then its stored history three ways
+    worst = append_run("tidb append", tidb, tidb.tidb_test, "tidb",
+                       TIDB_APPEND, TIDB_STAGGER_S, tidb.MiniTidbDB, tmp,
+                       counts, dev)
+
+    await_oracle("mysql_cluster register", oracle, suite, MYSQL_LIMIT_S)
     took = time.monotonic() - t_all
     print(f"  mysql_cluster and tidb: {took:.1f} s", flush=True)
     if took > MYSQL_LIMIT_S:
@@ -6308,10 +6458,107 @@ def mysql_runs(dev, tmp: str, background) -> dict:
     return counts, worst
 
 
+def pg_runs(dev, tmp: str, background) -> tuple:
+    """The pgwire family's live runs on the card, each on its suite's own
+    ports over the localexec remote:
+
+      1. postgres `register` (PG_REGISTER) against one minipg node started
+         through `stolon.MiniStolonDB` on stolon's ports, the client
+         pointed at it (`client.addr_fn`) and its tables made by the
+         suite's `ExternalDB`; each key decided by the suite's competition
+         race (the device lane `wgl32_chunk`): True, at least one launch;
+         its stored history re-checked key by key by a forced "cuda-wgl"
+         on the card and by the host oracle, in `background` while step 2
+         runs (`register_rechecks`), each key's three verdicts equal;
+      2. stolon `append` (STOLON_APPEND, paced by STOLON_STAGGER_S;
+         `append_run`) under the suite's kill/restart nemesis, real `kill
+         -9`s: the suite's check on the card True with no anomaly, its
+         graph between `min_n` and the dense closure's capacity, its
+         stored history re-checked by `elle_rechecks`, all equal.
+
+    A server that never opens its port prints its log's tail and the
+    port's holders before the step fails (`server_diagnosis`). Returns (the
+    launches of the runs and the re-checks by kernel, the closures' largest
+    error); takes at most PG_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch import control
+    from jepsen_tpu_torch.control import localexec
+    from jepsen_tpu_torch.dbs import postgres, stolon
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+    node = PG_REGISTER["nodes"][0]
+
+    # 1. postgres register against a minipg node: the suite, "cuda-wgl", the
+    # host oracle in the background
+    node_test = {"nodes": PG_REGISTER["nodes"]}
+    server = stolon.MiniStolonDB()
+    # the run's own sandbox (`live_run`'s), so that a failed run's
+    # diagnosis reads this server's log
+    sandbox = os.path.join(tmp, "pg", "nodes")
+    port = stolon.mini_node_port(node_test, node)
+
+    def on_node(fn):
+        with control.with_remote(localexec.remote(sandbox)):
+            with control.with_ssh({}):
+                with control.on(node):
+                    fn(node_test, node)
+
+    t0 = time.monotonic()
+    with server_diagnosis("the minipg node's start", port,
+                         os.path.join(sandbox, node, server.logfile)):
+        on_node(server.setup)
+    start_s = time.monotonic() - t0
+
+    def pointed(opts):
+        test = postgres.postgres_test(opts)
+        test["client"].addr_fn = lambda test, node: ("127.0.0.1", port)
+        return test
+
+    try:
+        done, launched, wall, _, stored = live_run(
+            pointed, "pg", PG_REGISTER, node, server.logfile, None, tmp,
+            counts)
+    finally:
+        on_node(server.teardown)
+    keys = done["results"]["register"]["results"]
+    engines = collections.Counter(str(r["linear"].get("engine"))
+                                  for r in keys.values())
+    n_ops = sum(1 for o in done["history"] if o.type != "invoke")
+    print(f"  postgres register run ({wall:.2f} s; {PG_REGISTER}, a minipg "
+          f"node on stolon's port {port}, up in {start_s:.2f} s): valid? "
+          f"{done['results']['valid?']}, {len(keys)} keys decided, {n_ops} "
+          f"ops completed, winning engines {dict(engines)}, launches "
+          f"{launched}", flush=True)
+    if (done["results"]["valid?"] is not True or not keys
+            or launched.get("wgl32_chunk", 0) < 1):
+        raise AssertionError(f"postgres register: "
+                             f"{done['results']['valid?']}, {len(keys)} "
+                             f"keys, launches {launched}")
+    suite, oracle = register_rechecks(
+        "postgres register", done, stored, os.path.join(tmp, "pg", "store"),
+        dev, background, counts)
+
+    # 2. stolon append: the suite, then its stored history three ways
+    worst = append_run("stolon append", stolon, stolon.stolon_test, "stolon",
+                       STOLON_APPEND, STOLON_STAGGER_S, stolon.MiniStolonDB,
+                       tmp, counts, dev)
+
+    await_oracle("postgres register", oracle, suite, PG_LIMIT_S)
+    took = time.monotonic() - t_all
+    print(f"  postgres and stolon: {took:.1f} s", flush=True)
+    if took > PG_LIMIT_S:
+        raise AssertionError(f"postgres and stolon took {took:.1f} s "
+                             f"(limit {PG_LIMIT_S} s)")
+    return counts, worst
+
+
 def suites_phases(dev, background) -> dict:
-    """The live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster and
-    tidb, the faultlib nemesis and EDN ingest, on the card's machine, each
-    step's wall printed:
+    """The live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, tidb,
+    postgres and stolon, the faultlib nemesis and EDN ingest, on the card's
+    machine, each step's wall printed:
 
       1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
          in this process: a minisql primary (stdlib sqlite3 behind RESP,
@@ -6352,7 +6599,12 @@ def suites_phases(dev, background) -> dict:
          register's host oracle in `background`): each mysql_cluster key
          decided by the race and re-checked by "cuda-wgl" and the host
          oracle, all equal; the tidb append run re-checked three ways as
-         in step 1.
+         in step 1;
+      7. postgres `register` against a minipg node and stolon `append`
+         (`pg_runs`, the register's host oracle in `background`): each
+         postgres key decided by the race and re-checked by "cuda-wgl" and
+         the host oracle, all equal; the stolon append run under its
+         kill/restart nemesis re-checked three ways as in step 1.
 
     The servers listen on their suites' own ports, below Linux's ephemeral
     range: a client retrying a down server's ephemeral port can connect to
@@ -6372,9 +6624,9 @@ def suites_phases(dev, background) -> dict:
     from jepsen_tpu_torch.history import History
     from jepsen_tpu_torch.nemesis import faultfs
 
-    print(f"the live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster "
-          f"and tidb, the faultlib nemesis and EDN ingest ({card_line()}):",
-          flush=True)
+    print(f"the live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, "
+          f"tidb, postgres and stolon, the faultlib nemesis and EDN ingest "
+          f"({card_line()}):", flush=True)
     t_all = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
                                                      "torch_kernels"))
@@ -6394,7 +6646,8 @@ def suites_phases(dev, background) -> dict:
                 opts, sq.WORKLOADS[which](opts)["generator"],
                 SUITE_STAGGER_S)
         zero_counts()
-        done = core.run(test)
+        done = diagnosed_run(test, f"the sqlite {which} run",
+                             opts["sandbox"], "p1", sq.LOGFILE)
         torch.cuda.synchronize()
         return test, done, read_counts()
 
@@ -6516,6 +6769,11 @@ def suites_phases(dev, background) -> dict:
     # 6. the MySQL-wire family: mysql_cluster and tidb
     mysql_counts, err = mysql_runs(dev, tmp, background)
     counts.update(mysql_counts)
+    worst = max(worst, err)
+
+    # 7. the pgwire family: postgres and stolon
+    pg_counts, err = pg_runs(dev, tmp, background)
+    counts.update(pg_counts)
     worst = max(worst, err)
 
     shutil.rmtree(tmp, ignore_errors=True)

@@ -39,6 +39,14 @@ the shared framework. The suites ported so far:
   driven by elle append/wr and bank workloads under a primary-kill
   nemesis, all CI-run against live processes; the elle checks' cycle
   search runs on the card.
+- `postgres` — the external-SQL-endpoint exemplar (postgres-rds;
+  stolon's workloads): a from-scratch pgwire v3 codec (startup
+  handshake, simple query protocol, text format), register CAS via
+  UPDATE command tags, bank transfers and elle list-append txns in
+  BEGIN..COMMIT transactions; CI drives all three against a
+  pgwire-framed stub backed by a real SQL engine. The register
+  check's device lane and the append check's cycle search run on the
+  card.
 - `mongodb` — the document-store family (mongodb-rocks /
   mongodb-smartos): a from-scratch BSON subset codec + OP_MSG wire
   framing, document-CAS via conditional updates (nModified decides),
@@ -97,6 +105,23 @@ the shared framework. The suites ported so far:
   three-daemon automation in tarball mode. CI-run live on the
   MySQL-wire mini servers. The register check's device lane and the
   append / txn-cycle checks' cycle search run on the card.
+- `stolon` — the PostgreSQL-HA family
+  (`stolon/src/jepsen/stolon/{ledger,append,db}.clj`): the ledger
+  double-spend workload (transactions as rows, charitable-reading
+  checker; fund-then-double-spend attack generator) and elle
+  list-append over the shared pgwire codec; LIVE mini pgwire
+  servers in CI, real sentinel/keeper/proxy-over-etcdv3 automation
+  in `ha` mode. The append check's cycle search runs on the card;
+  the ledger's check on the host.
+- `cockroach` — the strict-serializability workloads
+  (`cockroachdb/src/jepsen/cockroach/{monotonic,comments}.clj`) over
+  the from-scratch pgwire client: monotonic (txn max+1 inserts with
+  DB timestamps; sts-order must match val-order) and comments (blind
+  multi-table inserts; a read seeing w but missing a
+  completed-before-w write is the T1<T2-only-T2-visible anomaly).
+  `mini` mode (default) runs LIVE WAL-backed pgwire servers under a
+  kill nemesis in CI; `--addr` targets any external endpoint. Its
+  checks run on the host.
 - `galera` — the MySQL-replication family
   (`galera/src/jepsen/galera.clj`): a from-scratch MySQL wire codec
   (packet framing, mysql_native_password scrambling, COM_QUERY
@@ -115,6 +140,12 @@ the shared framework. The suites ported so far:
   a linearizable register over ENGINE=NDBCLUSTER row CAS. CI-run
   live on the shared MySQL wire; the register check's device lane
   runs on the card.
+- `crate` — the _version MVCC family
+  (`crate/src/jepsen/crate/*.clj`): pgwire clients over LIVE mini
+  servers whose dialect bridge maintains a real per-row `_version`;
+  version-divergence, lost-updates, and the refresh/strong-read
+  dirty-read workload with its dirty/lost/not-on-all algebra. Its
+  checks run on the host.
 
 `miniserver` holds the mini servers' shared RESP codec and daemon
 lifecycle, `retryclient` the shared connect-with-retry client.
@@ -123,11 +154,10 @@ Run one with `python -m jepsen_tpu_torch.dbs.<suite> test --nodes ...`;
 sweep a suite's matrix with `... test-all`.
 
 The port's copy of `jepsen_tpu/dbs/__init__.py`. The reference's other
-suites (postgres and the suites on it, raftis, yuga, and the eight on
-`miniserver` and `retryclient` alone) are not ported yet (ROADMAP.md
-Queue A item 6.6). The suites that speak HTTP (etcd, consul,
-elasticsearch, chronos) do so through `httpclient`, on the standard
-library.
+suites (raftis, yuga, and the eight on `miniserver` and `retryclient`
+alone) are not ported yet (ROADMAP.md Queue A item 6.6). The suites
+that speak HTTP (etcd, consul, elasticsearch, chronos) do so through
+`httpclient`, on the standard library.
 """
 
 from __future__ import annotations

@@ -57,6 +57,9 @@ DOC_FILES = {f"jepsen_tpu_torch/{f}.py" for f in (
 # the MySQL-wire family: galera's codec and server, and the suites on it
 MYSQL_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
     "galera", "percona", "mysql_cluster", "tidb")}
+# the pgwire family: postgres's codec and clients, and the suites on it
+PG_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
+    "postgres", "stolon", "cockroach", "crate")}
 # `-m jepsen_tpu...` in a command line, and the module `-m` is given
 RUN_REFERENCE = re.compile(r"-m\s+jepsen_tpu(?!_torch)\b")
 REFERENCE_MODULE = re.compile(r"^jepsen_tpu(?!_torch)(\.\w+)*$")
@@ -91,6 +94,7 @@ def test_scan_covers_the_package():
     assert SUITE_FILES <= names
     assert DOC_FILES <= names
     assert MYSQL_FILES <= names
+    assert PG_FILES <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -141,7 +141,7 @@ render of the host oracle's analysis), and `core.analyze` of
 exceptions})` over the invalid 100 x 2k fan-out (failures == the host
 oracle's, one `kind="independent"` record, every key's results.json).
 Then the test path (`test_phases`): `python -m jepsen_tpu_torch test
---concurrency 2n --time-limit 3 --rate 1000` in a fresh process (~3k
+--concurrency 2n --time-limit 2 --rate 1000` in a fresh process (~2k
 invocations made by the interpreter against the in-process register,
 checked by "cuda-wgl" on the card; the run dir, the ledger's run and
 checker records, the status mirror, the host oracle's verdict of the
@@ -228,11 +228,18 @@ by key by "cuda-wgl" on the card and by the host oracle in a worker
 process, all equal) and tidb's `append` (paced, 7.5 s, re-checked the
 same three ways as sqlite's); then the pgwire family on stolon's
 embedded server (`pg_runs`): postgres's `register` against one minipg
-node (4 workers for 3 s, re-checked key by key by "cuda-wgl" and the host
+node (4 workers for 2 s, re-checked key by key by "cuda-wgl" and the host
 oracle, all equal) and stolon's `append` (paced, 7.5 s, under kill -9,
-re-checked the same three ways). A live step whose server never opens
-its port prints the server log's tail and the port's holders (from
-/proc/net/tcp) before it fails. Last, the bench round
+re-checked the same three ways); then yuga's and raftis's runs on
+mini-redis servers from their suites' own ports (`yuga_raftis_runs`):
+yuga's `ycql/multi-key-acid` (4 workers for 3 s under kill -9, each
+3-subkey group a key decided by the competition race on the
+multi-register model, its stored history re-checked key by key by
+"cuda-wgl" on the card and by the host oracle, all equal) and raftis's
+register (4 workers for 3 s under kill -9, re-checked whole by
+"cuda-wgl" with `cas_register(None)` and the host oracle, all equal). A
+live step whose server never opens its port prints the server log's tail
+and the port's holders (from /proc/net/tcp) before it fails. Last, the bench round
 (`bench_phases`): `python -m
 jepsen_tpu_torch.bench` in a fresh process with every BASELINE config
 at the reference's sizes under what is left of the smoke's 1200 s, each
@@ -3770,9 +3777,10 @@ def analyze_phases(dev) -> None:
           flush=True)
 
 
-# phase (a): 3 s (10 s, the BASELINE's 10k ops, until the MySQL-wire runs
-# joined the suites phase; 5 s until the pgwire runs did)
-TEST_RUN = dict(concurrency="2n", time_limit=3, rate=1000)    # phase (a)
+# phase (a): 2 s (10 s, the BASELINE's 10k ops, until the MySQL-wire runs
+# joined the suites phase; 5 s until the pgwire runs did; 3 s until yuga's
+# and raftis's did)
+TEST_RUN = dict(concurrency="2n", time_limit=2, rate=1000)    # phase (a)
 TEST_INVALID = dict(concurrency=10, time_limit=1, rate=1000)   # phase (b)
 TEST_INDEP = dict(keys=100, ops_per_key=200, concurrency=20)   # phase (c)
 TEST_ALL = dict(test_count=2, time_limit=1, rate=500)          # phase (d)
@@ -3803,9 +3811,9 @@ def test_phases(dev) -> None:
     remote, `core.run`'s store and ledger, and the check on the card.
 
       (a) `python -m jepsen_tpu_torch test --concurrency 2n --time-limit
-          3 --rate 1000` (TEST_RUN) in a fresh process with the
+          2 --rate 1000` (TEST_RUN) in a fresh process with the
           reference's 5 default nodes: `stagger`'s rate is the total, so
-          ~3,000 invocations of a cas-register made by the interpreter;
+          ~2,000 invocations of a cas-register made by the interpreter;
           exit 0, valid? True from "cuda-wgl" on the card
           with `wgl32_chunk` launches (its chunks, `util.chunks` in
           results.json), `test.jepsen`, `results.json` and `jepsen.log`
@@ -5577,7 +5585,7 @@ def cluster_phases(dev) -> dict:
 
 # ---- the first live SQL suite -------------------------------------------------
 
-SUITES_LIMIT_S = 110.0        # the phase's share of SMOKE_LIMIT_S
+SUITES_LIMIT_S = 130.0        # the phase's share of SMOKE_LIMIT_S
 # the reference test's options (`tests/test_sqlite.py`: one node, 4 workers,
 # a kill/restart of the primary every 2 s), for 5 s
 SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
@@ -5587,9 +5595,10 @@ SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
 # and stays inside the dense closure's capacity (8192); an unpaced run
 # completes ~24k, whose graph goes to the packed closure
 SUITE_STAGGER_S = 0.005
-# the bank run, unpaced: 2 s (5 s until the mongodb and rabbitmq runs
-# joined the phase, 3 s until the MySQL-wire runs did)
-SUITE_BANK = dict(time_limit=2)
+# the bank run, unpaced: 1 s (5 s until the mongodb and rabbitmq runs
+# joined the phase, 3 s until the MySQL-wire runs did, 2 s until yuga's and
+# raftis's did)
+SUITE_BANK = dict(time_limit=1)
 # etcd's live runs: `register` with the reference test's options
 # (`tests/test_etcd.py::test_full_suite_live_mini`: one node, 4 workers, 40
 # ops a key), for 3 s (5 s until the MySQL-wire runs joined the phase) with
@@ -5654,8 +5663,9 @@ MYSQL_LIMIT_S = 25.0          # the MySQL-wire runs' share of SUITES_LIMIT_S
 # writer at a time): postgres `register` against one minipg node on
 # stolon's ports (the suite drives an existing endpoint and has no nemesis),
 # the reference test's 4 workers (`tests/test_postgres.py::
-# test_register_suite`) and the suite's 100 ops a key, for 3 s
-PG_REGISTER = dict(nodes=["s1"], concurrency=4, time_limit=3,
+# test_register_suite`) and the suite's 100 ops a key, for 2 s (3 s until
+# yuga's and raftis's runs joined the phase)
+PG_REGISTER = dict(nodes=["s1"], concurrency=4, time_limit=2,
                    workload="register")
 # stolon `append`, one mini node and 4 workers under the kill nemesis, paced
 # and timed as tidb's append (the same one-writer engine behind another
@@ -5665,6 +5675,19 @@ STOLON_APPEND = dict(nodes=["s1"], concurrency=4, time_limit=7.5,
                      nemesis_interval=2.5, server="mini", workload="append")
 STOLON_STAGGER_S = 0.005
 PG_LIMIT_S = 25.0             # the pgwire runs' share of SUITES_LIMIT_S
+# yuga's ycql `multi-key-acid` (txns of micro-ops over 3-subkey groups, each
+# group a key checked linearizable against the multi-register model) with
+# the reference test's one node and 4 workers
+# (`tests/test_yuga.py::test_multi_key_acid_live`), and raftis's register
+# with its reference test's (`tests/test_raftis.py::test_full_suite_live`),
+# each for 3 s with the kill/restart every 1 s (NDB_RUN's timing) so that a
+# restart falls inside the run, on a mini-redis server on its suite's own
+# ports
+YUGA_MKA = dict(nodes=["y1"], concurrency=4, time_limit=3,
+                nemesis_interval=1.0, workload="ycql/multi-key-acid")
+RAFTIS_RUN = dict(nodes=["r1"], concurrency=4, time_limit=3,
+                  nemesis_interval=1.0)
+YUGA_LIMIT_S = 20.0           # yuga's and raftis's share of SUITES_LIMIT_S
 SUITE_KERNELS = ("elle_closure", "wgl32_chunk")
 
 
@@ -6258,20 +6281,32 @@ def doc_queue_runs(dev, tmp: str, background) -> dict:
     return counts
 
 
-def register_oracle(root: str) -> dict:
+def register_oracle(root: str, model: tuple = ("cas_register",),
+                    keyed: bool = True) -> dict:
     """The host oracle's verdict on each key of the latest register history
     stored under `root` (in a worker process): {key: valid?} and its
-    seconds."""
-    from jepsen_tpu_torch import checker, independent, store
+    seconds. `model` names the model by its constructor in
+    `jepsen_tpu_torch.models` and that constructor's arguments (a worker
+    process gets names, not model objects); without `keyed` the history
+    is one register, its verdict under the key None."""
+    from jepsen_tpu_torch import checker, independent, models, store
     from jepsen_tpu_torch.history import History
-    from jepsen_tpu_torch.models import cas_register
     t0 = time.monotonic()
     hist = History([{**op, "value": kv_of(op.get("value"))}
                     for op in store.load_latest(root)["history"]]).index()
-    res = independent.checker(checker.linearizable(
-        cas_register(), algorithm="wgl", device="cpu")).check({}, hist, {})
-    return {"verdicts": {k: r["valid?"] for k, r in res["results"].items()},
+    lin = checker.linearizable(getattr(models, model[0])(*model[1:]),
+                               algorithm="wgl", device="cpu")
+    res = (independent.checker(lin) if keyed else lin).check({}, hist, {})
+    return {"verdicts": verdicts_by_key(res, keyed),
             "seconds": time.monotonic() - t0}
+
+
+def verdicts_by_key(res: dict, keyed: bool) -> dict:
+    """{key: valid?} of an `independent` check's result, or of one
+    register's check under the key None."""
+    if keyed:
+        return {k: r["valid?"] for k, r in res["results"].items()}
+    return {None: res["valid?"]}
 
 
 def graph_txns(res: dict):
@@ -6283,41 +6318,43 @@ def graph_txns(res: dict):
 
 
 def register_rechecks(what: str, done: dict, stored: dict, root: str, dev,
-                      background, counts) -> tuple:
+                      background, counts, model: tuple = ("cas_register",),
+                      check: str = "register", keyed: bool = True,
+                      kernels: tuple = ("wgl32_chunk",)) -> tuple:
     """A live register run's stored history (`stored`, the latest run under
-    the store `root`), read back equal to the run's, re-checked key by key:
-    the host oracle (`register_oracle`) begun in `background`, and a forced
-    "cuda-wgl" on the card, which must launch `wgl32_chunk` and agree with
-    the suite's race (`done`'s results) on every key. Its launches are
-    added to `counts`. Returns (the suite's verdicts by key, the oracle's
-    future, for `await_oracle`)."""
-    from jepsen_tpu_torch import checker, independent
+    the store `root`), read back equal to the run's, re-checked key by key
+    with `model` (`register_oracle`'s names): the host oracle
+    (`register_oracle`) begun in `background`, and a forced "cuda-wgl" on
+    the card, which must launch one of `kernels` and agree with the suite's
+    race (`done`'s results under `check`) on every key; without `keyed` the
+    history is one register, checked whole, its verdict under the key None.
+    Its launches are added to `counts`. Returns (the suite's verdicts by
+    key, the oracle's future, for `await_oracle`)."""
+    from jepsen_tpu_torch import checker, independent, models
     from jepsen_tpu_torch.history import History
-    from jepsen_tpu_torch.models import cas_register
 
     hist = History([{**op, "value": kv_of(op.get("value"))}
                     for op in stored["history"]]).index()
     if [o.to_dict() for o in hist] != [o.to_dict() for o in done["history"]]:
         raise AssertionError(f"{what}: the stored history differs from the "
                              "run's")
-    oracle = background.submit(register_oracle, root)
-    suite = {k: r["valid?"]
-             for k, r in done["results"]["register"]["results"].items()}
+    oracle = background.submit(register_oracle, root, model, keyed)
+    lin = checker.linearizable(getattr(models, model[0])(*model[1:]),
+                               algorithm="cuda-wgl", device=dev)
+    suite = verdicts_by_key(done["results"][check], keyed)
     zero_counts()
     t0 = time.monotonic()
-    res = independent.checker(checker.linearizable(
-        cas_register(), algorithm="cuda-wgl", device=dev)).check(
-            {}, hist, {})
+    res = (independent.checker(lin) if keyed else lin).check({}, hist, {})
     torch.cuda.synchronize()
     got = read_counts()
     counts.update(got)
-    verdicts = {k: r["valid?"] for k, r in res["results"].items()}
+    verdicts = verdicts_by_key(res, keyed)
     print(f"    cuda-wgl on the stored history ({time.monotonic() - t0:.2f} "
           f"s): {res['valid?']}; keys agreeing with the suite "
           f"{sum(verdicts.get(k) == v for k, v in suite.items())} of "
           f"{len(suite)}; launches {({k: v for k, v in got.items() if v})}",
           flush=True)
-    if verdicts != suite or got["wgl32_chunk"] < 1:
+    if verdicts != suite or sum(got[k] for k in kernels) < 1:
         raise AssertionError(f"{what} cuda-wgl: {len(verdicts)} verdicts "
                              f"against the suite's {len(suite)} differ, or "
                              f"launches {got}")
@@ -6555,10 +6592,119 @@ def pg_runs(dev, tmp: str, background) -> tuple:
     return counts, worst
 
 
+def encoded_shape(model, hist) -> str:
+    """The encoded table (states x ops) and window of a register history's
+    client ops under `model`, or why the encoder refused it."""
+    from jepsen_tpu_torch.ops import encode
+    try:
+        enc = encode.encode(model, hist.client_ops)
+    except encode.EncodingUnsupported as e:
+        return f"refused ({e})"
+    return (f"table {enc.table.shape[0]} states x {enc.table.shape[1]} ops, "
+            f"window {enc.window} (raw {enc.window_raw})")
+
+
+def yuga_raftis_runs(dev, tmp: str, background) -> dict:
+    """yuga's and raftis's live runs on the card, each on a mini-redis
+    server from its suite's own ports over the localexec remote, its
+    kill/restart nemesis sending real `kill -9`s:
+
+      1. yuga `ycql/multi-key-acid` (YUGA_MKA), each group's key decided by
+         the suite's competition race on the multi-register model (the
+         device lane `wgl32_chunk`): True, at least two serving banners;
+         its stored history re-checked key by key by a forced "cuda-wgl"
+         on the card, which must launch `wgl32_chunk`, and by the host
+         oracle, in `background` while step 2 runs (`register_rechecks`
+         with `multi_register`), each key's three verdicts equal. The
+         largest key's encoded table and window are printed;
+      2. raftis's register (RAFTIS_RUN), one register decided by the
+         suite's competition race: True, at least two serving banners; its
+         stored history re-checked whole by a forced "cuda-wgl" with
+         `cas_register(None)`, which must launch `wgl32_chunk` or (a window
+         past 32) `wgln_chunk`, and by the host oracle, all equal.
+
+    A server that never opens its port prints its log's tail and the
+    port's holders before the step fails (`live_run`). Returns the launches
+    of the runs and the re-checks by kernel; takes at most YUGA_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.dbs import raftis, yuga
+    from jepsen_tpu_torch.models import cas_register, multi_register
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+
+    # 1. yuga multi-key-acid: the suite, "cuda-wgl", the host oracle in the
+    # background
+    done, launched, wall, banners, stored = live_run(
+        yuga.yuga_test, "yuga", YUGA_MKA, "y1", yuga.MiniYcqlDB.logfile,
+        "miniredis serving on", tmp, counts)
+    check = "ycql-multi-key-acid"
+    keys = done["results"][check]["results"]
+    engines = collections.Counter(str(r.get("engine")) for r in keys.values())
+    hist = done["history"]
+    n_ops = sum(1 for o in hist if o.process != "nemesis"
+                and o.type != "invoke")
+    ks = independent.history_keys(hist)
+    subs = dict(zip(ks, independent.subhistories(hist, ks)))
+    big = max(ks, key=lambda k: len(subs[k]), default=None)
+    big_ops = sum(o.type != "invoke" for o in subs[big].client_ops) \
+        if ks else 0
+    shape = encoded_shape(multi_register(), subs[big]) if ks else None
+    print(f"  yuga ycql/multi-key-acid run ({wall:.2f} s; {YUGA_MKA}, ports "
+          f"from {yuga.YCQL_BASE_PORT}): valid? {done['results']['valid?']},"
+          f" {len(keys)} keys decided, {n_ops} ops completed, serving "
+          f"banners {banners}, winning engines {dict(engines)}, launches "
+          f"{launched}; the largest key {big} ({big_ops} ops completed): "
+          f"{shape}", flush=True)
+    if done["results"]["valid?"] is not True or not keys or banners < 2:
+        raise AssertionError(f"yuga multi-key-acid: "
+                             f"{done['results']['valid?']}, {len(keys)} "
+                             f"keys, banners {banners}, launches {launched}")
+    suite, oracle = register_rechecks(
+        "yuga multi-key-acid", done, stored,
+        os.path.join(tmp, "yuga", "store"), dev, background, counts,
+        model=("multi_register",), check=check)
+
+    # 2. raftis register: the suite, then its stored history whole
+    done, launched, wall, banners, stored = live_run(
+        raftis.raftis_test, "raftis", RAFTIS_RUN, "r1",
+        raftis.MiniRaftisDB.logfile, "miniredis serving on", tmp, counts)
+    lin = done["results"]["linear"]
+    ops = [o for o in done["history"] if o.process != "nemesis"
+           and o.type != "invoke"]
+    print(f"  raftis register run ({wall:.2f} s; {RAFTIS_RUN}, ports from "
+          f"{raftis.MINI_BASE_PORT}): valid? {done['results']['valid?']} "
+          f"(linear {lin['valid?']}, engine {lin.get('engine')}), "
+          f"{len(ops)} ops completed, {sum(o.type == 'info' for o in ops)} "
+          f"crashed, {encoded_shape(cas_register(None), done['history'])}, "
+          f"serving banners {banners}, launches {launched}", flush=True)
+    if (done["results"]["valid?"] is not True or lin["valid?"] is not True
+            or banners < 2):
+        raise AssertionError(f"raftis register: {done['results']}, "
+                             f"banners {banners}")
+    rsuite, roracle = register_rechecks(
+        "raftis register", done, stored,
+        os.path.join(tmp, "raftis", "store"), dev, background, counts,
+        model=("cas_register", None), check="linear", keyed=False,
+        kernels=("wgl32_chunk", "wgln_chunk"))
+
+    await_oracle("yuga multi-key-acid", oracle, suite, YUGA_LIMIT_S)
+    await_oracle("raftis register", roracle, rsuite, YUGA_LIMIT_S)
+    took = time.monotonic() - t_all
+    print(f"  yuga and raftis: {took:.1f} s", flush=True)
+    if took > YUGA_LIMIT_S:
+        raise AssertionError(f"yuga and raftis took {took:.1f} s (limit "
+                             f"{YUGA_LIMIT_S} s)")
+    return counts
+
+
 def suites_phases(dev, background) -> dict:
     """The live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, tidb,
-    postgres and stolon, the faultlib nemesis and EDN ingest, on the card's
-    machine, each step's wall printed:
+    postgres, stolon, yuga and raftis, the faultlib nemesis and EDN ingest,
+    on the card's machine, each step's wall printed:
 
       1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
          in this process: a minisql primary (stdlib sqlite3 behind RESP,
@@ -6604,7 +6750,13 @@ def suites_phases(dev, background) -> dict:
          (`pg_runs`, the register's host oracle in `background`): each
          postgres key decided by the race and re-checked by "cuda-wgl" and
          the host oracle, all equal; the stolon append run under its
-         kill/restart nemesis re-checked three ways as in step 1.
+         kill/restart nemesis re-checked three ways as in step 1;
+      8. yuga `ycql/multi-key-acid` and raftis's register
+         (`yuga_raftis_runs`, the host oracles in `background`): each
+         multi-key group decided by the race on the multi-register model
+         and re-checked by "cuda-wgl" and the host oracle, all equal; the
+         raftis register decided by the race and re-checked whole by
+         "cuda-wgl" and the host oracle, all equal.
 
     The servers listen on their suites' own ports, below Linux's ephemeral
     range: a client retrying a down server's ephemeral port can connect to
@@ -6625,8 +6777,8 @@ def suites_phases(dev, background) -> dict:
     from jepsen_tpu_torch.nemesis import faultfs
 
     print(f"the live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, "
-          f"tidb, postgres and stolon, the faultlib nemesis and EDN ingest "
-          f"({card_line()}):", flush=True)
+          f"tidb, postgres, stolon, yuga and raftis, the faultlib nemesis and "
+          f"EDN ingest ({card_line()}):", flush=True)
     t_all = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
                                                      "torch_kernels"))
@@ -6775,6 +6927,9 @@ def suites_phases(dev, background) -> dict:
     pg_counts, err = pg_runs(dev, tmp, background)
     counts.update(pg_counts)
     worst = max(worst, err)
+
+    # 8. yuga and raftis
+    counts.update(yuga_raftis_runs(dev, tmp, background))
 
     shutil.rmtree(tmp, ignore_errors=True)
     took = time.monotonic() - t_all

@@ -94,6 +94,13 @@ the shared framework. The suites ported so far:
   plus set-full over job names; a LIVE mini scheduler actually fires
   runs, and kill -9 leaves incomplete runs / missed windows for the
   checker to report. CI-run. Its checks run on the host.
+- `yuga` — the dual-API structure (`yugabyte/src/yugabyte/core.clj`):
+  one namespaced workload registry ("ycql/set", "ysql/bank", ...)
+  built from shared workload definitions with per-API transport
+  clients (RESP mini-redis for ycql, SQL mini-sqlite for ysql), and
+  a test-all api x workload sweep. CI-run live on both surfaces. The
+  registers' and the multi-key groups' device lanes and the append's
+  cycle search run on the card.
 - `tidb` — the reference's deep-dive exemplar
   (`tidb/src/tidb/core.clj:32-151`): 11 workloads (bank +
   multitable, long-fork, monotonic, txn-cycle, append, register,
@@ -113,6 +120,17 @@ the shared framework. The suites ported so far:
   servers in CI, real sentinel/keeper/proxy-over-etcdv3 automation
   in `ha` mode. The append check's cycle search runs on the card;
   the ledger's check on the host.
+- `raftis` — redis-over-raft (`raftis/src/jepsen/raftis.clj`, the
+  reference's smallest suite): one linearizable register over the
+  live mini-redis servers, with the reference's definite-fail error
+  taxonomy; floyd tarball automation in `tarball` mode. The register
+  check's device lane runs on the card.
+- `logcabin` — the raft-reference-implementation family
+  (`logcabin/src/jepsen/logcabin.clj`): CAS register driven by a
+  TreeOps-shaped CLI shelled over the control plane per op (the
+  reference's transport), live tree servers in CI, scons
+  source-build + bootstrap/Reconfigure automation in `source` mode.
+  The register check's device lane runs on the card.
 - `cockroach` — the strict-serializability workloads
   (`cockroachdb/src/jepsen/cockroach/{monotonic,comments}.clj`) over
   the from-scratch pgwire client: monotonic (txn max+1 inserts with
@@ -154,8 +172,8 @@ Run one with `python -m jepsen_tpu_torch.dbs.<suite> test --nodes ...`;
 sweep a suite's matrix with `... test-all`.
 
 The port's copy of `jepsen_tpu/dbs/__init__.py`. The reference's other
-suites (raftis, yuga, and the eight on `miniserver` and `retryclient`
-alone) are not ported yet (ROADMAP.md Queue A item 6.6). The suites
+seven suites (aerospike, hazelcast, ignite, rethinkdb, dgraph, fauna and
+robustirc) are not ported yet (ROADMAP.md Queue A item 6.6). The suites
 that speak HTTP (etcd, consul, elasticsearch, chronos) do so through
 `httpclient`, on the standard library.
 """

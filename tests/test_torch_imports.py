@@ -60,6 +60,9 @@ MYSQL_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
 # the pgwire family: postgres's codec and clients, and the suites on it
 PG_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
     "postgres", "stolon", "cockroach", "crate")}
+# redis-over-raft, the dual-API suite and the raft reference's tree
+RAFT_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
+    "raftis", "yuga", "logcabin")}
 # `-m jepsen_tpu...` in a command line, and the module `-m` is given
 RUN_REFERENCE = re.compile(r"-m\s+jepsen_tpu(?!_torch)\b")
 REFERENCE_MODULE = re.compile(r"^jepsen_tpu(?!_torch)(\.\w+)*$")
@@ -95,6 +98,7 @@ def test_scan_covers_the_package():
     assert DOC_FILES <= names
     assert MYSQL_FILES <= names
     assert PG_FILES <= names
+    assert RAFT_FILES <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -10,9 +10,12 @@ a search that continues across chunks; the small memo table and
 backlog force slot collisions, full probe windows, spill, refill and
 backlog overflow.
 
-Every corpus is padded into one shared (n_pad, ic, S, O) shape so
-XLA:CPU compiles each (K, pack) pair once. The `gpu` case holds the
-CUDA kernel against `chunk_ref` on the card, on the same corpora.
+Every corpus but the multi-register one is padded into one shared
+(n_pad, ic, S, O) shape so XLA:CPU compiles each (K, pack) pair once; the
+multi-register key (yuga's multi-key-acid workload: txns of r/w micro-ops
+over three sub-registers, `multi_key_acid_history`) has a table of ~100+
+states and a bucket of its own. The `gpu` case holds the CUDA kernel
+against `chunk_ref` on the card, on the same corpora.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from jepsen_tpu import history as jh
 from jepsen_tpu import synth as jsynth
 from jepsen_tpu.models import core as jmodels
 from jepsen_tpu.ops import adapt as jadapt
@@ -41,6 +45,55 @@ CHUNK = 64              # rounds per chunk: searches span several chunks
 N_CHUNKS = 3
 PROBES = 4
 BUCKET = {"n_pad": 192, "ic_pad": 32, "S": 16, "O": 32}
+# the multi-register key's own bucket: its table is (144, 32)
+BUCKETS = {"multi-register": {"n_pad": 64, "ic_pad": 32, "S": 144,
+                              "O": 32}}
+NAMES = ["register", "cas", "cas-invalid", "mutex", "multi-register"]
+
+
+def multi_key_acid_history(n_ops: int = 40, n_procs: int = 4,
+                           crash_p: float = 0.05, seed: int = 0):
+    """One key of yuga's multi-key-acid workload as the JAX package's
+    History: `n_ops` txns from `n_procs` concurrent processes, each all
+    reads or all writes (values 0-4) of a random subset of the sub-registers
+    0-2, applied to one store at their completion; a txn crashes (info, its
+    writes applied or not) with probability `crash_p` and its process is
+    retired. Drawn from a numpy generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    hist = jh.History()
+    store, pending = {}, {}
+    free, next_pid, issued, t = list(range(n_procs)), n_procs, 0, 0
+    while issued < n_ops or pending:
+        if free and issued < n_ops and (not pending or rng.random() < 0.6):
+            p = free.pop(int(rng.integers(len(free))))
+            ks = [k for k in range(3) if rng.random() < 0.5] or \
+                [int(rng.integers(3))]
+            if rng.random() < 0.5:
+                v = [["r", k, None] for k in ks]
+            else:
+                v = [["w", k, int(rng.integers(5))] for k in ks]
+            hist.append(jh.invoke(p, "txn", v, time=t))
+            pending[p] = v
+            issued += 1
+        else:
+            p = list(pending)[int(rng.integers(len(pending)))]
+            v = pending.pop(p)
+            writes = v[0][0] == "w"
+            if rng.random() < crash_p:
+                hist.append(jh.info(p, "txn", v, time=t))
+                if writes and rng.random() < 0.5:
+                    store.update({k: x for _, k, x in v})
+                free.append(next_pid)
+                next_pid += 1
+            else:
+                if writes:
+                    store.update({k: x for _, k, x in v})
+                else:
+                    v = [["r", k, store.get(k)] for _, k, _ in v]
+                hist.append(jh.ok(p, "txn", v, time=t))
+                free.append(p)
+        t += 1
+    return hist.index()
 
 
 def _corpora():
@@ -56,6 +109,8 @@ def _corpora():
                                                     crash_p=0.05,
                                                     lie_p=0.03)),
         "mutex": (jmodels.mutex(), jsynth.mutex_history(120, seed=5)),
+        "multi-register": (jmodels.multi_register(),
+                           multi_key_acid_history()),
     }
 
 
@@ -65,11 +120,12 @@ _ENC: dict = {}
 def _encoded(name):
     if name not in _ENC:
         model, hist = _corpora()[name]
-        enc = jwgl._apply_bucket(jencode.encode(model, hist), BUCKET)
+        bucket = BUCKETS.get(name, BUCKET)
+        enc = jwgl._apply_bucket(jencode.encode(model, hist), bucket)
         assert enc.window_raw <= W and enc.n_info <= IC
         assert twgl._packable(enc)   # pack=True is legal on every corpus
         assert (len(enc.inv), enc.table.shape) == (
-            BUCKET["n_pad"], (BUCKET["S"], BUCKET["O"]))
+            bucket["n_pad"], (bucket["S"], bucket["O"]))
         _ENC[name] = enc
     return _ENC[name]
 
@@ -77,13 +133,17 @@ def _encoded(name):
 _JIT: dict = {}
 
 
-def _jax_chunk(K, pack):
-    if (K, pack) not in _JIT:
+def _jax_chunk(K, pack, name=None):
+    """The JAX package's (init_fn, jitted chunk_fn) at the bucket of the
+    corpus `name` (default: the shared bucket)."""
+    bucket = BUCKETS.get(name, BUCKET)
+    key = (K, pack, tuple(bucket.values()))
+    if key not in _JIT:
         init_fn, chunk_fn = _build_search32(
-            BUCKET["n_pad"], IC, BUCKET["S"], BUCKET["O"], K, H, B, CHUNK,
+            bucket["n_pad"], IC, bucket["S"], bucket["O"], K, H, B, CHUNK,
             PROBES, W=W, accel=False, depth=1, pack=pack)
-        _JIT[(K, pack)] = (init_fn, jax.jit(chunk_fn))
-    return _JIT[(K, pack)]
+        _JIT[key] = (init_fn, jax.jit(chunk_fn))
+    return _JIT[key]
 
 
 def _np_consts(enc):
@@ -108,13 +168,12 @@ def _assert_same(port_carry, port_summary, jax_out, jax_summary, what):
 
 
 @pytest.mark.parametrize("K", [2, 16, 512])
-@pytest.mark.parametrize("name", ["register", "cas", "cas-invalid",
-                                  "mutex"])
+@pytest.mark.parametrize("name", NAMES)
 def test_chunk_ref_matches_jax_chunk_fn(name, K):
     enc = _encoded(name)
     consts_j = _jax_consts(enc)
     consts_t = tw.consts_from_numpy(*_np_consts(enc), device="cpu")
-    init_fn, _ = _jax_chunk(K, False)
+    init_fn, _ = _jax_chunk(K, False, name)
     carry = init_fn(0)
     n_chunks = 1 if K == 512 else N_CHUNKS
     for step in range(n_chunks):
@@ -124,7 +183,7 @@ def test_chunk_ref_matches_jax_chunk_fn(name, K):
             H=H, B=B, chunk=CHUNK, probes=PROBES)
         outs = {}
         for pack in (False, True):
-            _, chunk_jit = _jax_chunk(K, pack)
+            _, chunk_jit = _jax_chunk(K, pack, name)
             outs[pack] = chunk_jit(consts_j, tuple(jnp.asarray(x)
                                                    for x in leaves))
             _assert_same(port, port_summary, *outs[pack],
@@ -235,8 +294,7 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K", [2, 16, 512])
-@pytest.mark.parametrize("name", ["register", "cas", "cas-invalid",
-                                  "mutex"])
+@pytest.mark.parametrize("name", NAMES)
 def test_kernel_matches_chunk_ref_on_card(cuda_device, name, K):
     enc = _encoded(name)
     consts = tw.consts_from_numpy(*_np_consts(enc), device=cuda_device)

@@ -232,12 +232,21 @@ node (4 workers for 2 s, re-checked key by key by "cuda-wgl" and the host
 oracle, all equal) and stolon's `append` (paced, 7.5 s, under kill -9,
 re-checked the same three ways); then yuga's and raftis's runs on
 mini-redis servers from their suites' own ports (`yuga_raftis_runs`):
-yuga's `ycql/multi-key-acid` (4 workers for 3 s under kill -9, each
+yuga's `ycql/multi-key-acid` (4 workers for 2.5 s under kill -9, each
 3-subkey group a key decided by the competition race on the
 multi-register model, its stored history re-checked key by key by
 "cuda-wgl" on the card and by the host oracle, all equal) and raftis's
-register (4 workers for 3 s under kill -9, re-checked whole by
-"cuda-wgl" with `cas_register(None)` and the host oracle, all equal). A
+register (4 workers for 2.5 s under kill -9, re-checked whole by
+"cuda-wgl" with `cas_register(None)` and the host oracle, all equal);
+then two binary-wire suites on their own mini servers (`grid_runs`):
+aerospike's `cas-register` (4 workers for 3 s under kill -9, each key
+decided by the competition race against generation-CAS records, its
+stored history re-checked key by key by "cuda-wgl" on the card and by
+the host oracle, all equal) and hazelcast's fenced `lock` (4 workers for
+3 s, fault-free, the mutex checked by the suite's race and the fences
+for monotonicity, the stored history re-checked whole with the mutex
+model by "cuda-wgl", which launches `wgl32_chunk`, and by the host
+oracle, all equal). A
 live step whose server never opens its port prints the server log's tail
 and the port's holders (from /proc/net/tcp) before it fails. Last, the bench round
 (`bench_phases`): `python -m
@@ -5585,7 +5594,7 @@ def cluster_phases(dev) -> dict:
 
 # ---- the first live SQL suite -------------------------------------------------
 
-SUITES_LIMIT_S = 130.0        # the phase's share of SMOKE_LIMIT_S
+SUITES_LIMIT_S = 150.0        # the phase's share of SMOKE_LIMIT_S
 # the reference test's options (`tests/test_sqlite.py`: one node, 4 workers,
 # a kill/restart of the primary every 2 s), for 5 s
 SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
@@ -5680,14 +5689,26 @@ PG_LIMIT_S = 25.0             # the pgwire runs' share of SUITES_LIMIT_S
 # the reference test's one node and 4 workers
 # (`tests/test_yuga.py::test_multi_key_acid_live`), and raftis's register
 # with its reference test's (`tests/test_raftis.py::test_full_suite_live`),
-# each for 3 s with the kill/restart every 1 s (NDB_RUN's timing) so that a
-# restart falls inside the run, on a mini-redis server on its suite's own
-# ports
-YUGA_MKA = dict(nodes=["y1"], concurrency=4, time_limit=3,
+# each for 2.5 s (3 s until the binary-wire runs joined the phase) with the
+# kill/restart every 1 s so that the kill at 1 s and the restart at 2 s
+# fall inside the run, on a mini-redis server on its suite's own ports
+YUGA_MKA = dict(nodes=["y1"], concurrency=4, time_limit=2.5,
                 nemesis_interval=1.0, workload="ycql/multi-key-acid")
-RAFTIS_RUN = dict(nodes=["r1"], concurrency=4, time_limit=3,
+RAFTIS_RUN = dict(nodes=["r1"], concurrency=4, time_limit=2.5,
                   nemesis_interval=1.0)
 YUGA_LIMIT_S = 20.0           # yuga's and raftis's share of SUITES_LIMIT_S
+# the binary-wire suites' live runs, each on its own mini server: aerospike
+# `cas-register` (generation-CAS records) with the reference test's one node
+# and 4 workers (`tests/test_aerospike.py::test_full_suite_live`) for 3 s
+# with the kill/restart every 1 s (NDB_RUN's timing) so that a restart falls
+# inside the run; hazelcast's fenced `lock` with its reference test's one
+# node and 4 workers (`tests/test_hazelcast.py::test_full_suite_live`) for
+# 3 s, fault-free as the workload is (its nemesis a no-op: a kill frees
+# every held lock)
+AERO_RUN = dict(nodes=["a1"], concurrency=4, time_limit=3,
+                nemesis_interval=1.0, workload="cas-register")
+HZ_LOCK = dict(nodes=["h1"], concurrency=4, time_limit=3, workload="lock")
+GRID_LIMIT_S = 20.0           # aerospike's and hazelcast's share of it
 SUITE_KERNELS = ("elle_closure", "wgl32_chunk")
 
 
@@ -6319,17 +6340,18 @@ def graph_txns(res: dict):
 
 def register_rechecks(what: str, done: dict, stored: dict, root: str, dev,
                       background, counts, model: tuple = ("cas_register",),
-                      check: str = "register", keyed: bool = True,
+                      check="register", keyed: bool = True,
                       kernels: tuple = ("wgl32_chunk",)) -> tuple:
     """A live register run's stored history (`stored`, the latest run under
     the store `root`), read back equal to the run's, re-checked key by key
     with `model` (`register_oracle`'s names): the host oracle
     (`register_oracle`) begun in `background`, and a forced "cuda-wgl" on
     the card, which must launch one of `kernels` and agree with the suite's
-    race (`done`'s results under `check`) on every key; without `keyed` the
-    history is one register, checked whole, its verdict under the key None.
-    Its launches are added to `counts`. Returns (the suite's verdicts by
-    key, the oracle's future, for `await_oracle`)."""
+    race (`done`'s results under `check`, a key or a tuple of keys into
+    nested results) on every key; without `keyed` the history is one
+    register, checked whole, its verdict under the key None. Its launches
+    are added to `counts`. Returns (the suite's verdicts by key, the
+    oracle's future, for `await_oracle`)."""
     from jepsen_tpu_torch import checker, independent, models
     from jepsen_tpu_torch.history import History
 
@@ -6341,7 +6363,10 @@ def register_rechecks(what: str, done: dict, stored: dict, root: str, dev,
     oracle = background.submit(register_oracle, root, model, keyed)
     lin = checker.linearizable(getattr(models, model[0])(*model[1:]),
                                algorithm="cuda-wgl", device=dev)
-    suite = verdicts_by_key(done["results"][check], keyed)
+    want = done["results"]
+    for k in (check if isinstance(check, tuple) else (check,)):
+        want = want[k]
+    suite = verdicts_by_key(want, keyed)
     zero_counts()
     t0 = time.monotonic()
     res = (independent.checker(lin) if keyed else lin).check({}, hist, {})
@@ -6701,10 +6726,116 @@ def yuga_raftis_runs(dev, tmp: str, background) -> dict:
     return counts
 
 
+def grid_runs(dev, tmp: str, background) -> dict:
+    """Two binary-wire suites' live runs on the card, each on its own mini
+    server from its suite's own ports over the localexec remote:
+
+      1. aerospike `cas-register` (AERO_RUN: generation-CAS records, the
+         kill/restart nemesis sending real `kill -9`s), each key decided by
+         the suite's competition race (the device lane `wgl32_chunk`, or
+         `wgln_chunk` where crashed writes open a key's window past 32):
+         True, at least two serving banners; its stored history re-checked
+         key by key by a forced "cuda-wgl" on the card, which must launch
+         one of the chunk kernels, and by the host oracle, in `background`
+         while step 2 runs, each key's three verdicts equal. The keys, the
+         ops, the crashed ops, the winning engines and the largest key's
+         encoded table and window are printed;
+      2. hazelcast's fenced `lock` (HZ_LOCK, fault-free), its mutex decided
+         by the suite's competition race and its fences checked for
+         monotonicity: both True, one serving banner; its stored history
+         re-checked whole with the mutex model (each ok acquire's fence its
+         value) by a forced "cuda-wgl", which must launch `wgl32_chunk`,
+         and by the host oracle, all equal to the suite's mutex verdict.
+         The ops by (f, type), the fences, the encoded table and window and
+         the winning engine are printed.
+
+    A server that never opens its port prints its log's tail and the
+    port's holders before the step fails (`live_run`). Returns the launches
+    of the runs and the re-checks by kernel; takes at most GRID_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.dbs import aerospike, hazelcast
+    from jepsen_tpu_torch.models import cas_register, mutex
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+
+    # 1. aerospike cas-register: the suite, "cuda-wgl", the host oracle in
+    # the background
+    done, launched, wall, banners, stored = live_run(
+        aerospike.aerospike_test, "aerospike", AERO_RUN, "a1",
+        aerospike.MiniAeroDB.logfile, "miniaero serving on", tmp, counts)
+    keys = done["results"]["cas-register"]["results"]
+    engines = collections.Counter(str(r.get("linear", {}).get("engine"))
+                                  for r in keys.values())
+    hist = done["history"]
+    ops = [o for o in hist if o.process != "nemesis" and o.type != "invoke"]
+    ks = independent.history_keys(hist)
+    subs = dict(zip(ks, independent.subhistories(hist, ks)))
+    big = max(ks, key=lambda k: len(subs[k]), default=None)
+    shape = encoded_shape(cas_register(), subs[big]) if ks else None
+    print(f"  aerospike cas-register run ({wall:.2f} s; {AERO_RUN}, ports "
+          f"from {aerospike.MINI_BASE_PORT}): valid? "
+          f"{done['results']['valid?']}, {len(keys)} keys decided, "
+          f"{len(ops)} ops completed, {sum(o.type == 'info' for o in ops)} "
+          f"crashed, serving banners {banners}, winning engines "
+          f"{dict(engines)}, launches {launched}; the largest key {big}: "
+          f"{shape}", flush=True)
+    if (done["results"]["valid?"] is not True or not keys or banners < 2
+            or engines.get("None")):
+        raise AssertionError(f"aerospike cas-register: "
+                             f"{done['results']['valid?']}, {len(keys)} "
+                             f"keys, engines {dict(engines)}, banners "
+                             f"{banners}, launches {launched}")
+    suite, oracle = register_rechecks(
+        "aerospike cas-register", done, stored,
+        os.path.join(tmp, "aerospike", "store"), dev, background, counts,
+        check="cas-register", kernels=("wgl32_chunk", "wgln_chunk"))
+
+    # 2. hazelcast lock: the suite, then its stored history whole
+    done, launched, wall, banners, stored = live_run(
+        hazelcast.hazelcast_test, "hazelcast", HZ_LOCK, "h1",
+        hazelcast.MiniHzDB.logfile, "minihz serving on", tmp, counts)
+    lock = done["results"]["lock"]
+    by_f = collections.Counter((o.f, o.type) for o in done["history"]
+                               if o.process != "nemesis"
+                               and o.type != "invoke")
+    print(f"  hazelcast lock run ({wall:.2f} s; {HZ_LOCK}, ports from "
+          f"{hazelcast.MINI_BASE_PORT}): valid? {done['results']['valid?']} "
+          f"(mutex {lock['mutex']['valid?']}, engine "
+          f"{lock['mutex'].get('engine')}; fences {lock['fences']['valid?']}, "
+          f"{lock['fences']['acquisition-count']} counted), ops "
+          f"{dict(sorted(by_f.items()))}, "
+          f"{encoded_shape(mutex(), done['history'])}, serving banners "
+          f"{banners}, launches {launched}", flush=True)
+    if (done["results"]["valid?"] is not True
+            or lock["mutex"]["valid?"] is not True
+            or lock["fences"]["valid?"] is not True
+            or lock["fences"]["acquisition-count"] < 1 or banners < 1):
+        raise AssertionError(f"hazelcast lock: {done['results']}, banners "
+                             f"{banners}")
+    hsuite, horacle = register_rechecks(
+        "hazelcast lock", done, stored,
+        os.path.join(tmp, "hazelcast", "store"), dev, background, counts,
+        model=("mutex",), check=("lock", "mutex"), keyed=False)
+
+    await_oracle("aerospike cas-register", oracle, suite, GRID_LIMIT_S)
+    await_oracle("hazelcast lock", horacle, hsuite, GRID_LIMIT_S)
+    took = time.monotonic() - t_all
+    print(f"  aerospike and hazelcast: {took:.1f} s", flush=True)
+    if took > GRID_LIMIT_S:
+        raise AssertionError(f"aerospike and hazelcast took {took:.1f} s "
+                             f"(limit {GRID_LIMIT_S} s)")
+    return counts
+
+
 def suites_phases(dev, background) -> dict:
     """The live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, tidb,
-    postgres, stolon, yuga and raftis, the faultlib nemesis and EDN ingest,
-    on the card's machine, each step's wall printed:
+    postgres, stolon, yuga, raftis, aerospike and hazelcast, the faultlib
+    nemesis and EDN ingest, on the card's machine, each step's wall
+    printed:
 
       1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
          in this process: a minisql primary (stdlib sqlite3 behind RESP,
@@ -6756,7 +6887,13 @@ def suites_phases(dev, background) -> dict:
          multi-key group decided by the race on the multi-register model
          and re-checked by "cuda-wgl" and the host oracle, all equal; the
          raftis register decided by the race and re-checked whole by
-         "cuda-wgl" and the host oracle, all equal.
+         "cuda-wgl" and the host oracle, all equal;
+      9. aerospike `cas-register` and hazelcast's fenced `lock`
+         (`grid_runs`, the host oracles in `background`): each aerospike
+         key decided by the race and re-checked by "cuda-wgl" and the
+         host oracle, all equal; the lock's mutex decided by the race, its
+         fences monotonic, and the mutex re-checked whole by "cuda-wgl"
+         (`wgl32_chunk`) and the host oracle, all equal.
 
     The servers listen on their suites' own ports, below Linux's ephemeral
     range: a client retrying a down server's ephemeral port can connect to
@@ -6777,8 +6914,8 @@ def suites_phases(dev, background) -> dict:
     from jepsen_tpu_torch.nemesis import faultfs
 
     print(f"the live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, "
-          f"tidb, postgres, stolon, yuga and raftis, the faultlib nemesis and "
-          f"EDN ingest ({card_line()}):", flush=True)
+          f"tidb, postgres, stolon, yuga, raftis, aerospike and hazelcast, the "
+          f"faultlib nemesis and EDN ingest ({card_line()}):", flush=True)
     t_all = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
                                                      "torch_kernels"))
@@ -6930,6 +7067,9 @@ def suites_phases(dev, background) -> dict:
 
     # 8. yuga and raftis
     counts.update(yuga_raftis_runs(dev, tmp, background))
+
+    # 9. the binary-wire suites: aerospike and hazelcast
+    counts.update(grid_runs(dev, tmp, background))
 
     shutil.rmtree(tmp, ignore_errors=True)
     took = time.monotonic() - t_all

@@ -125,6 +125,31 @@ the shared framework. The suites ported so far:
   live mini-redis servers, with the reference's definite-fail error
   taxonomy; floyd tarball automation in `tarball` mode. The register
   check's device lane runs on the card.
+- `aerospike` — the record-store family
+  (`aerospike/src/aerospike/*.clj`): a from-scratch Aerospike
+  binary-protocol subset (AS_MSG framing, generation counters),
+  generation-CAS registers / INCR counters / CAS-appended sets
+  against LIVE mini servers, .deb + mesh-config automation, and the
+  JAX package's `jepsen_tpu/dbs/spec/aerospike_gen.tla` TLA+ spec
+  explored exhaustively in CI (the reference suite's own
+  spec/aerospike.tla is the role model). The cas-register check's
+  device lane runs on the card; the counter's and the set's checks on
+  the host.
+- `rethinkdb` — the document-store-with-topology family
+  (`rethinkdb/src/jepsen/rethinkdb{,/document_cas}.clj`): a
+  from-scratch ReQL subset (V0_4 handshake, term ASTs), document
+  CAS via branch-update, the write_acks/read_mode durability matrix,
+  and the reconfigure nemesis issuing topology churn through the
+  client protocol; live mini servers in CI, apt automation in deb
+  mode. The register check's device lane runs on the card.
+- `hazelcast` — the data-grid primitives family
+  (`hazelcast/src/jepsen/hazelcast.clj`):
+  atomic-long unique IDs, CAS longs, queues, CAS'd map sets, and
+  fenced locks (mutex-linearizable + fence-monotonic) over a
+  from-scratch binary frame protocol; the volatile-lock violation
+  is demonstrated deterministically in CI. The CAS long's and the
+  lock's mutex checks race their device lane on the card; the rest,
+  the fences included, run on the host.
 - `logcabin` — the raft-reference-implementation family
   (`logcabin/src/jepsen/logcabin.clj`): CAS register driven by a
   TreeOps-shaped CLI shelled over the control plane per op (the
@@ -158,6 +183,14 @@ the shared framework. The suites ported so far:
   a linearizable register over ENGINE=NDBCLUSTER row CAS. CI-run
   live on the shared MySQL wire; the register check's device lane
   runs on the card.
+- `ignite` — the data-grid cache/transaction exemplar
+  (`ignite/src/jepsen/ignite*.clj`): the runner's configuration
+  lattice (cache atomicity/mode/backups/write-sync x transaction
+  concurrency x isolation) swept by test-all; the LIVE mini grid
+  implements BOTH concurrency models (pessimistic entry locks with
+  wait-timeout aborts, optimistic-serializable commit validation)
+  and a real pds durability axis. CI-run live. The register check's
+  device lane runs on the card; the bank's check on the host.
 - `crate` — the _version MVCC family
   (`crate/src/jepsen/crate/*.clj`): pgwire clients over LIVE mini
   servers whose dialect bridge maintains a real per-row `_version`;
@@ -172,8 +205,8 @@ Run one with `python -m jepsen_tpu_torch.dbs.<suite> test --nodes ...`;
 sweep a suite's matrix with `... test-all`.
 
 The port's copy of `jepsen_tpu/dbs/__init__.py`. The reference's other
-seven suites (aerospike, hazelcast, ignite, rethinkdb, dgraph, fauna and
-robustirc) are not ported yet (ROADMAP.md Queue A item 6.6). The suites
+three suites (dgraph, fauna and robustirc) are not ported yet (ROADMAP.md
+Queue A item 6.6). The suites
 that speak HTTP (etcd, consul, elasticsearch, chronos) do so through
 `httpclient`, on the standard library.
 """

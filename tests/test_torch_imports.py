@@ -63,6 +63,9 @@ PG_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
 # redis-over-raft, the dual-API suite and the raft reference's tree
 RAFT_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
     "raftis", "yuga", "logcabin")}
+# the binary-wire suites: each its own codec and embedded server
+WIRE_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
+    "aerospike", "hazelcast", "ignite", "rethinkdb")}
 # `-m jepsen_tpu...` in a command line, and the module `-m` is given
 RUN_REFERENCE = re.compile(r"-m\s+jepsen_tpu(?!_torch)\b")
 REFERENCE_MODULE = re.compile(r"^jepsen_tpu(?!_torch)(\.\w+)*$")
@@ -99,6 +102,7 @@ def test_scan_covers_the_package():
     assert MYSQL_FILES <= names
     assert PG_FILES <= names
     assert RAFT_FILES <= names
+    assert WIRE_FILES <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -41,6 +41,7 @@ from jepsen_tpu import metrics as jmetrics
 from jepsen_tpu import service as jservice
 from jepsen_tpu import slo as jslo
 from jepsen_tpu import web as jweb
+from jepsen_tpu.parallel import mesh as jmesh
 from jepsen_tpu_torch import autopilot as tap
 from jepsen_tpu_torch import checker, core, fakes
 from jepsen_tpu_torch import devices as tdevices
@@ -54,6 +55,7 @@ from jepsen_tpu_torch import service as tservice
 from jepsen_tpu_torch import slo as tslo
 from jepsen_tpu_torch import store as tstore
 from jepsen_tpu_torch import web as tweb
+from jepsen_tpu_torch.parallel import mesh as tmesh
 
 # The one difference between the two packages' pages over one store: the
 # package named in a command hint (`/doctor` with nothing to diagnose,
@@ -74,6 +76,13 @@ def _masked(page: bytes) -> bytes:
 @pytest.fixture(autouse=True)
 def _isolate(monkeypatch):
     monkeypatch.delenv(tobs.FLEET_ROOTS_ENV, raising=False)
+    # the status page's mesh block counts the mesh runs of this process:
+    # start each package's count from idle, whatever test file ran before
+    # in this worker
+    for m in (jmesh, tmesh):
+        monkeypatch.setattr(m, "_SNAP", {"active": False, "runs": 0,
+                                         "steals": 0, "rebuckets": 0,
+                                         "last": None})
     for pair in PAIRS:
         for mod in pair:
             mod._reset()

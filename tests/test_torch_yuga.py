@@ -310,15 +310,16 @@ def test_registry_matches_reference():
 
 
 def encoding_of(enc) -> dict:
-    """An encoding's search inputs, its states as their sub-register
-    tuples and its alphabet as (f, value) by code."""
+    """An encoding's search inputs, its states as their reprs (a
+    multi-register's its sub-register tuple) and its alphabet as (f,
+    value) by code."""
     alphabet = {}
     for o, code in zip(enc.lin_ops,
                        list(enc.opcode[:enc.n_ok])
                        + list(enc.opcode_info[:enc.n_info])):
         alphabet.setdefault(int(code), (o.f, repr(o.value)))
     return {"table": enc.table.tolist(),
-            "states": [s.state for s in enc.states],
+            "states": [repr(s) for s in enc.states],
             "alphabet": [alphabet[c] for c in sorted(alphabet)],
             "window": (enc.window, enc.window_raw),
             "n": (enc.n_ok, enc.n_info),

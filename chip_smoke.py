@@ -206,14 +206,14 @@ three ways (the routed "auto", a forced "device" that launches
 oracle), all equal; a bank run (valid, no PNG); and the faultlib
 LD_PRELOAD nemesis against a toykv node (faultlib built with g++ there,
 EIO injected, the set checker's verdict); then etcd's `register` (a live
-mini-etcd server under kill -9, 4 workers for 3 s, each key decided by
+mini-etcd server under kill -9, 4 workers for 2.5 s, each key decided by
 the competition race whose device lane runs `wgl32_chunk`, each verdict
 equal to the host oracle's) and `append` (paced, 7.5 s, re-checked the
 same three ways); then rabbitmq's `semaphore` (a live mini AMQP broker,
 3 workers for 3 s, the mutex checked by the suite, then re-checked by a
 forced "cuda-wgl" that launches `wgl32_chunk` on the mutex history and
 by the host oracle in a worker process, all equal), mongodb's
-`register` (a live mini OP_MSG server under kill -9, 4 workers for 3 s,
+`register` (a live mini OP_MSG server under kill -9, 4 workers for 2.5 s,
 each key decided by the competition race, its stored history re-checked
 key by key by "cuda-wgl" on the card and by the host oracle, all
 equal), and EDN ingest (the
@@ -222,7 +222,7 @@ headline written as a store.clj-shaped history.edn, read back by
 launch for launch; a list-append history.edn with 600 transactions
 checked by Elle on the card and on the host, equal); then the MySQL-wire
 family on galera's embedded server (`mysql_runs`): mysql_cluster's
-`register` (a live mini server under kill -9, 4 workers for 3 s, each
+`register` (a live mini server under kill -9, 4 workers for 2.5 s, each
 key decided by the competition race, its stored history re-checked key
 by key by "cuda-wgl" on the card and by the host oracle in a worker
 process, all equal) and tidb's `append` (paced, 7.5 s, re-checked the
@@ -239,14 +239,20 @@ multi-register model, its stored history re-checked key by key by
 register (4 workers for 2.5 s under kill -9, re-checked whole by
 "cuda-wgl" with `cas_register(None)` and the host oracle, all equal);
 then two binary-wire suites on their own mini servers (`grid_runs`):
-aerospike's `cas-register` (4 workers for 3 s under kill -9, each key
+aerospike's `cas-register` (4 workers for 2.5 s under kill -9, each key
 decided by the competition race against generation-CAS records, its
 stored history re-checked key by key by "cuda-wgl" on the card and by
 the host oracle, all equal) and hazelcast's fenced `lock` (4 workers for
-3 s, fault-free, the mutex checked by the suite's race and the fences
+2 s, fault-free, the mutex checked by the suite's race and the fences
 for monotonicity, the stored history re-checked whole with the mutex
 model by "cuda-wgl", which launches `wgl32_chunk`, and by the host
-oracle, all equal). A
+oracle, all equal); then the last HTTP suite on the port's stdlib
+client (`http_runs`): dgraph's `register` (a live mini alpha under kill
+-9, 4 workers for 2.5 s, each key decided by the competition race, its
+stored history re-checked key by key by "cuda-wgl" on the card and by
+the host oracle in a worker process, all equal) and `wr` (2.5 s under
+the same nemesis, re-checked the same three ways as sqlite's, the
+forced "device" check launching `elle_closure`). A
 live step whose server never opens its port prints the server log's tail
 and the port's holders (from /proc/net/tcp) before it fails. Last, the bench round
 (`bench_phases`): `python -m
@@ -5594,7 +5600,7 @@ def cluster_phases(dev) -> dict:
 
 # ---- the first live SQL suite -------------------------------------------------
 
-SUITES_LIMIT_S = 150.0        # the phase's share of SMOKE_LIMIT_S
+SUITES_LIMIT_S = 170.0        # the phase's share of SMOKE_LIMIT_S
 # the reference test's options (`tests/test_sqlite.py`: one node, 4 workers,
 # a kill/restart of the primary every 2 s), for 5 s
 SUITE_RUN = dict(nodes=["p1"], concurrency=4, time_limit=5,
@@ -5610,8 +5616,9 @@ SUITE_STAGGER_S = 0.005
 SUITE_BANK = dict(time_limit=1)
 # etcd's live runs: `register` with the reference test's options
 # (`tests/test_etcd.py::test_full_suite_live_mini`: one node, 4 workers, 40
-# ops a key), for 3 s (5 s until the MySQL-wire runs joined the phase) with
-# the kill/restart every 1 s so that the restart falls inside the run;
+# ops a key), for 2.5 s (5 s until the MySQL-wire runs joined the phase, 3 s
+# until the dgraph runs did) with the kill/restart every 1 s so that the
+# kill at 1 s and the restart at 2 s fall inside the run;
 # `append` paced as sqlite's, ETCD_STAGGER_S
 # apart, for 7.5 s with the reference test's kill/restart every 2.5 s (up
 # 2.5 s, down 2.5, up 2.5), so that its graph lands between the route's
@@ -5620,16 +5627,17 @@ SUITE_BANK = dict(time_limit=1)
 # machine 358 of 782 completed transactions reached the graph at
 # SUITE_STAGGER_S for 5 s (the rest crashed while the server was down),
 # 384-465 at 2 ms for 6 s with the kill/restart every 2 s
-ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=3,
+ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=2.5,
                 nemesis_interval=1.0, server="mini", per_key_limit=40)
 ETCD_APPEND = dict(time_limit=7.5, nemesis_interval=2.5)
 ETCD_STAGGER_S = 0.002
 ETCD_LIMIT_S = 25.0           # the two etcd runs' share of SUITES_LIMIT_S
 # mongodb's live register run: the reference test's one node and 4 workers
 # (`tests/test_mongodb.py::test_full_suite_live`) and the suite's 100 ops a
-# key, for 3 s (5 s until the MySQL-wire runs joined the phase) with the
-# kill/restart every 1 s so that the restart falls inside the run
-MONGO_RUN = dict(nodes=["m1"], concurrency=4, time_limit=3,
+# key, for 2.5 s (5 s until the MySQL-wire runs joined the phase, 3 s
+# until the dgraph runs did) with the kill/restart every 1 s so that the
+# kill at 1 s and the restart at 2 s fall inside the run
+MONGO_RUN = dict(nodes=["m1"], concurrency=4, time_limit=2.5,
                  nemesis_interval=1.0, server="mini", workload="register")
 # rabbitmq's semaphore run, the reference test's
 # (`tests/test_rabbitmq.py::test_full_semaphore_suite_live_mini`: one
@@ -5648,10 +5656,10 @@ DOCS_LIMIT_S = 35.0           # rabbitmq's, mongodb's and EDN's share of it
 # IMMEDIATE writer at a time): mysql_cluster `register` with the reference
 # test's one mini node and 4 workers
 # (`tests/test_mysql_cluster.py::test_register_live`) and the suite's 100
-# ops a key, for 3 s with the kill/restart every 1 s so that the restart
-# falls inside the run (5 s, every 2 s, until the pgwire runs joined the
-# phase)
-NDB_RUN = dict(nodes=["m1"], concurrency=4, time_limit=3,
+# ops a key, for 2.5 s with the kill/restart every 1 s so that the kill at
+# 1 s and the restart at 2 s fall inside the run (5 s, every 2 s, until the
+# pgwire runs joined the phase; 3 s until the dgraph runs did)
+NDB_RUN = dict(nodes=["m1"], concurrency=4, time_limit=2.5,
                nemesis_interval=1.0, server="mini", workload="register")
 # tidb `append`, one mini node and 4 workers under the kill nemesis, paced
 # TIDB_STAGGER_S apart, for 7.5 s with the kill/restart every 2.5 s (up
@@ -5699,16 +5707,27 @@ RAFTIS_RUN = dict(nodes=["r1"], concurrency=4, time_limit=2.5,
 YUGA_LIMIT_S = 20.0           # yuga's and raftis's share of SUITES_LIMIT_S
 # the binary-wire suites' live runs, each on its own mini server: aerospike
 # `cas-register` (generation-CAS records) with the reference test's one node
-# and 4 workers (`tests/test_aerospike.py::test_full_suite_live`) for 3 s
-# with the kill/restart every 1 s (NDB_RUN's timing) so that a restart falls
-# inside the run; hazelcast's fenced `lock` with its reference test's one
-# node and 4 workers (`tests/test_hazelcast.py::test_full_suite_live`) for
-# 3 s, fault-free as the workload is (its nemesis a no-op: a kill frees
-# every held lock)
-AERO_RUN = dict(nodes=["a1"], concurrency=4, time_limit=3,
+# and 4 workers (`tests/test_aerospike.py::test_full_suite_live`) for
+# 2.5 s with the kill/restart every 1 s (NDB_RUN's timing) so that the kill
+# at 1 s and the restart at 2 s fall inside the run; hazelcast's fenced
+# `lock` with its reference test's one node and 4 workers
+# (`tests/test_hazelcast.py::test_full_suite_live`) for 2 s, fault-free as
+# the workload is (its nemesis a no-op: a kill frees every held lock); 3 s
+# each until the dgraph runs joined the phase
+AERO_RUN = dict(nodes=["a1"], concurrency=4, time_limit=2.5,
                 nemesis_interval=1.0, workload="cas-register")
-HZ_LOCK = dict(nodes=["h1"], concurrency=4, time_limit=3, workload="lock")
+HZ_LOCK = dict(nodes=["h1"], concurrency=4, time_limit=2, workload="lock")
 GRID_LIMIT_S = 20.0           # aerospike's and hazelcast's share of it
+# the last HTTP suite's live runs, on dgraph's mini alpha from its suite's
+# own ports, through the port's stdlib HTTP client: `register` with the
+# reference test's one node and 4 workers
+# (`tests/test_dgraph.py::test_full_suite_live`) and the suite's 100 ops a
+# key, and `wr` with the same, each for 2.5 s with the kill/restart every
+# 1 s so that the kill at 1 s and the restart at 2 s fall inside the run
+DGRAPH_RUN = dict(nodes=["d1"], concurrency=4, time_limit=2.5,
+                  nemesis_interval=1.0, workload="register")
+DGRAPH_WR = dict(DGRAPH_RUN, workload="wr")
+HTTP_LIMIT_S = 20.0           # the dgraph runs' share of SUITES_LIMIT_S
 SUITE_KERNELS = ("elle_closure", "wgl32_chunk")
 
 
@@ -6024,8 +6043,9 @@ def port_holders(port: int) -> list:
 def server_diagnosis(what: str, port, log_path: str):
     """Around a live run or a server's start: if the block raises (a server
     that never opened its port, a run that failed), print the last 30
-    lines of the server's log at `log_path` and who holds its `port`
-    (`port_holders`), then let the exception go on. No retry."""
+    lines of the server's log at `log_path`, who holds its `port`
+    (`port_holders`) and the host's ephemeral port range, then let the
+    exception go on. No retry."""
     try:
         yield
     except Exception as exc:
@@ -6041,6 +6061,13 @@ def server_diagnosis(what: str, port, log_path: str):
         holders = port_holders(port) if port is not None else []
         print(f"  sockets on port {port} (/proc/net/tcp, tcp6): "
               f"{holders or 'none'}", flush=True)
+        try:
+            with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
+                ephemeral = "-".join(fh.read().split())
+        except OSError as e:
+            ephemeral = f"unreadable: {e}"
+        print(f"  ephemeral ports (ip_local_port_range): {ephemeral}",
+              flush=True)
         raise
 
 
@@ -6831,10 +6858,110 @@ def grid_runs(dev, tmp: str, background) -> dict:
     return counts
 
 
+def http_runs(dev, tmp: str, background) -> tuple:
+    """dgraph's two live runs on the card, on its mini alpha from its
+    suite's own ports over the localexec remote, through the port's stdlib
+    HTTP client, the kill/restart nemesis sending real `kill -9`s:
+
+      1. `register` (DGRAPH_RUN), each key decided by the suite's
+         competition race (the device lane `wgl32_chunk`, or `wgln_chunk`
+         where crashed writes open a key's window past 32): True, at least
+         two serving banners; its stored history re-checked key by key by
+         a forced "cuda-wgl" on the card, which must launch one of the
+         chunk kernels, and by the host oracle, in `background` while step
+         2 runs, each key's three verdicts equal. The keys, the ops, the
+         crashed ops and the winning engines are printed;
+      2. `wr` (DGRAPH_WR), its Elle check on the card: True with no
+         anomaly, at least two serving banners; its stored history
+         re-checked by `elle_rechecks` (the routed "auto", a forced
+         `cycle_backend="device"` that must launch `elle_closure`, each
+         dense closure held against `closure_ref`, and the "host" oracle,
+         all equal to the suite on `valid?` and `anomaly-types`). The
+         transactions completed and in the graph and the route's reason
+         are printed; the graph need not reach the route's `min_n`.
+
+    A server that never opens its port prints its log's tail and the
+    port's holders before the step fails (`live_run`). Returns (the
+    launches of the runs and the re-checks by kernel, the closures'
+    largest error); takes at most HTTP_LIMIT_S."""
+    import collections
+    import os
+
+    from jepsen_tpu_torch.dbs import dgraph
+    from jepsen_tpu_torch.elle import wr
+    from jepsen_tpu_torch.history import History
+
+    t_all = time.monotonic()
+    counts: collections.Counter = collections.Counter()
+    banner = "minidgraph serving on"
+
+    # 1. register: the suite, "cuda-wgl", the host oracle in the background
+    done, launched, wall, banners, stored = live_run(
+        dgraph.dgraph_test, "dgraph", DGRAPH_RUN, "d1",
+        dgraph.MiniDgraphDB.logfile, banner, tmp, counts)
+    keys = done["results"]["register"]["results"]
+    engines = collections.Counter(str(r.get("linear", {}).get("engine"))
+                                  for r in keys.values())
+    ops = [o for o in done["history"]
+           if o.process != "nemesis" and o.type != "invoke"]
+    print(f"  dgraph register run ({wall:.2f} s; {DGRAPH_RUN}, ports from "
+          f"{dgraph.MINI_BASE_PORT}): valid? {done['results']['valid?']}, "
+          f"{len(keys)} keys decided, {len(ops)} ops completed, "
+          f"{sum(o.type == 'info' for o in ops)} crashed, serving banners "
+          f"{banners}, winning engines {dict(engines)}, launches "
+          f"{launched}", flush=True)
+    if (done["results"]["valid?"] is not True or not keys or banners < 2
+            or engines.get("None")):
+        raise AssertionError(f"dgraph register: {done['results']['valid?']}"
+                             f", {len(keys)} keys, engines {dict(engines)}, "
+                             f"banners {banners}, launches {launched}")
+    suite, oracle = register_rechecks(
+        "dgraph register", done, stored,
+        os.path.join(tmp, "dgraph", "store"), dev, background, counts,
+        check="register", kernels=("wgl32_chunk", "wgln_chunk"))
+
+    # 2. wr: the suite, then its stored history three ways
+    done, launched, wall, banners, stored = live_run(
+        dgraph.dgraph_test, "dgraph-wr", DGRAPH_WR, "d1",
+        dgraph.MiniDgraphDB.logfile, banner, tmp, counts)
+    res = done["results"]["wr"]
+    hist = done["history"]
+    stored = History(stored["history"]).index()
+    if [o.to_dict() for o in stored] != [o.to_dict() for o in hist]:
+        raise AssertionError("dgraph wr: the stored history differs from "
+                             "the run's")
+    txns = sum(1 for o in hist if o.f == "txn" and o.type != "invoke")
+    oks = sum(1 for o in hist if o.f == "txn" and o.type == "ok")
+    print(f"  dgraph wr run ({wall:.2f} s; {DGRAPH_WR}, ports from "
+          f"{dgraph.MINI_BASE_PORT}): valid? "
+          f"{done['results']['valid?']} (wr {res['valid?']}, anomalies "
+          f"{res['anomaly-types']}), {txns} txns completed ({oks} ok), "
+          f"{graph_txns(res)} in the graph, serving banners {banners}, "
+          f"engine {res.get('cycle-engine')}, route "
+          f"{res.get('cycle-route-reason')!r}, launches {launched}",
+          flush=True)
+    if (done["results"]["valid?"] is not True or res["valid?"] is not True
+            or res["anomaly-types"] or banners < 2 or oks < 1):
+        raise AssertionError(f"dgraph wr: {done['results']}, banners "
+                             f"{banners}")
+    rechecked, worst = elle_rechecks(
+        "dgraph wr", wr.check, stored, done["checker"].checker_map["wr"],
+        res, dev)
+    counts.update(rechecked)
+
+    await_oracle("dgraph register", oracle, suite, HTTP_LIMIT_S)
+    took = time.monotonic() - t_all
+    print(f"  dgraph: {took:.1f} s", flush=True)
+    if took > HTTP_LIMIT_S:
+        raise AssertionError(f"dgraph took {took:.1f} s (limit "
+                             f"{HTTP_LIMIT_S} s)")
+    return counts, worst
+
+
 def suites_phases(dev, background) -> dict:
     """The live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, tidb,
-    postgres, stolon, yuga, raftis, aerospike and hazelcast, the faultlib
-    nemesis and EDN ingest, on the card's machine, each step's wall
+    postgres, stolon, yuga, raftis, aerospike, hazelcast and dgraph, the
+    faultlib nemesis and EDN ingest, on the card's machine, each step's wall
     printed:
 
       1. sqlite `append`, then `wr` (`linearizable_keys`), each a live run
@@ -6893,7 +7020,12 @@ def suites_phases(dev, background) -> dict:
          key decided by the race and re-checked by "cuda-wgl" and the
          host oracle, all equal; the lock's mutex decided by the race, its
          fences monotonic, and the mutex re-checked whole by "cuda-wgl"
-         (`wgl32_chunk`) and the host oracle, all equal.
+         (`wgl32_chunk`) and the host oracle, all equal;
+     10. dgraph `register` and `wr` through the port's stdlib HTTP client
+         (`http_runs`, the register's host oracle in `background`): each
+         register key decided by the race and re-checked by "cuda-wgl"
+         and the host oracle, all equal; the wr run re-checked three ways
+         as in step 1.
 
     The servers listen on their suites' own ports, below Linux's ephemeral
     range: a client retrying a down server's ephemeral port can connect to
@@ -6914,8 +7046,9 @@ def suites_phases(dev, background) -> dict:
     from jepsen_tpu_torch.nemesis import faultfs
 
     print(f"the live suites, sqlite, etcd, mongodb, rabbitmq, mysql_cluster, "
-          f"tidb, postgres, stolon, yuga, raftis, aerospike and hazelcast, the "
-          f"faultlib nemesis and EDN ingest ({card_line()}):", flush=True)
+          f"tidb, postgres, stolon, yuga, raftis, aerospike, hazelcast and "
+          f"dgraph, the faultlib nemesis and EDN ingest ({card_line()}):",
+          flush=True)
     t_all = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="suites-", dir=str(REPO / "build" /
                                                      "torch_kernels"))
@@ -7070,6 +7203,11 @@ def suites_phases(dev, background) -> dict:
 
     # 9. the binary-wire suites: aerospike and hazelcast
     counts.update(grid_runs(dev, tmp, background))
+
+    # 10. the last HTTP suite: dgraph
+    http_counts, err = http_runs(dev, tmp, background)
+    counts.update(http_counts)
+    worst = max(worst, err)
 
     shutil.rmtree(tmp, ignore_errors=True)
     took = time.monotonic() - t_all

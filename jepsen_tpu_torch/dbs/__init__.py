@@ -150,6 +150,12 @@ the shared framework. The suites ported so far:
   is demonstrated deterministically in CI. The CAS long's and the
   lock's mutex checks race their device lane on the card; the rest,
   the fences included, run on the host.
+- `robustirc` — the exactly-once-messaging family
+  (`robustirc/src/jepsen/robustirc.clj`): the RobustSession HTTP
+  protocol (session auth, ClientMessageId dedup) with a from-scratch
+  RFC-1459 parser; topic-set workload live in CI, including
+  retransmit-across-restart exactly-once proofs; go-get automation
+  in `go` mode. Its check runs on the host.
 - `logcabin` — the raft-reference-implementation family
   (`logcabin/src/jepsen/logcabin.clj`): CAS register driven by a
   TreeOps-shaped CLI shelled over the control plane per op (the
@@ -197,6 +203,22 @@ the shared framework. The suites ported so far:
   version-divergence, lost-updates, and the refresh/strong-read
   dirty-read workload with its dirty/lost/not-on-all algebra. Its
   checks run on the host.
+- `dgraph` — the graph-database exemplar
+  (`dgraph/src/jepsen/dgraph/*.clj`): a LIVE mini alpha implementing
+  dgraph's MVCC transaction model (snapshot reads, write-write
+  commit conflicts, @upsert-gated index-read conflicts — the
+  duplicate-uid upsert anomaly reproduces on demand) under an
+  HTTP/JSON txn protocol; all eight reference workloads. CI-run. The
+  register check's device lane and the wr check's cycle search run on
+  the card; the other six checks on the host.
+- `fauna` — the largest reference suite
+  (`faunadb/src/jepsen/faunadb/*.clj`): a from-scratch FQL-subset
+  JSON expression evaluator where every query is one
+  strictly-serializable txn; register CAS via If/Equals,
+  single-query bank, set, pages (the non-serialized paginated-read
+  anomaly demonstrated live), At-temporal monotonic, adya g2.
+  CI-run. The register check's device lane runs on the card; the
+  other five checks on the host.
 
 `miniserver` holds the mini servers' shared RESP codec and daemon
 lifecycle, `retryclient` the shared connect-with-retry client.
@@ -204,11 +226,9 @@ lifecycle, `retryclient` the shared connect-with-retry client.
 Run one with `python -m jepsen_tpu_torch.dbs.<suite> test --nodes ...`;
 sweep a suite's matrix with `... test-all`.
 
-The port's copy of `jepsen_tpu/dbs/__init__.py`. The reference's other
-three suites (dgraph, fauna and robustirc) are not ported yet (ROADMAP.md
-Queue A item 6.6). The suites
-that speak HTTP (etcd, consul, elasticsearch, chronos) do so through
-`httpclient`, on the standard library.
+The port's copy of `jepsen_tpu/dbs/__init__.py`. The suites that speak
+HTTP (etcd, consul, elasticsearch, chronos, dgraph, fauna, robustirc) do
+so through `httpclient`, on the standard library.
 """
 
 from __future__ import annotations

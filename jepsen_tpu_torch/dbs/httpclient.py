@@ -1,6 +1,7 @@
 """A small HTTP/1.1 client on the standard library's `http.client`, for
 the suites that speak HTTP (etcd's v3 JSON gateway, consul's v1/kv,
-elasticsearch's document API).
+elasticsearch's document API, chronos, dgraph's JSON transactions,
+fauna's expression queries, robustirc's RobustSession protocol).
 
 The reference's clients use `requests`, which the card's machine does
 not have; this module stands in for the part of it they use, on both
@@ -10,7 +11,15 @@ machines:
   and made again after the server closed it (checked before each reuse,
   as `requests`' pool does; a request is never sent twice); `get`,
   `put`, `post`, `delete` and `request` with `params` (a query string),
-  `data` (a raw body), `json` (a JSON body) and a `timeout` in seconds.
+  `data` (a raw body), `json` (a JSON body), `headers` and a `timeout`
+  in seconds.
+- Caller headers, merged as `requests.Session` merges them: the
+  session's `headers` dict goes with every request of the session, a
+  call's `headers=` over it (names compared without case; the call's
+  value wins, and a name whose merged value is None is not sent). The
+  client's own `Accept: */*` and `Connection: keep-alive` lie beneath
+  both, and a JSON body's `Content-Type: application/json` is set where
+  the merged headers have none.
 - `Response`: `status_code`, `reason`, `headers`, `content`, `text`,
   `ok`, `json()` and `raise_for_status()`.
 - `RequestException`, raised for what `requests` would raise: a
@@ -113,14 +122,32 @@ def _dropped(conn: http.client.HTTPConnection) -> bool:
         return True
 
 
+#: the client's own headers, beneath the session's and the call's
+DEFAULT_HEADERS = {"Accept": "*/*", "Connection": "keep-alive"}
+
+
+def merge_headers(*layers: Optional[dict]) -> dict:
+    """The headers of `layers`, each over the ones before it: names
+    compared without case (a later layer's spelling and value win, in
+    the place the name first took), and a name whose last value is None
+    dropped."""
+    out: dict = {}
+    for layer in layers:
+        for k, v in (layer or {}).items():
+            out[k.lower()] = (k, v)
+    return {k: v for k, v in out.values() if v is not None}
+
+
 class Session:
-    """Keep-alive connections, one per (host, port); for one thread."""
+    """Keep-alive connections, one per (host, port); for one thread.
+    `headers` goes with every request."""
 
     def __init__(self):
         self._conns: dict = {}
+        self.headers: dict = {}
 
     def request(self, method: str, url: str, params: Optional[dict] = None,
-                data=None, json=None,
+                data=None, json=None, headers: Optional[dict] = None,
                 timeout: Optional[float] = None) -> Response:
         parts = urlsplit(url)
         if parts.scheme != "http" or not parts.hostname:
@@ -132,11 +159,12 @@ class Session:
                                for k, v in params.items()])
             query = f"{query}&{extra}" if query else extra
         target = f"{path}?{query}" if query else path
-        hdrs = {"Accept": "*/*", "Connection": "keep-alive"}
+        hdrs = merge_headers(DEFAULT_HEADERS, self.headers, headers)
         body = None
         if json is not None:
             body = _json.dumps(json, allow_nan=False).encode()
-            hdrs["Content-Type"] = "application/json"
+            if not any(k.lower() == "content-type" for k in hdrs):
+                hdrs["Content-Type"] = "application/json"
         elif data is not None:
             body = data.encode() if isinstance(data, str) else bytes(data)
         key = (parts.hostname, parts.port or 80)

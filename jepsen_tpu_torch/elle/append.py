@@ -1,6 +1,6 @@
 """List-append anomaly detection (a copy of `jepsen_tpu/elle/append.py`
 whose cycle search runs on the port's kernels, behind the preflight
-gate; the telemetry records are not ported yet).
+gate, with its `elle_build` series and `kind="elle"` ledger records).
 
 Histories of transactions over named lists, where each mop either
 appends a unique value to a key's list or reads the key's whole list:

@@ -1,6 +1,7 @@
 """Write/read register anomaly detection (a copy of
 `jepsen_tpu/elle/wr.py` whose cycle search runs on the port's kernels,
-behind the preflight gate; the telemetry records are not ported yet).
+behind the preflight gate, with append's `elle_build` series and
+`kind="elle"` ledger records).
 
 Histories of transactions over registers where every write is unique:
 

@@ -66,6 +66,11 @@ RAFT_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
 # the binary-wire suites: each its own codec and embedded server
 WIRE_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
     "aerospike", "hazelcast", "ignite", "rethinkdb")}
+# the last HTTP suites, on `httpclient` with caller headers
+HTTP_FILES = {f"jepsen_tpu_torch/dbs/{f}.py" for f in (
+    "dgraph", "fauna", "robustirc")}
+# each module of the JAX package whose port file has another name
+RENAMED = {"analysis/jaxlint.py": "analysis/kernellint.py"}
 # `-m jepsen_tpu...` in a command line, and the module `-m` is given
 RUN_REFERENCE = re.compile(r"-m\s+jepsen_tpu(?!_torch)\b")
 REFERENCE_MODULE = re.compile(r"^jepsen_tpu(?!_torch)(\.\w+)*$")
@@ -103,6 +108,21 @@ def test_scan_covers_the_package():
     assert PG_FILES <= names
     assert RAFT_FILES <= names
     assert WIRE_FILES <= names
+    assert HTTP_FILES <= names
+
+
+def test_every_reference_module_has_its_counterpart():
+    """Every module of the JAX package has a file at the same path in the
+    port (`RENAMED`'s under its own name); found by listing files, so
+    that nothing of the JAX package is imported."""
+    ref = {p.relative_to(ROOT / "jepsen_tpu").as_posix()
+           for p in (ROOT / "jepsen_tpu").rglob("*.py")}
+    port = {p.relative_to(ROOT / "jepsen_tpu_torch").as_posix()
+            for p in (ROOT / "jepsen_tpu_torch").rglob("*.py")}
+    assert len(ref) > 100
+    missing = sorted(r for r in ref if RENAMED.get(r, r) not in port)
+    assert missing == []
+    assert set(RENAMED) <= ref and not set(RENAMED) & port
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -5,7 +5,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel from `jepsen_tpu_torch/csrc/`, holds each
+It builds every CUDA kernel from `jepsen_tpu_torch/csrc/` (and, with
+the host compiler, the host kernel `wgl_host.cpp`), holds each
 kernel bit for bit against its plain PyTorch version on the card at the
 shapes the main paths give it, times both, and drives the main paths,
 each with every launch counter set to 0 just before and read just
@@ -33,8 +34,16 @@ Every WGL launch prints the form it took.
 
 Then the default checker (`algorithm="competition"`) decides a 900-op
 long tail (window 657) and a 100k-op FIFO-queue history (queue-poly),
-and the frontier migration of a ladder switch is timed. Then the
-per-key fan-out:
+and the frontier migration of a ladder switch is timed. On the card
+the default checker races three lanes: the device search, the host
+oracle and the same search on the host kernel (`csrc/wgl_host.cpp`,
+the `device@cpu` lane). That lane's own phase (`host_lane_phases`)
+holds the host kernel against `chunk_ref` on CPU tensors at the
+headline's K 2 and 512 and the 16-wave's K 256 (every leaf equal;
+timed beside a bound at the host's copy rate), and times the headline's
+three-lane race against a two-lane one in turns; the headline's host
+oracle runs in a process of its own and is read before the bench. Then
+the per-key fan-out:
 
   * narrow lanes (`wgl32_chunk_batched`): one tuple-valued history of
     100 keys x 2000-op cas-register through
@@ -206,14 +215,14 @@ three ways (the routed "auto", a forced "device" that launches
 oracle), all equal; a bank run (valid, no PNG); and the faultlib
 LD_PRELOAD nemesis against a toykv node (faultlib built with g++ there,
 EIO injected, the set checker's verdict); then etcd's `register` (a live
-mini-etcd server under kill -9, 4 workers for 2.5 s, each key decided by
+mini-etcd server under kill -9, 4 workers for 3 s, each key decided by
 the competition race whose device lane runs `wgl32_chunk`, each verdict
 equal to the host oracle's) and `append` (paced, 7.5 s, re-checked the
 same three ways); then rabbitmq's `semaphore` (a live mini AMQP broker,
 3 workers for 3 s, the mutex checked by the suite, then re-checked by a
 forced "cuda-wgl" that launches `wgl32_chunk` on the mutex history and
 by the host oracle in a worker process, all equal), mongodb's
-`register` (a live mini OP_MSG server under kill -9, 4 workers for 2.5 s,
+`register` (a live mini OP_MSG server under kill -9, 4 workers for 3 s,
 each key decided by the competition race, its stored history re-checked
 key by key by "cuda-wgl" on the card and by the host oracle, all
 equal), and EDN ingest (the
@@ -222,24 +231,25 @@ headline written as a store.clj-shaped history.edn, read back by
 launch for launch; a list-append history.edn with 600 transactions
 checked by Elle on the card and on the host, equal); then the MySQL-wire
 family on galera's embedded server (`mysql_runs`): mysql_cluster's
-`register` (a live mini server under kill -9, 4 workers for 2.5 s, each
+`register` (a live mini server under kill -9, 4 workers for 3 s, each
 key decided by the competition race, its stored history re-checked key
-by key by "cuda-wgl" on the card and by the host oracle in a worker
-process, all equal) and tidb's `append` (paced, 7.5 s, re-checked the
+by key by "cuda-wgl" on the card, by the three-lane competition (its
+winning engines printed) and by the host oracle in a worker process,
+all equal) and tidb's `append` (paced, 7.5 s, re-checked the
 same three ways as sqlite's); then the pgwire family on stolon's
 embedded server (`pg_runs`): postgres's `register` against one minipg
 node (4 workers for 2 s, re-checked key by key by "cuda-wgl" and the host
 oracle, all equal) and stolon's `append` (paced, 7.5 s, under kill -9,
 re-checked the same three ways); then yuga's and raftis's runs on
 mini-redis servers from their suites' own ports (`yuga_raftis_runs`):
-yuga's `ycql/multi-key-acid` (4 workers for 2.5 s under kill -9, each
+yuga's `ycql/multi-key-acid` (4 workers for 3 s under kill -9, each
 3-subkey group a key decided by the competition race on the
 multi-register model, its stored history re-checked key by key by
 "cuda-wgl" on the card and by the host oracle, all equal) and raftis's
-register (4 workers for 2.5 s under kill -9, re-checked whole by
+register (4 workers for 3 s under kill -9, re-checked whole by
 "cuda-wgl" with `cas_register(None)` and the host oracle, all equal);
 then two binary-wire suites on their own mini servers (`grid_runs`):
-aerospike's `cas-register` (4 workers for 2.5 s under kill -9, each key
+aerospike's `cas-register` (4 workers for 3 s under kill -9, each key
 decided by the competition race against generation-CAS records, its
 stored history re-checked key by key by "cuda-wgl" on the card and by
 the host oracle, all equal) and hazelcast's fenced `lock` (4 workers for
@@ -248,7 +258,7 @@ for monotonicity, the stored history re-checked whole with the mutex
 model by "cuda-wgl", which launches `wgl32_chunk`, and by the host
 oracle, all equal); then the last HTTP suite on the port's stdlib
 client (`http_runs`): dgraph's `register` (a live mini alpha under kill
--9, 4 workers for 2.5 s, each key decided by the competition race, its
+-9, 4 workers for 3 s, each key decided by the competition race, its
 stored history re-checked key by key by "cuda-wgl" on the card and by
 the host oracle in a worker process, all equal) and `wr` (2.5 s under
 the same nemesis, re-checked the same three ways as sqlite's, the
@@ -263,7 +273,8 @@ headline-only round that must read the first as its prior, then
 `python -m jepsen_tpu_torch doctor bench`.
 
 It prints as its last lines the card, one JSON line of per-kernel
-numbers and
+numbers (the host kernel's two entries say `"platform": "cpu"`; their
+`route` is the C++ one) and
 `{"ok": true, "device": {...}}`. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a card,
 or a directory without the package.
@@ -2096,6 +2107,337 @@ def lane_kernel_checks(dev, plan, wplan) -> list:
         **out["migrate"], "bound_by": "bytes"}]
 
 
+# the host lane's own limit (`host_lane_phases`), and its shapes: the
+# headline's narrow chunks at K 2 and K 512, the 16-wave's wide chunk at
+# K 256, each a short chunk; the three-lane race against the two-lane
+# race in turns
+HOST_LANE_LIMIT_S = 25
+HOST_LANE_ROUNDS = 64
+HOST_LANE_WIDE_ROUNDS = 16
+HOST_LANE_TURNS = 4
+HOST_COPY_BYTES = 1 << 30     # the host copy that rates the host's bytes
+
+# the headline's host oracle in a process of its own, at a low priority
+# (about 100 s of one core): argv[1] the HEADLINE dict as JSON; prints
+# one JSON line, the verdict and its seconds
+HEADLINE_ORACLE = """
+import json, sys, time
+from jepsen_tpu_torch import synth
+from jepsen_tpu_torch.models import cas_register
+from jepsen_tpu_torch.ops import wgl_ref
+h = synth.cas_register_history(**json.loads(sys.argv[1]))
+t0 = time.monotonic()
+r = wgl_ref.check(cas_register(), h)
+print(json.dumps({"valid": r["valid?"], "seconds": time.monotonic() - t0}))
+"""
+
+
+def host_cpu_line() -> str:
+    """The host CPU's model (`lscpu`'s "Model name", else /proc/cpuinfo's
+    "model name", else its vendor, family and model numbers) and the
+    cores this process may run on."""
+    import os
+    lines = []
+    try:
+        lines = subprocess.run(["lscpu"], capture_output=True, text=True,
+                               timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        with open("/proc/cpuinfo") as fh:
+            lines += fh.read().split("\n\n")[0].splitlines()
+    except OSError:
+        pass
+    info = {}
+    for ln in lines:
+        key, _, value = ln.partition(":")
+        info.setdefault(key.strip().lower(), value.strip())
+    model = info.get("model name") or " ".join(
+        f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model")
+        if info.get(k)) or "unknown"
+    return (f"{model}; {len(os.sched_getaffinity(0))} cores of "
+            f"{os.cpu_count()}")
+
+
+def host_copy_rate() -> float:
+    """Bytes a second a numpy copy of HOST_COPY_BYTES moves on the host
+    (each byte read once and written once: 2 x HOST_COPY_BYTES), the
+    best of three."""
+    src = np.ones(HOST_COPY_BYTES, np.uint8)
+    dst = np.empty_like(src)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.copyto(dst, src)
+        best = min(best, time.perf_counter() - t0)
+    return 2 * HOST_COPY_BYTES / best
+
+
+class LaneClock:
+    """Each lane of a competition race timed from its engine's call to
+    its return, by wrapping the functions the race calls (`wgl.check`,
+    `wgl_ref.check`) and naming the lane by its thread; `host_off`
+    makes the host kernel's lane (`wgl.check(device="cpu")`) return
+    unknown at once: the two-lane race, switched off in the smoke only."""
+
+    def __init__(self, host_off: bool = False):
+        from jepsen_tpu_torch.ops import wgl, wgl_ref
+        self.mods = {"wgl": wgl, "wgl_ref": wgl_ref}
+        self.host_off = host_off
+        self.lanes: dict = {}
+
+    def __enter__(self):
+        import threading
+        self.orig = {k: m.check for k, m in self.mods.items()}
+        self.t0 = time.monotonic()
+
+        def wrap(orig):
+            def run(*a, **kw):
+                name = threading.current_thread().name.replace("wgl-", "")
+                t_in = time.monotonic() - self.t0
+                if self.host_off and str(kw.get("device")) == "cpu":
+                    r = {"valid?": "unknown", "cause": "lane off"}
+                else:
+                    r = orig(*a, **kw)
+                self.lanes[name] = (round(t_in, 4),
+                                    round(time.monotonic() - self.t0, 4),
+                                    r.get("valid?"))
+                return r
+            return run
+
+        for k, m in self.mods.items():
+            m.check = wrap(self.orig[k])
+        return self
+
+    def __exit__(self, *exc):
+        for k, m in self.mods.items():
+            m.check = self.orig[k]
+
+
+def host_counts() -> dict:
+    """The host kernel's chunks run on CPU tensors, by entry point."""
+    from jepsen_tpu_torch.ops import wgl32, wgln
+    return {"wgl32_host_chunk": wgl32.chunk.host_calls,
+            "wgln_host_chunk": wgln.chunk.host_calls}
+
+
+def host_lane_phases(h, wave, tail_host_chunks: int) -> tuple:
+    """The competition's third lane on the card, `device@cpu`: the
+    same search on the host kernel (`csrc/wgl_host.cpp`, one host core,
+    built here with the host compiler), within HOST_LANE_LIMIT_S.
+
+      1. the host kernel against its plain version (`chunk_ref` on CPU
+         tensors, the same inputs), every carry leaf and the summary
+         equal: the headline's narrow chunk at K 2 (HOST_LANE_ROUNDS
+         rounds from the start), then at K 512 after migrating that
+         beam, and the 16-wave's wide chunk at K 256
+         (HOST_LANE_WIDE_ROUNDS rounds); the host kernel timed three
+         times from the same start (host clock), the plain version once,
+         and the bound: the chunk's least bytes
+         (`occupancy.wgl_chunk_bytes`, from the plain version's tally)
+         at the host's copy rate (`host_copy_rate`);
+      2. the headline's `competition` on the card with its three lanes
+         (device, oracle, device@cpu; `LaneClock`): the winner, each
+         lane's wall, the host lane's chunks, the card's launches, the
+         drain (the race's wall after the winner's verdict); then
+         HOST_LANE_TURNS turns of the three-lane race against the
+         two-lane one (the host lane returning unknown at once), in
+         turns, the medians beside each other.
+
+    The headline's host oracle runs in a process of its own from the
+    start (`HEADLINE_ORACLE`, ~100 s of one core); the returned process
+    is read before the bench (`await_headline_oracle`). Returns (the
+    kernels line's two host entries, the three-lane verdict, that
+    process)."""
+    import atexit
+    import os
+
+    t_all = time.monotonic()
+    oracle = subprocess.Popen(
+        [sys.executable, "-c", HEADLINE_ORACLE, json.dumps(HEADLINE)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    os.setpriority(os.PRIO_PROCESS, oracle.pid, 10)
+    # whatever fails after this, the process ends with the smoke
+    atexit.register(lambda: oracle.poll() is None and (oracle.kill(),
+                                                       oracle.wait()))
+    return (*host_lane_steps(h, wave, tail_host_chunks, t_all), oracle)
+
+
+def host_lane_steps(h, wave, tail_host_chunks: int, t_all: float) -> tuple:
+    """`host_lane_phases`' steps 1 and 2; returns (the two kernel
+    entries, the three-lane verdict)."""
+    from jepsen_tpu_torch import checker, occupancy
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import adapt, encode, wgl, wgl32, wgln
+
+    print(f"host lane ({card_line()}; host CPU {host_cpu_line()}):",
+          flush=True)
+    rate = host_copy_rate()
+    print(f"  host copy rate: {rate / 1e9:.3f} GB/s (numpy copy of "
+          f"{HOST_COPY_BYTES} B, read and written, best of 3)", flush=True)
+
+    def clone(carry):
+        return tuple(t.clone() for t in carry)
+
+    def host_vs_plain(mod, consts, start, **kw):
+        times = []
+        for _ in range(3):
+            c = clone(start)
+            t0 = time.perf_counter()
+            out, s = mod.chunk(consts, c, **kw)
+            times.append((time.perf_counter() - t0) * 1e3)
+        tally: dict = {}
+        t0 = time.perf_counter()
+        ref, rs = mod.chunk_ref(consts, clone(start), tally=tally, **kw)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs_err(out, ref), max_abs_err([s], [rs]))
+        if not (same_carry(out, ref) and torch.equal(s, rs)):
+            raise AssertionError(f"{mod.__name__} host kernel differs from "
+                                 f"chunk_ref (max abs err {err}) at {kw}")
+        C = start[wgl32.FR].shape[1]
+        nbytes = occupancy.wgl_chunk_bytes(s[:wgl32.SUMMARY_HEAD].tolist(),
+                                           C, tally, s.numel())
+        return out, s, float(np.median(times)), times, plain_ms, err, nbytes
+
+    def consts_of(enc, ic):
+        return wgl32.consts_from_numpy(
+            enc.inv, enc.ret, enc.opcode, enc.sufminret, enc.inv_info[:ic],
+            enc.opcode_info[:ic], enc.table, enc.n_ok, enc.n_info,
+            200_000_000, "cpu")
+
+    # ---- 1. the host kernel against chunk_ref, at the main paths' shapes
+    enc = encode.encode(cas_register(), h)
+    plan = wgl.derive_plan(window_raw=enc.window_raw,
+                           ic_pad=len(enc.inv_info), n=enc.n_ok,
+                           n_info=enc.n_info, accel=True)
+    kw = dict(W=plan["W_eff"], ic=plan["ic_eff"], H=plan["H"], B=plan["B"],
+              chunk=HOST_LANE_ROUNDS, probes=plan["probes"])
+    consts = consts_of(enc, kw["ic"])
+    C = wgl32.row_words(kw["ic"])
+    start = wgl32.init_carry(plan["K"], C, kw["H"], kw["B"], 0, "cpu")
+    out, s, ms2, times2, plain2, err2, bytes2 = host_vs_plain(
+        wgl32, consts, start, K=plan["K"], **kw)
+    bound2 = bytes2 / rate * 1e3
+    print(f"  headline narrow chunk, K={plan['K']}, {int(s[5])} rounds: "
+          f"host kernel {[round(t, 4) for t in times2]} ms, median "
+          f"{ms2:.4f} ms ({ms2 * 1e3 / max(int(s[5]), 1):.3f} us/round); "
+          f"chunk_ref {plain2:.1f} ms; identical; bound {bytes2} B at the "
+          f"copy rate = {bound2:.6f} ms", flush=True)
+    wide = adapt.migrate_frontier(out, 512)
+    _, s, ms512, times512, plain512, err512, bytes512 = host_vs_plain(
+        wgl32, consts, wide, K=512, **kw)
+    print(f"  headline narrow chunk after migrating to K=512, {int(s[5])} "
+          f"rounds: host kernel {[round(t, 4) for t in times512]} ms, median "
+          f"{ms512:.4f} ms ({ms512 * 1e3 / max(int(s[5]), 1):.3f} us/round);"
+          f" chunk_ref {plain512:.1f} ms; identical; bound {bytes512} B = "
+          f"{bytes512 / rate * 1e3:.6f} ms", flush=True)
+    wenc = encode.encode(cas_register(), wave)
+    wplan = wgl.derive_plan(window_raw=wenc.window_raw,
+                            ic_pad=len(wenc.inv_info), n=wenc.n_ok,
+                            n_info=wenc.n_info, accel=True)
+    wkw = dict(L=wplan["L"], ic=wplan["ic_eff"], H=wplan["H"], B=wplan["B"],
+               chunk=HOST_LANE_WIDE_ROUNDS, probes=wplan["probes"])
+    wconsts = consts_of(wenc, wkw["ic"])
+    wstart = wgln.init_carry(wplan["K"], wkw["L"], wkw["ic"], wkw["H"],
+                             wkw["B"], 0, "cpu")
+    _, s, wms, wtimes, wplain, werr, wbytes = host_vs_plain(
+        wgln, wconsts, wstart, K=wplan["K"], **wkw)
+    wbound = wbytes / rate * 1e3
+    print(f"  16-wave wide chunk, K={wplan['K']} (L={wkw['L']}), {int(s[5])} "
+          f"rounds: host kernel {[round(t, 4) for t in wtimes]} ms, median "
+          f"{wms:.4f} ms ({wms * 1e3 / max(int(s[5]), 1):.3f} us/round); "
+          f"chunk_ref {wplain:.1f} ms; identical; bound {wbytes} B = "
+          f"{wbound:.6f} ms", flush=True)
+
+    # ---- 2. the headline's competition: three lanes, then in turns ------
+    lin = checker.linearizable(cas_register())
+
+    def race(host_off: bool):
+        torch.cuda.synchronize()
+        zero_counts()
+        h0 = host_counts()["wgl32_host_chunk"]
+        with LaneClock(host_off) as clock:
+            t0 = time.monotonic()
+            res = lin.check({}, h, {})
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        chunks = host_counts()["wgl32_host_chunk"] - h0
+        return res, wall, clock.lanes, chunks, read_counts()["wgl32_chunk"]
+
+    res, wall, lanes, chunks, launched = race(False)
+    winner = res.get("engine")
+    won_at = lanes.get(winner, (0, wall))[1]
+    print(f"  headline competition, three lanes: valid? {res['valid?']} "
+          f"engine {winner} wall {wall:.4f} s, lanes (start, end s, verdict)"
+          f" {json.dumps(lanes)}; host lane chunks {chunks}, wgl32_chunk "
+          f"launches {launched}; drain after the winner's verdict "
+          f"{wall - won_at:.4f} s", flush=True)
+    if (res["valid?"] is not True or set(lanes) != {"device", "oracle",
+                                                     "device@cpu"}
+            or chunks < 1 or launched < 1):
+        raise AssertionError(f"three-lane headline: {res['valid?']}, lanes "
+                             f"{sorted(lanes)}, {chunks} host chunks, "
+                             f"{launched} launches")
+    turns: dict = {3: [], 2: []}
+    engines: dict = {3: [], 2: []}
+    drains: dict = {3: [], 2: []}
+    for turn in range(HOST_LANE_TURNS):
+        for n in ((3, 2) if turn % 2 == 0 else (2, 3)):
+            r, w, ln, _, _ = race(n == 2)
+            if r["valid?"] is not True:
+                raise AssertionError(f"{n}-lane headline: {r['valid?']}")
+            turns[n].append(round(w, 4))
+            engines[n].append(r.get("engine"))
+            drains[n].append(round(w - ln.get(r.get("engine"), (0, w))[1],
+                                   4))
+    med3, med2 = float(np.median(turns[3])), float(np.median(turns[2]))
+    print(f"  in turns (s): three lanes {turns[3]} (engines {engines[3]}, "
+          f"drains {drains[3]}), two lanes {turns[2]} (engines {engines[2]},"
+          f" drains {drains[2]}); medians {med3:.4f} / {med2:.4f} s "
+          f"({(med3 / med2 - 1) * 100:+.1f}%)", flush=True)
+    print(f"  long tail's three-lane race (the default checker above): "
+          f"host lane chunks {tail_host_chunks}", flush=True)
+    took = time.monotonic() - t_all
+    print(f"  host lane: {took:.1f} s", flush=True)
+    if took > HOST_LANE_LIMIT_S:
+        raise AssertionError(f"host lane took {took:.1f} s (limit "
+                             f"{HOST_LANE_LIMIT_S} s)")
+    entries = [{
+        "name": "wgl32_host_chunk", "route": "cuda", "platform": "cpu",
+        "source": "jepsen_tpu_torch/csrc/wgl_host.cpp",
+        "replaces": "jepsen_tpu/ops/wgl32.py:725", "launches": chunks,
+        "max_abs_err": max(err2, err512), "ms": ms2, "plain_ms": plain2,
+        "bound_ms": bound2, "bound_by": "bytes", "library_ms": None}, {
+        "name": "wgln_host_chunk", "route": "cuda", "platform": "cpu",
+        "source": "jepsen_tpu_torch/csrc/wgl_host.cpp",
+        "replaces": "jepsen_tpu/ops/wgln.py:322",
+        "launches": tail_host_chunks, "max_abs_err": werr, "ms": wms,
+        "plain_ms": wplain, "bound_ms": wbound, "bound_by": "bytes",
+        "library_ms": None}]
+    return entries, res["valid?"]
+
+
+def await_headline_oracle(oracle, verdict, limit_s: float = 240.0) -> None:
+    """The headline's host oracle (`host_lane_phases`' process): its
+    verdict equal to the three-lane race's."""
+    try:
+        out, err = oracle.communicate(timeout=limit_s)
+    finally:
+        if oracle.poll() is None:
+            oracle.kill()
+            oracle.wait()
+    if oracle.returncode != 0:
+        raise AssertionError(f"headline oracle exited {oracle.returncode}:"
+                             f"\n{err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    print(f"headline host oracle: {got['valid']} in {got['seconds']:.1f} s "
+          f"(its own process); the three-lane race's verdict {verdict}",
+          flush=True)
+    if got["valid"] != verdict:
+        raise AssertionError(f"headline: oracle {got['valid']} != race "
+                             f"{verdict}")
+
+
 def fanout_phases(dev) -> list:
     """The per-key fan-out on the card: both lane-batched kernels against
     their plain versions at the main paths' shapes, then the main paths
@@ -2404,7 +2746,10 @@ def fanout_phases(dev) -> list:
     def ended(name):
         def run(*a, **kw):
             r = originals[name](*a, **kw)
-            ends.append((name, time.monotonic(), r.get("valid?"),
+            # the device@cpu lane calls wgl.check too, on the CPU
+            lane = ("device@cpu" if str(kw.get("device")) == "cpu"
+                    else name)
+            ends.append((lane, time.monotonic(), r.get("valid?"),
                          r.get("cause"), r.get("configs_explored")))
             return r
         return run
@@ -2426,10 +2771,11 @@ def fanout_phases(dev) -> list:
     print("  engine ends (name, s since the call, verdict, cause, configs): "
           + json.dumps([(n, round(t - t_race, 4), v, c, x)
                         for n, t, v, c, x in ends]), flush=True)
-    joins = [round(t1 - t0, 4) for (n0, t0, *_), (n1, t1, *_)
-             in zip(ends[::2], ends[1::2])]
-    print(f"  per key, loser's end after the winner's verdict: {joins} s",
-          flush=True)
+    # a key's race has three lanes on the card, each ending once
+    joins = [round(ends[i + 2][1] - ends[i][1], 4)
+             for i in range(0, len(ends) - 2, 3)]
+    print(f"  per key, the last loser's end after the winner's verdict: "
+          f"{joins} s", flush=True)
     if (any(r["valid?"] is not True for r in res)
             or counts["wgl32_chunk"] < 1 or counts["wgl32_chunk_batched"]):
         raise AssertionError(f"stream: {counts}")
@@ -5497,7 +5843,7 @@ def cluster_phases(dev) -> dict:
         for e, ks in sorted(by_engine.items(), key=str)), flush=True)
     if (res["valid?"] is not True or sum(banners.values()) <= 3
             or counts["wgl32_chunk"] < 1 or not keys
-            or set(by_engine) - {"device", "oracle"}):
+            or set(by_engine) - {"device", "oracle", "device@cpu"}):
         raise AssertionError(f"register run: {res['valid?']}, banners "
                              f"{banners}, launches {counts}, engines "
                              f"{sorted(by_engine, key=str)}")
@@ -5616,9 +5962,9 @@ SUITE_STAGGER_S = 0.005
 SUITE_BANK = dict(time_limit=1)
 # etcd's live runs: `register` with the reference test's options
 # (`tests/test_etcd.py::test_full_suite_live_mini`: one node, 4 workers, 40
-# ops a key), for 2.5 s (5 s until the MySQL-wire runs joined the phase, 3 s
-# until the dgraph runs did) with the kill/restart every 1 s so that the
-# kill at 1 s and the restart at 2 s fall inside the run;
+# ops a key), for 3 s (ETCD_RUN's note) with the
+# kill/restart every 1 s so that the kill at 1 s and the restart at 2 s
+# fall inside the run;
 # `append` paced as sqlite's, ETCD_STAGGER_S
 # apart, for 7.5 s with the reference test's kill/restart every 2.5 s (up
 # 2.5 s, down 2.5, up 2.5), so that its graph lands between the route's
@@ -5627,17 +5973,21 @@ SUITE_BANK = dict(time_limit=1)
 # machine 358 of 782 completed transactions reached the graph at
 # SUITE_STAGGER_S for 5 s (the rest crashed while the server was down),
 # 384-465 at 2 ms for 6 s with the kill/restart every 2 s
-ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=2.5,
+# The kill/restart register runs (etcd, mongodb, mysql_cluster, yuga,
+# raftis, aerospike, dgraph) last 3 s with the kill at 1 s and the
+# restart at 2 s: the restart's invoke lands 0.2-0.46 s past 2 s (the kill
+# op's own time; etcd's, on an H100's machine and on the CPU), so runs
+# of 2.5 s lost it to the time limit now and then (one serving banner).
+ETCD_RUN = dict(nodes=["t1"], concurrency=4, time_limit=3,
                 nemesis_interval=1.0, server="mini", per_key_limit=40)
 ETCD_APPEND = dict(time_limit=7.5, nemesis_interval=2.5)
 ETCD_STAGGER_S = 0.002
 ETCD_LIMIT_S = 25.0           # the two etcd runs' share of SUITES_LIMIT_S
 # mongodb's live register run: the reference test's one node and 4 workers
 # (`tests/test_mongodb.py::test_full_suite_live`) and the suite's 100 ops a
-# key, for 2.5 s (5 s until the MySQL-wire runs joined the phase, 3 s
-# until the dgraph runs did) with the kill/restart every 1 s so that the
-# kill at 1 s and the restart at 2 s fall inside the run
-MONGO_RUN = dict(nodes=["m1"], concurrency=4, time_limit=2.5,
+# key, for 3 s (ETCD_RUN's note) with the kill/restart every 1 s so that
+# the kill at 1 s and the restart at 2 s fall inside the run
+MONGO_RUN = dict(nodes=["m1"], concurrency=4, time_limit=3,
                  nemesis_interval=1.0, server="mini", workload="register")
 # rabbitmq's semaphore run, the reference test's
 # (`tests/test_rabbitmq.py::test_full_semaphore_suite_live_mini`: one
@@ -5656,10 +6006,9 @@ DOCS_LIMIT_S = 35.0           # rabbitmq's, mongodb's and EDN's share of it
 # IMMEDIATE writer at a time): mysql_cluster `register` with the reference
 # test's one mini node and 4 workers
 # (`tests/test_mysql_cluster.py::test_register_live`) and the suite's 100
-# ops a key, for 2.5 s with the kill/restart every 1 s so that the kill at
-# 1 s and the restart at 2 s fall inside the run (5 s, every 2 s, until the
-# pgwire runs joined the phase; 3 s until the dgraph runs did)
-NDB_RUN = dict(nodes=["m1"], concurrency=4, time_limit=2.5,
+# ops a key, for 3 s (ETCD_RUN's note) with the kill/restart every 1 s so
+# that the kill at 1 s and the restart at 2 s fall inside the run
+NDB_RUN = dict(nodes=["m1"], concurrency=4, time_limit=3,
                nemesis_interval=1.0, server="mini", workload="register")
 # tidb `append`, one mini node and 4 workers under the kill nemesis, paced
 # TIDB_STAGGER_S apart, for 7.5 s with the kill/restart every 2.5 s (up
@@ -5697,24 +6046,24 @@ PG_LIMIT_S = 25.0             # the pgwire runs' share of SUITES_LIMIT_S
 # the reference test's one node and 4 workers
 # (`tests/test_yuga.py::test_multi_key_acid_live`), and raftis's register
 # with its reference test's (`tests/test_raftis.py::test_full_suite_live`),
-# each for 2.5 s (3 s until the binary-wire runs joined the phase) with the
-# kill/restart every 1 s so that the kill at 1 s and the restart at 2 s
-# fall inside the run, on a mini-redis server on its suite's own ports
-YUGA_MKA = dict(nodes=["y1"], concurrency=4, time_limit=2.5,
+# each for 3 s (ETCD_RUN's note) with the kill/restart every 1 s so that
+# the kill at 1 s and the restart at 2 s fall inside the run, on a
+# mini-redis server on its suite's own ports
+YUGA_MKA = dict(nodes=["y1"], concurrency=4, time_limit=3,
                 nemesis_interval=1.0, workload="ycql/multi-key-acid")
-RAFTIS_RUN = dict(nodes=["r1"], concurrency=4, time_limit=2.5,
+RAFTIS_RUN = dict(nodes=["r1"], concurrency=4, time_limit=3,
                   nemesis_interval=1.0)
 YUGA_LIMIT_S = 20.0           # yuga's and raftis's share of SUITES_LIMIT_S
 # the binary-wire suites' live runs, each on its own mini server: aerospike
 # `cas-register` (generation-CAS records) with the reference test's one node
 # and 4 workers (`tests/test_aerospike.py::test_full_suite_live`) for
-# 2.5 s with the kill/restart every 1 s (NDB_RUN's timing) so that the kill
+# 3 s with the kill/restart every 1 s (NDB_RUN's timing) so that the kill
 # at 1 s and the restart at 2 s fall inside the run; hazelcast's fenced
 # `lock` with its reference test's one node and 4 workers
 # (`tests/test_hazelcast.py::test_full_suite_live`) for 2 s, fault-free as
 # the workload is (its nemesis a no-op: a kill frees every held lock); 3 s
 # each until the dgraph runs joined the phase
-AERO_RUN = dict(nodes=["a1"], concurrency=4, time_limit=2.5,
+AERO_RUN = dict(nodes=["a1"], concurrency=4, time_limit=3,
                 nemesis_interval=1.0, workload="cas-register")
 HZ_LOCK = dict(nodes=["h1"], concurrency=4, time_limit=2, workload="lock")
 GRID_LIMIT_S = 20.0           # aerospike's and hazelcast's share of it
@@ -5722,9 +6071,9 @@ GRID_LIMIT_S = 20.0           # aerospike's and hazelcast's share of it
 # own ports, through the port's stdlib HTTP client: `register` with the
 # reference test's one node and 4 workers
 # (`tests/test_dgraph.py::test_full_suite_live`) and the suite's 100 ops a
-# key, and `wr` with the same, each for 2.5 s with the kill/restart every
+# key, and `wr` with the same, each for 3 s with the kill/restart every
 # 1 s so that the kill at 1 s and the restart at 2 s fall inside the run
-DGRAPH_RUN = dict(nodes=["d1"], concurrency=4, time_limit=2.5,
+DGRAPH_RUN = dict(nodes=["d1"], concurrency=4, time_limit=3,
                   nemesis_interval=1.0, workload="register")
 DGRAPH_WR = dict(DGRAPH_RUN, workload="wr")
 HTTP_LIMIT_S = 20.0           # the dgraph runs' share of SUITES_LIMIT_S
@@ -6368,7 +6717,8 @@ def graph_txns(res: dict):
 def register_rechecks(what: str, done: dict, stored: dict, root: str, dev,
                       background, counts, model: tuple = ("cas_register",),
                       check="register", keyed: bool = True,
-                      kernels: tuple = ("wgl32_chunk",)) -> tuple:
+                      kernels: tuple = ("wgl32_chunk",),
+                      race: bool = False) -> tuple:
     """A live register run's stored history (`stored`, the latest run under
     the store `root`), read back equal to the run's, re-checked key by key
     with `model` (`register_oracle`'s names): the host oracle
@@ -6376,9 +6726,12 @@ def register_rechecks(what: str, done: dict, stored: dict, root: str, dev,
     the card, which must launch one of `kernels` and agree with the suite's
     race (`done`'s results under `check`, a key or a tuple of keys into
     nested results) on every key; without `keyed` the history is one
-    register, checked whole, its verdict under the key None. Its launches
-    are added to `counts`. Returns (the suite's verdicts by key, the
-    oracle's future, for `await_oracle`)."""
+    register, checked whole, its verdict under the key None. With `race`,
+    the default checker (`competition`, three lanes on the card: device,
+    oracle, device@cpu) re-checks it too, each key equal to the suite's,
+    and its winning engines and host lane chunks are printed. Its
+    launches are added to `counts`. Returns (the suite's verdicts by key,
+    the oracle's future, for `await_oracle`)."""
     from jepsen_tpu_torch import checker, independent, models
     from jepsen_tpu_torch.history import History
 
@@ -6410,6 +6763,34 @@ def register_rechecks(what: str, done: dict, stored: dict, root: str, dev,
         raise AssertionError(f"{what} cuda-wgl: {len(verdicts)} verdicts "
                              f"against the suite's {len(suite)} differ, or "
                              f"launches {got}")
+    if race:
+        import collections
+        raced = checker.linearizable(getattr(models, model[0])(*model[1:]),
+                                     device=dev)
+        h0 = host_counts()
+        zero_counts()
+        t0 = time.monotonic()
+        res = (independent.checker(raced) if keyed else raced).check(
+            {}, hist, {})
+        torch.cuda.synchronize()
+        got = read_counts()
+        counts.update(got)
+        host = {k: v - h0[k] for k, v in host_counts().items()}
+        per_key = res["results"].values() if keyed else [res]
+        engines = collections.Counter(str(r.get("engine"))
+                                      for r in per_key)
+        verdicts = verdicts_by_key(res, keyed)
+        print(f"    competition (three lanes) on the stored history "
+              f"({time.monotonic() - t0:.2f} s): {res['valid?']}; keys "
+              f"agreeing with the suite "
+              f"{sum(verdicts.get(k) == v for k, v in suite.items())} of "
+              f"{len(suite)}; winning engines {dict(engines)}; host lane "
+              f"chunks {host}; launches "
+              f"{({k: v for k, v in got.items() if v})}", flush=True)
+        if verdicts != suite:
+            raise AssertionError(f"{what} competition: {len(verdicts)} "
+                                 f"verdicts against the suite's "
+                                 f"{len(suite)} differ")
     return suite, oracle
 
 
@@ -6531,7 +6912,8 @@ def mysql_runs(dev, tmp: str, background) -> tuple:
                              f"keys, banners {banners}, launches {launched}")
     suite, oracle = register_rechecks(
         "mysql_cluster register", done, stored,
-        os.path.join(tmp, "ndb", "store"), dev, background, counts)
+        os.path.join(tmp, "ndb", "store"), dev, background, counts,
+        race=True)
 
     # 2. tidb append: the suite, then its stored history three ways
     worst = append_run("tidb append", tidb, tidb.tidb_test, "tidb",
@@ -7589,14 +7971,21 @@ def run_phases(dev, host10, background) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # ---- 1. build ---------------------------------------------------------
+    # the host kernel too (the competition's device@cpu lane): a race
+    # joins its lanes, so a first race would wait for its build
     t0 = time.monotonic()
     builds = _native.build_all()
-    print(f"build: {time.monotonic() - t0:.2f} s for {sorted(builds)}")
+    hosts = _native.build_host()
+    print(f"build: {time.monotonic() - t0:.2f} s for {sorted(builds)} and "
+          f"{sorted(hosts)}")
     for name, rec in builds.items():
         if rec is None:
             print(f"  {name}: already built")
         else:
             print(f"  {name}: nvcc {rec['seconds']:.2f} s\n{rec['ptxas']}")
+    for name, rec in hosts.items():
+        print(f"  {name}: " + ("already built" if rec is None else
+                              f"host compiler {rec['seconds']:.2f} s"))
 
     def run_both(consts, carry, tally=None, mod=wgl32, **kw):
         """The kernel of `mod` (wgl32 or wgln) and its plain version on
@@ -8007,12 +8396,17 @@ def run_phases(dev, host10, background) -> int:
                              f"launches, {total} configs")
 
     # ---- 5. the default checker (competition) -------------------------------
+    # three lanes on the card: the device@cpu lane's chunks are the host
+    # kernel's (counted apart from the card's launches)
+    tail_host = host_counts()["wgln_host_chunk"]
     res, wall, counts, _, _, _ = drive(
         checker.linearizable(cas_register()), tail)
+    tail_host = host_counts()["wgln_host_chunk"] - tail_host
     print(f"default checker, long tail {LONG_TAIL} (window "
           f"{tenc.window_raw}): valid? {res['valid?']} engine "
           f"{res.get('engine')} wall {wall:.4f} s, launches {counts}: "
-          f"{launch_line('wgln_chunk')}")
+          f"{launch_line('wgln_chunk')}; the device@cpu lane's host chunks "
+          f"{tail_host}")
     if res["valid?"] is not True or res.get("algorithm") != "competition":
         raise AssertionError(f"long tail: {res}")
     fifo = synth.fifo_queue_history(FIFO["n_ops"], n_procs=FIFO["n_procs"],
@@ -8038,6 +8432,8 @@ def run_phases(dev, host10, background) -> int:
                   f"{time.monotonic() - T_START:.1f} s into the smoke]",
                   flush=True)
 
+    host_entries, lane_verdict, lane_oracle = phase(
+        host_lane_phases, h, wave, tail_host)
     fanout = phase(fanout_phases, dev)
     step_us = barrier_step_us(dev)
     elle = phase(elle_phases, dev, host10, step_us, background)
@@ -8054,6 +8450,7 @@ def run_phases(dev, host10, background) -> int:
     phase(lint_phases, dev, background)
     cluster = phase(cluster_phases, dev)
     suites = phase(suites_phases, dev, background)
+    await_headline_oracle(lane_oracle, lane_verdict)
     phase(bench_phases, background)
     print(f"phase walls (s): {json.dumps(walls)}", flush=True)
 
@@ -8071,7 +8468,7 @@ def run_phases(dev, host10, background) -> int:
         "launches": wlaunches, "max_abs_err": wide_err,
         "ms": wkernel_ms, "plain_ms": wplain_ms, "bound_ms": wbound_ms,
         "bound_by": "bytes", "library_ms": None}] + fanout + elle + [
-            bool_entry]
+            bool_entry] + host_entries
     # the cluster and suites phases' launches join each kernel's main-path
     # count, and the suites phase's closures its error
     for entry in kernels:

@@ -11,9 +11,14 @@ time it needs a kernel (`ops/_native.py` reports each through
 
   * a **build**: one `nvcc` run of one kernel source (`build_all`);
   * a **load**: one `ctypes` load of a kernel library (`_load`);
-  * a **bind**: an entry point's first binding in the process (`_lib`).
+  * a **bind**: an entry point's first binding in the process (`_lib`,
+    `_host_bind`);
+  * a **host_build**: one host-compiler run of the host kernel's source
+    (`build_host`), a CPU tensor's first chunk where it is not on disk;
+  * a **host_load**: one `ctypes` load of the host kernel's library.
 
-`compiles` is their sum; `builds`, `loads` and `binds` count each.
+`compiles` is their sum; `builds`, `loads`, `binds`, `host_builds` and
+`host_loads` count each.
 The lazy load of a kernel's function onto the card at its first launch
 (CUDA's lazy module loading) is not counted: it has no host hook, and
 shows only as the first launch's wall.
@@ -44,7 +49,7 @@ import time
 from typing import Optional
 
 # the kinds of compile `note_compile` takes
-COMPILE_KINDS = ("build", "load", "bind")
+COMPILE_KINDS = ("build", "load", "bind", "host_build", "host_load")
 
 # Active guards (a stack: guards may nest). Plain list: appends and
 # removals take the module lock; the hot-path emptiness check doesn't.
@@ -57,7 +62,7 @@ class BudgetExceeded(AssertionError):
 
 
 def note_compile(kind: str, secs: float = 0.0, what: str = "") -> None:
-    """Report one build, load or bind (`kind`, one of COMPILE_KINDS)
+    """Report one compile of `kind` (one of COMPILE_KINDS)
     that took `secs`. No-op (one truthiness check) when no guard is
     active."""
     if not _ACTIVE:
@@ -96,6 +101,7 @@ class CompileGuard:
         self.compiles = 0
         self.compile_s = 0.0
         self.builds = self.loads = self.binds = 0
+        self.host_builds = self.host_loads = 0
         self.d2h = 0
         self.h2d = 0
         self.d2h_bytes = 0
@@ -170,7 +176,8 @@ class CompileGuard:
             "compiles": self.compiles,
             "compile_s": round(self.compile_s, 4),
             "builds": self.builds, "loads": self.loads,
-            "binds": self.binds,
+            "binds": self.binds, "host_builds": self.host_builds,
+            "host_loads": self.host_loads,
             "d2h": self.d2h, "d2h_bytes": self.d2h_bytes,
             "h2d": self.h2d, "h2d_bytes": self.h2d_bytes,
             "wall_s": (round(time.monotonic() - self._t0, 4)

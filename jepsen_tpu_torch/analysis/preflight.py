@@ -263,7 +263,9 @@ def _lower_wgl_node(enc, kern: str, *, K, H, B, probes, W_eff, ic_eff, L,
 def _cold_modules(kernels, platform: str) -> list:
     """The kernel sources a plan would build with nvcc that this process
     has neither loaded nor found built on disk (`ops/_native`). A plan
-    for the CPU builds nothing (the plain versions run there)."""
+    for the CPU builds no nvcc module: it runs the host kernel, whose
+    one build with the host compiler P003 does not bill (the reference
+    bills no `device@cpu` lane either)."""
     if platform != "cuda":
         return []
     from ..ops import _native

@@ -15,14 +15,15 @@ counterexample SVG (`linear_report`) and the HTML timeline
 `Linearizable` is where the card plugs in. Its default algorithm is the
 reference's `"competition"`: FIFO-queue models go to the polynomial
 queue checker first; everything else races the device search against
-the host oracle, and the first definitive verdict wins. Two departures
-from the reference, both so that a broken device path cannot hide
-behind the oracle's verdict:
+the host oracle (and, with the card in use, the same search on a host
+core, the `device@cpu` lane), and the first definitive verdict wins.
+Two departures from the reference, both so that a broken device path
+cannot hide behind the oracle's verdict:
 
   * the device is resolved in the caller's thread before the race
     starts, so asking for the card where there is none raises;
-  * an exception in either lane stops the race and is raised by
-    `check` once both lanes have ended (the reference turns it into an
+  * an exception in any lane stops the race and is raised by `check`
+    once every lane has ended (the reference turns it into an
     "engine-error" lane result).
 
 A device check with telemetry on (a metrics registry installed) and a
@@ -46,6 +47,8 @@ from .. import ledger as _ledger
 from ..analysis import history_lint, preflight
 from ..history import History, strip_nemesis
 from ..ops import jitlin, queuecheck, wgl, wgl_ref
+from ..ops.encode import EncodingUnsupported, encode
+from ..ops.wgl32 import CancelFlag
 from ..trace import NULL_TRACER
 from ..util import (Multiset, bounded_pmap, integer_interval_set_str,
                     polysort_key, resolve_device)
@@ -221,9 +224,11 @@ class Linearizable(Checker):
 
     algorithm:
       "competition" — race "cuda-wgl" (without diagnostics) and "wgl"
-                   on two threads; the first definitive verdict wins
-                   and cancels the loser (the result carries "engine");
-                   FIFOQueue models go to queue-poly first
+                   on threads, and on the card a third lane,
+                   "device@cpu" (the search on the host kernel); the
+                   first definitive verdict wins and cancels the losers
+                   (the result carries "engine"); FIFOQueue models go to
+                   queue-poly first
       "cuda-wgl" — the lockstep-frontier search with the hand-written
                    CUDA chunk kernels (on `device`, default the card),
                    plus counterexample diagnostics from the oracle on a
@@ -392,24 +397,55 @@ def _race_competition(model, h: History, time_limit: Optional[float],
     """knossos.competition semantics (the reference's
     `_race_competition`): run the device search and the host oracle
     concurrently; the first definitive verdict wins and cancels the
-    loser at its next stop poll. On the CPU with a time limit the two
-    would contend for the same cores, so the reference's serial ladder
-    runs instead: the oracle on a short slice, the device on most of
-    the rest, then the oracle on what is left.
+    losers at their next stop poll. When the device is the card, a
+    third lane, "device@cpu", runs the same search on the host kernel
+    (`wgl.check(device="cpu")`, the reference's `platform="cpu"`
+    lane), which wins small and near-serial shapes; the lanes start in
+    the reference's order, device, oracle, device@cpu, and when every
+    lane ends unknown the cause is the oracle's, else the device's,
+    else the host lane's. The two device lanes share one encoding of
+    the history, made by the first of them to need it. On the CPU
+    there is no third lane (the device lane already is the host
+    kernel), and with a time limit the two lanes would contend for the
+    same cores, so the reference's serial ladder runs instead: the
+    oracle on a short slice, the device on most of the rest, then the
+    oracle on what is left.
 
     The device is resolved here, in the caller's thread, so a missing
     card raises before any lane starts; a lane's exception stops the
-    other lane and is raised once both have ended. `max_configs` and
-    `enc` pass through to the device search. `tracer` opens an
-    "oracle-race" span around the race, and each lane's "engine <name>"
-    span adopts it as an explicit parent (span nesting is
-    thread-local)."""
+    other lanes and is raised once all have ended. `max_configs` and
+    `enc` pass through to both device searches. A verdict of either
+    device lane is enriched with the oracle's diagnostics after the
+    race. `tracer` opens an "oracle-race" span around the race, and
+    each lane's "engine <name>" span adopts it as an explicit parent
+    (span nesting is thread-local)."""
     dev = resolve_device(device)
     tracer = tracer if tracer is not None else NULL_TRACER
 
-    def run_device(budget, stop=None):
-        return wgl.check(model, h, time_limit=budget, stop=stop, device=dev,
-                         max_configs=max_configs, enc=enc, tracer=tracer)
+    enc_lock = threading.Lock()
+    shared = {"enc": enc}
+
+    def lane_enc():
+        """On the card both device lanes search one encoding, made once
+        by the lane that needs it first (the other waits for it); an
+        encoding that fails leaves each lane to report it as it would
+        alone."""
+        if dev.type != "cuda":
+            return enc
+        with enc_lock:
+            if shared["enc"] is None:
+                try:
+                    with tracer.span("encode", attrs={"ops": len(h)}):
+                        shared["enc"] = encode(model, h)
+                except EncodingUnsupported:
+                    shared["enc"] = False
+        return shared["enc"] or None
+
+    def run_device(budget, cancel=None, on=dev):
+        return wgl.check(model, h, time_limit=budget, device=on,
+                         stop=cancel.is_set if cancel else None,
+                         cancel=cancel, max_configs=max_configs,
+                         enc=lane_enc(), tracer=tracer)
 
     def enrich_spare(r, t_start):
         """Counterexample enrichment on the budget that is left."""
@@ -440,7 +476,9 @@ def _race_competition(model, h: History, time_limit: Optional[float],
                 r["engine"] = "oracle"
             return r
 
-    done = threading.Event()       # a verdict or an error: lanes stop
+    # a verdict or an error: the lanes stop (the host kernel reads its
+    # word after every round)
+    done = CancelFlag()
     outcomes: _queue.Queue = _queue.Queue()
     errors: dict = {}
     race_ctx: dict = {}            # the oracle-race span's context
@@ -458,16 +496,20 @@ def _race_competition(model, h: History, time_limit: Optional[float],
             outcomes.put((name, r))
             if r.get("valid?") != UNKNOWN:
                 done.set()
-        # non-daemon: the loser stops at its next stop poll (one device
-        # chunk or `wgl_ref.STOP_POLL` oracle configs) and is joined below
+        # non-daemon: a loser stops at its next stop poll (one chunk
+        # on the card, one round on the host kernel,
+        # `wgl_ref.STOP_POLL` oracle configs) and is joined below
         return threading.Thread(target=run, name=f"wgl-{name}")
 
     t_race0 = time.monotonic()
     threads = [
-        arm("device", lambda: run_device(time_limit, stop=done.is_set)),
+        arm("device", lambda: run_device(time_limit, cancel=done)),
         arm("oracle", lambda: wgl_ref.check(model, h, time_limit=time_limit,
                                             stop=done.is_set)),
     ]
+    if dev.type == "cuda":
+        threads.append(arm("device@cpu", lambda: run_device(
+            time_limit, cancel=done, on="cpu")))
     with tracer.span("oracle-race",
                      attrs={"engines": [t.name for t in threads]}):
         race_ctx["ctx"] = tracer.context()
@@ -484,13 +526,14 @@ def _race_competition(model, h: History, time_limit: Optional[float],
             unknowns[name] = r
         else:
             # all unknown: prefer the oracle's cause (it has diagnostics)
-            res = unknowns.get("oracle") or unknowns["device"]
+            res = (unknowns.get("oracle") or unknowns.get("device")
+                   or unknowns["device@cpu"])
         for t in threads:
             t.join()
-    for name in ("device", "oracle"):
+    for name in ("device", "oracle", "device@cpu"):
         if name in errors:
             raise errors[name]
-    if res.get("engine") == "device":
+    if str(res.get("engine", "")).startswith("device"):
         res = enrich_spare(res, t_race0)
     return res
 

@@ -1,4 +1,4 @@
-"""Build and bind the port's CUDA kernels.
+"""Build and bind the port's CUDA kernels and its host kernel.
 
 Every `.cu` source under `jepsen_tpu_torch/csrc/` is compiled by `nvcc`
 for `sm_90a` into a shared library with a plain C interface, built on
@@ -8,15 +8,24 @@ and flags, so an edited source rebuilds and a stale library is never
 loaded. Nothing here includes PyTorch's headers (a build that does
 takes minutes); pointers and the stream cross as plain integers.
 
-`nvcc` and `ctypes` are reached only from the first launch, so the
-package imports on machines without a toolkit. A build or launch
+Every `.cpp` source there (`wgl_host.cpp`: the WGL chunk on one host
+core, for CPU tensors) is compiled the same way by the host compiler
+(`c++` or `g++`, `HOST_FLAGS`) into the same directory, under a hash of
+its own: a host build needs no `nvcc`, and a CUDA build no host
+library. Its entry points (`HOST_KERNELS`) are bound with
+`ctypes.CDLL`, which releases the GIL for the length of a call.
+
+The compilers and `ctypes` are reached only from the first call, so
+the package imports on machines without a toolkit. A build or launch
 failure raises; nothing falls back to the plain PyTorch versions.
 
 Each of those first-use costs reports to the compile guard
 (`analysis/guards.note_compile`): one "build" per source `build_all`
 compiles (with its nvcc seconds), one "load" per library `_load` opens
-(`constant` loads through it), one "bind" per entry point `_lib` binds.
-The bound-launch path (`launch` after the first) reports nothing.
+(`constant` loads through it), one "bind" per entry point `_lib` binds;
+the host library's build and load are a "host_build" and a
+"host_load", its entry points' binds "bind"s. The bound paths
+(`launch`, `host_call` after the first) report nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -57,23 +68,25 @@ def _lib_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict:
-    """Build every kernel source whose library is not on disk yet, one
-    `nvcc` per source, all started together. Returns {name: None when
-    the library was already built, else {source, seconds, ptxas}: the
-    build time and the `-Xptxas -v` register and shared-memory
-    report}."""
+def _build(sources, lib_path, cmd, kind: str, tool: str,
+           log_key=None) -> dict:
+    """Build each of `sources` whose library (`lib_path(src)`) is not on
+    disk yet, one compiler run each (`cmd(src, out)`), all started
+    together, each into a file of its own process moved into place
+    (`os.replace`), so that processes building at once never load a
+    half-written library. Each build reports a compile of `kind` to the
+    guard. Returns {stem: None when already built, else {source,
+    seconds} and, under `log_key`, the compiler's stderr}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: dict = {}
     running = []
-    for src in sorted(CSRC.glob("*.cu")):
-        lib = _lib_path(src)
+    for src in sources:
+        lib = lib_path(src)
         if lib.exists():
             out[src.stem] = None
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(cmd(src, tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running.append((src, lib, tmp, time.monotonic(), proc))
     from ..analysis import guards
@@ -86,12 +99,26 @@ def build_all() -> dict:
             continue
         os.replace(tmp, lib)
         seconds = time.monotonic() - t0
-        guards.note_compile("build", seconds, src.stem)
+        guards.note_compile(kind, seconds, src.stem)
         out[src.stem] = {"source": str(src.relative_to(_PKG.parent)),
-                         "seconds": seconds, "ptxas": err.strip()}
+                         "seconds": seconds}
+        if log_key:
+            out[src.stem][log_key] = err.strip()
     if failed:
-        raise RuntimeError("nvcc failed for " + "; ".join(failed))
+        raise RuntimeError(f"{tool} failed for " + "; ".join(failed))
     return out
+
+
+def build_all() -> dict:
+    """Build every kernel source whose library is not on disk yet, one
+    `nvcc` per source, all started together. Returns {name: None when
+    the library was already built, else {source, seconds, ptxas}: the
+    build time and the `-Xptxas -v` register and shared-memory
+    report}."""
+    return _build(sorted(CSRC.glob("*.cu")), _lib_path,
+                  lambda src, out: [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o",
+                                    str(out), str(src)],
+                  "build", "nvcc", log_key="ptxas")
 
 
 # The C entry points, by function name: (source stem under csrc/,
@@ -148,7 +175,7 @@ def cold_sources(names) -> list:
     a first launch of each would build with nvcc."""
     stems = sorted({KERNELS[n][0] for n in names})
     with _LOCK:
-        bound = {KERNELS[n][0] for n in _LIBS}
+        bound = {KERNELS[n][0] for n in _LIBS if n in KERNELS}
     return [s for s in stems
             if s not in bound and not _lib_path(CSRC / f"{s}.cu").exists()]
 
@@ -223,3 +250,94 @@ def launch(name: str, ptrs, ints, stream) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{err(rc).decode()} (cuda {rc})")
+
+
+# ---------------------------------------------------------------------------
+# the host kernel (csrc/*.cpp), built with the host compiler
+# ---------------------------------------------------------------------------
+
+# The host entry points, by function name: (source stem under csrc/,
+# host pointers, int32 scalars). Each returns 0 or an error code, which
+# `wgl_host_error_string` names. The solo chunk's pointers end with a
+# cancel word (or null: ops/wgl32.py::CancelFlag), its ints are K, W, L,
+# ic, H, B, rounds, probes, n_pad, S, O, n_ok, n_info, max_cfg; the
+# batched chunk's pointers end with the lanes' n_ok, n_info and max_cfg,
+# its ints are K, W, L, ic, H, B, rounds, probes, n_pad, S, O, lanes
+# (ops/wgl32.py::host_chunk, host_chunk_batched).
+HOST_KERNELS = {
+    "wgl32_host_chunk": ("wgl_host", 14, 14),
+    "wgln_host_chunk": ("wgl_host", 14, 14),
+    "wgl32_host_chunk_batched": ("wgl_host", 16, 12),
+    "wgln_host_chunk_batched": ("wgl_host", 16, 12),
+}
+HOST_ERROR = "wgl_host_error_string"
+
+
+def _host_cxx() -> str:
+    for name in ("c++", "g++"):
+        cand = shutil.which(name)
+        if cand:
+            return cand
+    raise RuntimeError("no host C++ compiler (c++ or g++) found: the host "
+                       "WGL kernel is built from source")
+
+
+def _host_lib_path(src: Path) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cpp")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_host() -> dict:
+    """Build every host source whose library is not on disk yet, one
+    host-compiler run per source, all started together. Returns {name:
+    None when already built, else {source, seconds}}."""
+    return _build(sorted(CSRC.glob("*.cpp")), _host_lib_path,
+                  lambda src, out: [_host_cxx(), *HOST_FLAGS, "-o",
+                                    str(out), str(src)],
+                  "host_build", "the host compiler")
+
+
+def _host_bind(name: str):
+    """The binding of host entry point `name` (a HOST_KERNELS key):
+    (ctypes function, error-string function, pointer count, int
+    count), its library built on first use and bound once."""
+    import ctypes
+
+    from ..analysis import guards
+
+    stem, n_ptrs, n_ints = HOST_KERNELS[name]
+    with _LOCK:
+        if name not in _LIBS:
+            path = _host_lib_path(CSRC / f"{stem}.cpp")
+            if not path.exists():
+                build_host()
+            t0 = time.monotonic()
+            lib = ctypes.CDLL(str(path))
+            guards.note_compile("host_load", time.monotonic() - t0, stem)
+            t0 = time.monotonic()
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            fn.restype = ctypes.c_int
+            err = getattr(lib, HOST_ERROR)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = (fn, err, n_ptrs, n_ints)
+            guards.note_compile("bind", time.monotonic() - t0, name)
+        return _LIBS[name]
+
+
+def host_call(name: str, ptrs, ints) -> None:
+    """Call host entry point `name` (a HOST_KERNELS key) with its host
+    pointers and int32 scalars, and raise on its error code. The call
+    runs without the GIL."""
+    fn, err, n_ptrs, n_ints = _LIBS.get(name) or _host_bind(name)
+    if len(ptrs) != n_ptrs or len(ints) != n_ints:
+        raise ValueError(f"{name} takes {n_ptrs} pointers and {n_ints} "
+                         "ints")
+    rc = fn(*ptrs, *ints)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: {err(rc).decode()} (code {rc})")

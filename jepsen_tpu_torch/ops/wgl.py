@@ -240,7 +240,8 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
           stop: Optional[Callable[[], bool]] = None,
           adaptive: Optional[bool] = None, device=None,
           shape_bucket: Optional[dict] = None, metrics=None,
-          profile_dir: Optional[str] = None, tracer=None) -> dict:
+          profile_dir: Optional[str] = None, tracer=None,
+          cancel: Optional[wgl32.CancelFlag] = None) -> dict:
     """Decide linearizability with the device search.
 
     Returns {"valid?": True/False/"unknown", ...}. "unknown" (deadline,
@@ -251,8 +252,13 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
     `adaptive=False` turns the bucket ladder off. `shape_bucket` pads
     the encoding into a fan-out's shared shape bucket (`_apply_bucket`;
     built by `parallel.shared_shape_bucket`). `device=None` is the CUDA
-    card (it raises when there is none); `device="cpu"` runs the plain
-    PyTorch chunk with the host plan (1024-round chunks).
+    card (it raises when there is none); `device="cpu"` runs the host
+    kernel (`csrc/wgl_host.cpp`, one host core, the GIL released) with
+    the host plan (1024-round chunks), the reference's
+    `platform="cpu"`. `cancel` (a `wgl32.CancelFlag`, a race's) ends
+    the search as `stop` does, and on the CPU the host kernel also reads
+    it after every round, so that a losing host lane stops within a
+    round; `stop` keeps the reference's poll, once a chunk.
 
     The telemetry and device planes, as in the reference, each off
     unless enabled (and then free in the loop): `metrics` (default the
@@ -313,7 +319,7 @@ def check(model: Model, history: History, time_limit: Optional[float] = None,
                 e, stage="wgl/profiler-start"))
     try:
         res = _run_search(enc, plan, n, max_configs, frontier, dev,
-                          t_enter, time_limit, stop, mx, tracer)
+                          t_enter, time_limit, stop, mx, tracer, cancel)
     finally:
         if prof is not None:
             try:
@@ -355,7 +361,7 @@ def _stop_profile(prof, profile_dir: str) -> str:
 
 
 def _run_search(enc, plan, n, max_configs, frontier, dev, t_enter,
-                time_limit, stop, mx, tracer) -> dict:
+                time_limit, stop, mx, tracer, cancel=None) -> dict:
     """`_search_loop` under a watchdog source (the reference's
     `_run_search`): the loop beats once a chunk, so a chunk that hangs
     on the card stops the beats and the watchdog declares the source
@@ -366,14 +372,15 @@ def _run_search(enc, plan, n, max_configs, frontier, dev, t_enter,
     hb = wd.register(f"wgl/{dev.type}", device=str(dev), grace_s=300.0)
     try:
         return _search_loop(enc, plan, n, max_configs, frontier, dev,
-                            t_enter, time_limit, stop, mx, wd, hb, tracer)
+                            t_enter, time_limit, stop, mx, wd, hb, tracer,
+                            cancel)
     finally:
         wd.unregister(hb)
 
 
 def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
                  frontier, dev, t_enter: float, time_limit, stop, mx, wd,
-                 hb, tracer) -> dict:
+                 hb, tracer, cancel=None) -> dict:
     from .. import devices as _devices
     from .. import fleet as _fleet
     from .. import occupancy as _occ
@@ -394,21 +401,26 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
     # the search's one const upload (a compile guard's budget point)
     _guards.note_transfer("h2d", sum(t.numel() * t.element_size() for t in (
         consts.meta, consts.tk, consts.iinv, consts.iopc)), what="wgl-consts")
+    deadline = t_enter + time_limit if time_limit else None
+    # the host kernel reads the cancel word after every round; a chunk
+    # on the card is one launch and reads nothing
+    host_cancel = cancel if dev.type == "cpu" else None
     if kern == "wgl32":
         C = wgl32.row_words(ic_eff)
         carry = wgl32.init_carry(K, C, H, B, 0, dev)
 
         def next_chunk(carry, K):
             return wgl32.chunk(consts, carry, K=K, W=W_eff, ic=ic_eff, H=H,
-                               B=B, chunk=chunk, probes=probes)
+                               B=B, chunk=chunk, probes=probes,
+                               cancel=host_cancel)
     else:
         C = wgln.row_words(L, ic_eff)
         carry = wgln.init_carry(K, L, ic_eff, H, B, 0, dev)
 
         def next_chunk(carry, K):
             return wgln.chunk(consts, carry, K=K, L=L, ic=ic_eff, H=H, B=B,
-                              chunk=chunk, probes=probes)
-    deadline = t_enter + time_limit if time_limit else None
+                              chunk=chunk, probes=probes,
+                              cancel=host_cancel)
     policy = None
     if ladder:
         policy = _adapt.Policy(ladder=ladder, n_ok=n, backlog_cap=B,
@@ -554,7 +566,8 @@ def _search_loop(enc: Encoded, plan: dict, n: int, max_configs: int,
             # memo table rides along, so nothing is re-explored
             carry = _widen_frontier(carry, _K_BIG)
             K = _K_BIG
-        cancelled = stop is not None and stop()
+        cancelled = ((stop is not None and stop())
+                     or (cancel is not None and cancel.is_set()))
         if not (found or fr_cnt == 0
                 or total_explored >= max_configs or cancelled
                 or (deadline is not None

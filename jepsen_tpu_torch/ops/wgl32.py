@@ -27,13 +27,17 @@ Two implementations of the same function live here:
   * `chunk` — the wrapper: a CUDA tensor goes to the hand-written
     kernel `csrc/wgl32_chunk.cu` (built and bound by `_native`), in the
     launch form `block_form` picks by shape (the round in shared memory
-    where it fits, else in device memory); a CPU tensor goes to
-    `chunk_ref`. There is no fallback between the two.
+    where it fits, else in device memory); a CPU tensor goes to the
+    host kernel `csrc/wgl_host.cpp` (`wgl32_host_chunk`, built with the
+    host compiler; `host_chunk`), the reference's host build of the
+    same jitted chunk. There is no fallback between the three, and
+    `chunk_ref` runs in tests only.
 
 The lane-batched pair runs one chunk on every lane of a batch of keys
 padded into one shape bucket (`parallel.batched`): `chunk_batched_ref`
 is `chunk_ref` on each lane in turn, and `chunk_batched` launches
-`wgl32_chunk_batched`, one CTA per lane. Their consts (`BatchConsts`)
+`wgl32_chunk_batched`, one CTA per lane (on the CPU
+`wgl32_host_chunk_batched`, the lanes in turn). Their consts (`BatchConsts`)
 and carry take a leading lane axis, as the JAX package's
 `jit(vmap(chunk_fn))` and `chunk_fn_batched` do.
 
@@ -53,6 +57,7 @@ convert a JAX carry bit for bit.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -577,11 +582,11 @@ MAX_INFO_WORDS = 8
 
 def check_launch(consts, carry, *, K, W, C, ic, H, B, chunk, probes,
                  lanes: int | None = None):
-    """The checks before a chunk kernel's launch, shared by both window
-    layouts (rows of C int32 words) and by the lane-batched kernels
-    (`lanes` set: `consts` is a `BatchConsts` and every leaf has a
-    leading lane axis); raises ValueError on what the kernels do not
-    take."""
+    """The checks before a chunk kernel's launch, on the card or on the
+    host, shared by both window layouts (rows of C int32 words) and by
+    the lane-batched kernels (`lanes` set: `consts` is a `BatchConsts`
+    and every leaf has a leading lane axis); raises ValueError on what
+    the kernels do not take."""
     dev = carry[FR].device
     lead = () if lanes is None else (lanes,)
     if not 1 <= probes <= MAX_PROBES:
@@ -789,28 +794,94 @@ def launch_batched(name: str, consts: BatchConsts, carry, *, K, W, L, ic,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the host kernel (csrc/wgl_host.cpp), for CPU tensors
+# ---------------------------------------------------------------------------
+
+class CancelFlag(threading.Event):
+    """A `threading.Event` whose `set` also writes a word the host kernel
+    reads after every round (`csrc/wgl_host.cpp`'s `cancel`): a
+    competition race's verdict stops a losing host lane within one
+    round, and no thread wakes to poll it."""
+
+    def __init__(self):
+        super().__init__()
+        self.word = torch.zeros((), dtype=torch.int32)
+
+    def set(self):
+        self.word.fill_(1)
+        super().set()
+
+
+def host_chunk(name: str, consts: Consts, carry, *, K, W, L, ic, H, B,
+               chunk, probes, cancel: CancelFlag | None = None
+               ) -> torch.Tensor:
+    """Run one chunk of up to `chunk` rounds on the host kernel `name`
+    (`wgl32_host_chunk` or `wgln_host_chunk`, which share one C
+    interface) over the carry's CPU tensors, in place; the kernel ends
+    it early after the round in which `cancel` was set (the carry a
+    chunk of the rounds run leaves). Returns the summary."""
+    from . import _native
+
+    summary = torch.empty(SUMMARY_HEAD + RING_ROWS * RING_COLS,
+                          dtype=torch.int32)
+    ptrs = [t.data_ptr() for t in (consts.meta, consts.tk, consts.iinv,
+                                   consts.iopc, *carry, summary)]
+    ptrs.append(cancel.word.data_ptr() if cancel is not None else None)
+    _native.host_call(name, ptrs, [
+        K, W, L, ic, H, B, chunk, probes, consts.n_pad, consts.S,
+        consts.tk.numel() // consts.S, consts.n_ok, consts.n_info,
+        consts.max_cfg])
+    return summary
+
+
+def host_chunk_batched(name: str, consts: BatchConsts, carry, *, K, W, L,
+                       ic, H, B, chunk, probes) -> torch.Tensor:
+    """Run one chunk on every lane on the host kernel `name`
+    (`wgl32_host_chunk_batched` or `wgln_host_chunk_batched`), the
+    lanes in turn, in place. Returns the (lanes, SUMMARY_HEAD + ring)
+    summary."""
+    from . import _native
+
+    summary = torch.empty((consts.lanes, SUMMARY_HEAD + RING_ROWS * RING_COLS),
+                          dtype=torch.int32)
+    ptrs = [t.data_ptr() for t in (consts.meta, consts.tk, consts.iinv,
+                                   consts.iopc, *carry, summary, consts.n_ok,
+                                   consts.n_info, consts.max_cfg)]
+    _native.host_call(name, ptrs, [K, W, L, ic, H, B, chunk, probes,
+                                   consts.n_pad, consts.S, consts.O,
+                                   consts.lanes])
+    return summary
+
+
 def chunk(consts: Consts, carry, *, K: int, W: int, ic: int, H: int,
-          B: int, chunk: int, probes: int):
+          B: int, chunk: int, probes: int, cancel: CancelFlag | None = None):
     """One chunk of the search (see `chunk_ref`). CUDA tensors run the
     `wgl32_chunk` kernel in `block_form` (one launch per call, counted
-    in `chunk.launches`); CPU tensors run `chunk_ref`. Updates `carry`
-    in place; returns (carry, summary)."""
+    in `chunk.launches`); CPU tensors run the host kernel
+    `wgl32_host_chunk` (counted in `chunk.host_calls`), which ends the
+    chunk after the round in which `cancel` is set. Updates `carry` in
+    place; returns (carry, summary)."""
     dev = carry[FR].device
-    if dev.type == "cpu":
-        return chunk_ref(consts, carry, K=K, W=W, ic=ic, H=H, B=B,
-                         chunk=chunk, probes=probes)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wgl32 chunk: unsupported device {dev}")
     _check_launch(consts, carry, K=K, W=W, ic=ic, H=H, B=B, chunk=chunk,
                   probes=probes)
-    summary = launch("wgl32_chunk", consts, carry, K=K, W=W, L=1, ic=ic,
-                     H=H, B=B, rounds=chunk, probes=probes,
-                     form=block_form(K, W, ic, row_words(ic)))
-    _count_launch()
+    if dev.type == "cpu":
+        summary = host_chunk("wgl32_host_chunk", consts, carry, K=K, W=W,
+                             L=1, ic=ic, H=H, B=B, chunk=chunk,
+                             probes=probes, cancel=cancel)
+        _count_host()
+    else:
+        summary = launch("wgl32_chunk", consts, carry, K=K, W=W, L=1, ic=ic,
+                         H=H, B=B, rounds=chunk, probes=probes,
+                         form=block_form(K, W, ic, row_words(ic)))
+        _count_launch()
     return carry, summary
 
 
 chunk.launches = 0
+chunk.host_calls = 0
 
 
 def _count_launch():
@@ -818,25 +889,34 @@ def _count_launch():
     chunk.launches += 1
 
 
+def _count_host():
+    chunk.host_calls += 1
+
+
 def chunk_batched(consts: BatchConsts, carry, *, K: int, W: int, ic: int,
                   H: int, B: int, chunk: int, probes: int):
     """One chunk on every lane (see `chunk_batched_ref`). CUDA tensors
     run the `wgl32_chunk_batched` kernel (one launch per call, counted
-    in `chunk_batched.launches`); CPU tensors run `chunk_batched_ref`.
+    in `chunk_batched.launches`); CPU tensors run the host kernel
+    `wgl32_host_chunk_batched` (counted in `chunk_batched.host_calls`).
     Updates `carry` in place; returns (carry, summary (lanes, ...))."""
     dev = carry[FR].device
-    if dev.type == "cpu":
-        return chunk_batched_ref(consts, carry, K=K, W=W, ic=ic, H=H, B=B,
-                                 chunk=chunk, probes=probes)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wgl32 chunk_batched: unsupported device {dev}")
     _check_launch(consts, carry, K=K, W=W, ic=ic, H=H, B=B, chunk=chunk,
                   probes=probes, lanes=consts.lanes)
-    summary = launch_batched("wgl32_chunk_batched", consts, carry, K=K, W=W,
-                             L=1, ic=ic, H=H, B=B, rounds=chunk,
-                             probes=probes)
-    chunk_batched.launches += 1
+    if dev.type == "cpu":
+        summary = host_chunk_batched("wgl32_host_chunk_batched", consts,
+                                     carry, K=K, W=W, L=1, ic=ic, H=H, B=B,
+                                     chunk=chunk, probes=probes)
+        chunk_batched.host_calls += 1
+    else:
+        summary = launch_batched("wgl32_chunk_batched", consts, carry, K=K,
+                                 W=W, L=1, ic=ic, H=H, B=B, rounds=chunk,
+                                 probes=probes)
+        chunk_batched.launches += 1
     return carry, summary
 
 
 chunk_batched.launches = 0
+chunk_batched.host_calls = 0

@@ -29,11 +29,14 @@ Two implementations of the same function live here:
   * `chunk` — the wrapper: a CUDA tensor goes to the hand-written
     kernel `csrc/wgln_chunk.cu`, in the launch form `solo_form` picks
     by shape (one CTA while the round is short and fits in shared
-    memory, else the grid form); a CPU tensor goes to `chunk_ref`. There is no
-    fallback between the two. Both update the carry in place.
+    memory, else the grid form); a CPU tensor goes to the host kernel
+    `csrc/wgl_host.cpp` (`wgln_host_chunk`). There is no fallback
+    between the three, and `chunk_ref` runs in tests only. All update
+    the carry in place.
 
 The lane-batched pair (`chunk_batched_ref`, `chunk_batched` on the
-`wgln_chunk_batched` kernel, one CTA per lane) runs one chunk on every
+`wgln_chunk_batched` kernel, one CTA per lane, or on the CPU
+`wgln_host_chunk_batched`, the lanes in turn) runs one chunk on every
 lane of a padded batch of keys, as the JAX package's wide
 `jit(vmap(chunk_fn))` does; consts are `wgl32.BatchConsts`.
 """
@@ -198,27 +201,34 @@ def _check_launch(consts, carry, *, K, L, ic, H, B, chunk, probes,
 
 
 def chunk(consts: Consts, carry, *, K: int, L: int, ic: int, H: int,
-          B: int, chunk: int, probes: int):
+          B: int, chunk: int, probes: int,
+          cancel: wgl32.CancelFlag | None = None):
     """One chunk of the wide search (see `chunk_ref`). CUDA tensors run
     the `wgln_chunk` kernel in `solo_form` (one launch per call,
-    counted in `chunk.launches`); CPU tensors run `chunk_ref`. Updates
-    `carry` in place; returns (carry, summary)."""
+    counted in `chunk.launches`); CPU tensors run the host kernel
+    `wgln_host_chunk` (counted in `chunk.host_calls`), which ends the
+    chunk after the round in which `cancel` is set. Updates `carry` in
+    place; returns (carry, summary)."""
     dev = carry[FR].device
-    if dev.type == "cpu":
-        return chunk_ref(consts, carry, K=K, L=L, ic=ic, H=H, B=B,
-                         chunk=chunk, probes=probes)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wgln chunk: unsupported device {dev}")
     _check_launch(consts, carry, K=K, L=L, ic=ic, H=H, B=B, chunk=chunk,
                   probes=probes)
-    summary = wgl32.launch("wgln_chunk", consts, carry, K=K, W=32 * L, L=L,
-                           ic=ic, H=H, B=B, rounds=chunk, probes=probes,
-                           form=solo_form(K, L, ic))
-    _count_launch()
+    if dev.type == "cpu":
+        summary = wgl32.host_chunk("wgln_host_chunk", consts, carry, K=K,
+                                   W=32 * L, L=L, ic=ic, H=H, B=B,
+                                   chunk=chunk, probes=probes, cancel=cancel)
+        _count_host()
+    else:
+        summary = wgl32.launch("wgln_chunk", consts, carry, K=K, W=32 * L,
+                               L=L, ic=ic, H=H, B=B, rounds=chunk,
+                               probes=probes, form=solo_form(K, L, ic))
+        _count_launch()
     return carry, summary
 
 
 chunk.launches = 0
+chunk.host_calls = 0
 
 
 def _count_launch():
@@ -226,26 +236,35 @@ def _count_launch():
     chunk.launches += 1
 
 
+def _count_host():
+    chunk.host_calls += 1
+
+
 def chunk_batched(consts: wgl32.BatchConsts, carry, *, K: int, L: int,
                   ic: int, H: int, B: int, chunk: int, probes: int):
     """One wide chunk on every lane (see `chunk_batched_ref`). CUDA
     tensors run the `wgln_chunk_batched` kernel (one launch per call,
-    counted in `chunk_batched.launches`); CPU tensors run
-    `chunk_batched_ref`. Updates `carry` in place; returns (carry,
-    summary (lanes, ...))."""
+    counted in `chunk_batched.launches`); CPU tensors run the host
+    kernel `wgln_host_chunk_batched` (counted in
+    `chunk_batched.host_calls`). Updates `carry` in place; returns
+    (carry, summary (lanes, ...))."""
     dev = carry[FR].device
-    if dev.type == "cpu":
-        return chunk_batched_ref(consts, carry, K=K, L=L, ic=ic, H=H, B=B,
-                                 chunk=chunk, probes=probes)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wgln chunk_batched: unsupported device {dev}")
     _check_launch(consts, carry, K=K, L=L, ic=ic, H=H, B=B, chunk=chunk,
                   probes=probes, lanes=consts.lanes)
-    summary = wgl32.launch_batched("wgln_chunk_batched", consts, carry, K=K,
-                                   W=32 * L, L=L, ic=ic, H=H, B=B,
-                                   rounds=chunk, probes=probes)
-    chunk_batched.launches += 1
+    if dev.type == "cpu":
+        summary = wgl32.host_chunk_batched(
+            "wgln_host_chunk_batched", consts, carry, K=K, W=32 * L, L=L,
+            ic=ic, H=H, B=B, chunk=chunk, probes=probes)
+        chunk_batched.host_calls += 1
+    else:
+        summary = wgl32.launch_batched("wgln_chunk_batched", consts, carry,
+                                       K=K, W=32 * L, L=L, ic=ic, H=H, B=B,
+                                       rounds=chunk, probes=probes)
+        chunk_batched.launches += 1
     return carry, summary
 
 
 chunk_batched.launches = 0
+chunk_batched.host_calls = 0

@@ -16,8 +16,9 @@ encoded into one shared shape bucket; then either
     This is the reference's `jit(vmap(chunk_fn))` (`_compiled_batched`)
     over a `NamedSharding`;
   * **stream**: one `ops.wgl.check` per key, each padded into the
-    shared bucket of its kernel branch, racing the host oracle on the
-    card (`checker._race_competition`); with two or more devices one
+    shared bucket of its kernel branch, racing the host oracle and the
+    host kernel's `device@cpu` lane on the card
+    (`checker._race_competition`); with two or more devices one
     worker thread per device drains its own queue and steals from the
     heaviest (the reference's `check_streamed`).
 
@@ -253,8 +254,9 @@ def check_streamed(model: Model, histories: Sequence[History],
     device when the completed walls show work skew (`fleet.steal_plan`,
     recorded as a "fleet_sched" event). On the card with
     `oracle_fallback`, each key's device search races the host oracle
-    (the host is otherwise idle); otherwise a device "unknown" goes to
-    the oracle afterwards. With `encs`, each kernel branch's keys share
+    and the same search on the host kernel (`device@cpu`; the host is
+    otherwise idle); otherwise a device "unknown" goes to the oracle
+    afterwards. With `encs`, each kernel branch's keys share
     one shape bucket (`shared_shape_bucket`). An exception of a worker
     is raised once every worker has ended."""
     devs = resolve_devices(devices, device)
@@ -450,8 +452,10 @@ def check_batched(model: Model, histories: Sequence[History],
     `max_configs` is a per-key exploration budget. With
     `oracle_fallback`, keys the device leaves "unknown" are re-checked by
     the host oracle; pass False to see raw device verdicts.
-    `device="cpu"` or a list of CPU devices runs the kernels' plain
-    versions."""
+    `device="cpu"` or a list of CPU devices runs the host kernel
+    (`csrc/wgl_host.cpp`: `wgl32_host_chunk_batched`,
+    `wgln_host_chunk_batched`, the lanes in turn on one core, and the
+    solo chunks)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     devs = resolve_devices(devices, device)

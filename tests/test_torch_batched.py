@@ -187,9 +187,10 @@ def test_batch_consts_lane_equals_single_consts():
             assert getattr(lane, f) == getattr(one, f), (i, f)
 
 
-def test_wrappers_use_the_plain_versions_on_cpu():
-    """On CPU tensors both batched wrappers run their plain versions
-    and launch nothing."""
+def test_wrappers_run_the_host_kernels_on_cpu():
+    """On CPU tensors both batched wrappers run the host kernels
+    (`wgl32_host_chunk_batched`, `wgln_host_chunk_batched`), equal to
+    their plain versions, and launch no CUDA kernel."""
     p = NARROW
     b = _batch("narrow")
     bc = tw.batch_consts_from_numpy(*_np_consts(b, p["ic"], MAX_CFG),
@@ -199,6 +200,7 @@ def test_wrappers_use_the_plain_versions_on_cpu():
     start = tw.init_carry_batch(4, p["K"], tw.row_words(p["ic"]), p["H"],
                                 p["B"], 0, "cpu")
     before = (tw.chunk_batched.launches, tn.chunk_batched.launches)
+    calls = (tw.chunk_batched.host_calls, tn.chunk_batched.host_calls)
     c1, s1 = tw.chunk_batched(bc, tuple(t.clone() for t in start), **kw)
     c2, s2 = tw.chunk_batched_ref(bc, tuple(t.clone() for t in start), **kw)
     assert torch.equal(s1, s2)
@@ -217,6 +219,8 @@ def test_wrappers_use_the_plain_versions_on_cpu():
     assert torch.equal(t1, t2)
     assert all(torch.equal(a, b) for a, b in zip(d1, d2))
     assert (tw.chunk_batched.launches, tn.chunk_batched.launches) == before
+    assert (tw.chunk_batched.host_calls, tn.chunk_batched.host_calls) == (
+        calls[0] + 1, calls[1] + 1)
 
 
 def test_tally_counts_the_const_entries_the_lanes_reach():

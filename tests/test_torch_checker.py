@@ -6,10 +6,15 @@ algorithms (`competition`, the default; `cuda-wgl` on `device="cpu"`;
 `wgl`; `linear`; `queue-poly`) must give the JAX checker's verdicts
 under the same algorithm (`cuda-wgl` against the JAX `tpu-wgl`). The
 competition's two departures from the reference are pinned here: no
-card raises, and a lane's exception is raised by `check`.
+card raises, and a lane's exception is raised by `check`. So is its
+third lane on the card, `device@cpu` (the search on the host kernel),
+with a stubbed card lane: the device resolves to CUDA and `wgl.check`
+answers for it.
 """
 
 import random
+import threading
+import time
 
 import pytest
 import jax
@@ -266,6 +271,104 @@ def test_competition_raises_a_lane_exception(lane, monkeypatch):
     with pytest.raises(RuntimeError, match=f"{lane} lane failed"):
         tchecker.linearizable(tmodels.cas_register(),
                               device="cpu").check({}, hist, {})
+
+
+# --- the device@cpu lane (a stubbed card lane) -------------------------------
+
+def _stub_card(monkeypatch, card=None, host=None, oracle=None):
+    """The race's device resolves to CUDA; `wgl.check` calls `card`
+    for the card (default: wait for the stop, then "cancelled") and
+    `host` for the CPU (default: the real search); the oracle is
+    `oracle` when given. Returns {lane thread name: devices asked}."""
+    real = twgl.check
+    seen: dict = {}
+
+    def wait(stop):
+        while not stop():
+            time.sleep(0.002)
+        return {"valid?": "unknown", "cause": "cancelled"}
+
+    def check(model, history, stop=None, device=None, **kw):
+        name = threading.current_thread().name
+        seen.setdefault(name, []).append(str(device))
+        if torch.device(device).type == "cuda":
+            return card(stop) if card else wait(stop)
+        return (host or real)(model, history, stop=stop, device=device,
+                              **kw)
+
+    monkeypatch.setattr(tchecker, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(twgl, "check", check)
+    if oracle is not None:
+        monkeypatch.setattr(tref, "check", oracle)
+    return seen
+
+
+def test_race_on_the_card_arms_the_host_lane_that_names_itself(monkeypatch):
+    """On the card the race runs three lanes; with the card lane and the
+    oracle held back, the host lane decides, says so and names its
+    platform."""
+    def no_oracle(model, history, time_limit=None, stop=None, **kw):
+        return {"valid?": "unknown", "cause": "timeout"}
+
+    seen = _stub_card(monkeypatch, oracle=no_oracle)
+    hist = to_port(CORPUS["cas-valid"][1])
+    res = tchecker._race_competition(tmodels.cas_register(), hist, None)
+    assert res["valid?"] is True and res["engine"] == "device@cpu"
+    assert res["platform"] == "cpu"
+    assert seen == {"wgl-device": ["cuda"], "wgl-device@cpu": ["cpu"]}
+
+
+def test_race_of_three_unknowns_takes_the_oracles_cause(monkeypatch):
+    """Every lane unknown: the cause is the oracle's, as the reference
+    prefers it (oracle, device, device@cpu), and no engine is named."""
+    def unknown(cause):
+        return lambda *a, **kw: {"valid?": "unknown", "cause": cause}
+
+    _stub_card(monkeypatch, card=unknown("card"), host=unknown("host"),
+               oracle=unknown("oracle"))
+    hist = to_port(CORPUS["cas-valid"][1])
+    res = tchecker._race_competition(tmodels.cas_register(), hist, None)
+    assert res == {"valid?": "unknown", "cause": "oracle"}
+
+
+def test_race_raises_the_host_lanes_exception(monkeypatch):
+    """The host lane's exception stops the race and is raised once the
+    card lane and the oracle have ended."""
+    ended = []
+
+    def boom(*a, **kw):
+        raise RuntimeError("host lane failed")
+
+    def oracle(model, history, time_limit=None, stop=None, **kw):
+        while not stop():
+            time.sleep(0.002)
+        ended.append("oracle")
+        return {"valid?": "unknown", "cause": "cancelled"}
+
+    _stub_card(monkeypatch, host=boom, oracle=oracle)
+    hist = to_port(CORPUS["cas-valid"][1])
+    with pytest.raises(RuntimeError, match="host lane failed"):
+        tchecker._race_competition(tmodels.cas_register(), hist, None)
+    assert ended == ["oracle"]
+
+
+def test_no_host_lane_on_a_cpu_device(monkeypatch):
+    """On the CPU the device lane is the host kernel already: the race
+    has two lanes, as the reference's on a cpu backend."""
+    real = twgl.check
+    seen: list = []
+
+    def check(model, history, device=None, **kw):
+        seen.append((threading.current_thread().name, str(device)))
+        return real(model, history, device=device, **kw)
+
+    monkeypatch.setattr(twgl, "check", check)
+    hist = to_port(CORPUS["cas-invalid"][1])
+    res = tchecker._race_competition(tmodels.cas_register(), hist, None,
+                                     device="cpu")
+    assert res["valid?"] is False
+    assert seen == [("wgl-device", "cpu")]
 
 
 def test_queue_poly_unsupported_answers_unknown():

@@ -249,6 +249,19 @@ def test_p003_never_fires_for_the_cpu(hist_2k):
     assert "P003" not in rule_ids(rep)
 
 
+def test_p003_bills_no_host_build(hist_2k, tmp_path, monkeypatch):
+    """The host kernel (the CPU's chunk, built with the host compiler)
+    is no nvcc module: a CPU plan with nothing built bills no compile,
+    and a bound host entry point leaves the card's count as it was."""
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_native, "_LIBS", {"wgl32_host_chunk": None})
+    rep = tpf.plan_wgl(tcas(), port(hist_2k), platform="cpu",
+                       compile_budget=0)
+    assert rep["compiles"]["cold_max"] == 0
+    assert "P003" not in rule_ids(rep)
+    assert _native.cold_sources(["wgl32_chunk"]) == ["wgl32_chunk"]
+
+
 def test_cold_sources_maps_entry_points_to_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_native, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_native, "_LIBS", {})

@@ -245,12 +245,14 @@ def test_migrate_frontier_matches_jax(k_new):
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
-def test_wrapper_uses_chunk_ref_on_cpu():
-    """On CPU tensors the wrapper runs the plain version and launches
-    nothing."""
+def test_wrapper_runs_the_host_kernel_on_cpu():
+    """On CPU tensors the wrapper runs the host kernel
+    (`wgl32_host_chunk`), equal to the plain version, and launches no
+    CUDA kernel."""
     enc = _encoded("cas")
     consts = tw.consts_from_numpy(*_np_consts(enc), device="cpu")
     before = tw.chunk.launches
+    calls = tw.chunk.host_calls
     c1, s1 = tw.chunk(consts, tw.init_carry(2, tw.row_words(IC), H, B, 0,
                                             "cpu"),
                       K=2, W=W, ic=IC, H=H, B=B, chunk=CHUNK, probes=PROBES)
@@ -259,6 +261,7 @@ def test_wrapper_uses_chunk_ref_on_cpu():
                           K=2, W=W, ic=IC, H=H, B=B, chunk=CHUNK,
                           probes=PROBES)
     assert tw.chunk.launches == before
+    assert tw.chunk.host_calls == calls + 1
     assert torch.equal(s1, s2)
     assert all(torch.equal(a, b) for a, b in zip(c1, c2))
 

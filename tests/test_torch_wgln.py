@@ -201,19 +201,22 @@ def test_row_words_matches_jax_layout():
         assert tn.row_words(L, ic) == C
 
 
-def test_wrapper_uses_chunk_ref_on_cpu():
-    """On CPU tensors the wrapper runs the plain version and launches
-    nothing."""
+def test_wrapper_runs_the_host_kernel_on_cpu():
+    """On CPU tensors the wrapper runs the host kernel
+    (`wgln_host_chunk`), equal to the plain version, and launches no
+    CUDA kernel."""
     enc = _encoded("L2", "wave-3x12")
     consts = tw.consts_from_numpy(*_np_consts(enc, 8), device="cpu")
     H, B = ROOMY
     kw = dict(K=K_BOTTOM, L=2, ic=8, H=H, B=B, chunk=CHUNK, probes=PROBES)
     before = tn.chunk.launches
+    calls = tn.chunk.host_calls
     c1, s1 = tn.chunk(consts, tn.init_carry(K_BOTTOM, 2, 8, H, B, 0, "cpu"),
                       **kw)
     c2, s2 = tn.chunk_ref(consts,
                           tn.init_carry(K_BOTTOM, 2, 8, H, B, 0, "cpu"), **kw)
     assert tn.chunk.launches == before
+    assert tn.chunk.host_calls == calls + 1
     assert torch.equal(s1, s2)
     assert all(torch.equal(a, b) for a, b in zip(c1, c2))
 

@@ -5357,7 +5357,8 @@ def lint_phases(dev, background) -> None:
       4. the witness unset: a Service built afterwards holds a plain
          RLock and serves the same warm and 4 held requests; then in
          turns (LINT_TURNS) a new service with the witness on and off
-         again; the held walls' p50 printed witness on and off.
+         again; the held walls' p50 printed witness on and off;
+      5. the history analyzer and its gate (`history_lint_step`).
 
     Takes at most LINT_LIMIT_S; any miss raises."""
     import os
@@ -5607,11 +5608,190 @@ def lint_phases(dev, background) -> None:
               f": p50 {statistics.median(walls)} over {len(walls)}; turns "
               + "; ".join(f"p50 {statistics.median(ws)} {ws}"
                           for on, ws in turns if on is witness), flush=True)
+    history_lint_step(dev, telemetry_lint)
     took = time.monotonic() - t_all
     print(f"  lint phase: {took:.1f} s", flush=True)
     if took > LINT_LIMIT_S:
         raise AssertionError(f"lint phase took {took:.1f} s (limit "
                              f"{LINT_LIMIT_S} s)")
+
+
+# the history analyzer's step: the keys of the streamed direct call
+LINT_DIRECT = dict(n_keys=4, n_ops=600, n_procs=5, crash_p=0.002)
+LINT_OUTSIDE = 10 ** 6        # a read's value no cas-register state holds
+
+
+def history_lint_step(dev, telemetry_lint) -> None:
+    """The history analyzer and its gate on the card, with a metrics
+    registry and a `fleet.RunStatus` installed:
+
+      a. `python -m jepsen_tpu_torch.analysis.history_lint` in this
+         process (`main([])`) exits 0;
+      b. `analyze(h, model=cas_register())` over the headline finds no
+         H006; with one read's value set to LINT_OUTSIDE, H006 at that
+         read's index and "ok" True;
+      c. a double invoke (H001) through `checker.linearizable(
+         cas_register(), algorithm="cuda-wgl")` is "unknown" /
+         "malformed-history" with no kernel launched, its checks counter
+         {verdict="malformed"} 1, one `history_lint` point that lints
+         clean under scripts/telemetry_lint.py and one MalformedHistory
+         fault;
+      d. the headline checked on the card: {verdict="clean"} counted
+         once, and the preflight probe and the check prepare the history
+         in one pass (the memo's lookups and stores counted);
+      e. `check_streamed(race=False)` over LINT_DIRECT keys on the card:
+         each verdict the host oracle's, `wgl32_chunk` launched, and the
+         run status's key count reset to the key count (`begin_keys`).
+
+    Any miss raises."""
+    import io
+    from collections import OrderedDict
+
+    from jepsen_tpu_torch import checker, fleet, metrics, synth
+    from jepsen_tpu_torch.analysis import history_lint
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import linprep, wgl_ref
+    from jepsen_tpu_torch.parallel import batched
+
+    class CountingMemo(OrderedDict):
+        """`linprep`'s memo with its lookups (prepare calls) and stores
+        (passes over a history) counted."""
+        gets = sets = 0
+
+        def get(self, key, default=None):
+            self.gets += 1
+            return super().get(key, default)
+
+        def __setitem__(self, key, value):
+            self.sets += 1
+            super().__setitem__(key, value)
+
+    t_step = time.monotonic()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = history_lint.main([])
+    cli = json.loads(out.getvalue())
+    print(f"  history_lint: main([]) exit {code}, {cli}", flush=True)
+    if code != 0 or cli != {"ok": True, "failures": []}:
+        raise AssertionError(f"history_lint.main: {code} {cli}")
+
+    # b. the model rules over the headline, clean and with one read
+    # outside the alphabet
+    head = synth.cas_register_history(**HEADLINE)
+    t0 = time.monotonic()
+    rep = history_lint.analyze(head, model=cas_register())
+    clean_s = time.monotonic() - t0
+    pos = next(i for i, op in enumerate(head)
+               if op.type == "ok" and op.f == "read" and op.value is not None)
+    inv = max(i for i in range(pos) if head[i].process == head[pos].process
+              and head[i].type == "invoke")
+    bad = type(head)([op.with_(value=LINT_OUTSIDE) if i == pos else op
+                      for i, op in enumerate(head)])
+    rep_bad = history_lint.analyze(bad, model=cas_register())
+    h006 = [a for a in rep_bad["anomalies"] if a["rule"] == "H006"]
+    print(f"  analyze(model=cas_register) over the headline "
+          f"({len(head)} ops, {clean_s:.3f} s): rule counts "
+          f"{rep['rule_counts']}; read at {pos} set to {LINT_OUTSIDE}: "
+          f"{rep_bad['rule_counts']}, H006 at op index "
+          f"{[a['op_index'] for a in h006]}, ok {rep_bad['ok']}", flush=True)
+    if rep["rule_counts"] or not rep["ok"] or rep_bad["ok"] is not True \
+            or [a["op_index"] for a in h006] != [head[inv].index] \
+            or set(rep_bad["rule_counts"]) != {"H006"}:
+        raise AssertionError(f"analyze: {rep}, {rep_bad}")
+
+    reg = metrics.Registry()
+    st = fleet.RunStatus(test="history-lint", progress=False)
+    lin = checker.linearizable(cas_register(), algorithm="cuda-wgl",
+                               device=dev)
+    with metrics.use(reg), fleet.use(st):
+        # c. a double invoke: the gate's diagnosis, no launch
+        i = next(i for i, op in enumerate(head) if op.type == "invoke")
+        dbl = type(head)(list(head)[:i + 1] + [head[i]]
+                         + list(head)[i + 1:]).index()
+        zero_counts()
+        t0 = time.monotonic()
+        res = lin.check({}, dbl, {})
+        mal_s = time.monotonic() - t0
+        mal_counts = read_counts()
+        checks = reg.counter("history_lint_checks_total")
+        pts = reg.series("history_lint").points
+        faults = [f for f in st.snapshot()["faults"]
+                  if f["type"] == "MalformedHistory"]
+        errs = [e for p in pts for e in telemetry_lint.lint_line(
+            {"type": "sample", "series": "history_lint", **p},
+            "history_lint")]
+        json.dumps(pts)
+        print(f"  malformed (H001) through cuda-wgl ({mal_s:.4f} s): "
+              f"{res['valid?']} / {res.get('cause')} "
+              f"{res.get('analyzer', {}).get('rule_counts')}; launches "
+              f"{sum(mal_counts.values())}; checks "
+              f"{checks.samples()}; {len(pts)} history_lint point(s), "
+              f"lint errors {errs}; faults {faults}", flush=True)
+        if (res["valid?"], res.get("cause")) != ("unknown",
+                                                 "malformed-history") \
+                or any(mal_counts.values()) \
+                or checks.value(where="checker.linearizable",
+                                verdict="malformed") != 1 \
+                or len(pts) != 1 or errs or len(faults) != 1 \
+                or faults[0]["stage"] != "history-lint/checker.linearizable":
+            raise AssertionError(f"malformed history: {res}, {mal_counts}, "
+                                 f"{checks.samples()}, {pts}, {faults}")
+
+        # d. the headline: counted clean once, prepared in one pass
+        memo = CountingMemo()
+        prev_memo = linprep._PREP_MEMO
+        linprep._PREP_MEMO = memo
+        try:
+            zero_counts()
+            t0 = time.monotonic()
+            res = lin.check({}, head, {})
+            torch.cuda.synchronize()
+            head_s = time.monotonic() - t0
+            head_counts = read_counts()
+        finally:
+            linprep._PREP_MEMO = prev_memo
+        print(f"  headline through cuda-wgl ({head_s:.4f} s): "
+              f"{res['valid?']}; prepare calls {memo.gets}, passes "
+              f"{memo.sets}; checks {checks.samples()}; launches "
+              f"{head_counts['wgl32_chunk']} wgl32_chunk", flush=True)
+        if res["valid?"] is not True or memo.gets != 2 or memo.sets != 1 \
+                or checks.value(where="checker.linearizable",
+                                verdict="clean") != 1 \
+                or head_counts["wgl32_chunk"] < 1:
+            raise AssertionError(f"headline: {res['valid?']}, {memo.gets} "
+                                 f"calls, {memo.sets} passes, "
+                                 f"{checks.samples()}, {head_counts}")
+
+        # e. the direct streamed call, the race off
+        keys = [synth.cas_register_history(
+            LINT_DIRECT["n_ops"], n_procs=LINT_DIRECT["n_procs"], seed=k,
+            crash_p=LINT_DIRECT["crash_p"])
+            for k in range(LINT_DIRECT["n_keys"])]
+        want = [wgl_ref.check(cas_register(), h)["valid?"] for h in keys]
+        st.begin_keys(99)
+        zero_counts()
+        t0 = time.monotonic()
+        out = batched.check_streamed(cas_register(), keys, race=False,
+                                     device=dev)
+        torch.cuda.synchronize()
+        direct_s = time.monotonic() - t0
+        direct_counts = read_counts()
+        got = [r["valid?"] for r in out]
+        engines = [r["shard"]["engine"] for r in out]
+        k = st.snapshot()["keys"]
+    print(f"  check_streamed(race=False) {LINT_DIRECT['n_keys']} keys x "
+          f"{LINT_DIRECT['n_ops']} on the card ({direct_s:.4f} s): {got} "
+          f"(oracle {want}), engines {engines}; launches "
+          f"{direct_counts['wgl32_chunk']} wgl32_chunk; run status keys "
+          f"total {k['total']} decided {k['decided']}", flush=True)
+    if got != want or direct_counts["wgl32_chunk"] < 1 \
+            or k["total"] != len(keys) or k["decided"] != len(keys):
+        raise AssertionError(f"direct streamed call: {got} (oracle {want}),"
+                             f" {direct_counts}, keys {k}")
+    print(f"  history_lint step: {time.monotonic() - t_step:.2f} s; "
+          f"wgl32_chunk launches: malformed {mal_counts['wgl32_chunk']}, "
+          f"headline {head_counts['wgl32_chunk']}, direct streamed "
+          f"{direct_counts['wgl32_chunk']}", flush=True)
 
 
 # ---- the harness for real nodes and toykv ------------------------------------

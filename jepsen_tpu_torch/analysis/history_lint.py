@@ -1,13 +1,14 @@
 """Pre-search history analyzer: well-formedness before the device burns.
 
-A copy of the JAX package's structural pass
-(`jepsen_tpu/analysis/history_lint.py`). WGL search is only sound on
-well-formed histories: a single process with two concurrent invokes or
-an unmatched completion silently corrupts the encoded tensors, and the
-device search then returns a confident garbage verdict. This pass runs
-before every search and turns that failure mode into a diagnosis.
+A copy of the JAX package's analyzer (`jepsen_tpu/analysis/history_lint.py`).
+WGL search (Lowe 2017) and Elle-style cycle search are only sound on
+well-formed histories: a single process with two concurrent invokes, an
+unmatched completion, or a value outside the encoded alphabet silently
+corrupts the arrays `ops/encode.py` builds, and the device search then
+returns a confident garbage verdict. This pass runs before every search
+and turns that failure mode into a diagnosis.
 
-Rules (the structural subset of the JAX package's catalog):
+Rule catalog:
 
   H001 double-invoke      a process invoked again while an op was
                           still outstanding
@@ -18,12 +19,31 @@ Rules (the structural subset of the JAX package's catalog):
   H004 negative-time      a timestamp below the -1 "unset" sentinel
   H005 index-disorder     duplicate or decreasing :index values; in
                           strict mode also gaps
+  H006 unknown-op         an op's (f, value) is rejected from EVERY
+                          model state reachable under the history's
+                          alphabet: the op can never linearize, which
+                          almost always means the value is outside the
+                          model's domain (requires `model=`)
   H007 crashed-pairing    ops by a process AFTER its :info crash, or an
                           :info completion with no pending invocation
                           (warn)
+  H008 encoding           the history/model cannot be encoded within
+                          kernel limits (`EncodingUnsupported`),
+                          surfaced with the offending op's coordinates
 
 Severities: "error" rules gate (fast-fail the checker as unknown);
 "warn" rules only report.
+
+Entry points:
+
+  analyze(history, model=None)  -> full report dict
+  gate(history, where=...)      -> None when clean, else a checker-
+                                   style {"valid?": "unknown", ...}
+                                   fast-fail result (recorded into the
+                                   ambient metrics/fleet planes)
+
+`python -m jepsen_tpu_torch.analysis.history_lint` runs `self_check`
+and prints its JSON (exit 0 when every rule fires where seeded).
 """
 
 from __future__ import annotations
@@ -43,10 +63,14 @@ RULES = {
     "H003": "time-regression",
     "H004": "negative-time",
     "H005": "index-disorder",
+    "H006": "unknown-op",
     "H007": "crashed-pairing",
+    "H008": "encoding",
 }
 
-# Rules that fast-fail a linearizability check.
+# Rules that fast-fail a linearizability check. H006/H008 need a model
+# and are advisory (an out-of-alphabet *read* is often a genuine
+# non-linearizable observation the search itself must judge).
 GATE_RULES = ("H001", "H002", "H003", "H004", "H005", "H007")
 
 # Elle histories legitimately omit invocations (the reference Elle
@@ -115,7 +139,7 @@ def lint_structure(history: History,
                    rules: Sequence[str] = tuple(RULES),
                    strict_index: bool = False) -> list:
     """The vectorized structural pass (H001-H005, H007). Returns a
-    list of Diagnostics."""
+    list of Diagnostics; model-dependent rules live in `lint_model`."""
     n = len(history)
     diags: list = []
     if n == 0:
@@ -219,22 +243,154 @@ def lint_structure(history: History,
     return diags
 
 
+
+
+def lint_model(history: History, model,
+               max_states: int = 1 << 14) -> list:
+    """Model-dependent rules (H006/H008): encode the history's op
+    alphabet against the model's reachable state space and flag ops no
+    reachable state accepts. Skipped silently when the structural pass
+    would already make `linprep.prepare` raise."""
+    from ..models.core import Model
+    from ..ops.encode import EncodingUnsupported, _hashable, build_table
+    from ..ops.linprep import prepare
+
+    diags: list = []
+    if model is None or not isinstance(model, Model):
+        return diags
+    try:
+        ops = prepare(history)
+    except ValueError:
+        return diags  # structural rules own this failure
+    if not ops:
+        return diags
+    key_of: dict = {}
+    alphabet: list = []
+    codes: list = []
+    for o in ops:
+        # the same alphabet key encode() uses, so H006 advisories
+        # classify ops exactly as the encoder will
+        k = (o.f, _hashable(o.value))
+        c = key_of.get(k)
+        if c is None:
+            c = key_of[k] = len(alphabet)
+            alphabet.append(o.as_op())
+        codes.append(c)
+    op_counts: dict = {}
+    for o in ops:
+        op_counts[o.f] = op_counts.get(o.f, 0) + 1
+    try:
+        table, _states = build_table(model, alphabet,
+                                     max_states=max_states,
+                                     op_counts=op_counts)
+    except EncodingUnsupported as e:
+        diags.append(Diagnostic(
+            rule="H008",
+            op_index=e.op_index if e.op_index is not None else -1,
+            position=-1, process=e.process, value=e.value,
+            message=f"encoding unsupported: {e}", severity="warn"))
+        return diags
+    dead = ~np.any(table >= 0, axis=0)  # column accepted by no state
+    flagged = 0
+    for o, c in zip(ops, codes):
+        if dead[c]:
+            flagged += 1
+            if flagged > MAX_PER_RULE:
+                continue
+            diags.append(Diagnostic(
+                rule="H006", op_index=o.orig_index, position=o.inv,
+                process=o.process, value=o.value, severity="warn",
+                message=f"op ({o.f!r}, {o.value!r}) is rejected from "
+                        "every reachable model state — value outside "
+                        "the model alphabet?"))
+    if flagged > MAX_PER_RULE:
+        diags.append(Diagnostic(
+            rule="H006", op_index=-1, position=-1, process=None,
+            severity="warn",
+            message=f"... and {flagged - MAX_PER_RULE} more "
+                    "unknown-op findings (suppressed)"))
+    return diags
+
+
+def analyze(history: History, model=None,
+            rules: Sequence[str] = tuple(RULES),
+            strict_index: bool = False) -> dict:
+    """Full analyzer report over `history`.
+
+    Returns {"ok": <no error-severity findings>, "valid":
+    True|"unknown", "anomalies": [diag dicts], "op_count", and
+    "rule_counts"}. `model` enables the H006/H008 alphabet rules."""
+    diags = lint_structure(history, rules=rules,
+                           strict_index=strict_index)
+    if model is not None and ("H006" in rules or "H008" in rules):
+        diags += lint_model(history, model)
+    counts: dict = {}
+    for d in diags:
+        counts[d.rule] = counts.get(d.rule, 0) + 1
+    errors = [d for d in diags if d.severity == "error"]
+    return {
+        "ok": not errors,
+        "valid": True if not errors else UNKNOWN,
+        "anomalies": [d.to_dict() for d in diags],
+        "op_count": len(history),
+        "rule_counts": counts,
+    }
+
+
 def gate(history: History, where: str = "checker",
-         rules: Sequence[str] = GATE_RULES) -> Optional[dict]:
+         rules: Sequence[str] = GATE_RULES,
+         metrics=None, status=None) -> Optional[dict]:
     """The checker-side fast-fail: run the structural gate rules and
     return None when the history is well-formed, else a checker-style
     result
 
         {"valid?": "unknown", "cause": "malformed-history",
          "anomalies": [...], "analyzer": {...}}
-    """
+
+    so `checker.Linearizable` / `elle.*` / `independent` can return a
+    diagnosis instead of spending device time on garbage arrays. The
+    verdict and findings are recorded into `metrics` (else the ambient
+    registry: the `history_lint` series and counters) and `status`
+    (else the live `fleet.RunStatus`)."""
+    from .. import fleet as _fleet
+    from .. import metrics as _metrics
+
     diags = [d for d in lint_structure(history, rules=rules)
              if d.severity == "error"]
+    mx = metrics if metrics is not None else _metrics.get_default()
     if not diags:
+        if mx.enabled:
+            mx.counter("history_lint_checks_total",
+                       "pre-search history analyzer runs").inc(
+                where=where, verdict="clean")
         return None
     counts: dict = {}
     for d in diags:
         counts[d.rule] = counts.get(d.rule, 0) + 1
+    if mx.enabled:
+        mx.counter("history_lint_checks_total",
+                   "pre-search history analyzer runs").inc(
+            where=where, verdict="malformed")
+        for rule, c in counts.items():
+            mx.counter("history_lint_anomalies_total",
+                       "structural anomalies found by the history "
+                       "analyzer").inc(c, rule=rule, where=where)
+        # JSON-safe copy: op values/processes can be arbitrary objects
+        # (KV tuples), and export_jsonl has no default=
+        first = {k: (v if isinstance(v, (str, int, float, bool,
+                                         type(None))) else repr(v))
+                 for k, v in diags[0].to_dict().items()}
+        mx.series("history_lint",
+                  "malformed-history gate events").append(
+            {"where": where, "op_count": len(history),
+             "rule_counts": counts, "first": first})
+    st = status if status is not None else _fleet.get_default()
+    if st.enabled:
+        st.fault({"type": "MalformedHistory",
+                  "error": f"{sum(counts.values())} anomalies "
+                           f"({', '.join(sorted(counts))}) "
+                           f"at {where}",
+                  "stage": f"history-lint/{where}"})
     return {
         "valid?": UNKNOWN,
         "cause": "malformed-history",
@@ -242,3 +398,59 @@ def gate(history: History, where: str = "checker",
         "analyzer": {"where": where, "op_count": len(history),
                      "rule_counts": counts},
     }
+
+
+def self_check() -> dict:
+    """Every gate rule must fire on its seeded malformed history and
+    stay silent on a clean one. Returns {"ok": bool, "failures": [...]};
+    run as a test and by the module's CLI."""
+    from ..history import info, invoke, ok
+
+    failures: list = []
+
+    def expect(name, hist, rule, should_fire=True):
+        rep = analyze(hist, rules=tuple(RULES), strict_index=False)
+        fired = rule in rep["rule_counts"]
+        if fired != should_fire:
+            failures.append(f"{name}: rule {rule} "
+                            f"{'missing' if should_fire else 'spurious'}")
+
+    clean = History([invoke(0, "write", 1, time=0),
+                     ok(0, "write", 1, time=1),
+                     invoke(1, "read", None, time=2),
+                     ok(1, "read", 1, time=3)]).index()
+    for r in GATE_RULES:
+        expect("clean", clean, r, should_fire=False)
+    expect("double-invoke",
+           History([invoke(0, "write", 1, time=0),
+                    invoke(0, "write", 2, time=1)]).index(), "H001")
+    expect("unmatched-complete",
+           History([ok(0, "write", 1, time=0)]).index(), "H002")
+    expect("time-regression",
+           History([invoke(0, "write", 1, time=5),
+                    ok(0, "write", 1, time=2)]).index(), "H003")
+    expect("negative-time",
+           History([invoke(0, "write", 1, time=-7)]).index(), "H004")
+    h = History([invoke(0, "write", 1, time=0),
+                 ok(0, "write", 1, time=1)])
+    h = History([op.with_(index=3) for op in h])
+    expect("index-disorder", h, "H005")
+    expect("crashed-pairing",
+           History([invoke(0, "write", 1, time=0),
+                    info(0, "write", 1, time=1),
+                    invoke(0, "write", 2, time=2)]).index(), "H007")
+    return {"ok": not failures, "failures": failures}
+
+
+def main(argv=None) -> int:
+    """The module's CLI: run `self_check`, print its JSON, exit 0 when
+    it is ok, else 1. Takes no arguments."""
+    import json
+    res = self_check()
+    print(json.dumps(res, indent=2))
+    return 0 if res["ok"] else 1
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())

@@ -8,8 +8,8 @@ The port keeps its own root (`DIR`, `~/.jepsen_tpu_torch/cache`): the
 warm plane's plan registry (`parallel/mesh.warm_plan`,
 `ops/aot.precompile_service_plan`) must never read a plan the JAX
 package recorded, which names XLA executables the port does not have.
-The reference's remote save/deploy helpers (they drive a cluster's
-nodes) are not copied."""
+`save_remote` and `deploy_remote` move a cached file to and from the
+node bound by the port's `control` (`control.download` / `upload`)."""
 
 from __future__ import annotations
 
@@ -136,6 +136,24 @@ def save_file(path: Sequence, local_file: str) -> str:
 def load_file(path: Sequence) -> Optional[str]:
     p = fs_path(path)
     return p if os.path.exists(p) else None
+
+
+def save_remote(path: Sequence, remote_path: str) -> str:
+    """Download a remote file into the cache (fs_cache.clj:246-258)."""
+    from . import control as c
+    p = fs_path(path)
+    os.makedirs(os.path.dirname(p), exist_ok=True)
+    c.download(remote_path, p)
+    return remote_path
+
+
+def deploy_remote(path: Sequence, remote_path: str) -> str:
+    """Upload a cached file to the bound node (fs_cache.clj:260-270)."""
+    from . import control as c
+    p = fs_path(path)
+    assert os.path.exists(p), f"nothing cached at {path!r}"
+    c.upload(p, remote_path)
+    return remote_path
 
 
 @contextmanager

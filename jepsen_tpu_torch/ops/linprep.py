@@ -21,6 +21,8 @@ reads acquire their observed value.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any
 
@@ -49,12 +51,44 @@ class LinOp:
                   value=self.value, index=idx)
 
 
+_PREP_MEMO: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PREP_LOCK = threading.Lock()
+# 2 entries: the memo exists for the gate-probe → admitted-check pair
+# (plus one concurrent neighbor); a bigger cap would only pin more
+# histories alive in a long-lived serve process
+_PREP_CAP = 2
+
+
+def clear_prepare_memo() -> None:
+    """Drop the bounded prepare memo (and the strong refs pinning its
+    histories): for long-lived processes between runs."""
+    with _PREP_LOCK:
+        _PREP_MEMO.clear()
+
+
 def prepare(history: History, crashed_read_fs=("read",)) -> list[LinOp]:
     """History -> list of LinOps ordered by invocation index.
 
     `crashed_read_fs` names op functions that are pure reads (droppable
     when crashed).
+
+    Memoized (bounded, identity-keyed): the preflight admission gate
+    probes a history's shapes immediately before the check it admits
+    prepares the same history again, so back-to-back callers share one
+    pass. The entry holds the history strongly so its id() cannot be
+    recycled while cached; a hit returns a fresh list (LinOps are
+    frozen, so sharing them is safe; the list itself is not). The
+    history is prepared outside the lock, so the lanes of a race that
+    read one history at once never wait on each other's pass.
     """
+    # len() in the key: History is append-only mutable, so a grown
+    # history must miss; the strong ref keeps id() from recycling
+    key = (id(history), len(history), tuple(crashed_read_fs))
+    with _PREP_LOCK:
+        hit = _PREP_MEMO.get(key)
+        if hit is not None and hit[0] is history:
+            _PREP_MEMO.move_to_end(key)
+            return list(hit[1])
     ops: list[LinOp] = []
     pending: dict[Any, tuple[int, Op]] = {}  # process -> (event idx, invoke op)
     for i, op in enumerate(history):
@@ -91,7 +125,11 @@ def prepare(history: History, crashed_read_fs=("read",)) -> list[LinOp]:
         ops.append(LinOp(inv.f, inv.value, False, inv_i, INF_TIME,
                          inv.process, orig_index=inv.index))
     ops.sort(key=lambda o: o.inv)
-    return ops
+    with _PREP_LOCK:
+        _PREP_MEMO[key] = (history, ops)
+        while len(_PREP_MEMO) > _PREP_CAP:
+            _PREP_MEMO.popitem(last=False)
+    return list(ops)
 
 
 def precedence_masks(ops: list[LinOp]) -> list[int]:

@@ -36,9 +36,7 @@ kernel's build or launch failure raises instead of becoming a per-key
 fault that the oracle then decides. A named device list does not pin
 the vmap path as the reference's explicit mesh does: the list is the
 mesh, and "auto" takes the mesh scheduler over it. Both paths admit
-through the preflight gate (`analysis/preflight.gate_fanout`). Not
-ported yet: the telemetry planes (fleet status, metrics series,
-watchdog, HBM block).
+through the preflight gate (`analysis/preflight.gate_fanout`).
 """
 
 from __future__ import annotations
@@ -242,6 +240,8 @@ def check_streamed(model: Model, histories: Sequence[History],
                    max_configs: int = 50_000_000,
                    oracle_fallback: bool = True,
                    encs: Optional[Sequence[Encoded]] = None,
+                   race: Optional[bool] = None,
+                   register_keys: bool = True,
                    key_indices: Optional[Sequence[int]] = None,
                    device=None, devices=None) -> list[dict]:
     """Per-key single-kernel checks over a device list
@@ -252,17 +252,37 @@ def check_streamed(model: Model, histories: Sequence[History],
     count), steals the smallest pending key off the heaviest queue when
     it runs dry, and between keys moves pending keys off the busiest
     device when the completed walls show work skew (`fleet.steal_plan`,
-    recorded as a "fleet_sched" event). On the card with
-    `oracle_fallback`, each key's device search races the host oracle
-    and the same search on the host kernel (`device@cpu`; the host is
-    otherwise idle); otherwise a device "unknown" goes to the oracle
-    afterwards. With `encs`, each kernel branch's keys share
-    one shape bucket (`shared_shape_bucket`). An exception of a worker
-    is raised once every worker has ended."""
+    recorded as a "fleet_sched" event).
+
+    `race=True` runs each key's device search against the host oracle
+    (`checker._race_competition`; on the card a third lane runs the same
+    search on the host kernel, `device@cpu`) and needs
+    `oracle_fallback`; `race=False` runs the device search alone, and
+    with `oracle_fallback` a device "unknown" goes to the oracle
+    afterwards. `race=None` races on the card when `oracle_fallback` is
+    set (the host is otherwise idle there), and on the CPU does not
+    (both engines would share its cores). With `register_keys` and more
+    than one key, the live `fleet.RunStatus` is told the key count
+    (`begin_keys`) before the admission gate; `check_batched`, which
+    registers its whole key set itself, passes False. With `encs`, each
+    kernel branch's keys share one shape bucket
+    (`shared_shape_bucket`). An exception of a worker is raised once
+    every worker has ended."""
+    if race and not oracle_fallback:
+        raise ValueError(
+            "race=True requires oracle_fallback (racing IS the oracle "
+            "running concurrently); pass race=False to see raw device "
+            "verdicts")
     devs = resolve_devices(devices, device)
-    race = oracle_fallback and devs[0].type == "cuda"
+    if race is None:
+        race = oracle_fallback and devs[0].type == "cuda"
     deadline = _time.monotonic() + time_limit if time_limit else None
     labels = _fleet.device_labels(devs)
+    status = _fleet.get_default()
+    # before the admission gate: begin_keys resets the decided count,
+    # and rejected keys close through their shards below
+    if status.enabled and register_keys and len(histories) > 1:
+        status.begin_keys(len(histories))
 
     def ki_of(i: int) -> int:
         return key_indices[i] if key_indices is not None else i
@@ -518,8 +538,8 @@ def check_batched(model: Model, histories: Sequence[History],
     if strategy == "stream":
         out = check_streamed(
             model, kept, time_limit=time_limit, max_configs=max_configs,
-            oracle_fallback=oracle_fallback, encs=encs, key_indices=keys,
-            devices=devs)
+            oracle_fallback=oracle_fallback, encs=encs,
+            register_keys=False, key_indices=keys, devices=devs)
     elif strategy == "vmap":
         # Admission preflight of the lane-batched kernel: every lane is
         # padded to the batch maxima and ceil(lanes / devices) lanes sit
@@ -534,7 +554,8 @@ def check_batched(model: Model, histories: Sequence[History],
             out = check_streamed(
                 model, kept, time_limit=time_limit,
                 max_configs=max_configs, oracle_fallback=oracle_fallback,
-                encs=encs, key_indices=keys, devices=devs)
+                encs=encs, register_keys=False, key_indices=keys,
+                devices=devs)
         else:
             out = _check_vmap(model, kept, encs, keys,
                               time_limit=time_limit,

@@ -428,12 +428,14 @@ def test_elle_series_match_reference(which, tmp_path):
             tledger.use(lt):
         b = tmod.check(to_port(h), cycle_backend="trim", device="cpu")
     assert a["valid?"] == b["valid?"]
-    names_j = set(_names(rj)) - {"history_lint_checks_total",
-                                 "ledger_records_total"}
+    names_j = set(_names(rj)) - {"ledger_records_total"}
     assert names_j == {"elle_build", "elle_closure",
                        "elle_closure_calls_total", "elle_closure_seconds",
-                       "preflight", "preflight_checks_total"}
+                       "history_lint_checks_total", "preflight",
+                       "preflight_checks_total"}
     assert names_j <= set(_names(rt))
+    assert rj.counter("history_lint_checks_total").samples() == \
+        rt.counter("history_lint_checks_total").samples()
     assert sorted(rj.series("elle_build").points[0]) == \
         sorted(rt.series("elle_build").points[0])
     ca, cb = rj.series("elle_closure").points, rt.series("elle_closure").points

@@ -105,6 +105,15 @@ Then Elle:
     `cycle_backend="trim"`, each held against `trim_ref`, in µs a peel
     beside the chain's floor (the peels times one measured
     barrier-and-reduce step, `elle_trim_step_probe`);
+  * the host trim (`elle_trim_host`, `csrc/elle_trim_host.cpp`, one
+    host core, built with the host compiler): the 3k list-append
+    history checked with `device="cpu"` (the CPU's main path: the route
+    picks the trim there), then CPU copies of the trim's inputs at the
+    3k append, the 3k wr, the 10k append and the 3k append with the
+    realtime thresholds off, each held against the `trim_ref` result
+    the card's trim was held against, timed with the host clock (median
+    of 3) beside the card's kernel and `trim_ref`, and bound by its
+    bytes at the host's copy rate;
   * the sharded closure (`elle_sharded_square`): every squaring of the
     10k closure with 1, 2 and 4 shards against `packed_square_ref`'s
     column blocks, the first at 2 shards timed beside its yardstick, then
@@ -292,6 +301,7 @@ turns in one call to time a change against its parent.
 """
 
 import contextlib
+import functools
 import json
 import multiprocessing
 import subprocess
@@ -1080,7 +1090,7 @@ def run_closures(g, dev, iters=None, snaps=None):
 
 def run_trim(g, dev):
     """The trim kernel and trim_ref on `g`'s inputs on the card:
-    (kernel out, err, plain seconds, inputs dict)."""
+    (kernel out, err, plain seconds, inputs dict, trim_ref out)."""
     from jepsen_tpu_torch.elle import tpu as etpu
 
     t = etpu.trim_inputs(g)
@@ -1091,7 +1101,7 @@ def run_trim(g, dev):
     t0 = time.monotonic()
     ref = etpu.trim_ref(*ins, **kw)
     torch.cuda.synchronize()
-    return got, outputs_err(got, ref), time.monotonic() - t0, t
+    return got, outputs_err(got, ref), time.monotonic() - t0, t, ref
 
 
 def trim_peel_us(t, dev, use_rt: bool) -> tuple:
@@ -1099,12 +1109,17 @@ def trim_peel_us(t, dev, use_rt: bool) -> tuple:
     realtime thresholds on or off (off: the same inputs reach another
     fixpoint): the median of 3 launches after a warm one, CUDA events
     around each launch (`Timed`), every one of the 4 launches held
-    against `trim_ref` with the same thresholds: (µs a peel, peels)."""
+    against `trim_ref` with the same thresholds: (µs a peel, peels,
+    trim_ref out, trim_ref ms, the kernel's median ms)."""
     from jepsen_tpu_torch.elle import tpu as etpu
 
     ins = on_card(t["arrays"], dev)
     kw = dict(p_pad=t["p_pad"], use_rt=use_rt, use_proc=t["use_proc"])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
     ref = etpu.trim_ref(*ins, **kw)
+    torch.cuda.synchronize()
+    ref_ms = (time.monotonic() - t0) * 1e3
     got = [etpu.trim(*ins, **kw)]
     with Timed() as tm:
         got += [etpu.trim(*ins, **kw) for _ in range(3)]
@@ -1113,7 +1128,38 @@ def trim_peel_us(t, dev, use_rt: bool) -> tuple:
         raise AssertionError(f"elle trim (realtime {use_rt}) differs from "
                              f"trim_ref: max abs err by launch {errs}")
     peels = 2 * got[0][2]
-    return float(np.median(tm.ms("elle_trim"))) * 1e3 / peels, peels
+    ms = float(np.median(tm.ms("elle_trim")))
+    return ms * 1e3 / peels, peels, ref, ref_ms, ms
+
+
+def host_trim_vs_ref(t, ref, use_rt: bool) -> dict:
+    """The host trim (`elle_trim_host`) on CPU copies of `t =
+    trim_inputs(g)`'s arrays with the realtime thresholds `use_rt`, held
+    against `ref`, the `trim_ref` result on the card for the same
+    inputs: one checked call, then three timed with the host clock, each
+    held too. Its bound: the bytes it must move (each input read once,
+    each output written once) at the host's copy rate."""
+    from jepsen_tpu_torch import occupancy
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    ins = [torch.from_numpy(np.ascontiguousarray(a)) for a in t["arrays"]]
+    kw = dict(p_pad=t["p_pad"], use_rt=use_rt, use_proc=t["use_proc"])
+    ref = [x.cpu() if torch.is_tensor(x) else x for x in ref]
+    got, times = [etpu.trim(*ins, **kw)], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got.append(etpu.trim(*ins, **kw))
+        times.append((time.perf_counter() - t0) * 1e3)
+    err = max(outputs_err(g, ref) for g in got)
+    if err:
+        raise AssertionError(f"host trim (n_pad {t['n_pad']}, realtime "
+                             f"{use_rt}) differs from trim_ref: max abs "
+                             f"err {err}")
+    nbytes = occupancy.trim_bytes(t["arrays"], t["n_pad"],
+                                  len(etpu.SUBSETS))
+    return {"ms": float(np.median(times)), "times": times, "err": err,
+            "bodies": got[0][2], "bytes": nbytes,
+            "bound_ms": nbytes / host_copy_rate() * 1e3}
 
 
 def elle_drive(check, hist, **kw):
@@ -1233,7 +1279,7 @@ def elle_phases(dev, host10, step_us: float, background) -> list:
     errs = {"elle_closure": 0, "elle_packed_closure": 0, "elle_trim": 0}
     for name, g in elle_graphs().items():
         _, err, perr, pderr, _, _, _ = run_closures(g, dev)
-        _, terr, _, _ = run_trim(g, dev)
+        _, terr, _, _, _ = run_trim(g, dev)
         errs["elle_closure"] = max(errs["elle_closure"], err)
         errs["elle_packed_closure"] = max(errs["elle_packed_closure"], perr,
                                           pderr)
@@ -1306,7 +1352,7 @@ def elle_phases(dev, host10, step_us: float, background) -> list:
         same_verdict(f"elle {kind} 3k trim vs host", rt_, host)
         ut = rt_["cycle-util"]
         trim_ms = tt.ms("elle_trim")
-        tgot, terr, tplain_s, ti = run_trim(gt, dev)
+        tgot, terr, tplain_s, ti, tref = run_trim(gt, dev)
         if terr or rt_.get("cycle-engine") != "trim" or \
                 counts_t["elle_trim"] < 1:
             raise AssertionError(f"elle {kind} 3k trim: err {terr}, "
@@ -1320,7 +1366,8 @@ def elle_phases(dev, host10, step_us: float, background) -> list:
               f"thresholds on / off (each its own fixpoint, medians of 3 "
               f"launches, every launch == trim_ref): "
               f"{rt_on[0]:.3f} us ({rt_on[1]} peels) / {rt_off[0]:.3f} us "
-              f"({rt_off[1]} peels)", flush=True)
+              f"({rt_off[1]} peels); trim_ref with them off "
+              f"{rt_off[3]:.1f} ms", flush=True)
         print(f"  trim on the card: valid? {rt_['valid?']} engine "
               f"{rt_['cycle-engine']} iters_run {ut['iters_run']} "
               f"({ut['iters_run'] // 2} bodies), launches {counts_t}, kernel "
@@ -1332,7 +1379,8 @@ def elle_phases(dev, host10, step_us: float, background) -> list:
                          timing=timing,
                          n_pad=n_pad, trim_ms=trim_ms, trim_counts=counts_t,
                          trim_plain_ms=tplain_s * 1e3, trim_inputs=ti,
-                         bodies=ut["iters_run"] // 2)
+                         bodies=ut["iters_run"] // 2, trim_ref=tref,
+                         rt_off=rt_off, hist=hist)
 
     # ---- invalid histories: device == host, G-single among them -------------
     for kind, hist in (
@@ -1380,7 +1428,7 @@ def elle_phases(dev, host10, step_us: float, background) -> list:
           f"{tt.ms('elle_trim')[0]:.4f} ms, wall {wall_t:.4f} s")
     same_verdict("elle append 10k packed vs trim", res, res_t)
     gt = builders["append"][2](h10)
-    _, terr10, tplain10_s, ti10 = run_trim(gt, dev)
+    _, terr10, tplain10_s, ti10, tref10 = run_trim(gt, dev)
     peels10 = res_t["cycle-util"]["iters_run"]
     t10_ms = tt.ms("elle_trim")[0]
     if terr10 or counts_t["elle_trim"] != 1 or \
@@ -1397,6 +1445,8 @@ def elle_phases(dev, host10, step_us: float, background) -> list:
           f"{peels10 * step_us / 1e3:.4f} ms", flush=True)
     Peaks.add("elle append 10k packed", gates10, peak10,
               elle_plan(gt, "auto", [dev]))
+    host_trim_entry = host_trim_phase(out, ti10, tref10, t10_ms,
+                                      tplain10_s * 1e3)
     a = etpu.closure_inputs(gt, packed=True)
     p = on_card(a["args"], dev)
     n, W = a["n_pad"], a["n_pad"] // 32
@@ -1737,7 +1787,67 @@ def elle_phases(dev, host10, step_us: float, background) -> list:
         "max_abs_err": errs["elle_trim"], "ms": d["trim_ms"][0],
         "plain_ms": d["trim_plain_ms"], "bound_ms": t_bound,
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
-        "library_ms": None}, sharded_entry]
+        "library_ms": None}, sharded_entry, host_trim_entry]
+
+
+def host_trim_phase(out, ti10, tref10, t10_ms: float,
+                    plain10_ms: float) -> dict:
+    """The host trim (`csrc/elle_trim_host.cpp`) inside `elle_phases`:
+    the 3k list-append history checked with `device="cpu"` (the CPU's
+    main path: the route takes the device engine and the trim; the host
+    trim's count at 0 just before, read just after), then the kernel on
+    CPU copies of the card's trim inputs at the 3k append, the 3k wr,
+    the 10k append and the 3k append with the realtime thresholds off,
+    each held against the `trim_ref` result the card's kernel was held
+    against (`out` from the 3k cells, `ti10` / `tref10` the 10k's).
+    Returns the kernels line's entry."""
+    from jepsen_tpu_torch.elle import append
+    from jepsen_tpu_torch.elle import tpu as etpu
+
+    d = out["append"]
+    etpu.trim.host_calls = 0
+    t0 = time.monotonic()
+    res = append.check(d["hist"], additional_graphs=RT,
+                       cycle_backend="auto", device="cpu")
+    wall = time.monotonic() - t0
+    calls = etpu.trim.host_calls
+    u = res.get("cycle-util") or {}
+    print(f"elle host trim ({host_cpu_line()}): append 3k with "
+          f"device=\"cpu\": valid? {res['valid?']} engine "
+          f"{res.get('cycle-engine')} kernel {u.get('kernel')} iters_run "
+          f"{u.get('iters_run')}, host trim calls {calls}, wall "
+          f"{wall:.4f} s (kernel_s {u.get('kernel_s')})", flush=True)
+    if (res.get("cycle-engine") != "device" or u.get("kernel") != "trim"
+            or calls != 1 or res["valid?"] != d["res"]["valid?"]):
+        raise AssertionError(f"elle append 3k on the CPU: {res['valid?']} "
+                             f"{res.get('cycle-engine')} {u}, {calls} "
+                             "host trim calls")
+    shapes = (
+        ("append 3k", d["trim_inputs"], d["trim_ref"], True,
+         d["trim_ms"][0], d["trim_plain_ms"]),
+        ("wr 3k", out["wr"]["trim_inputs"], out["wr"]["trim_ref"], True,
+         out["wr"]["trim_ms"][0], out["wr"]["trim_plain_ms"]),
+        ("append 10k", ti10, tref10, True, t10_ms, plain10_ms),
+        ("append 3k, realtime off", d["trim_inputs"], d["rt_off"][2],
+         False, d["rt_off"][4], d["rt_off"][3]))
+    rows = {}
+    for label, t, ref, use_rt, card_ms, plain_ms in shapes:
+        r = host_trim_vs_ref(t, ref, use_rt)
+        rows[label] = r
+        print(f"  {label} (n_pad {t['n_pad']}, {r['bodies']} bodies): host "
+              f"trim {[round(x, 4) for x in r['times']]} ms, median "
+              f"{r['ms']:.4f} ms; == trim_ref (live planes, every count "
+              f"row, bodies); the card's kernel {card_ms:.4f} ms, trim_ref "
+              f"{plain_ms:.1f} ms (on the card); bound {r['bytes']} B at "
+              f"the copy rate = {r['bound_ms']:.6f} ms", flush=True)
+    a = rows["append 3k"]
+    return {
+        "name": "elle_trim_host", "route": "cuda", "platform": "cpu",
+        "source": "jepsen_tpu_torch/csrc/elle_trim_host.cpp",
+        "replaces": "jepsen_tpu/elle/tpu.py:899", "launches": calls,
+        "max_abs_err": max(r["err"] for r in rows.values()),
+        "ms": a["ms"], "plain_ms": d["trim_plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes", "library_ms": None}
 
 
 def bitmm_rates(dev, iters: int = 4000) -> dict:
@@ -2159,10 +2269,11 @@ def host_cpu_line() -> str:
             f"{os.cpu_count()}")
 
 
+@functools.lru_cache(maxsize=None)
 def host_copy_rate() -> float:
     """Bytes a second a numpy copy of HOST_COPY_BYTES moves on the host
     (each byte read once and written once: 2 x HOST_COPY_BYTES), the
-    best of three."""
+    best of three; measured once a process."""
     src = np.ones(HOST_COPY_BYTES, np.uint8)
     dst = np.empty_like(src)
     best = float("inf")

@@ -13,9 +13,10 @@ time it needs a kernel (`ops/_native.py` reports each through
   * a **load**: one `ctypes` load of a kernel library (`_load`);
   * a **bind**: an entry point's first binding in the process (`_lib`,
     `_host_bind`);
-  * a **host_build**: one host-compiler run of the host kernel's source
-    (`build_host`), a CPU tensor's first chunk where it is not on disk;
-  * a **host_load**: one `ctypes` load of the host kernel's library.
+  * a **host_build**: one host-compiler run of a host kernel's source
+    (`build_host`: `wgl_host.cpp` at a CPU tensor's first chunk,
+    `elle_trim_host.cpp` at its first trim), where it is not on disk;
+  * a **host_load**: one `ctypes` load of a host kernel's library.
 
 `compiles` is their sum; `builds`, `loads`, `binds`, `host_builds` and
 `host_loads` count each.

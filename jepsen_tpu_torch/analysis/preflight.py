@@ -263,9 +263,10 @@ def _lower_wgl_node(enc, kern: str, *, K, H, B, probes, W_eff, ic_eff, L,
 def _cold_modules(kernels, platform: str) -> list:
     """The kernel sources a plan would build with nvcc that this process
     has neither loaded nor found built on disk (`ops/_native`). A plan
-    for the CPU builds no nvcc module: it runs the host kernel, whose
-    one build with the host compiler P003 does not bill (the reference
-    bills no `device@cpu` lane either)."""
+    for the CPU builds no nvcc module: it runs the host kernels (the WGL
+    chunk's, Elle's trim), whose one build each with the host compiler
+    P003 does not bill (the reference bills no `device@cpu` lane
+    either)."""
     if platform != "cuda":
         return []
     from ..ops import _native
@@ -691,8 +692,9 @@ def plan_elle(*, n_txns: int, edges: Optional[int] = None,
             d = min(elle_tpu.TRIM_MAX_DEGREE, elle_tpu._bucket(max(4, e)))
             inputs = occupancy.trim_input_bytes(n_pad_t, d, d, n_sub)
         else:
-            # on the CPU (the plain trim_ref) the reference's estimate,
-            # padded neighbor gathers at the mean degree
+            # on the CPU (the host trim, csrc/elle_trim_host.cpp) the
+            # reference's estimate, padded neighbor gathers at the mean
+            # degree
             d = elle_tpu._bucket(max(4, (2 * e) // max(n, 1)))
             inputs = int(3 * n_pad_t * d * n_sub * 4)
         hbm = inputs + occupancy.trim_alloc_bytes(n_pad_t, 2 * e, n_sub,

@@ -169,10 +169,13 @@ def _check_closure_inputs(name, tensors, n_pad):
 def _check_range(name: str, t: torch.Tensor, hi: int) -> None:
     """Indices a kernel dereferences must lie in [0, hi). On the card the
     two reads are copies, reported to the compile guard as
-    "elle-arg-check"."""
+    "elle-arg-check". A CPU tensor is read through numpy, on this
+    thread: torch's reductions there wake its thread pool, whose workers
+    then spin beside the host kernel that follows."""
     if not t.numel():
         return
-    lo, top = int(t.min()), int(t.max())
+    a = t if t.is_cuda else t.numpy()
+    lo, top = int(a.min()), int(a.max())
     if t.is_cuda:
         from ..analysis import guards
         guards.note_transfer("d2h", 4, what="elle-arg-check")
@@ -885,15 +888,13 @@ def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
     """The trim fixpoint (see `trim_ref`). CUDA tensors run the
     `elle_trim` kernel (one launch per call, counted in
     `trim.launches`; the whole fixpoint runs on the device); CPU tensors
-    run `trim_ref`."""
+    run the host kernel `elle_trim_host` (`csrc/elle_trim_host.cpp`, one
+    call, counted in `trim.host_calls`)."""
     dev = live0.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"elle trim: unsupported device {dev}")
     args = (in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc,
             ppos, live0)
-    if dev.type == "cpu":
-        return trim_ref(*args, p_pad=p_pad, use_rt=use_rt,
-                        use_proc=use_proc, counts_rows=counts_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"elle trim: unsupported device {dev}")
     n_pad, S = live0.shape
     d_in, d_out = in_neigh.shape[1], out_neigh.shape[1]
     want = ((n_pad, d_in), (n_pad, d_in, S), (n_pad, d_out),
@@ -916,37 +917,46 @@ def trim(in_neigh, in_mask, out_neigh, out_mask, inv_e, comp_e, proc, ppos,
             p_pad < 1 or counts_rows < 1:
         raise ValueError(f"elle trim: n_pad={n_pad} p_pad={p_pad} "
                          f"counts_rows={counts_rows} out of range")
-    from ..analysis import guards
-
     _check_range("elle trim", in_neigh, n_pad)
     _check_range("elle trim", out_neigh, n_pad)
     _check_range("elle trim", proc, p_pad)
-    with torch.cuda.device(dev):
-        live = torch.empty_like(live0)
-        counts = torch.empty((counts_rows, S), dtype=torch.int32,
-                             device=dev)
-        bodies = torch.empty((), dtype=torch.int32, device=dev)
-        # the transposes hold one entry a masked slot
-        # kernellint: ok(K001) — the masked slots size the scratch
-        slots = int(in_mask.any(dim=2).sum()) + int(
-            out_mask.any(dim=2).sum())
-        guards.note_transfer("d2h", 8, what="elle-arg-check")
-        # [ticket, bodies per subset] zeroed; the rest the kernel writes
-        scratch = torch.empty(trim_scratch_words(n_pad, slots, S, p_pad,
-                                                 use_proc),
-                              dtype=torch.int32, device=dev)
-        scratch[:1 + S].zero_()
-        _launch("elle_trim", args + (live, counts, bodies, scratch),
-                (n_pad, d_in, d_out, S, p_pad, int(use_rt), int(use_proc),
-                 counts_rows, slots), dev)
-        _count(trim)
-    # the body count's read (the reference reads it uncounted)
-    guards.note_transfer("d2h", 4, what="elle-trim-bodies")
+    ints = (n_pad, d_in, d_out, S, p_pad, int(use_rt), int(use_proc),
+            counts_rows)
+    live = torch.empty_like(live0)
+    counts = torch.empty((counts_rows, S), dtype=torch.int32, device=dev)
+    bodies = torch.empty((), dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        from ..ops import _native
+
+        _native.host_call("elle_trim_host", [
+            t.data_ptr() for t in args + (live, counts, bodies)], ints)
+        trim.host_calls += 1
+    else:
+        from ..analysis import guards
+
+        with torch.cuda.device(dev):
+            # the transposes hold one entry a masked slot
+            # kernellint: ok(K001) — the masked slots size the scratch
+            slots = int(in_mask.any(dim=2).sum()) + int(
+                out_mask.any(dim=2).sum())
+            guards.note_transfer("d2h", 8, what="elle-arg-check")
+            # [ticket, bodies per subset] zeroed; the rest the kernel
+            # writes
+            scratch = torch.empty(trim_scratch_words(n_pad, slots, S, p_pad,
+                                                     use_proc),
+                                  dtype=torch.int32, device=dev)
+            scratch[:1 + S].zero_()
+            _launch("elle_trim", args + (live, counts, bodies, scratch),
+                    ints + (slots,), dev)
+            _count(trim)
+        # the body count's read (the reference reads it uncounted)
+        guards.note_transfer("d2h", 4, what="elle-trim-bodies")
     # kernellint: ok(K001) — the bodies count the result reports
     return live, counts, int(bodies)
 
 
 trim.launches = 0
+trim.host_calls = 0
 
 
 # -- host halves -------------------------------------------------------------

@@ -9,10 +9,11 @@ loaded. Nothing here includes PyTorch's headers (a build that does
 takes minutes); pointers and the stream cross as plain integers.
 
 Every `.cpp` source there (`wgl_host.cpp`: the WGL chunk on one host
-core, for CPU tensors) is compiled the same way by the host compiler
-(`c++` or `g++`, `HOST_FLAGS`) into the same directory, under a hash of
-its own: a host build needs no `nvcc`, and a CUDA build no host
-library. Its entry points (`HOST_KERNELS`) are bound with
+core; `elle_trim_host.cpp`: Elle's trim on one host core; both for CPU
+tensors) is compiled the same way by the host compiler (`c++` or `g++`,
+`HOST_FLAGS`) into the same directory, each under a hash of its own
+source: a host build needs no `nvcc`, and a CUDA build no host
+library. Their entry points (`HOST_KERNELS`) are bound with
 `ctypes.CDLL`, which releases the GIL for the length of a call.
 
 The compilers and `ctypes` are reached only from the first call, so
@@ -24,7 +25,7 @@ Each of those first-use costs reports to the compile guard
 compiles (with its nvcc seconds), one "load" per library `_load` opens
 (`constant` loads through it), one "bind" per entry point `_lib` binds;
 the host library's build and load are a "host_build" and a
-"host_load", its entry points' binds "bind"s. The bound paths
+"host_load", their entry points' binds "bind"s. The bound paths
 (`launch`, `host_call` after the first) report nothing.
 """
 
@@ -258,19 +259,22 @@ def launch(name: str, ptrs, ints, stream) -> None:
 
 # The host entry points, by function name: (source stem under csrc/,
 # host pointers, int32 scalars). Each returns 0 or an error code, which
-# `wgl_host_error_string` names. The solo chunk's pointers end with a
+# its library's `<stem>_error_string` names. The solo chunk's pointers end with a
 # cancel word (or null: ops/wgl32.py::CancelFlag), its ints are K, W, L,
 # ic, H, B, rounds, probes, n_pad, S, O, n_ok, n_info, max_cfg; the
 # batched chunk's pointers end with the lanes' n_ok, n_info and max_cfg,
 # its ints are K, W, L, ic, H, B, rounds, probes, n_pad, S, O, lanes
-# (ops/wgl32.py::host_chunk, host_chunk_batched).
+# (ops/wgl32.py::host_chunk, host_chunk_batched). The trim's pointers
+# are trim_ref's nine inputs, then live, counts and bodies; its ints
+# n_pad, d_in, d_out, S, p_pad, use_rt, use_proc, counts_rows
+# (elle/tpu.py::trim).
 HOST_KERNELS = {
     "wgl32_host_chunk": ("wgl_host", 14, 14),
     "wgln_host_chunk": ("wgl_host", 14, 14),
     "wgl32_host_chunk_batched": ("wgl_host", 16, 12),
     "wgln_host_chunk_batched": ("wgl_host", 16, 12),
+    "elle_trim_host": ("elle_trim_host", 12, 8),
 }
-HOST_ERROR = "wgl_host_error_string"
 
 
 def _host_cxx() -> str:
@@ -279,23 +283,26 @@ def _host_cxx() -> str:
         if cand:
             return cand
     raise RuntimeError("no host C++ compiler (c++ or g++) found: the host "
-                       "WGL kernel is built from source")
+                       "kernels are built from source")
 
 
 def _host_lib_path(src: Path) -> Path:
+    # a host source includes nothing of the others: its own hash
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cpp")):
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
     h.update(" ".join(HOST_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_host() -> dict:
-    """Build every host source whose library is not on disk yet, one
-    host-compiler run per source, all started together. Returns {name:
-    None when already built, else {source, seconds}}."""
-    return _build(sorted(CSRC.glob("*.cpp")), _host_lib_path,
+def build_host(stems=None) -> dict:
+    """Build every host source (or those of `stems`) whose library is
+    not on disk yet, one host-compiler run per source, all started
+    together. Returns {name: None when already built, else {source,
+    seconds}}."""
+    sources = sorted(CSRC.glob("*.cpp")) if stems is None else [
+        CSRC / f"{s}.cpp" for s in stems]
+    return _build(sources, _host_lib_path,
                   lambda src, out: [_host_cxx(), *HOST_FLAGS, "-o",
                                     str(out), str(src)],
                   "host_build", "the host compiler")
@@ -314,7 +321,7 @@ def _host_bind(name: str):
         if name not in _LIBS:
             path = _host_lib_path(CSRC / f"{stem}.cpp")
             if not path.exists():
-                build_host()
+                build_host([stem])
             t0 = time.monotonic()
             lib = ctypes.CDLL(str(path))
             guards.note_compile("host_load", time.monotonic() - t0, stem)
@@ -322,7 +329,7 @@ def _host_bind(name: str):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
             fn.restype = ctypes.c_int
-            err = getattr(lib, HOST_ERROR)
+            err = getattr(lib, f"{stem}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _LIBS[name] = (fn, err, n_ptrs, n_ints)

@@ -6,9 +6,10 @@ the `nvcc` build of a kernel source, the `ctypes` load of its library,
 each entry point's first bind (all three counted by
 `analysis/guards.CompileGuard`), the lazy load of each kernel form onto
 the card at its first launch, and the caching allocator's first
-segments; on the CPU, the host compiler's build of the host kernel
-(`csrc/wgl_host.cpp`), its load and binds (a "host_build", a
-"host_load" and "bind"s to the guard). Every function below pays them ahead of traffic by launching,
+segments; on the CPU, the host compiler's build of the host kernels
+(`csrc/wgl_host.cpp`, `csrc/elle_trim_host.cpp`: the Elle warm's trim),
+their loads and binds (a "host_build", a "host_load" and a "bind" each
+to the guard). Every function below pays them ahead of traffic by launching,
 once, each kernel a check over one shape bucket may launch, through the
 same wrappers and the same launch-form pick as that check. A build or
 launch failure raises: a warm never hides a missing kernel.

@@ -364,11 +364,14 @@ def test_shape_buckets_match_jax(name):
                           t["use_rt"], t["use_proc"])
 
 
-def test_cpu_tensors_take_the_plain_version():
+def test_cpu_tensors_run_the_host_trim():
+    """CPU tensors run the host kernel (`csrc/elle_trim_host.cpp`): one
+    host call, no card launch."""
     t = ttpu.trim_inputs(CASES["wr-stale"]())
-    before = ttpu.trim.launches
+    launches, calls = ttpu.trim.launches, ttpu.trim.host_calls
     assert_same(port_trim(t, fn=ttpu.trim), jax_trim(t))
-    assert ttpu.trim.launches == before
+    assert ttpu.trim.host_calls == calls + 1
+    assert ttpu.trim.launches == launches
 
 
 # --- on the card ------------------------------------------------------------

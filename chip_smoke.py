@@ -53,7 +53,13 @@ the per-key fan-out:
     oracle's, the oracle run per key in a process pool);
   * wide lanes (`wgln_chunk_batched`): 8 adversarial-wave keys (window
     37) through `parallel.check_batched(strategy="vmap")`, every key
-    False after the JAX package's config count;
+    False after the JAX package's config count. Before it, the kernel's
+    one-CTA form against its cluster form (one thread-block cluster of
+    g CTAs a lane) at each g the card holds, in turns, bit-identical;
+    two mesh shards' cluster polls on two streams at once, each
+    identical to its run alone; and 12 random wide batches (2-16 lanes,
+    valid and invalid keys) through `check_batched` in the rule's forms
+    and held to one CTA a lane, verdicts and configs equal;
   * stream: 3 keys through `check_batched`'s "auto" (fewer than 4 keys
     stream on the card, through `wgl32_chunk`, each racing the host
     oracle; each engine's end is timed per key), the same keys without
@@ -652,6 +658,8 @@ def form_label(form) -> str:
         return f"grid (<= {form.blocks} blocks of {form.threads})"
     if form.name == "shared":
         return f"shared ({form.threads} threads, {form.smem} B)"
+    if form.name == "cluster":
+        return f"cluster ({form.blocks} CTAs of {form.threads} a lane)"
     return f"global ({form.threads} threads)"
 
 
@@ -2549,6 +2557,161 @@ def await_headline_oracle(oracle, verdict, limit_s: float = 240.0) -> None:
                              f"{verdict}")
 
 
+# the random wide batches held equal between the batched kernel's two
+# forms: lanes, waves, width, span (each an inclusive range) and the
+# share of invalid keys
+WIDE_RANDOM = dict(batches=12, seed=32, lanes=(2, 16), waves=(0, 1),
+                   width=(9, 13), span=(4, 5), invalid_p=0.4)
+
+
+def wide_form_turns(dev, consts, start, kw) -> None:
+    """The wide lane-batched chunk (`wgln_chunk_batched`) from `start`:
+    one CTA a lane (`block_form`) against the cluster form at each g the
+    card holds, in turns (a, b, b, a), every pair bit-identical, after
+    one untimed launch of each form; prints each form's us a round (the
+    lanes run side by side: a lane's round) and the form the rule
+    picks."""
+    from jepsen_tpu_torch.ops import wgl32, wgln
+
+    K, L, ic = kw["K"], kw["L"], kw["ic"]
+    sms, cap = wgln.card_shape(dev)
+    one = wgl32.block_form(K, 32 * L, ic, wgln.row_words(L, ic))
+    forms = [one] + [wgl32.Form("cluster", wgl32.MAX_THREADS, g)
+                     for g in (2, 4, 8, 16) if cap[g] >= 1]
+
+    def run(c, f):
+        return wgl32.launch_batched(
+            "wgln_chunk_batched", consts, c, K=K, W=32 * L, L=L, ic=ic,
+            H=kw["H"], B=kw["B"], rounds=kw["chunk"], probes=kw["probes"],
+            form=f)
+
+    for f in forms:
+        run(tuple(t.clone() for t in start), f)
+    times, rounds, _ = form_turns(run, start, forms)
+    pick = wgln.batched_form(consts.lanes, K, L, ic, sms=sms, capacity=cap)
+    print(f"  wgln_chunk_batched forms in turns (a, b, b, a), "
+          f"{consts.lanes} lanes, K {K}, L {L}, R {K * (32 * L + ic)} a "
+          f"lane, {rounds} rounds, each pair bit-identical ({card_line()}; "
+          f"{sms} SMs, clusters resident at once {cap}): "
+          + "; ".join(f"{k} {[round(x, 4) for x in v]} ms = "
+                      f"{float(np.mean(v)) * 1e3 / max(rounds, 1):.2f} "
+                      f"us/round" for k, v in times.items())
+          + f"; the rule picks {form_label(pick)}", flush=True)
+
+
+def wide_form_random(dev) -> None:
+    """WIDE_RANDOM's fixed-seed wide batches (valid and invalid wave
+    keys of random widths and spans) through `check_batched` on the
+    card, each twice: in the forms `wgln.batched_form` picks, then with
+    the rule held to one CTA a lane (patched for that run); verdicts,
+    configs and rounds equal key by key. Fails unless the first runs
+    launched the cluster form and the second never did."""
+    from jepsen_tpu_torch import synth
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import wgl32, wgln
+    from jepsen_tpu_torch.parallel import batched
+
+    r = WIDE_RANDOM
+    rng = np.random.default_rng(r["seed"])
+    rule = wgln.batched_form
+
+    def one_cta(lanes, K, L, ic, **kw):
+        return wgl32.block_form(K, 32 * L, ic, wgln.row_words(L, ic))
+
+    t0 = time.monotonic()
+    shapes, forms = [], {"rule": {}, "one CTA": {}}
+    for i in range(r["batches"]):
+        lanes = int(rng.integers(r["lanes"][0], r["lanes"][1] + 1))
+        hists = []
+        for _ in range(lanes):
+            span = int(rng.integers(r["span"][0], r["span"][1] + 1))
+            hists.append(synth.adversarial_wave_history(
+                span + int(rng.integers(r["waves"][0], r["waves"][1] + 1)),
+                width=int(rng.integers(r["width"][0], r["width"][1] + 1)),
+                span=span, seed=int(rng.integers(1 << 30)),
+                invalid=bool(rng.random() < r["invalid_p"])))
+        outs = {}
+        for name in ("rule", "one CTA"):
+            wgln.batched_form = rule if name == "rule" else one_cta
+            try:
+                with Timed() as t:
+                    res = batched.check_batched(
+                        cas_register(), hists, strategy="vmap",
+                        oracle_fallback=False, chunk=FANOUT_WAVE["chunk"])
+            finally:
+                wgln.batched_form = rule
+            for f, n in t.form_counts("wgln_chunk_batched").items():
+                forms[name][f] = forms[name].get(f, 0) + n
+            outs[name] = [(x["valid?"], x["configs_explored"],
+                           x["util"]["rounds"]) for x in res]
+        if outs["rule"] != outs["one CTA"]:
+            raise AssertionError(f"random wide batch {i} ({lanes} lanes): "
+                                 f"{outs['rule']} != {outs['one CTA']}")
+        shapes.append((lanes, sum(v is False for v, _, _ in outs["rule"]),
+                       sum(c for _, c, _ in outs["rule"])))
+    wall = time.monotonic() - t0
+    print(f"  {r['batches']} random wide batches (seed {r['seed']}; lanes, "
+          f"invalid keys, configs: {shapes}) through check_batched, the "
+          f"rule's forms against one CTA a lane: verdicts, configs and "
+          f"rounds equal key by key; forms {json.dumps(forms)}; "
+          f"{wall:.2f} s", flush=True)
+    if (not any(f.startswith("cluster") for f in forms["rule"])
+            or any(f.startswith("cluster") for f in forms["one CTA"])):
+        raise AssertionError(f"random wide batches: forms {forms}")
+
+
+def wide_cluster_streams(dev, consts, start, kw) -> None:
+    """Two mesh shards' wide polls (lanes 0-1 and 2-3 of the batch, in
+    the cluster form the rule picks for 2 lanes) on two streams of the
+    card at once, twice, each bit-identical to its run alone."""
+    from jepsen_tpu_torch.ops import wgl32, wgln
+
+    K, L, ic = kw["K"], kw["L"], kw["ic"]
+    sms, cap = wgln.card_shape(dev)
+    form = wgln.batched_form(2, K, L, ic, sms=sms, capacity=cap)
+    if form.name != "cluster":
+        raise AssertionError(f"2 wide lanes at K {K}: {form}")
+    shards = [lanes_of(consts, start, idx) for idx in ([0, 1], [2, 3])]
+
+    def run(sc, carry):
+        return wgl32.launch_batched(
+            "wgln_chunk_batched", sc, carry, K=K, W=32 * L, L=L, ic=ic,
+            H=kw["H"], B=kw["B"], rounds=kw["chunk"], probes=kw["probes"],
+            form=form)
+
+    alone = []
+    for sc, st in shards:
+        c = tuple(t.clone() for t in st)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        summary = run(sc, c)
+        e1.record()
+        torch.cuda.synchronize()
+        alone.append((c, summary, e0.elapsed_time(e1)))
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for turn in range(2):
+        carries = [tuple(t.clone() for t in st) for _, st in shards]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = []
+        for (sc, _), carry, stream in zip(shards, carries, streams):
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(1_000_000)
+                outs.append(run(sc, carry))
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        for (want, want_s, _), carry, summary in zip(alone, carries, outs):
+            if not (same_carry(carry, want) and torch.equal(summary, want_s)):
+                raise AssertionError("a cluster poll on two streams differs "
+                                     "from the poll run alone")
+    print(f"  two mesh shards' wide polls (2 lanes each, K {K}, "
+          f"{form_label(form)}) on two streams at once, twice: both "
+          f"identical to the poll alone each time; the second pair "
+          f"{wall_ms:.3f} ms (host clock, a ~0.5 ms spin before each "
+          f"included), alone {[round(a[2], 3) for a in alone]} ms (events)",
+          flush=True)
+
+
 def fanout_phases(dev) -> list:
     """The per-key fan-out on the card: both lane-batched kernels against
     their plain versions at the main paths' shapes, then the main paths
@@ -2760,6 +2923,9 @@ def fanout_phases(dev) -> list:
     wsum2, _, _, err = kernel_vs_plain(wgln, wconsts, carry, **wkw)
     w_err = max(w_err, err)
     w_ms, w_times = kernel_ms(wgln, wconsts, wstart, **wkw)
+    sms, cap = wgln.card_shape(dev)
+    wform = wgln.batched_form(w["n_keys"], wplan["K"], wplan["L"],
+                              wplan["ic"], sms=sms, capacity=cap)
     w_bytes = occupancy.batched_chunk_bytes(wsum[:, :11].tolist(), wC,
                                             wtally, wsum.shape[0],
                                             wsum.numel())
@@ -2772,7 +2938,10 @@ def fanout_phases(dev) -> list:
           f"({wtally['const_bytes']} of consts reached, "
           f"{int(wsum[:, 4].sum())} configs expanded, {wtally['probed']} "
           f"successors probed, {int(wsum[:, 8].sum())} new) = "
-          f"{w_bound_ms:.6f} ms", flush=True)
+          f"{w_bound_ms:.6f} ms; form {form_label(wform)}", flush=True)
+    wide_form_turns(dev, wconsts, wstart, wkw)
+    wide_cluster_streams(dev, wconsts, wstart, wkw)
+    wide_form_random(dev)
     del wstart, carry
 
     # ---- main path, narrow: 100 keys through independent.cuda_checker ----
@@ -2836,7 +3005,8 @@ def fanout_phases(dev) -> list:
     w_launches = counts["wgln_chunk_batched"]
     print(f"main path, wide fan-out: verdicts {[r['valid?'] for r in res]} "
           f"wall {wall:.4f} s ({split_line(wall, host, wk_ms)}; "
-          f"{w_launches} polls: {[round(x, 2) for x in wk_ms]} ms, forms "
+          f"{w_launches} polls: {[round(x, 2) for x in wk_ms]} ms, summed "
+          f"{sum(wk_ms):.3f} ms, forms "
           f"{t.form_counts('wgln_chunk_batched')}), rounds "
           f"{[r['util']['rounds'] for r in res]}, configs {got} (JAX "
           f"package: {FANOUT_WAVE_CONFIGS}), launches {counts}, peak memory "
@@ -2844,6 +3014,7 @@ def fanout_phases(dev) -> list:
     if (any(r["valid?"] is not False for r in res) or w_launches < 1
             or got != FANOUT_WAVE_CONFIGS):
         raise AssertionError(f"wide fan-out: {got}")
+    Peaks.add("fan-out waves vmap", t.gates, peak)
 
     # ---- stream: fewer than 4 keys stream on the card -----------------------
     # each engine of the per-key race is timed to its end by wrapping the
@@ -3037,12 +3208,14 @@ def fanout_phases(dev) -> list:
           f"{[r['configs_explored'] for r in res]}, shards "
           f"{[r['mesh']['shard'] for r in res]}; launches {counts}; "
           f"chunk polls (ms) "
-          f"{[round(x, 2) for x in t.ms('wgln_chunk_batched')]}; peak memory "
+          f"{[round(x, 2) for x in t.ms('wgln_chunk_batched')]}, summed "
+          f"{sum(t.ms('wgln_chunk_batched')):.3f} ms; peak memory "
           f"{peak} B; forms {t.form_counts('wgln_chunk_batched')}", flush=True)
     if ([r["valid?"] for r in res] != [r["valid?"] for r in vm]
             or not idle or counts["wgln_chunk_batched"] < 1
             or counts["wgl_lane_reset"] < 1):
         raise AssertionError(f"mesh waves: {counts}, idle pulls {idle}")
+    Peaks.add(f"mesh waves {MESH_SHARDS} shards", t.gates, peak)
     wave_counts = counts
 
     # the stream keys over two shards of the card: one worker a shard

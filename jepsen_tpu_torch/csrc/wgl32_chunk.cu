@@ -95,7 +95,8 @@ extern "C" int wgl32_chunk(WGL_CHUNK_ARGS, int threads, int smem,
       smem, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int wgl32_chunk_batched(WGL_BATCHED_ARGS) {
+extern "C" int wgl32_chunk_batched(WGL_BATCHED_ARGS, int threads, int smem,
+                                   void* stream) {
   const wgl::BatchParams b = WGL_BATCHED_PARAMS;
   return static_cast<int>(wgl::launch_block(
       &wgl32_chunk_batched_kernel<false>, &wgl32_chunk_batched_kernel<true>,

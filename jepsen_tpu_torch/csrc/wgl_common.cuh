@@ -35,22 +35,28 @@
 // scan's own in one CTA), after the compaction (the refill reads the
 // spilled rows) and before the next frontier is read.
 //
-// Three forms run this loop (the wrappers pick one by shape alone:
-// ops/wgl32.py::block_form and ops/wgln.py::solo_form):
+// Four forms run this loop (the wrappers pick one by shape alone:
+// ops/wgl32.py::block_form, ops/wgln.py::solo_form and
+// ops/wgln.py::batched_form):
 //   * one CTA a search, the round's scratch in device memory
 //     (chunk_body<Layout, false>);
 //   * one CTA a search, the round's scratch and both frontiers in
 //     dynamic shared memory, where they fit (chunk_body<Layout, true>):
 //     only the memo table, the backlog, the consts and the outputs stay
 //     in device memory;
-//   * the grid form (grid_chunk_body): one cooperative launch of up to
-//     one 1024-thread CTA per SM, for the wide solo search whose round
-//     has too many rows for one SM, or too many bytes for its shared
-//     memory. Block b owns the contiguous rows
-//     [b R / G, (b + 1) R / G), so the survivors' order (the blocks' new
-//     counts, their exclusive prefix, then each block's tile-ordered
-//     scan) stays JAX's row order; a hand-written grid barrier stands
-//     where the one-CTA forms have a block barrier.
+//   * the grid form (grid_chunk_body<Layout, GridGroup>): one
+//     cooperative launch of up to one 1024-thread CTA per SM, for the
+//     wide solo search whose round has too many rows for one SM, or too
+//     many bytes for its shared memory;
+//   * the cluster form (grid_chunk_body<Layout, ClusterGroup>): the same
+//     round body on one thread-block cluster of g CTAs a lane, for the
+//     wide lane-batched search whose lanes would leave most SMs idle.
+// In the last two a group of G CTAs runs one search: CTA b owns the
+// contiguous rows [b R / G, (b + 1) R / G), so the survivors' order (the
+// blocks' new counts, their exclusive prefix, then each block's
+// tile-ordered scan) stays JAX's row order, and the group's barrier
+// stands where the one-CTA forms have a block barrier: a hand-written
+// grid barrier in device memory, or the cluster's hardware barrier.
 // A one-CTA form's block has a warp multiple of threads, at most 1024.
 //
 // The plain PyTorch versions (ops/wgl32.py::chunk_ref and
@@ -58,11 +64,14 @@
 // carry leaf and on the summary.
 //
 // The lane-batched kernels (wgl32_chunk_batched, wgln_chunk_batched)
-// run the one-CTA body once per lane: a grid of `lanes` CTAs, CTA l on
-// lane l's slice of every array (make_lane_params), each to its own
-// stop. The one-CTA body is block-local (its state is __shared__,
-// nothing crosses blocks), so a lane that stops early is frozen exactly
-// as the JAX package's vmapped while_loop freezes it by select.
+// run a body once per lane, each lane on its own slice of every array
+// (make_lane_params) to its own stop: the one-CTA body in a grid of
+// `lanes` CTAs, CTA l on lane l, or (wgln_chunk_batched only) the
+// cluster body in a grid of `lanes` clusters of g CTAs, cluster l on
+// lane l. Nothing crosses lanes (a one-CTA lane's state is __shared__,
+// a cluster's loop state sits in its lane's control words), so a lane
+// that stops early is frozen exactly as the JAX package's vmapped
+// while_loop freezes it by select.
 
 #pragma once
 
@@ -599,15 +608,18 @@ __device__ __forceinline__ void chunk_body(const Params& p) {
   }
 }
 
-// ---- the grid form ------------------------------------------------------
+// ---- the grid and cluster forms -----------------------------------------
 
-// Its control words in device memory, after the round's scratch
-// (kGridCtlWords of them: the wrapper reads the count through
-// wgln_chunk_grid_ctl_words), zeroed by the entry point before the
-// launch: the grid barrier's arrive counter, the loop state (written by
-// block 0 in phase 5, read by every block after the round's last
-// barrier), two sets of the round's cross-block sums indexed by the
-// round's parity, and each block's count of new rows.
+// Their control words in device memory, after the round's scratch (the
+// grid form's kGridCtlWords, which the wrapper reads through
+// wgln_chunk_grid_ctl_words; a cluster lane's kClusterCtlWords, which
+// ops/wgl32.py::CLUSTER_CTL_WORDS mirrors): the grid barrier's arrive
+// counter (zeroed by the entry point before the launch; unused by a
+// cluster), the loop state (written by rank 0 before the first barrier
+// and in phase 5, read by every block after the round's last barrier),
+// two sets of the round's cross-block sums indexed by the round's parity
+// (zeroed by rank 0 before the first barrier), and each block's count of
+// new rows.
 enum : int {
   kBarCount = 0,
   kCtlFrCnt = 2,
@@ -621,6 +633,9 @@ enum : int { kSumFound = 0, kSumOverflow = 1, kSumBaseMax = 2, kSumSeen = 3,
              kSumWords = 4 };
 constexpr int kMaxGridBlocks = 1024;
 constexpr int kGridCtlWords = kCtlBlocks + kMaxGridBlocks;
+// a cluster of more than 8 CTAs is non-portable; Hopper takes 16
+constexpr int kMaxClusterBlocks = 16;
+constexpr int kClusterCtlWords = kCtlBlocks + kMaxClusterBlocks;
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -665,6 +680,59 @@ __device__ __forceinline__ void grid_sync(int32_t* ctl, unsigned& target) {
   __syncthreads();
 }
 
+// The group of CTAs that runs one search in grid_chunk_body: its size,
+// this CTA's rank in it, and a barrier of every thread of the group
+// after which each thread sees every write (device or shared memory)
+// made before it by any thread of the group.
+
+// the whole cooperative grid, through the grid barrier above
+struct GridGroup {
+  int32_t* ctl;
+  unsigned arrived;  // the barrier's count at its last end
+  __device__ explicit GridGroup(int32_t* c) : ctl(c), arrived(0) {}
+  __device__ __forceinline__ int size() const { return gridDim.x; }
+  __device__ __forceinline__ int rank() const { return blockIdx.x; }
+  __device__ __forceinline__ void sync() { grid_sync(ctl, arrived); }
+};
+
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned cluster_id_x() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(v));
+  return v;
+}
+
+// one thread-block cluster, through the cluster's hardware barrier: every
+// thread of every CTA arrives with release and waits with acquire
+// semantics at cluster scope, which orders the device-memory writes of
+// the cluster's CTAs as well as their shared memory. The hardware
+// schedules a cluster's CTAs together, so the wait ends without a
+// cooperative launch, and no counter is kept.
+struct ClusterGroup {
+  __device__ __forceinline__ int size() const {
+    return (int)cluster_nctarank();
+  }
+  __device__ __forceinline__ int rank() const {
+    return (int)cluster_ctarank();
+  }
+  __device__ __forceinline__ void sync() {
+    asm volatile(
+        "barrier.cluster.arrive.release;\n\t"
+        "barrier.cluster.wait.acquire;" ::: "memory");
+  }
+};
+
 // the sum of `v` over the block (every thread gets it); one barrier
 // pair through `sh`
 __device__ __forceinline__ int block_sum(int v, int* sh) {
@@ -678,9 +746,11 @@ __device__ __forceinline__ int block_sum(int v, int* sh) {
   return t;
 }
 
-template <class Layout>
+// One search on a group of G CTAs of blockDim.x threads (Group: the
+// GridGroup or the ClusterGroup), its control words at `ctl`.
+template <class Layout, class Group>
 __device__ __forceinline__ void grid_chunk_body(const Params& p,
-                                                int32_t* ctl) {
+                                                int32_t* ctl, Group grp) {
   __shared__ int st_fr_cnt, st_bk_cnt;   // the loop state, from ctl
   __shared__ int st_stats[6];
   __shared__ int st_flags[3];
@@ -692,7 +762,7 @@ __device__ __forceinline__ void grid_chunk_body(const Params& p,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int T = blockDim.x;
-  const int G = gridDim.x, b = blockIdx.x;
+  const int G = grp.size(), b = grp.rank();
   const int gtid = b * T + tid, gthreads = G * T;
   const int K = p.K, C = p.C;
   const int R = K * (p.W + p.ic);
@@ -703,7 +773,6 @@ __device__ __forceinline__ void grid_chunk_body(const Params& p,
   int32_t* cur = p.fr;
   int32_t* nxt = s.fr_alt;
   volatile int32_t* vctl = ctl;
-  unsigned arrived = 0;  // the grid barrier's count at its last end
 
   if (b == 0 && tid == 0) {
     ctl[kCtlFrCnt] = *p.fr_cnt;
@@ -711,10 +780,11 @@ __device__ __forceinline__ void grid_chunk_body(const Params& p,
     for (int i = 0; i < 3; ++i) ctl[kCtlFlags + i] = p.flags[i];
     for (int i = 0; i < 6; ++i) ctl[kCtlStats + i] = p.stats[i];
     ctl[kCtlStats + 1] = 0;  // rounds in this chunk
+    for (int i = 0; i < 2 * kSumWords; ++i) ctl[kCtlSums + i] = 0;
   }
-  // each live row's min ret, over the grid
+  // each live row's min ret, over the group
   load_frontier(p, cur, s.minret, *p.fr_cnt, gtid, gthreads);
-  grid_sync(ctl, arrived);
+  grp.sync();
 
   for (;;) {
     if (tid == 0) {
@@ -749,7 +819,7 @@ __device__ __forceinline__ void grid_chunk_body(const Params& p,
       if (sh_found) atomicOr(&sums[kSumFound], 1);
       atomicMax(&sums[kSumBaseMax], sh_base_max);
     }
-    grid_sync(ctl, arrived);
+    grp.sync();
 
     // ---- 2. every row's winner or twin, and this block's new rows
     int nnew = 0, seen_n = 0;
@@ -761,7 +831,7 @@ __device__ __forceinline__ void grid_chunk_body(const Params& p,
       vctl[kCtlBlocks + b] = nnew;
       atomicAdd(&sums[kSumSeen], seen_n);
     }
-    grid_sync(ctl, arrived);
+    grp.sync();
 
     // ---- 3. this block's offset among the survivors, then its rows'
     // tile-ordered scan; the winners write their entries (every block
@@ -787,15 +857,15 @@ __device__ __forceinline__ void grid_chunk_body(const Params& p,
       run += tile_total;
     }
     if (overflow) atomicOr(&sums[kSumOverflow], 1);
-    grid_sync(ctl, arrived);
+    grp.sync();
 
-    // ---- 4. settle the next frontier, over the grid
+    // ---- 4. settle the next frontier, over the group
     const int nfr_cnt = min(total, K);
     const int nbk = min(bk_cnt + max(total - K, 0), p.B);
     const int take = min(K - nfr_cnt, nbk);
     settle_next(p, nxt, s.minret, nfr_cnt, take, nbk, gtid, gthreads);
 
-    // ---- 5. bookkeeping, by block 0; it resets this round's sums
+    // ---- 5. bookkeeping, by rank 0; it resets this round's sums
     if (b == 0 && tid == 0) {
       volatile int32_t* vs = sums;
       const int seen_all = vs[kSumSeen];
@@ -828,10 +898,10 @@ __device__ __forceinline__ void grid_chunk_body(const Params& p,
     int32_t* tmp = cur;
     cur = nxt;
     nxt = tmp;
-    grid_sync(ctl, arrived);
+    grp.sync();
   }
 
-  // ---- write the carry back and the packed summary, over the grid
+  // ---- write the carry back and the packed summary, over the group
   if (cur != p.fr)
     for (int i = gtid; i < K * C; i += gthreads) p.fr[i] = cur[i];
   for (int i = gtid; i < kRingRows * kRingCols; i += gthreads)
@@ -899,9 +969,9 @@ __host__ __device__ inline Params make_params(const int32_t* meta, const int32_t
 
 // The lane-batched interface: every array carries a leading lane axis
 // (lane l's slice starts at l times the per-lane size) and n_ok, n_info
-// and max_cfg are per-lane device int32 arrays. 17 device pointers, 12
-// int32 scalars, the launch form (threads, shared bytes) and the
-// stream.
+// and max_cfg are per-lane device int32 arrays. 17 device pointers and
+// 12 int32 scalars (WGL_BATCHED_ARGS), then each entry point's launch
+// form (ops/wgl32.py::FORM_FIELDS) and the stream.
 struct BatchParams {
   const int32_t* meta;     // (lanes, n_pad + 1, 4)
   const int32_t* tk;       // (lanes, O * S)
@@ -924,13 +994,16 @@ struct BatchParams {
 };
 
 // Lane l's Params: the per-lane strides of every array and lane l's
-// scalars (read from device memory, so call it on the device). The
-// scratch size per lane is scratch_words.
-__device__ inline Params make_lane_params(const BatchParams& b, int l) {
+// scalars (read from device memory, so call it on the device). A lane's
+// scratch is scratch_words, and `ctl_words` more where its form keeps
+// control words after it (the cluster form).
+__device__ inline Params make_lane_params(const BatchParams& b, int l,
+                                          int ctl_words = 0) {
   const size_t lz = static_cast<size_t>(l);
   const int Il = b.ic > 32 ? (b.ic + 31) / 32 : 1;
   const int C = 2 + b.L + Il;
-  const size_t scratch = static_cast<size_t>(scratch_words(b.K, b.W, b.ic, C));
+  const size_t scratch =
+      static_cast<size_t>(scratch_words(b.K, b.W, b.ic, C)) + ctl_words;
   const size_t summary = kSummaryHead + kRingRows * kRingCols;
   return make_params(
       b.meta + lz * (b.n_pad + 1) * 4, b.tk + lz * b.S * b.O,
@@ -950,6 +1023,20 @@ __device__ __forceinline__ void lane_chunk_body(const BatchParams& b) {
   if (threadIdx.x == 0) sp = make_lane_params(b, blockIdx.x);
   __syncthreads();
   chunk_body<Layout, kShared>(sp);
+}
+
+// One lane per cluster: every CTA of cluster l builds lane l's Params
+// (its scratch followed by its kClusterCtlWords control words), then
+// the cluster runs the group body on it.
+template <class Layout>
+__device__ __forceinline__ void lane_cluster_body(const BatchParams& b) {
+  __shared__ Params sp;
+  if (threadIdx.x == 0)
+    sp = make_lane_params(b, (int)cluster_id_x(), kClusterCtlWords);
+  __syncthreads();
+  grid_chunk_body<Layout>(
+      sp, sp.scratch + scratch_words(sp.K, sp.W, sp.ic, sp.C),
+      ClusterGroup());
 }
 
 // ---- host side: the launches ---------------------------------------------
@@ -1029,6 +1116,68 @@ inline cudaError_t launch_grid(void (*grid_k)(Params, int32_t*),
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The cluster form's launch: `lanes` clusters of `g` CTAs of kMaxThreads
+// threads (g a power of two from 2 to kMaxClusterBlocks; 16 is
+// non-portable, and the kernel is allowed it here), cluster l on lane l.
+// No cooperative launch: the hardware schedules each cluster whole, and
+// clusters that do not fit at once run in a later wave. Each lane's
+// control words follow its scratch and are set by the cluster itself. A
+// refused launch returns its error; nothing falls back to another form.
+inline cudaError_t allow_cluster(const void* k) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+inline cudaLaunchAttribute cluster_dims(int g) {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeClusterDimension;
+  a.val.clusterDim.x = static_cast<unsigned>(g);
+  a.val.clusterDim.y = 1;
+  a.val.clusterDim.z = 1;
+  return a;
+}
+
+inline bool cluster_size_ok(int g) {
+  return g >= 2 && g <= kMaxClusterBlocks && (g & (g - 1)) == 0;
+}
+
+inline cudaError_t launch_cluster(void (*cluster_k)(BatchParams),
+                                  const BatchParams& b, int g,
+                                  cudaStream_t stream) {
+  if (!cluster_size_ok(g) || b.lanes < 1) return cudaErrorInvalidValue;
+  cudaError_t e = allow_cluster(reinterpret_cast<const void*>(cluster_k));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr = cluster_dims(g);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b.lanes * g));
+  cfg.blockDim = dim3(kMaxThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, cluster_k, b);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// How many clusters of `g` CTAs of the cluster kernel the current card
+// holds at once (cudaOccupancyMaxActiveClusters), in *out.
+inline cudaError_t cluster_capacity(void (*cluster_k)(BatchParams), int g,
+                                    int32_t* out) {
+  if (!cluster_size_ok(g)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_cluster(reinterpret_cast<const void*>(cluster_k));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr = cluster_dims(g);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(g));
+  cfg.blockDim = dim3(kMaxThreads);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, cluster_k, &cfg);
+  if (e == cudaSuccess) *out = n;
+  return e;
+}
+
 }  // namespace wgl
 
 #define WGL_CHUNK_ARGS                                                      \
@@ -1051,8 +1200,7 @@ inline cudaError_t launch_grid(void (*grid_k)(Params, int32_t*),
       int32_t *ring, int32_t *summary, int32_t *scratch,                    \
       const int32_t *n_ok, const int32_t *n_info, const int32_t *max_cfg,   \
       int K, int W, int L, int ic, int H, int B, int chunk, int probes,     \
-      int n_pad, int S, int O, int lanes, int threads, int smem,            \
-      void *stream
+      int n_pad, int S, int O, int lanes
 
 #define WGL_BATCHED_PARAMS                                                  \
   wgl::BatchParams {                                                        \

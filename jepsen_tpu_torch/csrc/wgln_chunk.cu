@@ -36,9 +36,22 @@
 // per SM, each block owning a contiguous range of rows, with a
 // hand-written grid barrier between the phases (four a round) and the
 // loop state in device memory. Below it, one CTA runs the round in
-// shared memory. The lane-batched kernel
-// keeps one CTA a lane. The wrapper picks the form by shape
+// shared memory. The wrapper picks the form by shape
 // (ops/wgln.py::solo_form).
+//
+// The lane-batched kernel has the same two kinds of form. One CTA a
+// lane keeps a lane's round on one SM, so a batch of a few wide lanes
+// (the fan-out waves' 8 lanes of 73,728 rows at K 1024, W 64) keeps a
+// few SMs busy, each bound as the one-CTA solo kernel is. The cluster
+// form gives each lane one thread-block cluster of g CTAs (g a power of
+// two up to 16) and runs the grid form's round body on it, the
+// cluster's hardware barrier (barrier.cluster.arrive.release / wait.
+// acquire) in place of the grid barrier: no cooperative launch, no
+// arrive counter, and each lane's loop state and cross-block sums in
+// control words after its own scratch. The wrapper picks the form by
+// shape and by what the card holds (ops/wgln.py::batched_form): the
+// cluster from a measured row count, while the lanes leave SMs idle,
+// else one CTA a lane.
 //
 // What this design does about the width: no thread holds the L lanes
 // in registers (L reaches 32 at W = 1024); each reads its parent's
@@ -93,20 +106,24 @@ wgln_chunk_kernel(wgl::Params p) {
 // search, block b on its range of rows.
 __global__ void __launch_bounds__(wgl::kMaxThreads, 1)
 wgln_chunk_grid_kernel(wgl::Params p, int32_t* ctl) {
-  wgl::grid_chunk_body<Wide>(p, ctl);
+  wgl::grid_chunk_body<Wide>(p, ctl, wgl::GridGroup(ctl));
 }
 
-// The lane-batched form: one CTA per lane (key), each running the chunk
-// loop above on its own slice to its own stop. Replaces
-// the wide branch of jepsen_tpu/parallel/batched.py::
-// _compiled_batched (:234), jit(vmap(wgln chunk_fn)). A lane's CTA
-// is the solo kernel's one-CTA form, so a batch of lanes takes one wave
-// of the 132 SMs up to 132 lanes and more waves past that; what bounds
-// each lane's round is what bounds the one-CTA solo kernel's.
+// The lane-batched kernel: replaces the wide branch of
+// jepsen_tpu/parallel/batched.py::_compiled_batched (:234),
+// jit(vmap(wgln chunk_fn)). One-CTA form: one CTA per lane (key), each
+// running the chunk loop above on its own slice to its own stop.
 template <bool kShared>
 __global__ void __launch_bounds__(wgl::kMaxThreads, 1)
 wgln_chunk_batched_kernel(wgl::BatchParams b) {
   wgl::lane_chunk_body<Wide, kShared>(b);
+}
+
+// Its cluster form: one cluster of g CTAs per lane, CTA rank b of
+// cluster l on its range of lane l's rows.
+__global__ void __launch_bounds__(wgl::kMaxThreads, 1)
+wgln_chunk_cluster_kernel(wgl::BatchParams b) {
+  wgl::lane_cluster_body<Wide>(b);
 }
 
 }  // namespace
@@ -130,11 +147,34 @@ extern "C" int wgln_chunk(WGL_CHUNK_ARGS, int threads, int blocks, int smem,
       smem, s));
 }
 
-extern "C" int wgln_chunk_batched(WGL_BATCHED_ARGS) {
+// The launch form: `blocks` > 0 takes the cluster form (clusters of
+// exactly that many CTAs of 1024 threads a lane, no shared bytes; the
+// scratch holds each lane's scratch_words and kClusterCtlWords); 0 one
+// CTA a lane of `threads` threads, `smem` > 0 its shared form's dynamic
+// bytes
+extern "C" int wgln_chunk_batched(WGL_BATCHED_ARGS, int threads, int blocks,
+                                  int smem, void* stream) {
   const wgl::BatchParams b = WGL_BATCHED_PARAMS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks > 0) {
+    if (threads != wgl::kMaxThreads || smem != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        wgl::launch_cluster(&wgln_chunk_cluster_kernel, b, blocks, s));
+  }
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(wgl::launch_block(
       &wgln_chunk_batched_kernel<false>, &wgln_chunk_batched_kernel<true>,
-      b, lanes, threads, smem, static_cast<cudaStream_t>(stream)));
+      b, lanes, threads, smem, s));
+}
+
+// How many clusters of `g` CTAs of the cluster form the current card
+// holds at once, written to the host int32 at `out`; the stream is
+// unused (the occupancy query launches nothing)
+extern "C" int wgln_chunk_cluster_fit(int32_t* out, int g, void* stream) {
+  (void)stream;
+  return static_cast<int>(
+      wgl::cluster_capacity(&wgln_chunk_cluster_kernel, g, out));
 }
 
 // int32 words of the grid form's control block, which follows the

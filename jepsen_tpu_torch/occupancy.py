@@ -353,12 +353,18 @@ def wgl_state_bytes(kern: str, *, K: int, W_eff: int, ic_eff: int, L: int,
     (`wgl32.scratch_words`) and summary, and the consts (meta rows, the
     S x O transition table when known, the info tables). `lanes` > 1
     bills a lane-batched carry: each buffer holds every lane, plus the
-    three per-lane scalars."""
+    three per-lane scalars; a lane-batched `wgln` scratch holds each
+    lane's control words of the cluster form after its scratch
+    (`wgl32.CLUSTER_CTL_WORDS`)."""
     C = (3 if kern == "wgl32" else 2 + L) + _info_words(ic_eff)
     R = K * (W_eff + ic_eff)
-    words = [K * C, 1, B * C, 1, H * 4, 3, 6, 512 * 7,
-             R * (C + 5) + K + K * C, _SUMMARY_WORDS,
-             (n_pad + 1) * 4, S * O, ic_eff, ic_eff]
+    scratch = R * (C + 5) + K + K * C
+    if lanes > 1 and kern != "wgl32":
+        from .ops import wgl32
+
+        scratch += wgl32.CLUSTER_CTL_WORDS
+    words = [K * C, 1, B * C, 1, H * 4, 3, 6, 512 * 7, scratch,
+             _SUMMARY_WORDS, (n_pad + 1) * 4, S * O, ic_eff, ic_eff]
     if lanes > 1:
         words += [1, 1, 1]
     return sum(alloc_bytes(4 * lanes * w) for w in words)

@@ -129,13 +129,16 @@ def build_all() -> dict:
 KERNELS = {
     # the WGL chunk loop (csrc/wgl_common.cuh); the last ints are the
     # launch form (ops/wgl32.py::FORM_FIELDS): threads and shared bytes,
-    # the solo wide kernel's blocks between them
+    # the wide kernels' blocks between them
     "wgl32_chunk": ("wgl32_chunk", 14, 15),
     "wgln_chunk": ("wgln_chunk", 14, 16),
     # the same loop with a lane axis, one CTA per lane (threads, shared
-    # bytes)
+    # bytes) or, for the wide kernel, one cluster per lane (blocks)
     "wgl32_chunk_batched": ("wgl32_chunk", 17, 14),
-    "wgln_chunk_batched": ("wgln_chunk", 17, 14),
+    "wgln_chunk_batched": ("wgln_chunk", 17, 15),
+    # the clusters of a size (int) the card holds at once, written to a
+    # host int32 (ops/wgln.py::card_shape); launches nothing
+    "wgln_chunk_cluster_fit": ("wgln_chunk", 1, 1),
     # Elle's closures and trim
     "elle_closure_square": ("elle_closure", 3, 2),
     "elle_closure_labels": ("elle_closure", 5, 3),

@@ -679,7 +679,12 @@ class Form:
       * "grid": one cooperative launch of at most `blocks` CTAs of 1024
         threads on one search (capped on the card at what every SM
         holds at once), each block on a contiguous range of the
-        round's rows.
+        round's rows;
+      * "cluster": the grid form's round body on one thread-block
+        cluster of exactly `blocks` CTAs of 1024 threads a lane (a
+        power of two from 2 to MAX_CLUSTER), the cluster's hardware
+        barrier in place of the grid barrier (the wide lane-batched
+        kernel only).
 
     `threads` is the block's thread count, a warp multiple."""
 
@@ -689,21 +694,43 @@ class Form:
     smem: int = 0
 
 
+# the cluster form's largest cluster (16 CTAs: Hopper's non-portable
+# size), and the int32 control words each of its lanes keeps after its
+# scratch (the loop state, two sets of the round's cross-block sums, one
+# new-row count per CTA): csrc/wgl_common.cuh kMaxClusterBlocks and
+# kClusterCtlWords
+MAX_CLUSTER = 16
+CLUSTER_CTL_WORDS = 48
+
 # The launch form's ints at the end of each chunk entry point's, in
-# order (csrc/wgl32_chunk.cu, csrc/wgln_chunk.cu): only the solo wide
-# kernel has the grid form's `blocks`.
+# order (csrc/wgl32_chunk.cu, csrc/wgln_chunk.cu): only the wide
+# kernels have `blocks`, and BLOCK_FORMS names the form it takes there.
 FORM_FIELDS = {"wgl32_chunk": ("threads", "smem"),
                "wgln_chunk": ("threads", "blocks", "smem"),
                "wgl32_chunk_batched": ("threads", "smem"),
-               "wgln_chunk_batched": ("threads", "smem")}
+               "wgln_chunk_batched": ("threads", "blocks", "smem")}
+BLOCK_FORMS = {"wgln_chunk": "grid", "wgln_chunk_batched": "cluster"}
 
 
 def form_ints(name: str, form: Form) -> list:
     """`form` as the ints chunk entry point `name` takes; raises for a
-    form that entry point does not have."""
+    form that entry point does not have, and for a cluster that is not
+    a power of two from 2 to MAX_CLUSTER CTAs of MAX_THREADS threads."""
     fields = FORM_FIELDS[name]
-    if form.blocks and "blocks" not in fields:
-        raise ValueError(f"{name} has no grid form")
+    multi = form.name in ("grid", "cluster")
+    if multi and form.name != BLOCK_FORMS.get(name):
+        raise ValueError(f"{name} has no {form.name} form")
+    if multi != (form.blocks > 0):
+        raise ValueError(f"{name}: a {form.name} form with {form.blocks} "
+                         "blocks")
+    g = form.blocks
+    if form.name == "cluster" and not (
+            2 <= g <= MAX_CLUSTER and g & (g - 1) == 0
+            and form.threads == MAX_THREADS and form.smem == 0):
+        raise ValueError(f"{name}: a cluster of {g} CTAs of "
+                         f"{form.threads} threads is not a cluster form "
+                         f"(a power of two from 2 to {MAX_CLUSTER} CTAs "
+                         f"of {MAX_THREADS} threads)")
     return [getattr(form, f) for f in fields]
 
 
@@ -712,8 +739,8 @@ def form_of(name: str, ints) -> Form:
     (`form_ints`' inverse)."""
     fields = FORM_FIELDS[name]
     v = dict(zip(fields, list(ints)[-len(fields):]))
-    kind = ("grid" if v.get("blocks") else "shared" if v["smem"]
-            else "global")
+    kind = (BLOCK_FORMS[name] if v.get("blocks") else
+            "shared" if v["smem"] else "global")
     return Form(kind, **v)
 
 
@@ -769,19 +796,24 @@ def launch_batched(name: str, consts: BatchConsts, carry, *, K, W, L, ic,
                    H, B, rounds, probes,
                    form: Form | None = None) -> torch.Tensor:
     """Launch the lane-batched chunk kernel `name`
-    (`wgl32_chunk_batched` or `wgln_chunk_batched`, one CTA per lane)
-    in `form` (`block_form` when None) on the carry's card, on the
-    current stream. Returns the (lanes, SUMMARY_HEAD + ring) summary;
-    the carry is updated in place."""
+    (`wgl32_chunk_batched` or `wgln_chunk_batched`: one CTA per lane, or
+    for the wide kernel's cluster form one cluster per lane) in `form`
+    (`block_form` when None) on the carry's card, on the current
+    stream. The form is checked before anything else (`form_ints`).
+    Returns the (lanes, SUMMARY_HEAD + ring) summary; the carry is
+    updated in place."""
     from . import _native
 
     dev = carry[FR].device
     lanes = consts.lanes
     C = carry[FR].shape[2]
     form = form or block_form(K, W, ic, C)
-    words = lanes * scratch_words(K, W, ic, C) if form.name == "global" else 0
+    form_args = form_ints(name, form)
+    words = 0 if form.name == "shared" else scratch_words(K, W, ic, C)
+    if form.name == "cluster":  # each lane's control words after its own
+        words += CLUSTER_CTL_WORDS
     with torch.cuda.device(dev):
-        scratch = torch.empty(words, dtype=torch.int32, device=dev)
+        scratch = torch.empty(lanes * words, dtype=torch.int32, device=dev)
         summary = torch.empty((lanes, SUMMARY_HEAD + RING_ROWS * RING_COLS),
                               dtype=torch.int32, device=dev)
         stream = raw_stream(dev)
@@ -789,8 +821,7 @@ def launch_batched(name: str, consts: BatchConsts, carry, *, K, W, L, ic,
                 summary, scratch, consts.n_ok, consts.n_info, consts.max_cfg]
         _native.launch(name, [t.data_ptr() for t in ptrs],
                        [K, W, L, ic, H, B, rounds, probes, consts.n_pad,
-                        consts.S, consts.O, lanes, *form_ints(name, form)],
-                       stream)
+                        consts.S, consts.O, lanes, *form_args], stream)
     return summary
 
 

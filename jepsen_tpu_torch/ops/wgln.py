@@ -35,7 +35,9 @@ Two implementations of the same function live here:
     the carry in place.
 
 The lane-batched pair (`chunk_batched_ref`, `chunk_batched` on the
-`wgln_chunk_batched` kernel, one CTA per lane, or on the CPU
+`wgln_chunk_batched` kernel, in the form `batched_form` picks: one
+thread-block cluster per lane where the lanes leave SMs idle and a
+lane's round is long, else one CTA per lane; or on the CPU
 `wgln_host_chunk_batched`, the lanes in turn) runs one chunk on every
 lane of a padded batch of keys, as the JAX package's wide
 `jit(vmap(chunk_fn))` does; consts are `wgl32.BatchConsts`.
@@ -61,6 +63,24 @@ MIN_LANES, MAX_LANES = 2, 32
 # against 40.41 at 2720. The grid holds ~20 us at L 3 and ~40 at L 21;
 # one CTA wins only while its round is in shared memory and short.
 GRID_MIN_ROWS = 3072
+
+# The lane-batched wide search's crossover: a lane's round of at least
+# this many successor rows runs the cluster form (csrc/wgl_common.cuh,
+# one cluster of g CTAs a lane) where the card has room for it; so does
+# a smaller round that one CTA could not keep in shared memory.
+# Measured on the card by scripts/wgln_cluster_turns.py, both forms in
+# turns (PERF.md row 9), us a round, one CTA in shared memory against
+# the best cluster: 8 fan-out wave lanes (L 2) 18.09 against 18.41 (g 8)
+# at 2304 rows, 23.74 against 18.33 at 3456; 2 lanes 16.66 against
+# 16.47 (g 16) at 2304, 22.41 against 16.22 at 3456; 2 16-wave lanes
+# (L 3) 12.84 against 16.24 at 1664, 21.72 against 16.97 at 3328. Past
+# shared memory one CTA loses at every size measured (73.86 against
+# 25.54 at 9216 rows, 578.95 against 99.95 at 73,728). The cluster
+# gains up to the largest g whose clusters are all resident at once,
+# however few rows each CTA gets (2 lanes at 4608 rows: g 4 25.01, g 8
+# 18.94, g 16 17.71), and loses where a lane waits for a second wave
+# (8 lanes: g 8 99.95, g 16 122.17 with 7 clusters of 16 resident).
+CLUSTER_MIN_ROWS = 3072
 
 
 def row_words(L: int, ic: int) -> int:
@@ -190,6 +210,60 @@ def solo_form(K: int, L: int, ic: int) -> wgl32.Form:
     return wgl32.Form("grid", wgl32.MAX_THREADS, -(-R // wgl32.MAX_THREADS))
 
 
+def batched_form(lanes: int, K: int, L: int, ic: int, *, sms: int,
+                 capacity: dict) -> wgl32.Form:
+    """The launch form of a lane-batched wide chunk of `lanes` lanes on a
+    card of `sms` SMs, by shape: one CTA a lane (`wgl32.block_form`)
+    while a lane's round has fewer than CLUSTER_MIN_ROWS successor rows
+    and fits in shared memory; else the cluster form with g CTAs a lane,
+    g the largest power of two up to `wgl32.MAX_CLUSTER` such that
+    `lanes` x g <= `sms` and every lane's cluster is resident at once
+    (`capacity`: {g: clusters of g CTAs the card holds at once},
+    `card_shape`); one CTA a lane when no g >= 2 is (the lanes fill the
+    card)."""
+    W = 32 * L
+    R = K * (W + ic)
+    one = wgl32.block_form(K, W, ic, row_words(L, ic))
+    if one.name == "shared" and R < CLUSTER_MIN_ROWS:
+        return one
+    g = wgl32.MAX_CLUSTER
+    while g >= 2:
+        if lanes * g <= sms and capacity.get(g, 0) >= lanes:
+            return wgl32.Form("cluster", wgl32.MAX_THREADS, g)
+        g //= 2
+    return one
+
+
+_CARDS: dict = {}
+
+
+def card_shape(dev) -> tuple:
+    """(SMs, {g: clusters of g CTAs of the cluster form the card holds
+    at once}) of CUDA device `dev`, read once a device: the capacities
+    from `cudaOccupancyMaxActiveClusters` through the kernel's library
+    (`wgln_chunk_cluster_fit`)."""
+    import ctypes
+
+    from . import _native
+
+    dev = torch.device(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    shape = _CARDS.get(idx)
+    if shape is None:
+        out = ctypes.c_int32(0)
+        cap = {}
+        with torch.cuda.device(idx):
+            g = 2
+            while g <= wgl32.MAX_CLUSTER:
+                _native.launch("wgln_chunk_cluster_fit",
+                               [ctypes.addressof(out)], [g], None)
+                cap[g] = out.value
+                g *= 2
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        shape = _CARDS[idx] = (sms, cap)
+    return shape
+
+
 def _check_launch(consts, carry, *, K, L, ic, H, B, chunk, probes,
                   lanes=None):
     if not MIN_LANES <= L <= MAX_LANES:
@@ -243,11 +317,11 @@ def _count_host():
 def chunk_batched(consts: wgl32.BatchConsts, carry, *, K: int, L: int,
                   ic: int, H: int, B: int, chunk: int, probes: int):
     """One wide chunk on every lane (see `chunk_batched_ref`). CUDA
-    tensors run the `wgln_chunk_batched` kernel (one launch per call,
-    counted in `chunk_batched.launches`); CPU tensors run the host
-    kernel `wgln_host_chunk_batched` (counted in
-    `chunk_batched.host_calls`). Updates `carry` in place; returns
-    (carry, summary (lanes, ...))."""
+    tensors run the `wgln_chunk_batched` kernel in the form
+    `batched_form` picks for the card (one launch per call, counted in
+    `chunk_batched.launches`); CPU tensors run the host kernel
+    `wgln_host_chunk_batched` (counted in `chunk_batched.host_calls`).
+    Updates `carry` in place; returns (carry, summary (lanes, ...))."""
     dev = carry[FR].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wgln chunk_batched: unsupported device {dev}")
@@ -259,9 +333,11 @@ def chunk_batched(consts: wgl32.BatchConsts, carry, *, K: int, L: int,
             ic=ic, H=H, B=B, chunk=chunk, probes=probes)
         chunk_batched.host_calls += 1
     else:
-        summary = wgl32.launch_batched("wgln_chunk_batched", consts, carry,
-                                       K=K, W=32 * L, L=L, ic=ic, H=H, B=B,
-                                       rounds=chunk, probes=probes)
+        sms, cap = card_shape(dev)
+        summary = wgl32.launch_batched(
+            "wgln_chunk_batched", consts, carry, K=K, W=32 * L, L=L, ic=ic,
+            H=H, B=B, rounds=chunk, probes=probes,
+            form=batched_form(consts.lanes, K, L, ic, sms=sms, capacity=cap))
         chunk_batched.launches += 1
     return carry, summary
 

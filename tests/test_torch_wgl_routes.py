@@ -416,14 +416,15 @@ def test_shared_form_at_the_rules_limit_on_card(cuda_device):
 
 
 def test_form_ints_round_trip():
-    """Each chunk entry point's form ints read back as the form; the
-    narrow and batched entry points have no grid form."""
+    """Each chunk entry point's form ints read back as the form; only
+    the solo wide entry point has the grid form, only the batched wide
+    one the cluster form."""
     forms = [wgl32.Form("global", 96), wgl32.Form("shared", 640, 0, 48_000),
-             wgl32.Form("grid", 1024, 26)]
+             wgl32.Form("grid", 1024, 26), wgl32.Form("cluster", 1024, 8)]
     for name, fields in wgl32.FORM_FIELDS.items():
         for f in forms:
-            if f.name == "grid" and "blocks" not in fields:
-                with pytest.raises(ValueError, match="no grid form"):
+            if f.blocks and wgl32.BLOCK_FORMS.get(name) != f.name:
+                with pytest.raises(ValueError, match=f"no {f.name} form"):
                     wgl32.form_ints(name, f)
                 continue
             ints = wgl32.form_ints(name, f)
